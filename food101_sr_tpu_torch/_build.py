@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -29,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entries: dict = {}
 
 
 def nvcc_path() -> str:
@@ -69,12 +72,16 @@ def _compile(so: str) -> None:
 
 
 def _register(lib: ctypes.CDLL) -> None:
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.f101_blur5_f32.argtypes = [p, p, i, i, i, f, f, f, f, f, i, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.f101_blur5_f32.argtypes = [p, p, ll, i, i, p, i, p]
     lib.f101_blur5_f32.restype = i
     for name in ("f101_plane_mean_f32", "f101_plane_mean_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [p, p, ll, ll, i, p]
+        fn.restype = i
+    for name in ("f101_nhwc_mean_f32", "f101_nhwc_mean_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, ll, ll, ll, i, p]
         fn.restype = i
 
 
@@ -90,6 +97,22 @@ def kernels() -> ctypes.CDLL:
             _register(lib)
             _lib = lib
         return _lib
+
+
+def entry(name: str):
+    """The bound C entry point ``name``, looked up once (the kernel
+    wrappers call this on every launch)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(kernels(), name)
+    return fn
+
+
+def current_stream(device_index: int) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on the device,
+    without building a ``torch.cuda.Stream`` object per call (CUDA builds
+    of torch only; the wrappers call it for CUDA tensors only)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(err: int, what: str) -> None:

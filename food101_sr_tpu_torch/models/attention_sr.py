@@ -17,7 +17,15 @@ from .layers import (AttentionResidualBlock, Conv, prelu, scale_stages,
 class AttentionSR(nn.Module):
     """conv9 -> PReLU -> N attention residual blocks -> conv3, global skip,
     then x2 stages (conv, pixel shuffle, PReLU) and a conv9 to RGB.
-    NCHW in, NCHW out at ``scale_factor`` times the size."""
+    (N, C, H, W) in and out, at ``scale_factor`` times the size.
+
+    The net runs in ``memory_format``, channels-last by default: cuDNN's
+    bf16 tensor-core convs work in NHWC, so an NCHW net pays a transpose
+    into and out of every conv, and the SE squeeze (kernel K2) reads
+    channels-last directly. The weights should be in the same format
+    (``registry.build_model`` puts them there)."""
+
+    memory_format = torch.channels_last
 
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
                  num_residuals: int = 32):
@@ -37,9 +45,8 @@ class AttentionSR(nn.Module):
         self.output_conv = Conv(64, 3, 9)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # contiguous NCHW all the way down: the SE squeeze kernel reads
-        # whole (n, c) planes (a channels-last input would propagate)
-        initial = self.prelu(self.input_conv(x.contiguous()))
+        initial = self.prelu(self.input_conv(
+            x.contiguous(memory_format=self.memory_format)))
         r = initial
         for block in self.res_blocks:
             r = block(r)

@@ -1,5 +1,6 @@
 """Building blocks of the SR generators (counterpart of
-``food101_sr_tpu/models/layers.py``), NCHW.
+``food101_sr_tpu/models/layers.py``), (N, C, H, W) in either memory
+format.
 
 Module names follow the reference PyTorch layout, so that a state_dict
 exported from a JAX checkpoint (``convert.params_from_jax``) loads with

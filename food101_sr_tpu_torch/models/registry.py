@@ -21,13 +21,15 @@ def build_model(module_fn, dtype: torch.dtype = torch.float32,
                 generator: torch.Generator | None = None) -> nn.Module:
     """Construct ``module_fn()`` without touching the global RNG, draw its
     weights from ``generator`` (seed 0 when None), and move it to
-    ``device``/``dtype`` in eval mode."""
+    ``device``/``dtype`` in eval mode, 4-D weights in channels-last memory
+    (the format the nets run in)."""
     with torch.device("meta"):
         model = module_fn()
     model = model.to_empty(device="cpu")
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
-    return model.to(device=device, dtype=dtype).eval()
+    return model.to(device=device, dtype=dtype,
+                    memory_format=torch.channels_last).eval()
 
 
 def get_model(name: str, scale_factor: int = 4,

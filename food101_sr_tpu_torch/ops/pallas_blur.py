@@ -19,6 +19,7 @@ Layers, as in the JAX module:
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -27,8 +28,7 @@ import torch
 from .. import _build
 from .gaussian import depthwise_blur, gaussian_kernel_2d
 
-_KERNEL_SIZE = 5      # the kernel's compiled tap count
-_MAX_PLANES = 65535   # grid z limit: one z-slice per (image, channel) plane
+_KERNEL_SIZE = 5  # the kernel's compiled tap count
 
 
 @functools.lru_cache(maxsize=8)
@@ -40,12 +40,19 @@ def _gaussian_taps(size: int, sigma: float) -> tuple[float, ...]:
     return tuple(float(t) for t in g)
 
 
+@functools.lru_cache(maxsize=8)
+def _taps_c(size: int, sigma: float) -> ctypes.Array:
+    """The taps as the float[5] the kernel's entry point reads (made once
+    per (size, sigma); the cache keeps the buffer alive)."""
+    return (ctypes.c_float * size)(*_gaussian_taps(size, sigma))
+
+
 def blur_kernel(x: torch.Tensor, size: int = 5,
                 sigma: float = 1.0) -> torch.Tensor:
     """Blur every plane of contiguous NCHW float32 ``x``: kernel K1 on
     CUDA, the plain conv on the CPU (same checks on both).
     ``blur_kernel.launches`` counts kernel launches."""
-    if x.device.type not in ("cpu", "cuda"):
+    if not (x.is_cuda or x.device.type == "cpu"):
         raise ValueError(f"blur_kernel: no kernel for device {x.device}")
     if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
         raise ValueError("blur_kernel: needs a contiguous 4-D float32 "
@@ -55,14 +62,15 @@ def blur_kernel(x: torch.Tensor, size: int = 5,
     if size != _KERNEL_SIZE:
         raise ValueError(f"blur_kernel: the kernel has {_KERNEL_SIZE} taps, "
                          f"got size={size}")
-    if not 0 < n * c <= _MAX_PLANES or h == 0 or w == 0:
+    if n * c == 0 or h == 0 or w == 0:
         raise ValueError(f"blur_kernel: unsupported shape {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if not x.is_cuda:
         return depthwise_blur(x, size, sigma)
     out = torch.empty_like(x)
-    err = _build.kernels().f101_blur5_f32(
-        x.data_ptr(), out.data_ptr(), n * c, h, w, *_gaussian_taps(size, sigma),
-        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    dev = x.get_device()
+    err = _build.entry("f101_blur5_f32")(
+        x.data_ptr(), out.data_ptr(), n * c, h, w, _taps_c(size, sigma), dev,
+        _build.current_stream(dev))
     _build.check(err, "f101_blur5_f32")
     blur_kernel.launches += 1
     return out

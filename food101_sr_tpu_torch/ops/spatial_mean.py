@@ -1,13 +1,16 @@
-"""K2: global spatial mean (the SE-block squeeze), a CUDA kernel for Hopper
+"""K2: global spatial mean (the SE-block squeeze), CUDA kernels for Hopper
 (counterpart of ``food101_sr_tpu/ops/spatial_mean.py``, whose Pallas
-``_mean_kernel`` it replaces; the kernel is ``f101_plane_mean_{f32,bf16}``
-in ``csrc/kernels.cu``).
+``_mean_kernel`` they replace; the kernels are ``f101_nhwc_mean_{f32,bf16}``
+and ``f101_plane_mean_{f32,bf16}`` in ``csrc/kernels.cu``).
 
-``spatial_mean(x)`` is ``x.mean((2, 3))`` of an NCHW tensor, accumulated in
-float32 and returned in ``x.dtype``. The JAX ``SEBlock`` keeps a plain
-``jnp.mean`` because the Pallas kernel lost on the TPU; the port's
-``SEBlock`` calls this kernel, and whether it stays there is for H100
-measurements to decide (``PERF.md``).
+``spatial_mean(x)`` is ``x.mean((2, 3))`` of an (N, C, H, W) tensor,
+accumulated in float32 and returned in ``x.dtype``. The layout of ``x`` in
+memory picks the kernel: channels-last (NHWC, the TPU kernel's own layout
+and what the port's channels-last AttentionSR hands its SE blocks) goes to
+the NHWC kernel, NCHW-contiguous to the plane kernel, and anything else is
+refused. The JAX ``SEBlock`` keeps a plain ``jnp.mean`` because the Pallas
+kernel lost on the TPU; the port's ``SEBlock`` calls this kernel, and
+whether it stays there is for H100 measurements to decide (``PERF.md``).
 
 The op is linear; its backward broadcasts ``g / (H*W)`` in plain PyTorch,
 as the JAX VJP leaves it to XLA.
@@ -18,8 +21,12 @@ import torch
 
 from .. import _build
 
-_ENTRY = {torch.float32: "f101_plane_mean_f32",
+_NHWC = {torch.float32: "f101_nhwc_mean_f32",
+         torch.bfloat16: "f101_nhwc_mean_bf16"}
+_PLANE = {torch.float32: "f101_plane_mean_f32",
           torch.bfloat16: "f101_plane_mean_bf16"}
+_MAX_N = 65535  # NHWC kernel: one grid row per image
+_MAX_C = 8192   # NHWC kernel: a block keeps C float32 sums in shared memory
 
 
 def spatial_mean_plain(x: torch.Tensor) -> torch.Tensor:
@@ -27,31 +34,84 @@ def spatial_mean_plain(x: torch.Tensor) -> torch.Tensor:
     return x.float().mean((2, 3)).to(x.dtype)
 
 
-def mean_kernel(x: torch.Tensor) -> torch.Tensor:
-    """Contiguous (N, C, H, W) -> (N, C) mean over H, W: kernel K2 on CUDA,
-    the plain version on the CPU (same checks on both).
-    ``mean_kernel.launches`` counts kernel launches."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"mean_kernel: no kernel for device {x.device}")
-    if x.dtype not in _ENTRY or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("mean_kernel: needs a contiguous 4-D float32 or "
-                         f"bfloat16 tensor, got {x.dtype} {tuple(x.shape)} "
-                         f"contiguous={x.is_contiguous()}")
+def kernel_layout(x: torch.Tensor) -> str:
+    """``"nhwc"`` for a channels-last tensor, ``"nchw"`` for a contiguous
+    one, decided from the strides; a tensor that is both (C == 1 or
+    H*W == 1: the two layouts are the same bytes) goes to ``"nhwc"``.
+    Raises ``ValueError`` for any other layout."""
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return "nhwc"
+    if x.dim() == 4 and x.is_contiguous():
+        return "nchw"
+    raise ValueError("mean_kernel: needs a 4-D tensor that is contiguous in "
+                     f"channels-last or NCHW memory, got {tuple(x.shape)} "
+                     f"strides {x.stride()}")
+
+
+def _check(x: torch.Tensor, who: str) -> None:
+    if not (x.is_cuda or x.device.type == "cpu"):
+        raise ValueError(f"{who}: no kernel for device {x.device}")
+    if x.dtype not in _NHWC or x.dim() != 4:
+        raise ValueError(f"{who}: needs a 4-D float32 or bfloat16 tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
     if x.numel() == 0:
-        raise ValueError(f"mean_kernel: empty tensor {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return spatial_mean_plain(x)
+        raise ValueError(f"{who}: empty tensor {tuple(x.shape)}")
+
+
+def mean_nhwc_kernel(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) in channels-last memory -> (N, C) mean over H, W: the
+    NHWC kernel on CUDA, the plain version on the CPU (same checks on
+    both). ``mean_nhwc_kernel.launches`` counts kernel launches."""
+    _check(x, "mean_nhwc_kernel")
     n, c, h, w = x.shape
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("mean_nhwc_kernel: needs channels-last contiguous "
+                         f"memory, got strides {x.stride()}")
+    if n > _MAX_N or c > _MAX_C:
+        raise ValueError(f"mean_nhwc_kernel: unsupported shape {tuple(x.shape)}")
+    if not x.is_cuda:
+        return spatial_mean_plain(x)
     out = torch.empty((n, c), dtype=x.dtype, device=x.device)
-    err = getattr(_build.kernels(), _ENTRY[x.dtype])(
-        x.data_ptr(), out.data_ptr(), n * c, h * w, x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, _ENTRY[x.dtype])
-    mean_kernel.launches += 1
+    dev = x.get_device()
+    err = _build.entry(_NHWC[x.dtype])(x.data_ptr(), out.data_ptr(), n, c,
+                                       h * w, dev, _build.current_stream(dev))
+    _build.check(err, _NHWC[x.dtype])
+    mean_nhwc_kernel.launches += 1
     return out
 
 
-mean_kernel.launches = 0
+mean_nhwc_kernel.launches = 0
+
+
+def mean_plane_kernel(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous NCHW (N, C, H, W) -> (N, C) mean over H, W: the plane
+    kernel on CUDA, the plain version on the CPU (same checks on both).
+    ``mean_plane_kernel.launches`` counts kernel launches."""
+    _check(x, "mean_plane_kernel")
+    n, c, h, w = x.shape
+    if not x.is_contiguous():
+        raise ValueError("mean_plane_kernel: needs NCHW contiguous memory, "
+                         f"got strides {x.stride()}")
+    if not x.is_cuda:
+        return spatial_mean_plain(x)
+    out = torch.empty((n, c), dtype=x.dtype, device=x.device)
+    dev = x.get_device()
+    err = _build.entry(_PLANE[x.dtype])(x.data_ptr(), out.data_ptr(), n * c,
+                                        h * w, dev, _build.current_stream(dev))
+    _build.check(err, _PLANE[x.dtype])
+    mean_plane_kernel.launches += 1
+    return out
+
+
+mean_plane_kernel.launches = 0
+
+
+def mean_kernel(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C) mean over H, W through the kernel for the
+    layout of ``x`` (:func:`kernel_layout`)."""
+    if kernel_layout(x) == "nhwc":
+        return mean_nhwc_kernel(x)
+    return mean_plane_kernel(x)
 
 
 class _SpatialMean(torch.autograd.Function):
@@ -68,6 +128,7 @@ class _SpatialMean(torch.autograd.Function):
 
 
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable ``x.mean((2, 3))`` of NCHW ``x`` with float32
-    accumulation, in ``x.dtype``."""
+    """Differentiable ``x.mean((2, 3))`` of an (N, C, H, W) tensor in
+    channels-last or NCHW memory, with float32 accumulation, in
+    ``x.dtype``."""
     return _SpatialMean.apply(x)

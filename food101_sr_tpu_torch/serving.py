@@ -166,7 +166,8 @@ class SRServer:
         if model is None:
             model = get_model(architecture, scale_factor=scale, dtype=dtype,
                               device=self.device, generator=generator)
-        self.model = model.to(device=self.device, dtype=dtype).eval()
+        self.model = model.to(device=self.device, dtype=dtype,
+                              memory_format=torch.channels_last).eval()
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         self.scale = self.model.scale_factor
@@ -190,6 +191,7 @@ class SRServer:
                              f"{self.batcher.max_batch}")
         if pad:
             x8 = torch.cat([x8, x8.new_zeros((pad, *x8.shape[1:]))])
+        # NHWC bytes viewed as (B, 3, H, W): already channels-last, no copy
         x = (x8.permute(0, 3, 1, 2).float() / 255.0).to(self.dtype)
         y = self.model(x)[:n].float()
         y8 = (y.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)

@@ -17,7 +17,8 @@ import food101_sr_tpu_torch
 from food101_sr_tpu_torch import _build
 from food101_sr_tpu_torch.metrics import MetricsCalculator
 from food101_sr_tpu_torch.models import build_model, get_model
-from food101_sr_tpu_torch.ops import blur_kernel, mean_kernel
+from food101_sr_tpu_torch.ops import (blur_kernel, mean_kernel,
+                                      mean_nhwc_kernel, mean_plane_kernel)
 from food101_sr_tpu_torch.serving import SRServer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -57,6 +58,7 @@ def _imported_roots(path: Path) -> set:
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tools/port_serve_profile.py",
+                                  "tools/port_wrapper_host.py",
                                   "food101_sr_tpu_torch"])
 def test_sources_import_nothing_forbidden(path):
     files = ([ROOT / path] if path.endswith(".py")
@@ -65,12 +67,17 @@ def test_sources_import_nothing_forbidden(path):
         assert not _imported_roots(f) & set(FORBIDDEN), f
 
 
-@pytest.mark.parametrize("wrapper", [blur_kernel, mean_kernel])
-def test_wrappers_raise_on_a_device_without_a_kernel(wrapper):
+# mean_kernel dispatches by layout to two counted entry points
+@pytest.mark.parametrize("wrapper,counted", [
+    pytest.param(blur_kernel, [blur_kernel], id="blur_kernel"),
+    pytest.param(mean_kernel, [mean_nhwc_kernel, mean_plane_kernel],
+                 id="mean_kernel")])
+def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
     x = torch.empty(1, 3, 8, 8, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        wrapper(x)
-    assert wrapper.launches == 0
+    for layout in (torch.contiguous_format, torch.channels_last):
+        with pytest.raises(ValueError, match="no kernel"):
+            wrapper(x.to(memory_format=layout))
+    assert all(w.launches == 0 for w in counted)
 
 
 @pytest.mark.parametrize("entry", [get_model, build_model, SRServer,
@@ -106,11 +113,14 @@ def test_build_flags_target_hopper_without_torch_headers():
 
 def test_wrappers_check_inputs_on_the_cpu_as_on_cuda():
     """The checks run before the device dispatch, so a CPU test catches an
-    input the CUDA kernel would refuse (here: channels-last, float64)."""
-    x = torch.rand(2, 3, 8, 8).to(memory_format=torch.channels_last)
-    for wrapper in (blur_kernel, mean_kernel):
+    input the CUDA kernel would refuse: for K1 (NCHW planes) channels-last,
+    for K2 (NCHW or channels-last) a non-dense view; float64 for both."""
+    x = torch.rand(2, 3, 8, 8)
+    refused = {blur_kernel: x.to(memory_format=torch.channels_last),
+               mean_kernel: x[:, :, ::2]}
+    for wrapper, bad in refused.items():
         with pytest.raises(ValueError, match="contiguous"):
-            wrapper(x)
+            wrapper(bad)
         with pytest.raises(ValueError):
             wrapper(torch.rand(2, 3, 8, 8, dtype=torch.float64))
     with pytest.raises(ValueError, match="taps"):

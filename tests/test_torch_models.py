@@ -32,8 +32,10 @@ def _lr(n, h, w, seed):
 
 
 def _port_forward(model, x_nhwc: np.ndarray) -> np.ndarray:
+    """The NHWC batch as a channels-last (N, C, H, W) view, as the server
+    hands it to the net."""
     with torch.no_grad():
-        y = model(torch.from_numpy(x_nhwc).permute(0, 3, 1, 2).contiguous())
+        y = model(torch.from_numpy(x_nhwc).permute(0, 3, 1, 2))
     return y.permute(0, 2, 3, 1).numpy()
 
 
@@ -56,16 +58,43 @@ def test_scale_stages_match_jax(scale):
     assert scale_stages(scale) == jax_scale_stages(scale)
 
 
-# 2 blocks x 32 channels, float32 on both sides: the sums differ only in
-# order, so 1e-4 abs on outputs of magnitude ~3 (measured ~1e-5).
+# 2 blocks x 32 channels in channels-last memory, float32 on both sides:
+# the sums differ only in order, so 1e-4 abs on outputs of magnitude ~3
+# (measured ~1e-5).
 @pytest.mark.parametrize("phase_tail", [False, True])
 def test_attention_sr_matches_jax(phase_tail):
     net, variables = _small_jax(phase_tail)
     x = _lr(2, 16, 12, seed=0)
     want = np.asarray(net.apply(variables, jnp.asarray(x)))
-    got = _port_forward(_port_like(variables["params"], 2, 32), x)
+    model = _port_like(variables["params"], 2, 32)
+    assert model.input_conv.weight.is_contiguous(
+        memory_format=torch.channels_last)
+    got = _port_forward(model, x)
     assert got.shape == want.shape == (2, 64, 48, 3)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("layout", [torch.channels_last,
+                                    torch.contiguous_format])
+def test_se_blocks_receive_channels_last(layout):
+    """Whatever the input's layout, the net runs channels-last, so every SE
+    squeeze gets a channels-last tensor (the NHWC kernel's input)."""
+    _, variables = _small_jax(False)
+    model = _port_like(variables["params"], 2, 32)
+    seen = []
+    hooks = [blk.se.register_forward_pre_hook(
+        lambda _, args: seen.append(
+            args[0].is_contiguous(memory_format=torch.channels_last)))
+        for blk in model.res_blocks]
+    x = torch.from_numpy(_lr(2, 16, 12, seed=0)).permute(0, 3, 1, 2)
+    try:
+        with torch.no_grad():
+            y = model(x.contiguous(memory_format=layout))
+    finally:
+        for h in hooks:
+            h.remove()
+    assert seen == [True, True]
+    assert y.is_contiguous(memory_format=torch.channels_last)
 
 
 def test_params_from_jax_keys_equal_export_srnet():

@@ -18,8 +18,8 @@ from food101_sr_tpu.ops.pallas_blur import blur_pallas
 from food101_sr_tpu.ops.spatial_mean import spatial_mean_pallas
 from food101_sr_tpu_torch.ops import (blur, blur_kernel, degrade_bicubic,
                                       depthwise_blur, depthwise_blur_fast,
-                                      mean_kernel, resample_matrix,
-                                      resize_bicubic_torch,
+                                      kernel_layout, mean_kernel,
+                                      resample_matrix, resize_bicubic_torch,
                                       resize_bilinear_torch)
 from food101_sr_tpu_torch.ops.pallas_blur import _gaussian_taps
 from food101_sr_tpu_torch.ops.spatial_mean import spatial_mean
@@ -107,6 +107,54 @@ def test_spatial_mean_plain_matches_pallas(shape, dtype, rtol):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
                                atol=1e-7)
     assert torch.equal(spatial_mean(xt), got)
+
+
+# K2 on channels-last input, the NHWC kernel's layout: the JAX array and the
+# tensor are one NHWC buffer (the tensor a permuted view of it, no copy).
+# f32: 1e-6 rel. bf16: both sides accumulate in f32 and round once, so at
+# most 1 bf16 ulp (2**-7 relative at the value).
+@pytest.mark.parametrize("dtype,rtol", [(np.float32, 1e-6),
+                                        (jnp.bfloat16, 2.0**-7)])
+@pytest.mark.parametrize("shape", [(2, 13, 9, 5), (8, 16, 16, 96),
+                                   (3, 7, 5, 1)])
+def test_spatial_mean_channels_last_matches_pallas(shape, dtype, rtol):
+    buf = _nhwc(shape, seed=10, lo=-2.0, hi=2.0).astype(dtype)
+    if dtype is jnp.bfloat16:  # torch.from_numpy has no bfloat16
+        xt = torch.from_numpy(buf.view(np.int16)).view(torch.bfloat16)
+    else:
+        xt = torch.from_numpy(buf)
+    xt = xt.permute(0, 3, 1, 2)
+    assert xt.is_contiguous(memory_format=torch.channels_last)
+    assert xt.data_ptr() == buf.__array_interface__["data"][0]
+    assert kernel_layout(xt) == "nhwc"
+    xj = jnp.asarray(buf)
+    want_pallas = np.asarray(spatial_mean_pallas(xj, True).astype(jnp.float32))
+    want_mean = np.asarray(jnp.mean(xj.astype(jnp.float32), (1, 2))
+                           .astype(dtype).astype(jnp.float32))
+    got = mean_kernel(xt)
+    assert got.dtype == xt.dtype and got.shape == (shape[0], shape[3])
+    for want in (want_pallas, want_mean):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol,
+                                   atol=1e-7)
+    assert torch.equal(spatial_mean(xt), got)
+
+
+# the layout comes from the strides: C == 1 or H*W == 1 is contiguous in
+# both formats (the same bytes) and goes to the NHWC kernel; a view that is
+# dense in neither is refused
+@pytest.mark.parametrize("shape,to,want", [
+    ((2, 5, 4, 3), torch.channels_last, "nhwc"),
+    ((2, 5, 4, 3), torch.contiguous_format, "nchw"),
+    ((2, 1, 4, 3), torch.contiguous_format, "nhwc"),
+    ((2, 5, 1, 1), torch.contiguous_format, "nhwc"),
+    ((2, 5, 1, 1), torch.channels_last, "nhwc")])
+def test_spatial_mean_layout_decision(shape, to, want):
+    x = torch.rand(shape).contiguous(memory_format=to)
+    assert kernel_layout(x) == want
+    torch.testing.assert_close(mean_kernel(x), x.mean((2, 3)), rtol=1e-6,
+                               atol=1e-7)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_layout(torch.rand(2, 5, 8, 6)[:, :, ::2])
 
 
 def test_spatial_mean_backward_broadcasts_g_over_hw():

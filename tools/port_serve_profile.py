@@ -5,19 +5,30 @@
 
 For the registry AttentionSR x4 (32 blocks x 96 channels, seeded weights,
 bf16) and each serving bucket (64x64 requests, 224x224 tiled windows; 8 rows
-per device batch):
+per device batch), three setups of the net, in one process and in turns
+(A B C C B A):
+
+* ``nchw+plane``: NCHW memory, SE squeeze through K2's plane kernel;
+* ``channels_last+nhwc``: channels-last memory (the served setup), SE
+  squeeze through K2's NHWC kernel;
+* ``channels_last+x.mean``: channels-last memory, SE squeeze ``x.mean``.
+
+For each setup and bucket:
 
 * ``fwd_ms``: CUDA-event time per ``SRServer.forward_u8`` call (uint8 in,
-  uint8 out, the device batch the micro-batcher runs), back to back;
+  uint8 out, the device batch the micro-batcher runs), back to back, one
+  entry per turn;
 * ``enqueue_ms``: host time to enqueue one call without waiting; when it is
   close to ``fwd_ms`` the forward is host-bound;
 * ``busy_share``: device kernel time over wall time in a profiled window of
   5 calls (``torch.profiler``), and the top kernels by device time;
-* an A/B of the SE squeeze: kernel K2 against ``x.mean((2, 3))`` in the same
-  process, in turns (K2, plain, plain, K2), and the net in channels-last
-  memory format (with ``x.mean``, since K2 reads NCHW planes);
-* ``images_per_s``: 64x64 requests from 16 threads through the
-  micro-batcher, as ``chip_smoke.py`` sends them.
+* ``levels_vs_nchw``: the largest uint8 difference of its output from the
+  NCHW net's on the same batch (cuDNN picks other algorithms per layout).
+
+Also: the memory format at the input and output of the upsample tail and
+of the 9x9 output conv, and at each SE block's input, in the served setup;
+``images_per_s``: 64x64 requests from 16 threads through the micro-batcher,
+as ``chip_smoke.py`` sends them.
 
 Prints one JSON object (and writes it to ``--out``); exits 1 without CUDA.
 """
@@ -90,24 +101,71 @@ def _profile(fn, calls: int = 5) -> dict:
                     for ms, n, name, t in rows[:12]]}
 
 
-def _squeeze_ab(server, fwd, iters: int) -> dict:
-    """Forward ms with the SE squeeze through K2 and through x.mean, in
-    turns (K2, plain, plain, K2); and, for scale, the net in channels-last
-    memory format with x.mean (K2 reads NCHW planes only)."""
-    plain = lambda x: x.mean((2, 3))  # noqa: E731
-    times = {"k2": [], "x.mean": [], "channels_last+x.mean": []}
-    legs = ("k2", "x.mean", "x.mean", "k2", "channels_last+x.mean")
+SETUPS = {"nchw+plane": (torch.contiguous_format, spatial_mean),
+          "channels_last+nhwc": (torch.channels_last, spatial_mean),
+          "channels_last+x.mean": (torch.channels_last,
+                                   lambda x: x.mean((2, 3)))}
+
+
+def _use(server, setup: str) -> None:
+    fmt, squeeze = SETUPS[setup]
+    server.model.memory_format = fmt
+    server.model.to(memory_format=fmt)
+    layers.spatial_mean = squeeze
+
+
+def _formats(server, x8) -> dict:
+    """Memory format (channels-last contiguous or not) at the tail's and
+    the output conv's input and output, and at every SE block's input."""
+    model, seen = server.model, {}
+
+    def fmt(t):
+        return ("channels_last" if t.is_contiguous(
+            memory_format=torch.channels_last) else
+            "nchw" if t.is_contiguous() else "other")
+
+    def record(name):
+        def hook(_, args, out):
+            seen[f"{name}.in"] = fmt(args[0])
+            seen[f"{name}.out"] = fmt(out)
+        return hook
+
+    hooks = [model.upsample.register_forward_hook(record("upsample")),
+             model.output_conv.register_forward_hook(record("output_conv"))]
+    se_in = []
+    hooks += [blk.se.register_forward_pre_hook(
+        lambda _, args: se_in.append(fmt(args[0]))) for blk in model.res_blocks]
     try:
-        for which in legs:
-            layers.spatial_mean = spatial_mean if which == "k2" else plain
-            if which.startswith("channels_last"):
-                server.model.to(memory_format=torch.channels_last)
-            fwd()
-            times[which].append(_event_ms(fwd, iters))
+        server.forward_u8(x8)
     finally:
-        layers.spatial_mean = spatial_mean
-        server.model.to(memory_format=torch.contiguous_format)
-    return times
+        for h in hooks:
+            h.remove()
+    seen["se_blocks.in"] = sorted(set(se_in))
+    return seen
+
+
+def _bucket(server, x8, iters: int) -> dict:
+    fwd = lambda: server.forward_u8(x8)  # noqa: E731
+    out = {k: {"fwd_ms": [], "enqueue_ms": []} for k in SETUPS}
+    ref = None
+    order = list(SETUPS) + list(SETUPS)[::-1]  # A B C C B A
+    try:
+        for setup in order:
+            _use(server, setup)
+            for _ in range(3):  # cuDNN picks its algorithms per layout
+                y = fwd()
+            if ref is None:
+                ref = y.cpu().numpy().astype(np.int16)
+            out[setup]["levels_vs_nchw"] = int(np.abs(
+                y.cpu().numpy().astype(np.int16) - ref).max())
+            out[setup]["fwd_ms"].append(_event_ms(fwd, iters))
+            out[setup]["enqueue_ms"].append(_enqueue_ms(fwd, iters))
+        for setup in SETUPS:
+            _use(server, setup)
+            out[setup]["profile"] = _profile(fwd)
+    finally:
+        _use(server, "channels_last+nhwc")
+    return out
 
 
 def main() -> int:
@@ -130,15 +188,9 @@ def main() -> int:
         for side in (server.tile, server.tile + 2 * server.halo):
             x8 = torch.from_numpy(rng.integers(0, 256, (8, side, side, 3),
                                                np.uint8)).cuda()
-            fwd = lambda: server.forward_u8(x8)  # noqa: E731
-            for _ in range(3):
-                fwd()
-            result["buckets"][f"{side}x{side}"] = {
-                "fwd_ms": _event_ms(fwd, args.iters),
-                "enqueue_ms": _enqueue_ms(fwd, args.iters),
-                "profile": _profile(fwd),
-                "squeeze_ab_fwd_ms": _squeeze_ab(server, fwd, 2 * args.iters),
-            }
+            result["buckets"][f"{side}x{side}"] = _bucket(server, x8,
+                                                          args.iters)
+        result["memory_formats"] = _formats(server, x8)
         imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
                 for _ in range(256)]
         with cf.ThreadPoolExecutor(max_workers=16) as pool:
