@@ -2,7 +2,8 @@
 
 The JAX package ``food101_sr_tpu`` stays the reference; this package holds
 the same functions in PyTorch, module for module under the same names
-(``ops``, ``models``, ``losses``, ``metrics``, ``parallel``), and replaces
+(``ops``, ``models``, ``losses``, ``metrics``, ``data``, ``training``,
+``parallel``), and replaces
 each Pallas TPU kernel with a CUDA kernel written for ``sm_90a``
 (``csrc/kernels.cu``, built by ``_build.py`` with nvcc and bound with
 ctypes). It imports neither JAX nor anything of ``food101_sr_tpu``.

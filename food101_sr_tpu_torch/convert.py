@@ -1,5 +1,6 @@
 """Weight carry-over from the JAX package: a Flax params tree of numpy
-arrays -> a state_dict for the port's modules.
+arrays -> a state_dict for the port's modules. The mappings only
+transpose, so they carry a gradient tree of the same structure as well.
 
 The key set is the reference PyTorch layout that the JAX package's
 ``tools/export_sr_checkpoint.py::export_srnet`` writes, so the result loads
@@ -51,4 +52,16 @@ def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
         blk = params[f"up_{s}"]
         _conv(sd, f"upsample.{3 * s}", blk["conv"])
         sd[f"upsample.{3 * s + 2}.weight"] = _prelu(blk["prelu"])
+    return sd
+
+
+def alexnet_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``AlexNetFeatures`` params tree (``{"conv_0": {"kernel", "bias"},
+    ...}``, kernels HWIO) -> state_dict of
+    :class:`~food101_sr_tpu_torch.models.feature_nets.AlexNetFeatures`."""
+    sd: dict[str, torch.Tensor] = {}
+    for name in sorted(params):
+        sd[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"])
+                                  .transpose(3, 2, 0, 1))
+        sd[f"{name}.bias"] = _t(params[name]["bias"])
     return sd

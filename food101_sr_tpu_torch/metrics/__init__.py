@@ -1,3 +1,3 @@
-from .metrics import MetricsCalculator, psnr, ssim
+from .metrics import LPIPSAlex, MetricsCalculator, psnr, ssim
 
-__all__ = ["MetricsCalculator", "psnr", "ssim"]
+__all__ = ["LPIPSAlex", "MetricsCalculator", "psnr", "ssim"]

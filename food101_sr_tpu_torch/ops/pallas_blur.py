@@ -13,7 +13,10 @@ Layers, as in the JAX module:
 
 * :func:`blur_kernel` launches the kernel for a CUDA tensor and counts the
   launch; for a CPU tensor it runs the plain version
-  (:func:`~food101_sr_tpu_torch.ops.gaussian.depthwise_blur`).
+  (:func:`~food101_sr_tpu_torch.ops.gaussian.depthwise_blur`). The plain
+  version takes any odd ``size``, as JAX's ``depthwise_blur_fast`` does;
+  the kernel's tap count is fixed at 5 when it is compiled, so a CUDA
+  tensor with another size raises (every caller in the package uses 5).
 * :func:`blur` is the differentiable op (``torch.autograd.Function``).
 * :func:`depthwise_blur_fast` casts to float32 and back around it.
 """
@@ -28,7 +31,7 @@ import torch
 from .. import _build
 from .gaussian import depthwise_blur, gaussian_kernel_2d
 
-_KERNEL_SIZE = 5  # the kernel's compiled tap count
+_KERNEL_SIZE = 5  # the kernel's compiled tap count (kTaps in kernels.cu)
 
 
 @functools.lru_cache(maxsize=8)
@@ -50,7 +53,8 @@ def _taps_c(size: int, sigma: float) -> ctypes.Array:
 def blur_kernel(x: torch.Tensor, size: int = 5,
                 sigma: float = 1.0) -> torch.Tensor:
     """Blur every plane of contiguous NCHW float32 ``x``: kernel K1 on
-    CUDA, the plain conv on the CPU (same checks on both).
+    CUDA, the plain conv on the CPU (same checks on both, but ``size``:
+    any odd size on the CPU, the kernel's 5 on CUDA).
     ``blur_kernel.launches`` counts kernel launches."""
     if not (x.is_cuda or x.device.type == "cpu"):
         raise ValueError(f"blur_kernel: no kernel for device {x.device}")
@@ -59,13 +63,15 @@ def blur_kernel(x: torch.Tensor, size: int = 5,
                          f"tensor, got {x.dtype} {tuple(x.shape)} "
                          f"contiguous={x.is_contiguous()}")
     n, c, h, w = x.shape
-    if size != _KERNEL_SIZE:
-        raise ValueError(f"blur_kernel: the kernel has {_KERNEL_SIZE} taps, "
-                         f"got size={size}")
+    if size < 1 or size % 2 == 0:
+        raise ValueError(f"blur_kernel: needs an odd size, got size={size}")
     if n * c == 0 or h == 0 or w == 0:
         raise ValueError(f"blur_kernel: unsupported shape {tuple(x.shape)}")
     if not x.is_cuda:
         return depthwise_blur(x, size, sigma)
+    if size != _KERNEL_SIZE:
+        raise ValueError(f"blur_kernel: the CUDA kernel has {_KERNEL_SIZE} "
+                         f"taps, got size={size}")
     out = torch.empty_like(x)
     dev = x.get_device()
     err = _build.entry("f101_blur5_f32")(

@@ -152,7 +152,9 @@ class SRServer:
     255-quantization run on the device. ``model`` overrides the registry
     net (it must expose ``scale_factor`` and ``num_residuals``);
     ``state_dict`` loads weights with ``strict=True``; otherwise the weights
-    are seeded from ``generator`` (seed 0 when None).
+    are seeded from ``generator`` (seed 0 when None). ``window_ms`` and
+    ``adaptive_window`` set the micro-batcher's collect window
+    (:class:`MicroBatcher`), with the JAX ``SRServer``'s defaults.
     """
 
     def __init__(self, architecture: str = "AttentionSR",
@@ -160,7 +162,8 @@ class SRServer:
                  tile: int = 64, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None,
-                 model: nn.Module | None = None, max_batch: int = 8):
+                 model: nn.Module | None = None, max_batch: int = 8,
+                 window_ms: float = 3.0, adaptive_window: bool = False):
         self.device = torch.device(device)
         self.dtype = dtype
         if model is None:
@@ -173,7 +176,9 @@ class SRServer:
         self.scale = self.model.scale_factor
         self.tile = tile
         self.halo = receptive_radius(self.model)
-        self.batcher = MicroBatcher(self._sr_u8, max_batch=max_batch)
+        self.batcher = MicroBatcher(self._sr_u8, max_batch=max_batch,
+                                    window_ms=window_ms,
+                                    adaptive=adaptive_window)
         self.n_served = 0
         self._served_lock = threading.Lock()
 

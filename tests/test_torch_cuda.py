@@ -1,10 +1,16 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version on the same CUDA tensors, and their launch counters. Marked
+version on the same CUDA tensors, and their launch counters; and one
+train step's gradients against the CPU's plain path. Marked
 ``cuda``; they skip where there is no CUDA device (run them on the GPU host
 with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``)."""
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
+from food101_sr_tpu_torch.losses import nlpd_loss
+from food101_sr_tpu_torch.models import get_model
 from food101_sr_tpu_torch.ops.gaussian import depthwise_blur
 from food101_sr_tpu_torch.ops.pallas_blur import blur, blur_kernel
 from food101_sr_tpu_torch.ops.spatial_mean import (mean_kernel,
@@ -12,6 +18,11 @@ from food101_sr_tpu_torch.ops.spatial_mean import (mean_kernel,
                                                    mean_plane_kernel,
                                                    spatial_mean,
                                                    spatial_mean_plain)
+from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                           make_adam, make_train_step)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +72,16 @@ def test_k1_rejects_what_it_cannot_take(gen):
             blur_kernel(bad)
     with pytest.raises(ValueError):
         blur_kernel(x, size=7)
+
+
+def test_k1_refuses_size_3_and_names_it(gen):
+    """The kernel has 5 taps compiled in: another size raises, it never
+    falls back to the plain conv."""
+    x = torch.rand(1, 3, 8, 8, device="cuda", generator=gen)
+    n0 = blur_kernel.launches
+    with pytest.raises(ValueError, match="size=3"):
+        blur_kernel(x, size=3)
+    assert blur_kernel.launches == n0
 
 
 def _counts():
@@ -134,3 +155,25 @@ def test_k2_backward_broadcasts(gen, layout):
     (spatial_mean(x) * g).sum().backward()
     torch.testing.assert_close(
         x.grad, (g / 60.0)[:, :, None, None].expand(2, 4, 6, 10))
+
+
+def test_train_step_gradients_match_the_cpu_plain_path(gen):
+    """Registry AttentionSR x4 (32 x 96): one step's raw gradients on 2
+    crops of 96 px through K1 and K2 (8 and 32 launches), TF32 off, held
+    per leaf to the CPU's plain path as chip_smoke.py holds them (5e-5 of
+    the leaf's largest sum of absolute terms); then one Adam step on the
+    card leaves finite weights."""
+    model = get_model("AttentionSR", device="cuda")
+    n1, n2 = blur_kernel.launches, mean_nhwc_kernel.launches
+    worst = chip_smoke._grad_check(model, batch=2, crop=96)
+    # the card's step, and the CPU copy's and the term sums' plain calls
+    assert (blur_kernel.launches - n1, mean_nhwc_kernel.launches - n2) == \
+        (8, 32)
+    assert worst["term_sum"][0] <= chip_smoke.GRAD_TOL, worst
+    state = SRTrainState.create(model, make_adam(4e-4))
+    step = make_train_step(model, nlpd_loss, 4, *FIRST_LAST["AttentionSR"])
+    hr = torch.randint(0, 256, (2, 96, 96, 3), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    state, m = step(state, hr)
+    assert float(m["nonfinite_steps"]) == 0.0 and int(state.step) == 1
+    assert all(torch.isfinite(p).all() for p in model.parameters())

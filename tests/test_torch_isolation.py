@@ -15,7 +15,7 @@ import torch
 
 import food101_sr_tpu_torch
 from food101_sr_tpu_torch import _build
-from food101_sr_tpu_torch.metrics import MetricsCalculator
+from food101_sr_tpu_torch.metrics import LPIPSAlex, MetricsCalculator
 from food101_sr_tpu_torch.models import build_model, get_model
 from food101_sr_tpu_torch.ops import (blur_kernel, mean_kernel,
                                       mean_nhwc_kernel, mean_plane_kernel)
@@ -26,6 +26,15 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
              "food101_sr_tpu")
 
 
+# the modules of the training slice, named so the check cannot miss them
+NEW_MODULES = ("food101_sr_tpu_torch.data.pipeline",
+               "food101_sr_tpu_torch.losses.tv",
+               "food101_sr_tpu_torch.models.feature_nets",
+               "food101_sr_tpu_torch.training.diagnostics",
+               "food101_sr_tpu_torch.training.state",
+               "food101_sr_tpu_torch.training.steps")
+
+
 def _all_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         food101_sr_tpu_torch.__path__, "food101_sr_tpu_torch."))
@@ -33,7 +42,7 @@ def _all_modules():
 
 def test_port_imports_no_jax_pil_or_jax_package():
     mods = _all_modules()
-    assert "food101_sr_tpu_torch.serving" in mods
+    assert set(NEW_MODULES) | {"food101_sr_tpu_torch.serving"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,7 +90,7 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
 
 
 @pytest.mark.parametrize("entry", [get_model, build_model, SRServer,
-                                   MetricsCalculator])
+                                   MetricsCalculator, LPIPSAlex])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -123,5 +132,13 @@ def test_wrappers_check_inputs_on_the_cpu_as_on_cuda():
             wrapper(bad)
         with pytest.raises(ValueError):
             wrapper(torch.rand(2, 3, 8, 8, dtype=torch.float64))
-    with pytest.raises(ValueError, match="taps"):
-        blur_kernel(torch.rand(1, 1, 8, 8), size=7)
+    # K1's plain version takes any odd size, as JAX's depthwise_blur_fast
+    # does; the CUDA kernel has 5 taps compiled in and names the size it
+    # refuses instead of falling back
+    with pytest.raises(ValueError, match="odd"):
+        blur_kernel(torch.rand(1, 1, 8, 8), size=4)
+    for size in (3, 7):
+        assert blur_kernel(x, size=size).shape == x.shape
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="size=7"):
+            blur_kernel(x.cuda(), size=7)

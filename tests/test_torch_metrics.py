@@ -1,5 +1,9 @@
 """The port's metrics and NLPD loss against the JAX package on the CPU
-(float32; inputs from a seeded numpy generator through both packages)."""
+(float32; inputs from a seeded numpy generator through both packages).
+LPIPS runs on AlexNet weights written to a temporary weights directory
+from JAX's own seeded init, which both packages load."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -8,10 +12,16 @@ import torch
 
 from food101_sr_tpu.losses.nlpd import laplacian_pyramid as jax_pyramid
 from food101_sr_tpu.losses.nlpd import nlpd_loss as jax_nlpd
+from food101_sr_tpu.metrics.metrics import LPIPSAlex as JaxLPIPSAlex
+from food101_sr_tpu.metrics.metrics import \
+    MetricsCalculator as JaxMetricsCalculator
 from food101_sr_tpu.metrics.metrics import psnr as jax_psnr
 from food101_sr_tpu.metrics.metrics import ssim as jax_ssim
 from food101_sr_tpu_torch.losses import laplacian_pyramid, nlpd_loss
-from food101_sr_tpu_torch.metrics import MetricsCalculator, psnr, ssim
+from food101_sr_tpu_torch.convert import alexnet_from_jax
+from food101_sr_tpu_torch.metrics import (LPIPSAlex, MetricsCalculator, psnr,
+                                          ssim)
+from food101_sr_tpu_torch.models.feature_nets import LPIPS_TAP_CHANNELS
 
 
 def _pair(shape=(2, 40, 36, 3), seed=0):
@@ -104,15 +114,68 @@ def test_nlpd_gradient_matches_plain_autograd(monkeypatch):
     np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), atol=1e-6)
 
 
-def test_metrics_calculator_matches_jax_on_clamped_inputs():
-    """compute() clamps to [0, 1] and returns the three metrics as floats
-    (NHWC in, like the JAX MetricsCalculator; LPIPS is not ported yet)."""
-    sr, hr = _pair(seed=3)
-    out = MetricsCalculator(device="cpu").compute(sr, hr)
-    assert set(out) == {"psnr", "ssim", "nlpd"}
+@pytest.fixture(scope="module")
+def weights_dir(tmp_path_factory):
+    """alexnet_features.npz from JAX's seeded AlexNet init and
+    lpips_alex_heads.npz of seeded non-negative heads."""
+    d = tmp_path_factory.mktemp("weights")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        params = JaxLPIPSAlex(weights_dir=str(d)).variables["params"]
+    np.savez(d / "alexnet_features.npz",
+             **{f"{k}/{leaf}": np.asarray(v[leaf]) for k, v in params.items()
+                for leaf in ("kernel", "bias")})
+    rng = np.random.default_rng(7)
+    np.savez(d / "lpips_alex_heads.npz",
+             **{f"lin_{i}": rng.uniform(0, 0.1, c).astype(np.float32)
+                for i, c in enumerate(LPIPS_TAP_CHANNELS)})
+    return str(d)
+
+
+# AlexNet convs of a few hundred terms each, in float32 on both sides:
+# 1e-5 relative on the batch-mean distance
+def test_lpips_matches_jax_on_carried_weights(weights_dir):
+    sr, hr = _pair((2, 64, 64, 3), seed=5)
+    x, y = sr * 2 - 1, hr * 2 - 1
+    ref = JaxLPIPSAlex(weights_dir=weights_dir)
+    port = LPIPSAlex(weights_dir, device="cpu")
+    assert ref.pretrained and port.pretrained and port.heads_pretrained
+    want = float(ref(jnp.asarray(x), jnp.asarray(y)))
+    got = float(port(_nchw(x), _nchw(y)))
+    assert got == pytest.approx(want, rel=1e-5)
+    assert float(port(_nchw(x), _nchw(x))) == 0.0
+
+
+def test_lpips_fallback_warns_and_carries_jax_params(tmp_path):
+    """Without weight files: a warning each, pretrained False, uniform
+    heads; JAX's seeded params carried over give JAX's value."""
+    with pytest.warns(UserWarning, match="not found"):
+        port = LPIPSAlex(str(tmp_path), device="cpu")
+    assert not port.pretrained and not port.heads_pretrained
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = JaxLPIPSAlex(weights_dir=str(tmp_path))
+    port.net.load_state_dict(alexnet_from_jax(ref.variables["params"]),
+                             strict=True)
+    sr, hr = _pair((1, 72, 80, 3), seed=6)
+    want = float(ref(jnp.asarray(sr * 2 - 1), jnp.asarray(hr * 2 - 1)))
+    got = float(port(_nchw(sr * 2 - 1), _nchw(hr * 2 - 1)))
+    assert got == pytest.approx(want, rel=1e-5)
+
+
+def test_metrics_calculator_matches_jax_on_clamped_inputs(weights_dir):
+    """compute() clamps to [0, 1] and returns the JAX calculator's four
+    metrics as floats (NHWC in), LPIPS on [-1, 1]."""
+    sr, hr = _pair((2, 64, 64, 3), seed=3)
+    calc = MetricsCalculator(device="cpu", weights_dir=weights_dir)
+    assert calc.pretrained and calc.heads_pretrained
+    out = calc.compute(sr, hr)
+    want = JaxMetricsCalculator(weights_dir=weights_dir).compute(sr, hr)
+    assert set(out) == set(want) == {"psnr", "ssim", "lpips", "nlpd"}
+    for k in out:
+        assert out[k] == pytest.approx(want[k], rel=1e-5), k
     s, h = jnp.clip(jnp.asarray(sr), 0, 1), jnp.clip(jnp.asarray(hr), 0, 1)
     assert out["psnr"] == pytest.approx(float(jax_psnr(s, h)), rel=1e-5)
     assert out["ssim"] == pytest.approx(float(jax_ssim(s, h)), rel=1e-5)
     assert out["nlpd"] == pytest.approx(float(jax_nlpd(s, h)), rel=1e-5)
-    assert MetricsCalculator(device="cpu").compute(
-        torch.from_numpy(sr), torch.from_numpy(hr)) == out
+    assert calc.compute(torch.from_numpy(sr), torch.from_numpy(hr)) == out

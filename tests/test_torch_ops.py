@@ -15,6 +15,8 @@ from food101_sr_tpu.ops.gaussian import depthwise_blur as jax_depthwise_blur
 from food101_sr_tpu.ops.gaussian import gaussian_kernel_2d as jax_k2d
 from food101_sr_tpu.ops.pallas_blur import _gaussian_taps as jax_taps
 from food101_sr_tpu.ops.pallas_blur import blur_pallas
+from food101_sr_tpu.ops.pallas_blur import \
+    depthwise_blur_fast as jax_depthwise_blur_fast
 from food101_sr_tpu.ops.spatial_mean import spatial_mean_pallas
 from food101_sr_tpu_torch.ops import (blur, blur_kernel, degrade_bicubic,
                                       depthwise_blur, depthwise_blur_fast,
@@ -81,6 +83,29 @@ def test_blur_backward_is_the_self_adjoint_blur():
                                atol=1e-5, rtol=0)
     np.testing.assert_allclose(_to_nhwc(xt.grad), np.asarray(want),
                                atol=1e-5, rtol=0)
+
+
+# Any odd size on the CPU, as JAX's depthwise_blur_fast takes (the CUDA
+# kernel is compiled for 5 taps and refuses the others, test_torch_cuda):
+# forward against JAX and the Pallas kernel in interpret mode, and the
+# gradient through the autograd rule against JAX's, 1e-6 abs
+@pytest.mark.parametrize("size", [3, 7])
+def test_blur_other_sizes_match_jax_on_the_cpu(size):
+    x = _nhwc((2, 17, 23, 3), seed=4)
+    g = _nhwc((2, 17, 23, 3), seed=5)
+    want = np.asarray(jax_depthwise_blur_fast(jnp.asarray(x), size, 1.0))
+    np.testing.assert_allclose(
+        want, np.asarray(blur_pallas(jnp.asarray(x), size, 1.0, True)),
+        atol=1e-6, rtol=0)
+    xt = _nchw(x).requires_grad_(True)
+    y = depthwise_blur_fast(xt, size, 1.0)
+    (y * _nchw(g)).sum().backward()
+    np.testing.assert_allclose(_to_nhwc(y), want, atol=1e-6, rtol=0)
+    want_g = jax.grad(lambda a: jnp.vdot(
+        jax_depthwise_blur_fast(a, size, 1.0), jnp.asarray(g)))(jnp.asarray(x))
+    np.testing.assert_allclose(_to_nhwc(xt.grad), np.asarray(want_g),
+                               atol=1e-6, rtol=0)
+    assert blur_kernel.launches == 0
 
 
 def test_depthwise_blur_fast_keeps_dtype():

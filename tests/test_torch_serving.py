@@ -3,8 +3,11 @@
 forward plus quantization, the tiled path equals the whole-image forward,
 concurrent requests coalesce, and the batcher thread is a daemon that
 close() stops."""
+import ast
 import concurrent.futures as cf
+import inspect
 import threading
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ from food101_sr_tpu_torch.models import AttentionSR, build_model
 from food101_sr_tpu_torch.parallel import plan_windows, receptive_radius
 from food101_sr_tpu_torch.serving import MicroBatcher, SRServer
 
+ROOT = Path(__file__).resolve().parent.parent
 TILE = 16  # halo of the 2-block net: 2*2 + 16 = 20 -> windows of 56 px
 
 
@@ -171,6 +175,37 @@ def test_adaptive_window_policy():
         assert mb.collect_window() == pytest.approx(3e-3)
     finally:
         mb.close()
+
+
+def _jax_server_defaults(*names):
+    """Defaults of the JAX serve.py SRServer.__init__, read from its
+    source (importing serve.py would start nothing, but it is a CLI)."""
+    tree = ast.parse((ROOT / "serve.py").read_text())
+    cls = next(n for n in tree.body
+               if isinstance(n, ast.ClassDef) and n.name == "SRServer")
+    init = next(n for n in cls.body
+                if isinstance(n, ast.FunctionDef) and n.name == "__init__")
+    args = init.args.args + init.args.kwonlyargs
+    defaults = ([None] * (len(init.args.args) - len(init.args.defaults))
+                + init.args.defaults + init.args.kw_defaults)
+    got = dict(zip((a.arg for a in args), defaults))
+    return tuple(ast.literal_eval(got[n]) for n in names)
+
+
+def test_server_window_defaults_match_jax_and_reach_the_batcher(nets):
+    """SRServer takes the JAX server's window_ms / adaptive_window (with
+    its defaults) and hands them to the micro-batcher."""
+    sig = inspect.signature(SRServer).parameters
+    assert (sig["window_ms"].default, sig["adaptive_window"].default) == \
+        _jax_server_defaults("window_ms", "adaptive_window") == (3.0, False)
+    srv = SRServer(model=nets[2], dtype=torch.float32, device="cpu",
+                   tile=TILE, window_ms=5.0, adaptive_window=True)
+    try:
+        assert srv.batcher.window == pytest.approx(5e-3)
+        assert srv.batcher.adaptive
+        assert srv.upscale(_img(16, 16, 4)).shape == (64, 64, 3)
+    finally:
+        srv.close()
 
 
 @pytest.mark.parametrize("h,w,tile,halo", [(256, 256, 64, 80),
