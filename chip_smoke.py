@@ -37,22 +37,46 @@ Phases, one short line each; any failure raises and the exit code is 1:
           times; the NCHW copy before the pyramid and the target half of
           K1's backward, timed; the non-finite guard; the eval step; a
           profile of 3 steps; peak memory
-9. done   the kernels' JSON line and the elapsed time
+9. loop   training.train() on the card, in a child process of its own
+          (``chip_smoke.py --loop DIR``) that alone gets the determinism
+          switches (CUBLAS_WORKSPACE_CONFIG, deterministic algorithms, no
+          cuDNN autotuning): the registry AttentionSR x4 f32, synthetic
+          data (96 images: 86 train, 5 steps of 16 a epoch; a val batch
+          of 10; one test batch of 16), crop 200, NLPD, Adam 4e-4, EMA
+          0.999, 2 epochs, run and weights directories in a temporary
+          directory that is removed afterwards. K1 (forward and backward)
+          and K2 NHWC are first held against their plain versions at the
+          loop's train, val and test shapes, derived from the loop's
+          config. Over the run, K1 launches 8 per step and 4 per val or
+          test batch, K2 NHWC 32 per step and per batch, K2 plane none;
+          the final metrics are finite; the best checkpoint loads strictly
+          into a fresh registry model; a run preempted after 7 updates and
+          resumed ends with a full-state checkpoint bit-equal to the
+          uninterrupted run's; an epochs-0 run warm-started from the best
+          checkpoint gives the same test metrics (1e-6 relative). Prints
+          the loop's numbers per epoch (images/s with the loader, the step
+          alone, the consumer's wait on the loader, the producer's ms per
+          batch) and the device busy share of a profile of 3 steps in the
+          preempted run (device time over the trace's span)
+10. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
 K2 32 per device batch, all through the NHWC entry, and K1 4 for the one
-NLPD call) and one train step (K1 4 forward and 4 backward, K2 NHWC 32,
-K2 plane 0). The last line is the JSON device record; the line before it
-is the kernels' JSON.
+NLPD call), one train step (K1 4 forward and 4 backward, K2 NHWC 32, K2
+plane 0) and the uninterrupted train() run of the loop phase
+(``loop_launches``). The last line is the JSON device record; the line
+before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -77,6 +101,17 @@ LEVEL_TOL = 1   # uint8 levels between served and direct forward
 TRAIN_BATCH, TRAIN_CROP, TRAIN_LR = 16, 200, 4e-4
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 3
 GRAD_BATCH, GRAD_TOL = 2, 5e-5
+
+# the loop phase: train() at the loop's defaults on synthetic data; 96
+# images give 86 train images (5 steps of 16 a epoch, 6 dropped), 10 val
+# images (one batch of 10) and 24 test images (one batch of 16)
+LOOP_CFG = dict(dataset="synthetic", architecture="AttentionSR",
+                synthetic_size=96, crop_size=200, batch_size=16,
+                loss_function="nlpd", lr=4e-4, ema=0.999, epochs=2, seed=0,
+                log_every=1, use_wandb=False)
+LOOP_PREEMPT, LOOP_PROFILED = 7, 3
+LOOP_RTOL = 1e-6  # the epochs-0 run against the first run's test metrics
+LOOP_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG for deterministic cuBLAS
 
 # Peak rates (NVIDIA data sheets, dense): HBM bytes/s and float32 (non-tensor)
 # flop/s by card model; matched against the device name, first hit wins.
@@ -172,52 +207,95 @@ def _timings(fn, plain, library, launches: int) -> dict:
             "library_ms": cuda_ms(library)}
 
 
-def phase_k1(rates) -> dict:
-    from food101_sr_tpu_torch.ops.gaussian import (depthwise_blur,
-                                                   gaussian_kernel_2d)
+def _k1_err(xs, gen) -> float:
+    """K1 against its plain version on each input: the forward, and the
+    backward of a seeded cotangent; the largest absolute difference."""
+    from food101_sr_tpu_torch.ops.gaussian import depthwise_blur
     from food101_sr_tpu_torch.ops.pallas_blur import blur, blur_kernel
-    from food101_sr_tpu_torch.ops.precision import full_fp32
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
     err = 0.0
-    for shape in K1_SHAPES:
-        x = torch.rand(shape, device="cuda", generator=gen)
-        g = torch.rand(shape, device="cuda", generator=gen)
+    for x in xs:
+        g = torch.rand(x.shape, device="cuda", generator=gen)
         err = max(err, (blur_kernel(x) - depthwise_blur(x)).abs().max().item())
         xa = x.clone().requires_grad_(True)
-        (blur(xa, 5, 1.0) * g).sum().backward()
+        (blur(xa) * g).sum().backward()
         xb = x.clone().requires_grad_(True)
         (depthwise_blur(xb) * g).sum().backward()
         err = max(err, (xa.grad - xb.grad).abs().max().item())
-    torch.cuda.synchronize()
-    if not err <= K1_TOL:
-        raise AssertionError(f"K1 disagrees with its plain version: {err}")
+    return err
 
-    xs = [torch.rand(s, device="cuda", generator=gen) for s in PYRAMID]
+
+def _k2_nhwc_err(shape, gen) -> tuple[float, float, torch.Tensor]:
+    """The NHWC K2 entry against the plain mean on a seeded float32
+    channels-last input: (largest relative error, largest absolute
+    error, the input)."""
+    from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
+                                                       spatial_mean_plain)
+
+    x = (torch.rand(shape, device="cuda", generator=gen) * 2 - 0.5) \
+        .contiguous(memory_format=torch.channels_last)
+    want, got = spatial_mean_plain(x), mean_nhwc_kernel(x)
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-6)).max().item()
+    return rel, (got - want).abs().max().item(), x
+
+
+def _k1_timings(pyr, rates) -> dict:
+    """Times of K1 over one NLPD pyramid (one launch per level) against
+    its plain version and F.conv2d, with the pyramid's bound."""
+    from food101_sr_tpu_torch.ops.gaussian import (depthwise_blur,
+                                                   gaussian_kernel_2d)
+    from food101_sr_tpu_torch.ops.pallas_blur import blur_kernel
+    from food101_sr_tpu_torch.ops.precision import full_fp32
+
     w = torch.from_numpy(gaussian_kernel_2d(5, 1.0)).cuda().expand(3, 1, 5, 5)
     # TF32 off for the yardstick conv, entered once around all the timing
     # so that no timed call pays for the switch
     with full_fp32():
-        t = _timings(lambda: [blur_kernel(x) for x in xs],
-                     lambda: [depthwise_blur(x) for x in xs],
-                     lambda: [F.conv2d(x, w, padding=2, groups=3) for x in xs],
-                     launches=len(xs))
-    nbytes = sum(2 * x.numel() * 4 for x in xs)
-    bound_ms, bound_by = bound(nbytes, sum(20 * x.numel() for x in xs), rates)
+        t = _timings(lambda: [blur_kernel(x) for x in pyr],
+                     lambda: [depthwise_blur(x) for x in pyr],
+                     lambda: [F.conv2d(x, w, padding=2, groups=3)
+                              for x in pyr], launches=len(pyr))
+    t["bound_ms"], t["bound_by"] = bound(
+        sum(2 * x.numel() * 4 for x in pyr), sum(20 * x.numel() for x in pyr),
+        rates)
+    return t
+
+
+def _k2_nhwc_timings(x, rates) -> dict:
+    """Times of the NHWC K2 entry on a float32 channels-last input against
+    the plain mean and x.mean, with the bound."""
+    from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
+                                                       spatial_mean_plain)
+
+    t = _timings(lambda: mean_nhwc_kernel(x), lambda: spatial_mean_plain(x),
+                 lambda: x.mean((2, 3)), launches=1)
+    t["bound_ms"], t["bound_by"] = bound(
+        4 * x.numel() + 4 * x.shape[0] * x.shape[1], x.numel(), rates)
+    return t
+
+
+def phase_k1(rates) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    err = _k1_err([torch.rand(s, device="cuda", generator=gen)
+                   for s in K1_SHAPES], gen)
+    if not err <= K1_TOL:
+        raise AssertionError(f"K1 disagrees with its plain version: {err}")
+
+    t = _k1_timings([torch.rand(s, device="cuda", generator=gen)
+                     for s in PYRAMID], rates)
     print(f"K1 blur: max_abs_err {err:.3g} (tol {K1_TOL}, fwd+bwd, "
           f"{len(K1_SHAPES)} shapes) | pyramid 16x3x{{200,100,50,25}}^2 f32: "
           f"kernel {t['ms']:.4f} ms, device {t['device_ms']:.4f}, "
           f"host {t['host_us']:.1f} us/call, "
           f"plain {t['plain_ms']:.4f}, conv2d {t['library_ms']:.4f}, "
-          f"bound {bound_ms:.4f} ({bound_by})", flush=True)
+          f"bound {t['bound_ms']:.4f} ({t['bound_by']})", flush=True)
     return {"name": "K1 depthwise Gaussian blur 5x5", "route": "cuda",
             "source": "food101_sr_tpu_torch/csrc/kernels.cu",
             "replaces": "food101_sr_tpu/ops/pallas_blur.py:65",
             "wrapper": "food101_sr_tpu_torch/ops/pallas_blur.py:blur_kernel",
             "at": "4 launches: (16,3,200,200),(16,3,100,100),(16,3,50,50),"
                   "(16,3,25,25) float32; host_us per launch",
-            "max_abs_err": err, **t, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "max_abs_err": err, **t}
 
 
 def _ulp_bf16(v: torch.Tensor) -> torch.Tensor:
@@ -447,57 +525,29 @@ def _train_kernels(rates) -> tuple[dict, dict]:
     """K1 and K2 at the train step's shapes: against their plain versions
     and timed; K1 also at the pred half alone (what its backward would
     cost without the target half) and the NCHW copy before the pyramid."""
-    from food101_sr_tpu_torch.ops.gaussian import (depthwise_blur,
-                                                   gaussian_kernel_2d)
-    from food101_sr_tpu_torch.ops.pallas_blur import blur, blur_kernel
-    from food101_sr_tpu_torch.ops.precision import full_fp32
-    from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
-                                                       spatial_mean_plain)
+    from food101_sr_tpu_torch.ops.pallas_blur import blur_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     sides = [TRAIN_CROP >> i for i in range(4)]
     pyr = [torch.rand((2 * TRAIN_BATCH, 3, s, s), device="cuda",
                       generator=gen) for s in sides]
-    err = 0.0
-    for x in pyr:
-        g = torch.rand(x.shape, device="cuda", generator=gen)
-        err = max(err, (blur_kernel(x) - depthwise_blur(x)).abs().max().item())
-        xa = x.clone().requires_grad_(True)
-        (blur(xa) * g).sum().backward()
-        xb = x.clone().requires_grad_(True)
-        (depthwise_blur(xb) * g).sum().backward()
-        err = max(err, (xa.grad - xb.grad).abs().max().item())
-    w = torch.from_numpy(gaussian_kernel_2d(5, 1.0)).cuda().expand(3, 1, 5, 5)
-    with full_fp32():
-        t1 = _timings(lambda: [blur_kernel(x) for x in pyr],
-                      lambda: [depthwise_blur(x) for x in pyr],
-                      lambda: [F.conv2d(x, w, padding=2, groups=3)
-                               for x in pyr], launches=len(pyr))
+    err = _k1_err(pyr, gen)
+    if not err <= K1_TOL:
+        raise AssertionError(f"K1 disagrees with its plain version at the "
+                             f"train shapes: {err}")
+    t1 = _k1_timings(pyr, rates)
     half = [x[:TRAIN_BATCH] for x in pyr]
     t1["half_device_ms"] = device_ms(lambda: [blur_kernel(x) for x in half])
     xcl = pyr[0].contiguous(memory_format=torch.channels_last)
     t1["nchw_copy_ms"] = cuda_ms(lambda: xcl.contiguous())
     t1["nchw_copy_device_ms"] = device_ms(lambda: xcl.contiguous())
-    t1["bound_ms"], t1["bound_by"] = bound(
-        sum(2 * x.numel() * 4 for x in pyr), sum(20 * x.numel() for x in pyr),
-        rates)
-    if not err <= K1_TOL:
-        raise AssertionError(f"K1 disagrees with its plain version at the "
-                             f"train shapes: {err}")
 
     n_se = (TRAIN_BATCH, 96, TRAIN_CROP // 4, TRAIN_CROP // 4)
-    x = (torch.rand(n_se, device="cuda", generator=gen) * 2 - 0.5) \
-        .contiguous(memory_format=torch.channels_last)
-    want = spatial_mean_plain(x)
-    rel = ((mean_nhwc_kernel(x) - want).abs()
-           / want.abs().clamp_min(1e-6)).max().item()
+    rel, abs_err, x = _k2_nhwc_err(n_se, gen)
     if not rel <= K2_RTOL:
         raise AssertionError(f"K2 nhwc disagrees at the train shape: {rel}")
-    t2 = _timings(lambda: mean_nhwc_kernel(x), lambda: spatial_mean_plain(x),
-                  lambda: x.mean((2, 3)), launches=1)
-    t2["bound_ms"], t2["bound_by"] = bound(
-        4 * x.numel() + 4 * n_se[0] * n_se[1], x.numel(), rates)
-    t2["max_abs_err"] = (mean_nhwc_kernel(x) - want).abs().max().item()
+    t2 = _k2_nhwc_timings(x, rates)
+    t2["max_abs_err"] = abs_err
     t2["rel_err"] = rel
     t1["max_abs_err"] = err
     return t1, t2
@@ -654,6 +704,237 @@ def phase_train(rates) -> tuple[dict, dict]:
     return k1, k2
 
 
+def _deterministic() -> None:
+    """The loop phase's determinism switches, set in its own process
+    (cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA starts, so the parent
+    passes it in the child's environment; the phases before keep theirs):
+    PyTorch's deterministic algorithms (cuDNN picks deterministic
+    convolutions), no cuDNN autotuning, and no NaN fill of new tensors
+    (every tensor the loop reads is written first; the fill would only add
+    a pass per allocation to the timed epochs)."""
+    from torch.utils import deterministic
+
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != LOOP_CUBLAS:
+        raise RuntimeError("the loop phase needs CUBLAS_WORKSPACE_CONFIG="
+                           f"{LOOP_CUBLAS} before CUDA starts")
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.benchmark = False
+    deterministic.fill_uninitialized_memory = False
+
+
+def _flat(tree, path="") -> dict:
+    """Leaves of nested dicts, lists and tuples by path."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {path: tree}
+    return {k: v for key, sub in items for k, v in _flat(sub, f"{path}/{key}").items()}
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def _trace_busy(path: str) -> tuple[float, float]:
+    """(device ms, wall ms) of a torch.profiler Chrome trace: the device's
+    kernels, copies and fills, and the span of all its events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "dur" in e]
+    busy = sum(e["dur"] for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    span = (max(float(e["ts"]) + e["dur"] for e in events)
+            - min(float(e["ts"]) for e in events))
+    return busy / 1e3, span / 1e3
+
+
+def _loop_batches() -> dict:
+    """Batch counts and sizes of the loop phase's loaders, from LOOP_CFG by
+    train()'s own rules: a 10% val split of the training source, a test
+    source of n // 4 images, and eval batches clamped to the split."""
+    from food101_sr_tpu_torch.data import subset_indices, train_val_split
+
+    n, seed, batch = (LOOP_CFG[k] for k in
+                      ("synthetic_size", "seed", "batch_size"))
+    train_idx, val_idx = train_val_split(subset_indices(n, 1.0, seed), 0.1,
+                                         seed + 1)
+    n_test = max(n // 4, 8)
+    val_b, test_b = min(batch, len(val_idx)), min(batch, n_test)
+    return {"steps": len(train_idx) // batch, "val_batch": val_b,
+            "val": len(val_idx) // val_b, "test_batch": test_b,
+            "test": n_test // test_b}
+
+
+def _loop_kernels(nb: dict, rates) -> dict:
+    """K1 (forward and backward) and the NHWC K2 entry against their plain
+    versions at every shape the loop gives them: NLPD pyramids of pred and
+    target at the train, val and test batches, and the SE squeeze at those
+    batches; both timed at the val batch (the train and test batches'
+    shapes are the train phase's)."""
+    crop, batch = LOOP_CFG["crop_size"], LOOP_CFG["batch_size"]
+    batches = sorted({batch, nb["val_batch"], nb["test_batch"]})
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    pyrs = {b: [torch.rand((2 * b, 3, crop >> i, crop >> i), device="cuda",
+                           generator=gen) for i in range(4)] for b in batches}
+    err1 = max(_k1_err(pyr, gen) for pyr in pyrs.values())
+    rel2, err2, xs = 0.0, 0.0, {}
+    for b in batches:
+        r, e, xs[b] = _k2_nhwc_err((b, 96, crop // 4, crop // 4), gen)
+        rel2, err2 = max(rel2, r), max(err2, e)
+    if not (err1 <= K1_TOL and rel2 <= K2_RTOL):
+        raise AssertionError(f"at the loop's shapes K1 is off by {err1}, "
+                             f"K2 nhwc by {rel2} relative")
+    vb = nb["val_batch"]
+    t1, t2 = _k1_timings(pyrs[vb], rates), _k2_nhwc_timings(xs[vb], rates)
+    sides = ",".join(str(crop >> i) for i in range(4))
+    print(f"loop kernels: K1 fwd+bwd at ({','.join(str(2 * b) for b in batches)}"
+          f",3,{{{sides}}}^2) f32: max_abs_err {err1:.3g} (tol {K1_TOL}) | "
+          f"K2 nhwc at ({','.join(map(str, batches))},96,{crop // 4},"
+          f"{crop // 4}) f32 channels-last: rel err {rel2:.2g} (tol "
+          f"{K2_RTOL}) | val batch, K1 pyramid ({2 * vb},3,{{{sides}}}^2): "
+          f"kernel {t1['ms']:.4f} ms, device {t1['device_ms']:.4f}, plain "
+          f"{t1['plain_ms']:.4f}, conv2d {t1['library_ms']:.4f}, bound "
+          f"{t1['bound_ms']:.4f} | K2 nhwc ({vb},96,{crop // 4},{crop // 4}): "
+          f"kernel {t2['ms']:.4f} ms, device {t2['device_ms']:.4f}, plain "
+          f"{t2['plain_ms']:.4f}, x.mean {t2['library_ms']:.4f}, bound "
+          f"{t2['bound_ms']:.4f}", flush=True)
+    t1["at"] = f"({2 * vb},3,{{{sides}}}^2) float32, deterministic mode"
+    t2["at"] = f"({vb},96,{crop // 4},{crop // 4}) float32 channels-last"
+    return {"max_abs_err": {"K1": err1, "K2 nhwc": err2},
+            "at_val": {"K1": t1, "K2 nhwc": t2}}
+
+
+def phase_loop(tmp: str) -> dict:
+    """training.train() on the card (module docstring, phase 9), in the
+    process that _deterministic() set up; run logs and weights go under
+    ``tmp``. Returns the uninterrupted run's launch counts by entry point
+    and the kernels' errors at the loop's shapes."""
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
+                                          mean_plane_kernel)
+    from food101_sr_tpu_torch.training import load_checkpoint, train
+
+    t0 = time.perf_counter()
+    _deterministic()
+    nb = _loop_batches()
+    kernels = _loop_kernels(nb, card_rates(torch.cuda.get_device_name(0)))
+    os.environ["FOOD101_SR_RUN_DIR"] = runs = os.path.join(tmp, "runs")
+    w = os.path.join(tmp, "weights")
+    cfg = {**LOOP_CFG, "weights_dir": w}
+    # ---- main path: one train() run, counts from zero ----
+    blur_kernel.launches = 0
+    mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
+    final = train({**cfg, "save_name": "full", "run_name": "full"})
+    total = (blur_kernel.launches, mean_nhwc_kernel.launches,
+             mean_plane_kernel.launches)
+    # ---- end of main path ----
+    part = train({**cfg, "save_name": "part", "run_name": "part",
+                  "preempt_after_updates": LOOP_PREEMPT,
+                  "profile_steps": LOOP_PROFILED,
+                  "profile_dir": os.path.join(tmp, "profile")})
+    part_ckpt = load_checkpoint(os.path.join(w, "part_last.pth"))
+    train({**cfg, "save_name": "part2", "run_name": "part2",
+           "resume": os.path.join(w, "part_last.pth")})
+    evald = train({**cfg, "epochs": 0, "save_name": "eval",
+                   "run_name": "eval", "pretrained_weights":
+                   os.path.join(w, "full_best.pth")})
+    full_last = load_checkpoint(os.path.join(w, "full_last.pth"))
+    part2_last = load_checkpoint(os.path.join(w, "part2_last.pth"))
+    best = get_model("AttentionSR", device="cuda")
+    best.load_state_dict(load_checkpoint(os.path.join(w, "full_best.pth"),
+                                         "cuda"), strict=True)
+    device_ms, trace_ms = _trace_busy(os.path.join(tmp, "profile",
+                                                   "trace.json"))
+    with open(os.path.join(runs, "full", "log.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "epoch" in r]
+
+    n_blocks, steps = best.num_residuals, nb["steps"]
+    keys = ("psnr", "ssim", "lpips", "nlpd")
+    if not (set(final) == {*keys, "val_psnr"}
+            and all(np.isfinite(list(final.values())))):
+        raise AssertionError(f"loop: final metrics {final}")
+    n_ep = LOOP_CFG["epochs"]
+    want = (n_ep * (8 * steps + 4 * nb["val"]) + 4 * nb["test"],
+            n_blocks * (n_ep * (steps + nb["val"]) + nb["test"]), 0)
+    if len(epochs) != n_ep or total != want:
+        raise AssertionError(
+            f"loop: {len(epochs)} epoch records; launches (K1, K2 nhwc, K2 "
+            f"plane) {total}, expected {want}: K1 8 a step and 4 a val or "
+            f"test batch, K2 nhwc {n_blocks} a step and a batch")
+    host = part_ckpt["host"]
+    if not (part.get("preempted")
+            and (host["epoch"], host["batch"]) == (1, LOOP_PREEMPT - steps)):
+        raise AssertionError(f"loop: preempted run {part}, host {host}")
+    flat_full, flat_part2 = _flat(full_last), _flat(part2_last)
+    diff = sorted(set(flat_full) ^ set(flat_part2)) or [
+        k for k in flat_full if not _same(flat_full[k], flat_part2[k])]
+    if diff:
+        raise AssertionError(f"loop: resumed state differs from the "
+                             f"uninterrupted one at {diff[:5]}")
+    rel = max(abs(evald[k] - final[k]) / abs(final[k]) for k in keys)
+    if not (rel <= LOOP_RTOL and evald["val_psnr"] == 0.0):
+        raise AssertionError(f"loop: epochs-0 run {evald} vs {final}")
+    n_tensors = sum(isinstance(t, torch.Tensor) for t in flat_full.values())
+    print(f"loop: train() AttentionSR x4 {n_blocks}x"
+          f"{best.input_conv.out_channels} f32, synthetic "
+          f"{LOOP_CFG['synthetic_size']} images, crop {LOOP_CFG['crop_size']}, "
+          f"batch {LOOP_CFG['batch_size']} ({steps} steps, {nb['val']} val "
+          f"batch of {nb['val_batch']}, {nb['test']} test batch of "
+          f"{nb['test_batch']}), NLPD, EMA {LOOP_CFG['ema']}, {n_ep} epochs, "
+          f"deterministic | final psnr {final['psnr']:.4f} ssim "
+          f"{final['ssim']:.5f} lpips {final['lpips']:.6f} nlpd "
+          f"{final['nlpd']:.6f} val_psnr {final['val_psnr']:.4f} | launches "
+          f"(K1, K2 nhwc, K2 plane) {total} | best loads strict | preempted "
+          f"after {LOOP_PREEMPT} updates (epoch 1 batch {host['batch']}) and "
+          f"resumed: {n_tensors} tensors and the host state bit-equal | "
+          f"epochs 0 from best: max rel {rel:.2g} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    numbers = {"epochs": [
+        {"epoch": int(r["epoch"]), "images_per_s": r["time/images_per_s"],
+         "train_s": r["time/train_s"], "step_ms": r["time/step_ms"],
+         "loader_wait_ms": r["time/loader_wait_ms"],
+         "loader_produce_ms": r["time/loader_produce_ms"],
+         "wall_ms_per_step": r["time/train_s"] / steps * 1e3}
+        for r in epochs],
+        # one window of the preempted run (epoch 0, the profiler on): the
+        # device's busy time over the trace's span
+        "profiled_steps": LOOP_PROFILED,
+        "profile_device_ms_per_step": device_ms / LOOP_PROFILED,
+        "profile_wall_ms_per_step": trace_ms / LOOP_PROFILED,
+        "busy_share": device_ms / trace_ms}
+    print("loop numbers: " + json.dumps(numbers), flush=True)
+    return {"launches": {"K1": total[0], "K2 nhwc": total[1],
+                         "K2 nchw": total[2]}, **kernels}
+
+
+def run_loop_phase() -> dict:
+    """Phase 9 in a child process of its own, which alone gets the
+    determinism environment; its results come back through a file in a
+    temporary directory that also holds its runs and weights."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": LOOP_CUBLAS}
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--loop", tmp], env=env, timeout=600).returncode
+        if rc != 0:
+            raise RuntimeError(f"the loop phase exited with {rc}")
+        with open(os.path.join(tmp, "loop.json")) as f:
+            return json.load(f)
+
+
+def loop_main(tmp: str) -> int:
+    """Entry of the loop phase's child process (see run_loop_phase)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    out = phase_loop(tmp)
+    with open(os.path.join(tmp, "loop.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -788,9 +1069,16 @@ def main() -> int:
     print(f"close: server stopped | {time.perf_counter() - t_start:.1f} s",
           flush=True)
     k1_train, k2_train = phase_train(rates)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    loop = run_loop_phase()
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
+        d["loop_launches"] = loop["launches"][key]
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc")):
+        d["loop_max_abs_err"] = loop["max_abs_err"][key]
+        d["at_loop_val"] = loop["at_val"][key]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "loop_launches", "max_abs_err", "loop_max_abs_err",
             "ms", "device_ms", "host_us", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
+            "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64", "at_loop_val",
             "half_device_ms", "nchw_copy_ms", "nchw_copy_device_ms",
             "step_ms", "images_per_s", "peak_bytes")
     kernels = [{k: d[k] for k in keys if k in d}
@@ -805,4 +1093,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--loop"]:
+        sys.exit(loop_main(sys.argv[2]))
     sys.exit(main())

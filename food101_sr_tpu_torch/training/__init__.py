@@ -1,15 +1,25 @@
-"""The supervised training step (counterpart of
-``food101_sr_tpu/training``). The loop, the schedules, the checkpoints and
-the loader come with the training runtime (ROADMAP item 9)."""
+"""The training runtime (counterpart of ``food101_sr_tpu/training``): the
+supervised step, its state and diagnostics, the epoch loop with its
+schedules, checkpoints, resume and preemption. The GAN steps come with
+ROADMAP item 6."""
+from .checkpoint import (load_checkpoint, load_train_checkpoint,
+                         save_checkpoint, save_train_checkpoint,
+                         warm_start_params)
 from .diagnostics import (FIRST_LAST, grad_norm, layer_grad_ratio,
                           update_ratio, weight_norm)
+from .loop import DEFAULTS, train
+from .preempt import PreemptionGuard
+from .schedule import EarlyStopping, ReduceLROnPlateau
 from .state import SRTrainState, Transform, make_adam
-from .steps import (loss_and_grads, make_eval_step, make_forward,
-                    make_train_step)
+from .steps import (loss_and_grads, make_accum_apply, make_eval_step,
+                    make_forward, make_grad_step, make_train_step)
 
 __all__ = [
-    "FIRST_LAST", "SRTrainState", "Transform", "grad_norm",
-    "layer_grad_ratio", "loss_and_grads", "make_adam", "make_eval_step",
-    "make_forward", "make_train_step", "update_ratio",
-    "weight_norm",
+    "DEFAULTS", "EarlyStopping", "FIRST_LAST", "PreemptionGuard",
+    "ReduceLROnPlateau", "SRTrainState", "Transform",
+    "grad_norm", "layer_grad_ratio", "load_checkpoint",
+    "load_train_checkpoint", "loss_and_grads", "make_accum_apply",
+    "make_adam", "make_eval_step", "make_forward", "make_grad_step",
+    "make_train_step", "save_checkpoint", "save_train_checkpoint", "train",
+    "update_ratio", "warm_start_params", "weight_norm",
 ]

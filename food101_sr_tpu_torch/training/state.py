@@ -9,6 +9,12 @@ guarded without a host sync: the optimizer is a fused PyTorch optimizer
 and, when it is 1, leave the parameters, the moments and the step count as
 they were (the same flag ``torch.amp.GradScaler`` uses); the step count,
 the EMA and ``skipped`` are selected by the same flag.
+
+``state_dict`` / ``load_state_dict`` carry the whole state through a
+checkpoint (``training/checkpoint.py``): the model's parameters in the
+reference key layout, the fused optimizer's state (its per-parameter
+``step`` tensors and moments, and the learning rate), ``step``,
+``skipped`` and the EMA.
 """
 from __future__ import annotations
 
@@ -78,6 +84,46 @@ class SRTrainState:
     def create(cls, model: nn.Module, tx: Transform,
                ema: bool = False) -> "SRTrainState":
         return cls(model, tx, ema)
+
+    @property
+    def device(self) -> torch.device:
+        return self.step.device
+
+    def ema_params(self) -> dict[str, torch.Tensor] | None:
+        """The EMA by parameter name, for evaluating on it with
+        ``torch.func.functional_call`` (the live parameters and the
+        optimizer are not touched); None when the state keeps no EMA."""
+        return None if self.ema is None else dict(zip(self.names, self.ema))
+
+    def state_dict(self) -> dict:
+        """The tensors of the state (references, not copies):
+        ``params`` (``model.state_dict()``), ``opt_state``, ``step``,
+        ``skipped`` and, when kept, ``ema_params``."""
+        sd = {"params": self.model.state_dict(),
+              "opt_state": self.optimizer.state_dict(),
+              "step": self.step, "skipped": self.skipped}
+        if self.ema is not None:
+            sd["ema_params"] = self.ema_params()
+        return sd
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> "SRTrainState":
+        """Copy ``sd`` (a ``state_dict`` with the same keys) into this
+        state, in place: the parameters keep their tensors and memory
+        format, so the optimizer's references stay valid; the optimizer
+        moves its state to the parameters' device."""
+        if ("ema_params" in sd) != (self.ema is not None):
+            raise ValueError("load_state_dict: the EMA is kept on one side "
+                             "only (checkpoint.load_train_checkpoint "
+                             "reconciles that)")
+        self.model.load_state_dict(sd["params"])
+        self.optimizer.load_state_dict(sd["opt_state"])
+        self.step.copy_(sd["step"])
+        self.skipped.copy_(sd["skipped"])
+        if self.ema is not None:
+            for name, e in zip(self.names, self.ema):
+                e.copy_(sd["ema_params"][name])
+        return self
 
     @property
     def learning_rate(self) -> float:

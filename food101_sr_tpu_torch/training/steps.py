@@ -5,8 +5,11 @@ A step takes the uint8 NHWC HR batch on the device and degrades it there
 (``data.prepare_batch``); only uint8 crops cross from the host. The train
 step updates the state in place and returns it with a dict of 0-d device
 tensors, so nothing in it waits for the device: the diagnostics, the
-non-finite guard and the optimizer update all run there. The GAN steps
-come with the GAN slice of the port (ROADMAP item 6).
+non-finite guard and the optimizer update all run there. The eval step
+and the forward take an optional parameter dict (the EMA, a loaded
+checkpoint), applied with ``torch.func.functional_call`` so the live
+parameters stay as they are. The GAN steps come with the GAN slice of the
+port (ROADMAP item 6).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..data.pipeline import prepare_batch
 from ..metrics.metrics import psnr
@@ -79,14 +83,62 @@ def make_train_step(model: nn.Module, loss_fn: Callable, scale: int,
     return train_step
 
 
-def make_eval_step(model: nn.Module, loss_fn: Callable, scale: int):
-    """Validation step ``eval_step(hr_u8) -> {"psnr", "val_loss"}``: batch
-    PSNR on clamped images and the raw loss, the model in eval mode."""
+# ---------------------------------------------------------------------------
+# Gradient accumulation (--grad_accum k): each update is computed from k
+# sequential microbatches of batch_size/k. The loader keys sample order and
+# augmentation by global position, so the k microbatches hold the samples
+# of the unsplit batch, and the losses are batch means, so the averaged
+# microbatch gradients equal the big-batch gradient.
+# ---------------------------------------------------------------------------
+
+def make_grad_step(model: nn.Module, loss_fn: Callable, scale: int):
+    """Gradient-only microbatch step ``grad_step(hr_u8) -> (loss, grads)``
+    at the current parameters; no update (``make_accum_apply`` applies the
+    group once)."""
+
+    def grad_step(hr_u8: torch.Tensor):
+        return loss_and_grads(model, loss_fn, scale, hr_u8)
+
+    return grad_step
+
+
+def make_accum_apply(accum: int, first: str, last: str,
+                     ema_decay: float | None = None):
+    """``apply(state, grads_sum, loss_sum) -> (state, metrics)``: one
+    guarded update from ``accum`` summed microbatch gradients. The average
+    (sum / accum) is what the guard sees, so one NaN microbatch skips the
+    whole group and leaves the state as it was."""
+    inv = 1.0 / float(accum)
 
     @torch.no_grad()
-    def eval_step(hr_u8: torch.Tensor) -> dict[str, torch.Tensor]:
+    def apply_step(state: SRTrainState, grads_sum: list,
+                   loss_sum: torch.Tensor):
+        grads = torch._foreach_mul(grads_sum, inv)
+        return _finalize_update(state, grads, loss_sum * inv, first, last,
+                                ema_decay)
+
+    return apply_step
+
+
+def _apply(model: nn.Module, x: torch.Tensor,
+           params: dict[str, torch.Tensor] | None) -> torch.Tensor:
+    """``model(x)``, or with ``params`` in place of the module's own
+    tensors of those names."""
+    return model(x) if params is None else functional_call(model, params,
+                                                           (x,))
+
+
+def make_eval_step(model: nn.Module, loss_fn: Callable, scale: int):
+    """Validation step ``eval_step(hr_u8, params=None) -> {"psnr",
+    "val_loss"}``: batch PSNR on clamped images and the raw loss, the
+    model in eval mode, on ``params`` (by name) when given."""
+
+    @torch.no_grad()
+    def eval_step(hr_u8: torch.Tensor,
+                  params: dict[str, torch.Tensor] | None = None
+                  ) -> dict[str, torch.Tensor]:
         lr_img, hr = prepare_batch(hr_u8, scale)
-        sr = model.eval()(lr_img)
+        sr = _apply(model.eval(), lr_img, params)
         return {"psnr": psnr(sr.clamp(0.0, 1.0), hr.clamp(0.0, 1.0)),
                 "val_loss": loss_fn(sr, hr)}
 
@@ -94,10 +146,13 @@ def make_eval_step(model: nn.Module, loss_fn: Callable, scale: int):
 
 
 def make_forward(model: nn.Module):
-    """``forward(lr_img) -> sr``, the model in eval mode, no gradients."""
+    """``forward(lr_img, params=None) -> sr``, the model in eval mode, no
+    gradients, on ``params`` (by name) when given."""
 
     @torch.no_grad()
-    def forward(lr_img: torch.Tensor) -> torch.Tensor:
-        return model.eval()(lr_img)
+    def forward(lr_img: torch.Tensor,
+                params: dict[str, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        return _apply(model.eval(), lr_img, params)
 
     return forward

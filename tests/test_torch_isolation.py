@@ -15,24 +15,34 @@ import torch
 
 import food101_sr_tpu_torch
 from food101_sr_tpu_torch import _build
+from food101_sr_tpu_torch.data import SRDataLoader
 from food101_sr_tpu_torch.metrics import LPIPSAlex, MetricsCalculator
 from food101_sr_tpu_torch.models import build_model, get_model
 from food101_sr_tpu_torch.ops import (blur_kernel, mean_kernel,
                                       mean_nhwc_kernel, mean_plane_kernel)
 from food101_sr_tpu_torch.serving import SRServer
+from food101_sr_tpu_torch.training import train
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
              "food101_sr_tpu")
 
 
-# the modules of the training slice, named so the check cannot miss them
-NEW_MODULES = ("food101_sr_tpu_torch.data.pipeline",
+# the modules of the training slices, named so the check cannot miss them
+NEW_MODULES = ("food101_sr_tpu_torch.data.pil_bicubic",
+               "food101_sr_tpu_torch.data.pipeline",
+               "food101_sr_tpu_torch.data.sources",
                "food101_sr_tpu_torch.losses.tv",
                "food101_sr_tpu_torch.models.feature_nets",
+               "food101_sr_tpu_torch.train",
+               "food101_sr_tpu_torch.training.checkpoint",
                "food101_sr_tpu_torch.training.diagnostics",
+               "food101_sr_tpu_torch.training.loop",
+               "food101_sr_tpu_torch.training.preempt",
+               "food101_sr_tpu_torch.training.schedule",
                "food101_sr_tpu_torch.training.state",
-               "food101_sr_tpu_torch.training.steps")
+               "food101_sr_tpu_torch.training.steps",
+               "food101_sr_tpu_torch.utils.logging")
 
 
 def _all_modules():
@@ -68,6 +78,7 @@ def _imported_roots(path: Path) -> set:
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tools/port_serve_profile.py",
                                   "tools/port_wrapper_host.py",
+                                  "tools/port_loop_contention.py",
                                   "food101_sr_tpu_torch"])
 def test_sources_import_nothing_forbidden(path):
     files = ([ROOT / path] if path.endswith(".py")
@@ -90,7 +101,8 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
 
 
 @pytest.mark.parametrize("entry", [get_model, build_model, SRServer,
-                                   MetricsCalculator, LPIPSAlex])
+                                   MetricsCalculator, LPIPSAlex, train,
+                                   SRDataLoader])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -99,7 +111,9 @@ def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for make in (lambda: get_model("AttentionSR"), SRServer,
-                 MetricsCalculator):
+                 MetricsCalculator,
+                 lambda: train({"dataset": "synthetic",
+                                "architecture": "AttentionSR"})):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
 
