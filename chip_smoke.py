@@ -37,7 +37,21 @@ Phases, one short line each; any failure raises and the exit code is 1:
           times; the NCHW copy before the pyramid and the target half of
           K1's backward, timed; the non-finite guard; the eval step; a
           profile of 3 steps; peak memory
-9. loop   training.train() on the card, in a child process of its own
+9. gan    the relativistic GAN's D and G steps on the same generator,
+          batch and lr (G Adam with clip 1, D Adam at lr/10), the
+          spectral-norm Discriminator at nf=64 and VGG19 through conv5_4
+          (seeded: no weights file on the card host): one D step's and
+          one G step's raw gradients on 2 crops against the CPU's plain
+          path (TF32 off, each leaf over its max abs: the comment at
+          G_GRAD_TOL says why not over its term sums), and D's spectral
+          vectors and running stats after each; 2 warm-up and 10 timed
+          iterations, a D step on iterations 0 and
+          5, CUDA events around each step; a NaN D step and a NaN G step
+          leave both states bit-equal, each ticking its own skipped; a
+          profile of 3 iterations split by net (G, D, VGG19: convolutions
+          and the rest) and K2; K2 at the steps' shape, forward and
+          backward, against its plain version; peak memory
+10. loop  training.train() on the card, in a child process of its own
           (``chip_smoke.py --loop DIR``) that alone gets the determinism
           switches (CUBLAS_WORKSPACE_CONFIG, deterministic algorithms, no
           cuDNN autotuning): the registry AttentionSR x4 f32, synthetic
@@ -57,27 +71,36 @@ Phases, one short line each; any failure raises and the exit code is 1:
           the loop's numbers per epoch (images/s with the loader, the step
           alone, the consumer's wait on the loader, the producer's ms per
           batch) and the device busy share of a profile of 3 steps in the
-          preempted run (device time over the trace's span)
-10. done  the kernels' JSON line and the elapsed time
+          preempted run (device time over the trace's span). Then a GAN
+          run (one epoch of the same 5 steps, a D step every 2 batches):
+          K1 launches 4 per test batch (it validates on the MAE), K2
+          NHWC 32 per G step, D step, val and test batch; final metrics
+          finite; a run preempted after 3 updates and resumed ends with
+          a full-state checkpoint, D's state included, bit-equal to the
+          uninterrupted run's
+11. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
 K2 32 per device batch, all through the NHWC entry, and K1 4 for the one
 NLPD call), one train step (K1 4 forward and 4 backward, K2 NHWC 32, K2
-plane 0) and the uninterrupted train() run of the loop phase
-(``loop_launches``). The last line is the JSON device record; the line
-before it is the kernels' JSON.
+plane 0), one GAN D step and one G step (K2 NHWC 32 each, K1 0), and the
+uninterrupted train() runs of the loop phase, NLPD (``loop_launches``)
+and GAN (``gan_loop_launches``). The last line is the JSON device record;
+the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -112,6 +135,28 @@ LOOP_CFG = dict(dataset="synthetic", architecture="AttentionSR",
 LOOP_PREEMPT, LOOP_PROFILED = 7, 3
 LOOP_RTOL = 1e-6  # the epochs-0 run against the first run's test metrics
 LOOP_CUBLAS = ":4096:8"  # CUBLAS_WORKSPACE_CONFIG for deterministic cuBLAS
+# the GAN phase: the loop's GAN branch at the train phase's batch and lr,
+# the discriminator at full width, the D step every GAN_D_EVERY iterations;
+# gradients on GRAD_BATCH crops within G_GRAD_TOL and D_GRAD_TOL of each
+# leaf's max abs, not of its term sums as in the train phase: the term sums
+# count a layer's own products only, and here the gradients reach a layer
+# as differences of terms far larger than themselves, which they do not
+# count: G's through VGG19's 16 convs and the SE rescale's spatial sums,
+# D's through three train-mode BatchNorms, whose backward subtracts the
+# batch means of the gradient and of its product with x_hat; and the D
+# step's fake comes from two G forwards that differ in float32. Runs on
+# an H100 80GB HBM3 measured 1.3e-3 (G) and 5.6e-3 (D) of a leaf's max
+# abs, 2.7e-4 and 1.4e-4 of its term sum (PERF.md). The discriminator's buffers (u, v, running
+# stats) after each step within BUF_TOL of each buffer's max abs (measured
+# 6.7e-7)
+GAN_NF, GAN_D_EVERY = 64, 5
+GAN_WARMUP, GAN_TIMED, GAN_PROFILED = 2, 10, 3
+G_GRAD_TOL, D_GRAD_TOL, BUF_TOL = 1e-2, 2e-2, 1e-5
+# the loop phase's GAN run: one epoch of the loop's 5 steps, a D step every
+# 2 batches, preempted after 3 updates and resumed
+GAN_LOOP_CFG = {**LOOP_CFG, "loss_function": "gan", "epochs": 1,
+                "d_update_every": 2}
+GAN_LOOP_PREEMPT = 3
 
 # Peak rates (NVIDIA data sheets, dense): HBM bytes/s and float32 (non-tensor)
 # flop/s by card model; matched against the device name, first hit wins.
@@ -384,47 +429,106 @@ def _direct(server, img: np.ndarray) -> np.ndarray:
     return out.cpu().numpy()[: h * server.scale, : w * server.scale]
 
 
-def _term_sums(model, loss_fn, hr_u8) -> dict[str, float]:
-    """Per parameter of ``model``, the largest sum of absolute terms behind
-    one entry of its gradient on ``hr_u8`` (the weight-gradient products of
-    |input| and |output gradient| of its conv, linear or PReLU layer), by
-    forward and output-gradient hooks on the CPU. A float32 sum's rounding
-    error is bounded relative to that sum, not to the gradient's own size,
-    which cancellation can make hundreds of times smaller (a PReLU slope
-    sums g*x over every negative activation of its layer)."""
+@contextlib.contextmanager
+def _term_sums(model, sums: dict):
+    """Within the block, record each conv, linear, PReLU, spectral-norm or
+    BatchNorm layer of ``model``'s inputs and output gradients (every call,
+    by forward and output-gradient hooks, on the CPU); on exit fill
+    ``sums``, per parameter, with the largest sum of absolute terms behind
+    one entry of its gradient: the weight-gradient products of |input| and
+    |output gradient| (over every call of the layer), the shared PReLU
+    slope's g*x over the negative inputs, a BatchNorm scale's g*x_hat. A
+    spectral-norm kernel W enters its layer as W/sigma, so its terms are
+    those products over sigma plus their sum weighted by |W| over sigma
+    squared (sigma's gradient; the power iteration's own derivative is
+    left out). A float32 sum's rounding error is bounded relative to that
+    sum, not to the gradient's own size, which cancellation can make
+    hundreds of times smaller (a PReLU slope sums g*x over every negative
+    activation of its layer)."""
     from torch import nn
 
-    from food101_sr_tpu_torch.training import loss_and_grads
+    from food101_sr_tpu_torch.models import SNConv2d, SNLinear
 
     seen: dict = {}
 
     def keep(mod, inp, out, name):
-        seen[name] = [inp[0].detach()]
-        out.register_hook(lambda g: seen[name].append(g.detach()))
+        pair = [inp[0].detach()]
+        seen.setdefault(name, []).append(pair)
+        if out.requires_grad:
+            out.register_hook(lambda g: pair.append(g.detach()))
 
-    layers = {n: m for n, m in model.named_modules()
-              if isinstance(m, (nn.Conv2d, nn.Linear, nn.PReLU))}
+    kinds = (nn.Conv2d, nn.Linear, nn.PReLU, SNConv2d, SNLinear,
+             nn.BatchNorm2d)
+    layers = {n: m for n, m in model.named_modules() if isinstance(m, kinds)}
     hooks = [m.register_forward_hook(
         lambda mod, inp, out, n=n: keep(mod, inp, out, n))
         for n, m in layers.items()]
     try:
-        loss_and_grads(model, loss_fn, 4, hr_u8)
+        yield sums
     finally:
         for h in hooks:
             h.remove()
-    sums = {}
     for n, m in layers.items():
-        x, g = seen[n]
-        ax, ag = x.abs(), g.abs()
-        if isinstance(m, nn.Conv2d):
-            sums[f"{n}.weight"] = torch.nn.grad.conv2d_weight(
-                ax, m.weight.shape, ag, m.stride, m.padding).max().item()
-            sums[f"{n}.bias"] = ag.sum((0, 2, 3)).max().item()
-        elif isinstance(m, nn.Linear):
-            sums[f"{n}.weight"] = (ag.T @ ax).max().item()
+        pairs = [(x.abs(), g.abs(), x) for x, g in
+                 (p for p in seen.get(n, []) if len(p) == 2)]
+        if not pairs:
+            continue
+        if isinstance(m, (nn.Conv2d, SNConv2d)):
+            w = m.weight_orig if isinstance(m, SNConv2d) else m.weight
+            t = sum(torch.nn.grad.conv2d_weight(ax, w.shape, ag, m.stride,
+                                                m.padding)
+                    for ax, ag, _ in pairs)
+            bias = sum(ag.sum((0, 2, 3)) for _, ag, _ in pairs)
+        elif isinstance(m, (nn.Linear, SNLinear)):
+            w = m.weight_orig if isinstance(m, SNLinear) else m.weight
+            t = sum(ag.T @ ax for ax, ag, _ in pairs)
+            bias = sum(ag.sum(0) for _, ag, _ in pairs)
+        elif isinstance(m, nn.BatchNorm2d):
+            def x_hat(x):
+                mean = x.mean((0, 2, 3), keepdim=True)
+                var = x.var((0, 2, 3), unbiased=False, keepdim=True)
+                return ((x - mean) / torch.sqrt(var + m.eps)).abs()
+            sums[f"{n}.weight"] = sum((ag * x_hat(x)).sum((0, 2, 3))
+                                      for _, ag, x in pairs).max().item()
+            sums[f"{n}.bias"] = sum(ag.sum((0, 2, 3))
+                                    for _, ag, _ in pairs).max().item()
+            continue
         else:  # one shared slope: g * x over the negative inputs
-            sums[f"{n}.weight"] = (ag * ax * (x < 0)).sum().item()
-    return sums
+            sums[f"{n}.weight"] = sum((ag * ax * (x < 0)).sum().item()
+                                      for ax, ag, x in pairs)
+            continue
+        if isinstance(m, (SNConv2d, SNLinear)):
+            with torch.no_grad():
+                wm = w.flatten(1)
+                sigma = torch.dot(m.weight_v, wm.t() @ m.weight_u).abs()
+                t = t / sigma
+                t = t.max() + (t * w.abs()).sum() / sigma
+            sums[f"{n}.weight_orig"] = t.item()
+        else:
+            sums[f"{n}.weight"] = t.max().item()
+        if m.bias is not None:
+            sums[f"{n}.bias"] = bias.max().item()
+
+
+def _worst(names, on_card, on_cpu, sums) -> dict:
+    """Per leaf, the largest card-CPU difference over the leaf's largest
+    sum of absolute terms (asserted to be at least its max abs) and, for
+    the record, over its max abs: the worst of each and the ratios."""
+    out = {"term_sum": (0.0, ""), "max_abs": (0.0, ""), "ratio": {}}
+    for name, a, b in zip(names, on_card, on_cpu, strict=True):
+        diff, peak = (a.cpu() - b).abs().max().item(), b.abs().max().item()
+        if sums[name] < peak * (1 - 1e-5):
+            raise AssertionError(f"{name}: term sum {sums[name]} below the "
+                                 f"gradient's max abs {peak}")
+        out["ratio"][name] = sums[name] / (peak + 1e-30)
+        # a leaf that is exactly 0 (D's last bias: the relativistic loss's
+        # real and fake terms cancel) is scaled by its term sum
+        for key, scale in (("term_sum", sums[name]),
+                           ("max_abs", peak or sums[name])):
+            err = diff / (scale + 1e-30)
+            if err >= out[key][0]:
+                out[key] = (err, name)
+    return out
 
 
 def _grad_check(model, batch: int = GRAD_BATCH,
@@ -445,29 +549,24 @@ def _grad_check(model, batch: int = GRAD_BATCH,
         0, 256, (batch, crop, crop, 3), np.uint8))
     with full_fp32():
         _, on_card = loss_and_grads(model, nlpd_loss, 4, hr.cuda())
-    _, on_cpu = loss_and_grads(cpu, nlpd_loss, 4, hr)
-    sums = _term_sums(cpu, nlpd_loss, hr)
-    out = {"term_sum": (0.0, ""), "max_abs": (0.0, ""), "ratio": {}}
-    for (name, _), a, b in zip(cpu.named_parameters(), on_card, on_cpu):
-        diff, peak = (a.cpu() - b).abs().max().item(), b.abs().max().item()
-        if sums[name] < peak * (1 - 1e-5):
-            raise AssertionError(f"{name}: term sum {sums[name]} below the "
-                                 f"gradient's max abs {peak}")
-        out["ratio"][name] = sums[name] / (peak + 1e-30)
-        for key, scale in (("term_sum", sums[name]), ("max_abs", peak)):
-            err = diff / (scale + 1e-30)
-            if err >= out[key][0]:
-                out[key] = (err, name)
-    return out
+    with _term_sums(cpu, {}) as sums:
+        _, on_cpu = loss_and_grads(cpu, nlpd_loss, 4, hr)
+    return _worst([k for k, _ in cpu.named_parameters()], on_card, on_cpu,
+                  sums)
 
 
-def _state_bits(state) -> list[torch.Tensor]:
-    """Every tensor the guard must keep: params, optimizer moments and
-    step counts, the EMA, the step."""
-    return ([p.detach().clone() for p in state.params]
+def _bits(state) -> list[torch.Tensor]:
+    """Every tensor of a train state: the model's params and buffers, the
+    optimizer's moments and step counts, the EMA, step and skipped."""
+    return ([t.detach().clone() for t in state.model.state_dict().values()]
             + [v.clone() for s in state.optimizer.state.values()
                for v in s.values()]
-            + [e.clone() for e in state.ema] + [state.step.clone()])
+            + [e.clone() for e in (state.ema or [])]
+            + [state.step.clone(), state.skipped.clone()])
+
+
+def _bit_equal(a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 _KERNEL_GROUPS = (("K1 blur (f101_blur5)", ("blur5",)),
@@ -644,11 +743,10 @@ def phase_train(rates) -> tuple[dict, dict]:
     nan_step = make_train_step(model, lambda sr, hr: loss_fn(sr, hr) * np.nan,
                                4, first, last, ema_decay=0.999)
     ema_state, _ = ema_step(ema_state, hr_u8)
-    before = _state_bits(ema_state)
+    before = _bits(ema_state)
     ema_state, m = nan_step(ema_state, hr_u8)
-    after = _state_bits(ema_state)
-    same = len(before) == len(after) and all(
-        torch.equal(a, b) for a, b in zip(before, after))
+    after = _bits(ema_state)
+    same = _bit_equal(before[:-1], after[:-1])  # all but skipped
     if not (same and int(ema_state.skipped) == 1
             and float(m["nonfinite_steps"]) == 1.0
             and int(m["nonfinite_total"]) == 1):
@@ -658,7 +756,7 @@ def phase_train(rates) -> tuple[dict, dict]:
     psnr_eval = float(ev_out["psnr"])
     if not (np.isfinite(psnr_eval) and np.isfinite(float(ev_out["val_loss"]))):
         raise AssertionError(f"eval step {ev_out}")
-    print(f"train: guard on a NaN loss: {len(before)} tensors (params, Adam "
+    print(f"train: guard on a NaN loss: {len(before) - 1} tensors (params, Adam "
           f"moments and steps, EMA, step) bit-equal, skipped 0 -> "
           f"{int(ema_state.skipped)} | eval step psnr {psnr_eval:.4f} "
           f"val_loss {float(ev_out['val_loss']):.6f}", flush=True)
@@ -702,6 +800,366 @@ def phase_train(rates) -> tuple[dict, dict]:
                      f"({TRAIN_BATCH},96,{TRAIN_CROP // 4},{TRAIN_CROP // 4}) "
                      "float32 channels-last"})
     return k1, k2
+
+
+def _labelled(modules: dict):
+    """Forward hooks that run each module's forward inside a
+    ``torch.profiler.record_function`` of its label; returns the handles."""
+    from torch.profiler import record_function
+
+    handles = []
+    for label, mod in modules.items():
+        def pre(m, inp, label=label):
+            m._smoke_range = record_function(label)
+            m._smoke_range.__enter__()
+
+        def post(m, inp, out):
+            m._smoke_range.__exit__(None, None, None)
+
+        handles += [mod.register_forward_pre_hook(pre),
+                    mod.register_forward_hook(post)]
+    return handles
+
+
+def _device_split(prof, labels) -> dict[str, float]:
+    """Device microseconds of a profile by group: K2 (by kernel name), then
+    each label's convolutions and the rest of it, and the rest. A kernel
+    belongs to a label when the op that launched it (the profiler lists
+    each op's kernels) runs inside the label's forward, or is a backward
+    op whose forward did: backward ops find their forward through the
+    autograd sequence number and the forward thread. Kernels the profiler
+    ties to no op go to the rest. The labels' own spans on the device
+    timeline (the profiler mirrors each labelled range there) are not
+    kernels and are left out."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def label_of(e):
+        while e is not None:
+            if e.name in labels:
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    fwd = {(e.thread, e.sequence_nr): label_of(e) for e in cpu
+           if e.sequence_nr >= 0 and label_of(e)}
+
+    def group_of(op):
+        label, e = label_of(op), op
+        while label is None and e is not None:
+            if e.sequence_nr >= 0 and e.fwd_thread:
+                label = fwd.get((e.fwd_thread, e.sequence_nr))
+            e = e.cpu_parent
+        return label
+
+    conv_keys = dict(_KERNEL_GROUPS)["convolutions (cuDNN)"]
+    split: dict = {"rest": 0.0}
+    for op in (e for e in cpu if e.kernels):
+        label = group_of(op)
+        for k in op.kernels:
+            low = k.name.lower()
+            if k.name in labels:
+                continue
+            if "nhwc_mean" in low:
+                g = "K2 SE mean"
+            elif label:
+                conv = any(key in low for key in conv_keys)
+                g = f"{label} {'convs' if conv else 'other'}"
+            else:
+                g = "rest"
+            split[g] = split.get(g, 0.0) + k.duration
+    total = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA and e.name not in labels)
+    split["rest"] += max(total - sum(split.values()), 0.0)
+    return split
+
+
+def _gan_grad_check(g, d, percep) -> dict:
+    """One D step's and one G step's raw gradients and D's buffers after
+    each, on GRAD_BATCH seeded crops with seeded noise tensors: on the card
+    (K2, TF32 off) and on CPU copies (its plain version). Fused SGD at lr 0
+    leaves each step's raw gradients in .grad and the parameters as they
+    were. Returns the worst leaves (``_worst``) per step and the largest
+    buffer difference over the buffer's max abs."""
+    from food101_sr_tpu_torch.losses import PerceptualLoss
+    from food101_sr_tpu_torch.models import (Discriminator, build_model,
+                                             get_model)
+    from food101_sr_tpu_torch.ops import full_fp32
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               Transform, make_gan_d_step,
+                                               make_gan_g_step)
+
+    sgd0 = Transform(lambda params, lr: torch.optim.SGD(params, lr=lr,
+                                                        fused=True), 0.0)
+    g_cpu = get_model("AttentionSR", device="cpu")
+    g_cpu.load_state_dict(g.state_dict())
+    d_cpu = build_model(lambda: Discriminator(nf=GAN_NF), device="cpu")
+    d_cpu.load_state_dict(d.state_dict())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        p_cpu = PerceptualLoss(device="cpu")
+    for (k, a), b in zip(percep.net.state_dict().items(),
+                         p_cpu.net.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"VGG19 {k}: the card's and the CPU's "
+                                 "seeded weights differ")
+    rng = np.random.default_rng(4)
+    hr = torch.from_numpy(rng.integers(0, 256, (GRAD_BATCH, TRAIN_CROP,
+                                                TRAIN_CROP, 3), np.uint8))
+    noise = [torch.from_numpy(rng.standard_normal(
+        (GRAD_BATCH, 3, TRAIN_CROP, TRAIN_CROP), np.float32))
+        for _ in range(2)]
+    first, last = FIRST_LAST["AttentionSR"]
+    runs = {}
+    card = next(g.parameters()).device
+    for dev, gm, dm, pl in ((card, g, d, percep),
+                            ("cpu", g_cpu, d_cpu, p_cpu)):
+        gs, ds = SRTrainState(gm, sgd0), SRTrainState(dm, sgd0)
+        d_step = make_gan_d_step(gm, dm, 4)
+        g_step = make_gan_g_step(gm, dm, pl, 4, first, last)
+        sums_d, sums_g = {}, {}
+        with full_fp32():
+            with (_term_sums(dm, sums_d) if dev == "cpu"
+                  else contextlib.nullcontext()):
+                d_step(gs, ds, hr.to(dev), [n.to(dev) for n in noise])
+            d_grads = [p.grad.clone() for p in ds.params]
+            d_bufs = [b.clone() for b in dm.buffers()]
+            with (_term_sums(gm, sums_g) if dev == "cpu"
+                  else contextlib.nullcontext()):
+                g_step(gs, ds, hr.to(dev))
+            g_grads = [p.grad.clone() for p in gs.params]
+            g_bufs = [b.clone() for b in dm.buffers()]
+        runs[dev] = (d_grads, d_bufs, g_grads, g_bufs, sums_d, sums_g,
+                     ds.names, gs.names)
+    d_card, db_card, g_card, gb_card = runs[card][:4]
+    d_cpu_g, db_cpu, g_cpu_g, gb_cpu, sums_d, sums_g, d_names, g_names = \
+        runs["cpu"]
+    buf = 0.0
+    for a, b in zip(db_card + gb_card, db_cpu + gb_cpu):
+        if a.is_floating_point():
+            buf = max(buf, (a.cpu() - b).abs().max().item()
+                      / (b.abs().max().item() + 1e-30))
+        elif not torch.equal(a.cpu(), b):
+            raise AssertionError("a BatchNorm step count differs")
+    return {"D": _worst(d_names, d_card, d_cpu_g, sums_d),
+            "G": _worst(g_names, g_card, g_cpu_g, sums_g), "buffers": buf}
+
+
+def phase_gan(rates) -> dict:
+    """The GAN branch on the card (module docstring, phase 9). Returns the
+    K2 record at the GAN steps' shape, launches per step included."""
+    from food101_sr_tpu_torch.losses import get_loss_function
+    from food101_sr_tpu_torch.models import (Discriminator, build_model,
+                                             get_model)
+    from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
+                                          mean_plane_kernel)
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               make_adam, make_gan_d_step,
+                                               make_gan_g_step)
+
+    t0 = time.perf_counter()
+    g = get_model("AttentionSR", device="cuda",
+                  generator=torch.Generator().manual_seed(0)).train()
+    d = build_model(lambda: Discriminator(nf=GAN_NF), device="cuda",
+                    generator=torch.Generator().manual_seed(2))
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        percep = get_loss_function("perceptual", device="cuda")
+    n_blocks = g.num_residuals
+    worst = _gan_grad_check(g, d, percep)
+    (g_err, g_leaf), (d_err, d_leaf) = (worst["G"]["max_abs"],
+                                        worst["D"]["max_abs"])
+    print(f"gan: G AttentionSR x4 {n_blocks}x{g.input_conv.out_channels} "
+          f"f32 channels-last, D nf={GAN_NF} (spectral norm, "
+          f"{sum(p.numel() for p in d.parameters())} params), VGG19 "
+          f"through conv5_4 (pretrained {percep.pretrained}) | raw gradients "
+          f"on {GRAD_BATCH}x{TRAIN_CROP}^2, card (K2, TF32 off) vs CPU "
+          f"plain: G step worst {g_leaf} {g_err:.3g} of its max abs (tol "
+          f"{G_GRAD_TOL}; over the term sum {worst['G']['term_sum'][0]:.3g}"
+          f" at {worst['G']['term_sum'][1]}), D step worst {d_leaf} "
+          f"{d_err:.3g} of its max abs (tol {D_GRAD_TOL}; over the term sum "
+          f"{worst['D']['term_sum'][0]:.3g} at {worst['D']['term_sum'][1]})"
+          f" | D buffers after both steps "
+          f"{worst['buffers']:.3g} of their max abs (tol {BUF_TOL}) | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (g_err <= G_GRAD_TOL and d_err <= D_GRAD_TOL
+            and worst["buffers"] <= BUF_TOL):
+        raise AssertionError(f"GAN: card vs CPU off (G {g_err}, D {d_err}, "
+                             f"buffers {worst['buffers']})")
+
+    first, last = FIRST_LAST["AttentionSR"]
+    gs = SRTrainState.create(g, make_adam(TRAIN_LR, clip_norm=1.0))
+    ds = SRTrainState.create(d, make_adam(TRAIN_LR * 0.1))
+    d_step = make_gan_d_step(g, d, 4)
+    g_step = make_gan_g_step(g, d, percep, 4, first, last)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hr_u8 = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3),
+                          dtype=torch.uint8, device="cuda", generator=gen)
+    noise = torch.Generator(device="cuda").manual_seed(3)
+
+    def iteration(i, timing=None, count=None):
+        nonlocal gs, ds
+        for kind in ("D", "G"):
+            if kind == "D" and i % GAN_D_EVERY:
+                continue
+            if count is not None:
+                blur_kernel.launches = 0
+                mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            if kind == "D":
+                ds, m = d_step(gs, ds, hr_u8, noise)
+            else:
+                gs, ds, m = g_step(gs, ds, hr_u8)
+            ev[1].record()
+            if count is not None:
+                count[kind] = (blur_kernel.launches,
+                               mean_nhwc_kernel.launches,
+                               mean_plane_kernel.launches)
+            if timing is not None:
+                timing[kind].append(ev)
+                timing[kind + " loss"].append(
+                    m["train_loss_D" if kind == "D" else "train_loss"])
+
+    for i in range(GAN_WARMUP):
+        iteration(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing = {"D": [], "G": [], "D loss": [], "G loss": []}
+    launches: dict = {}
+    t_wall = time.perf_counter()
+    for i in range(GAN_TIMED):
+        # ---- main path: iteration 0 (a D step and a G step), counts from
+        # zero before each step and read after it ----
+        iteration(i, timing, launches if i == 0 else None)
+    torch.cuda.synchronize()
+    t_wall = (time.perf_counter() - t_wall) / GAN_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    d_ms = [a.elapsed_time(b) for a, b in timing["D"]]
+    g_ms = [a.elapsed_time(b) for a, b in timing["G"]]
+    iter_ms = (sum(d_ms) + sum(g_ms)) / GAN_TIMED
+    losses = {k: [float(v) for v in timing[k + " loss"]] for k in "DG"}
+    want = {"D": (0, n_blocks, 0), "G": (0, n_blocks, 0)}
+    if launches != want:
+        raise AssertionError(f"GAN launches (K1, K2 nhwc, K2 plane) per "
+                             f"step {launches}, expected {want}")
+    if not all(np.isfinite(losses["D"] + losses["G"])):
+        raise AssertionError(f"GAN losses {losses}")
+    if (int(gs.step), int(ds.step), int(gs.skipped), int(ds.skipped)) != (
+            GAN_WARMUP + GAN_TIMED, 1 + len(d_ms), 0, 0):
+        raise AssertionError(f"GAN steps: G {int(gs.step)}, D "
+                             f"{int(ds.step)}, skipped {int(gs.skipped)}, "
+                             f"{int(ds.skipped)}")
+    print(f"gan: batch {TRAIN_BATCH}x{TRAIN_CROP}^2 uint8, Adam "
+          f"{TRAIN_LR:g} (G, clip 1) and {TRAIN_LR * 0.1:g} (D), D every "
+          f"{GAN_D_EVERY} | {GAN_WARMUP} warm-up + {GAN_TIMED} timed "
+          f"iterations: G step {np.mean(g_ms):.3f} ms (CUDA events; min "
+          f"{min(g_ms):.3f}, max {max(g_ms):.3f}), D step "
+          f"{np.mean(d_ms):.3f} ms ({len(d_ms)} steps), "
+          f"{iter_ms:.3f} ms per iteration (host clock {t_wall:.3f}), "
+          f"{TRAIN_BATCH / iter_ms * 1e3:.1f} images/s | peak memory "
+          f"{peak / 2**30:.3f} GiB | launches (K1, K2 nhwc, K2 plane): D "
+          f"step {launches['D']}, G step {launches['G']}", flush=True)
+    print("gan: G step ms " + " ".join(f"{t:.3f}" for t in g_ms)
+          + " | D step ms " + " ".join(f"{t:.3f}" for t in d_ms), flush=True)
+    print("gan: G loss " + " ".join(f"{v:.6f}" for v in losses["G"])
+          + " | D loss " + " ".join(f"{v:.6f}" for v in losses["D"]),
+          flush=True)
+
+    # the guard: non-finite D and G steps keep both states bit-equal
+    g0, d0 = _bits(gs), _bits(ds)
+    nan = torch.full((TRAIN_BATCH, 3, TRAIN_CROP, TRAIN_CROP), float("nan"),
+                     device="cuda")
+    ds, md = d_step(gs, ds, hr_u8, (nan, nan))
+    d1 = _bits(ds)
+    nan_g = make_gan_g_step(g, d, lambda a, b: percep(a, b) * np.nan, 4,
+                            first, last)
+    gs, ds, mg = nan_g(gs, ds, hr_u8)
+    g1, d2 = _bits(gs), _bits(ds)
+    kept = (_bit_equal(d1[:-1], d0[:-1]) and _bit_equal(g1[:-1], g0[:-1])
+            and _bit_equal(d2, d1))
+    if not (kept and int(ds.skipped) == 1 and int(gs.skipped) == 1
+            and float(md["nonfinite_steps_D"]) == 1.0
+            and float(mg["nonfinite_steps"]) == 1.0):
+        raise AssertionError(f"GAN guard: states kept {kept}, skipped G "
+                             f"{int(gs.skipped)} D {int(ds.skipped)}")
+    print(f"gan: guard: a NaN D step and a NaN G step leave G's {len(g0)} "
+          f"and D's {len(d0)} tensors (params, buffers, Adam moments and "
+          f"steps, step) bit-equal; skipped G 0 -> 1 (G step only), D 0 -> "
+          f"1 (D step only)", flush=True)
+
+    handles = _labelled({"G": g, "D": d, "VGG19": percep.net})
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(GAN_PROFILED):
+                iteration(i)
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    split = _device_split(prof, ("G", "D", "VGG19"))
+    total = sum(split.values())
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name not in ("G", "D", "VGG19"))
+    if total:
+        print(f"gan: profile of {GAN_PROFILED} iterations (1 D step): "
+              f"{n_kernels / GAN_PROFILED:.0f} kernels and "
+              f"{total / GAN_PROFILED / 1e3:.3f} ms of device time per "
+              f"iteration, busy share {total / GAN_PROFILED / 1e3 / iter_ms:.3f}"
+              f" of the {iter_ms:.3f} ms iteration | "
+              + ", ".join(f"{k} {v / GAN_PROFILED / 1e3:.3f} ms ({v / total:.3f})"
+                          for k, v in sorted(split.items(),
+                                             key=lambda kv: -kv[1])),
+              flush=True)
+    else:
+        print("gan: the profiler recorded no device time", flush=True)
+
+    # K2 at the GAN steps' shape, forward and backward, against its plain
+    # version (the G step's forward, the D step's no-grad forward)
+    from food101_sr_tpu_torch.ops.spatial_mean import (spatial_mean,
+                                                       spatial_mean_plain)
+
+    kgen = torch.Generator(device="cuda").manual_seed(8)
+    shape = (TRAIN_BATCH, 96, TRAIN_CROP // 4, TRAIN_CROP // 4)
+    rel, abs_err, x = _k2_nhwc_err(shape, kgen)
+    gy = torch.rand(shape[:2], device="cuda", generator=kgen)
+    xa, xb = (x.clone().requires_grad_(True) for _ in range(2))
+    (spatial_mean(xa) * gy).sum().backward()
+    (spatial_mean_plain(xb) * gy).sum().backward()
+    bwd = (xa.grad - xb.grad).abs().max().item()
+    if not (rel <= K2_RTOL and bwd <= K1_TOL):
+        raise AssertionError(f"K2 nhwc at the GAN shape: rel {rel}, "
+                             f"backward {bwd}")
+    t2 = _k2_nhwc_timings(x, rates)
+    print(f"gan K2 nhwc: {'x'.join(map(str, shape))} f32 channels-last, rel "
+          f"err {rel:.2g} forward, backward max abs {bwd:.2g}: kernel "
+          f"{t2['ms']:.4f} ms, device {t2['device_ms']:.4f}, plain "
+          f"{t2['plain_ms']:.4f}, x.mean {t2['library_ms']:.4f}, bound "
+          f"{t2['bound_ms']:.4f} ({t2['bound_by']}) | gan phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t2.update({
+        "name": "K2 spatial mean (SE squeeze), nhwc input, GAN steps",
+        "route": "cuda", "source": "food101_sr_tpu_torch/csrc/kernels.cu",
+        "replaces": "food101_sr_tpu/ops/spatial_mean.py:45",
+        "wrapper": "food101_sr_tpu_torch/ops/spatial_mean.py:"
+                   "mean_nhwc_kernel",
+        "launches": launches["D"][1] + launches["G"][1],
+        "max_abs_err": max(abs_err, bwd),
+        "at": f"one GAN iteration with a D step: {n_blocks} launches in "
+              f"the D step (the eval-mode fake) and {n_blocks} in the G "
+              f"step; 1 launch: ({TRAIN_BATCH},96,{TRAIN_CROP // 4},"
+              f"{TRAIN_CROP // 4}) float32 channels-last",
+        "g_step_ms": float(np.mean(g_ms)), "d_step_ms": float(np.mean(d_ms)),
+        "images_per_s": TRAIN_BATCH / iter_ms * 1e3, "peak_bytes": peak,
+        "device_split_ms": {k: v / GAN_PROFILED / 1e3
+                            for k, v in split.items()}})
+    return t2
 
 
 def _deterministic() -> None:
@@ -808,7 +1266,7 @@ def _loop_kernels(nb: dict, rates) -> dict:
 
 
 def phase_loop(tmp: str) -> dict:
-    """training.train() on the card (module docstring, phase 9), in the
+    """training.train() on the card (module docstring, phase 10), in the
     process that _deterministic() set up; run logs and weights go under
     ``tmp``. Returns the uninterrupted run's launch counts by entry point
     and the kernels' errors at the loop's shapes."""
@@ -878,6 +1336,7 @@ def phase_loop(tmp: str) -> dict:
     if not (rel <= LOOP_RTOL and evald["val_psnr"] == 0.0):
         raise AssertionError(f"loop: epochs-0 run {evald} vs {final}")
     n_tensors = sum(isinstance(t, torch.Tensor) for t in flat_full.values())
+    gan = _loop_gan(w, runs, nb, n_blocks)
     print(f"loop: train() AttentionSR x4 {n_blocks}x"
           f"{best.input_conv.out_channels} f32, synthetic "
           f"{LOOP_CFG['synthetic_size']} images, crop {LOOP_CFG['crop_size']}, "
@@ -904,14 +1363,81 @@ def phase_loop(tmp: str) -> dict:
         "profiled_steps": LOOP_PROFILED,
         "profile_device_ms_per_step": device_ms / LOOP_PROFILED,
         "profile_wall_ms_per_step": trace_ms / LOOP_PROFILED,
-        "busy_share": device_ms / trace_ms}
+        "busy_share": device_ms / trace_ms,
+        "gan_epoch": gan["epoch"]}
     print("loop numbers: " + json.dumps(numbers), flush=True)
     return {"launches": {"K1": total[0], "K2 nhwc": total[1],
-                         "K2 nchw": total[2]}, **kernels}
+                         "K2 nchw": total[2]},
+            "gan_launches": gan["launches"], **kernels}
+
+
+def _loop_gan(w: str, runs: str, nb: dict, n_blocks: int) -> dict:
+    """The loop phase's GAN run (GAN_LOOP_CFG): train() uninterrupted, its
+    launches counted from zero; then preempted after GAN_LOOP_PREEMPT
+    updates and resumed, whose full-state checkpoint (G, D and the host
+    state) must equal the uninterrupted run's bit for bit."""
+    from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
+                                          mean_plane_kernel)
+    from food101_sr_tpu_torch.training import load_checkpoint, train
+
+    t0 = time.perf_counter()
+    cfg = {**GAN_LOOP_CFG, "weights_dir": w}
+    # ---- main path: one GAN train() run, counts from zero ----
+    blur_kernel.launches = 0
+    mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
+    final = train({**cfg, "save_name": "gan", "run_name": "gan"})
+    total = (blur_kernel.launches, mean_nhwc_kernel.launches,
+             mean_plane_kernel.launches)
+    # ---- end of main path ----
+    part = train({**cfg, "save_name": "gpart", "run_name": "gpart",
+                  "preempt_after_updates": GAN_LOOP_PREEMPT})
+    train({**cfg, "save_name": "gpart2", "run_name": "gpart2",
+           "resume": os.path.join(w, "gpart_last.pth")})
+    full = _flat(load_checkpoint(os.path.join(w, "gan_last.pth")))
+    resumed = _flat(load_checkpoint(os.path.join(w, "gpart2_last.pth")))
+    with open(os.path.join(runs, "gan", "log.jsonl")) as f:
+        (epoch,) = [r for r in map(json.loads, f) if "epoch" in r]
+
+    steps = nb["steps"]
+    d_steps = len(range(0, steps, cfg["d_update_every"]))
+    # K1 only in the test NLPD (a GAN run validates on the MAE); K2 in
+    # every G forward: G steps, D steps (the fake), val and test batches
+    want = (4 * nb["test"],
+            n_blocks * (steps + d_steps + nb["val"] + nb["test"]), 0)
+    if total != want:
+        raise AssertionError(f"loop gan: launches (K1, K2 nhwc, K2 plane) "
+                             f"{total}, expected {want}")
+    if not (set(final) == {"psnr", "ssim", "lpips", "nlpd", "val_psnr"}
+            and all(np.isfinite(list(final.values())))):
+        raise AssertionError(f"loop gan: final metrics {final}")
+    diff = sorted(set(full) ^ set(resumed)) or [
+        k for k in full if not _same(full[k], resumed[k])]
+    if not part.get("preempted") or diff or not any(
+            k.startswith("/d/") for k in full):
+        raise AssertionError(f"loop gan: preempted {part}, resumed state "
+                             f"differs at {diff[:5]}")
+    n_tensors = sum(isinstance(t, torch.Tensor) for t in full.values())
+    print(f"loop gan: train() loss gan, D nf=64 every "
+          f"{cfg['d_update_every']} batches ({d_steps} D steps), VGG19, "
+          f"{cfg['epochs']} epoch of {steps} steps | final psnr "
+          f"{final['psnr']:.4f} ssim {final['ssim']:.5f} lpips "
+          f"{final['lpips']:.6f} nlpd {final['nlpd']:.6f} | launches (K1, "
+          f"K2 nhwc, K2 plane) {total} | {epoch['time/images_per_s']:.1f} "
+          f"images/s with the loader, step {epoch['time/step_ms']:.3f} ms "
+          f"(D and G) | preempted after {GAN_LOOP_PREEMPT} updates and "
+          f"resumed: {n_tensors} tensors (g, d) and the host state bit-equal"
+          f" | {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": {"K1": total[0], "K2 nhwc": total[1],
+                         "K2 nchw": total[2]},
+            "epoch": {"images_per_s": epoch["time/images_per_s"],
+                      "train_s": epoch["time/train_s"],
+                      "step_ms": epoch["time/step_ms"],
+                      "loader_wait_ms": epoch["time/loader_wait_ms"],
+                      "loader_produce_ms": epoch["time/loader_produce_ms"]}}
 
 
 def run_loop_phase() -> dict:
-    """Phase 9 in a child process of its own, which alone gets the
+    """Phase 10 in a child process of its own, which alone gets the
     determinism environment; its results come back through a file in a
     temporary directory that also holds its runs and weights."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
@@ -1069,20 +1595,23 @@ def main() -> int:
     print(f"close: server stopped | {time.perf_counter() - t_start:.1f} s",
           flush=True)
     k1_train, k2_train = phase_train(rates)
+    k2_gan = phase_gan(rates)
     loop = run_loop_phase()
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
         d["loop_launches"] = loop["launches"][key]
+        d["gan_loop_launches"] = loop["gan_launches"][key]
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc")):
         d["loop_max_abs_err"] = loop["max_abs_err"][key]
         d["at_loop_val"] = loop["at_val"][key]
     keys = ("name", "route", "source", "replaces", "launches",
-            "loop_launches", "max_abs_err", "loop_max_abs_err",
-            "ms", "device_ms", "host_us", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64", "at_loop_val",
-            "half_device_ms", "nchw_copy_ms", "nchw_copy_device_ms",
-            "step_ms", "images_per_s", "peak_bytes")
+            "loop_launches", "gan_loop_launches", "max_abs_err",
+            "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
+            "at_loop_val", "half_device_ms", "nchw_copy_ms",
+            "nchw_copy_device_ms", "step_ms", "g_step_ms", "d_step_ms",
+            "images_per_s", "peak_bytes", "device_split_ms")
     kernels = [{k: d[k] for k in keys if k in d}
-               for d in (k1, k2_nhwc, k2_nchw, k1_train, k2_train)]
+               for d in (k1, k2_nhwc, k2_nchw, k1_train, k2_train, k2_gan)]
     print(f"done: elapsed_s {time.perf_counter() - t_start:.1f} | {smi}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

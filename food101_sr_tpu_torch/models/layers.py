@@ -9,9 +9,11 @@ and is drawn from an explicit ``torch.Generator`` (:func:`init_weights`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.spatial_mean import spatial_mean
@@ -92,6 +94,106 @@ def upsample_block(in_channels: int, out_channels: int = 64,
             nn.PixelShuffle(scale), prelu()]
 
 
+# ---------------------------------------------------------------------------
+# Spectral normalization, by hand (counterpart of _SpectralKernel, SNConv and
+# SNDense): torch.nn.utils' spectral norms detach u and v, normalize with
+# max(||x||, eps) and run 15 power iterations when registered, so they
+# compute another function and another gradient.
+# ---------------------------------------------------------------------------
+
+def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x) + eps)
+
+
+class _SpectralNorm(nn.Module):
+    """Owns ``weight_orig`` (out, ...), the power-iteration buffers
+    ``weight_u`` (out) and ``weight_v`` (the product of the other dims, in
+    torch's (in, kh, kw) order) and an optional ``bias``; ``weight()``
+    returns ``weight_orig / sigma``.
+
+    In train mode one power iteration runs first, ``v = normalize(W^T u)``
+    then ``u = normalize(W v)`` on the (out, -1) matrix ``W``, and both are
+    stored; sigma is ``u^T W v`` on the updated vectors, and the gradient
+    flows through the iteration, as in the JAX package (no stop-gradient).
+    In eval mode sigma comes from the stored vectors.
+
+    Inside :func:`chained_power_iterations` a train-mode forward starts
+    from the previous forward's ``u`` with its graph, not from the stored
+    copy: the JAX package threads the updated vectors from one apply into
+    the next inside one differentiated loss (the D step's real then fake
+    forward), so the second forward's sigma depends on the weight through
+    both iterations."""
+
+    eps = 1e-12
+
+    def __init__(self, weight_shape: tuple, bias: bool):
+        super().__init__()
+        out, n = weight_shape[0], math.prod(weight_shape[1:])
+        self.weight_orig = nn.Parameter(torch.empty(weight_shape))
+        self.bias = nn.Parameter(torch.empty(out)) if bias else None
+        self.register_buffer("weight_u", torch.empty(out))
+        self.register_buffer("weight_v", torch.empty(n))
+        self.chain = False
+        self._u_live: torch.Tensor | None = None
+
+    def weight(self) -> torch.Tensor:
+        w = self.weight_orig.flatten(1)
+        if self.training:
+            u = self._u_live if self._u_live is not None else \
+                self.weight_u.clone()
+            v = _normalize(w.t() @ u, self.eps)
+            u = _normalize(w @ v, self.eps)
+            with torch.no_grad():
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+            if self.chain:
+                self._u_live = u
+        else:
+            u, v = self.weight_u, self.weight_v
+        sigma = torch.dot(v, w.t() @ u)
+        return self.weight_orig / sigma
+
+
+class SNConv2d(_SpectralNorm):
+    """Spectral-norm conv, square kernel, ``(k-1)//2`` padding."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True):
+        super().__init__((out_channels, in_channels, kernel_size,
+                          kernel_size), bias)
+        self.stride, self.padding = stride, (kernel_size - 1) // 2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight(), self.bias, self.stride,
+                        self.padding)
+
+
+class SNLinear(_SpectralNorm):
+    """Spectral-norm dense layer."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__((out_features, in_features), bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight(), self.bias)
+
+
+@contextlib.contextmanager
+def chained_power_iterations(model: nn.Module):
+    """Within the block, each spectral-norm layer of ``model`` chains its
+    train-mode power iterations through autograd (see ``_SpectralNorm``);
+    the graph is dropped on exit."""
+    layers = [m for m in model.modules() if isinstance(m, _SpectralNorm)]
+    for m in layers:
+        m.chain, m._u_live = True, None
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.chain, m._u_live = False, None
+
+
 def _normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=gen) * std
 
@@ -108,10 +210,23 @@ def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with the JAX package's distributions: kaiming-normal
-    convs (ICNR for pixel-shuffle feeders), zero biases, lecun-normal
-    linears, PReLU slope 0.25. Draws on the CPU in module order."""
+    convs (ICNR for pixel-shuffle feeders) and spectral-norm kernels, zero
+    biases, lecun-normal linears, PReLU slope 0.25, power-iteration
+    vectors ``N(0, 1/len)``, BatchNorm at ones, zeros and unit running
+    variance. Draws on the CPU in module order."""
     for m in model.modules():
-        if isinstance(m, Conv):
+        if isinstance(m, _SpectralNorm):
+            w = m.weight_orig
+            w.copy_(_normal(w.shape, math.sqrt(2.0 / w[0].numel()),
+                            generator))
+            for vec in (m.weight_u, m.weight_v):
+                vec.copy_(_normal(vec.shape, 1.0 / math.sqrt(vec.numel()),
+                                  generator))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+        elif isinstance(m, Conv):
             cout = m.weight.shape[0]
             fan_in = m.weight[0].numel()
             r2 = m.icnr_scale ** 2

@@ -6,11 +6,13 @@ CUDA device.
     python -m food101_sr_tpu_torch.train --dataset synthetic \\
         --architecture AttentionSR --epochs 2 --synthetic_size 96
 
-A flag whose setting the port does not run yet is accepted by the parser
-and refused by ``train`` with a NotImplementedError that names the
-ROADMAP item bringing it: ``--loss_function gan|perceptual``,
-``--quantize``, ``--dtype bfloat16``, ``--cache_*``, the multi-process
-flags and ``--dataset food101``.
+``--loss_function gan`` trains the relativistic GAN (a spectral-norm
+discriminator, the VGG19 perceptual loss, a D step every 5 batches:
+``d_update_every`` in ``training.DEFAULTS``); ``perceptual`` is the
+supervised step on the VGG19 loss. A flag whose setting the port does not
+run yet is accepted by the parser and refused by ``train`` with a
+NotImplementedError that names the ROADMAP item bringing it: ``--quantize``, ``--dtype bfloat16``,
+``--cache_*``, the multi-process flags and ``--dataset food101``.
 """
 from __future__ import annotations
 
@@ -31,8 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.0004)
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--loss_function", type=str, default="nlpd",
-                   help="mae, mse or nlpd (gan and perceptual: ROADMAP "
-                        "item 6)")
+                   help="mae, mse, nlpd, perceptual (VGG19) or gan")
     p.add_argument("--subset", type=float, default=1.0)
     p.add_argument("--pretrained_weights", type=str, default="",
                    help="a state_dict file (e.g. {save_name}_best.pth) to "

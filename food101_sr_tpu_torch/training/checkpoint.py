@@ -9,8 +9,10 @@ Two kinds, as in the JAX package:
   ``convert.params_from_jax`` makes of a JAX params tree);
 * the full-state checkpoint (``save_train_checkpoint``) for ``--resume``:
   ``{"g": SRTrainState.state_dict(), "host": {"epoch", "batch",
-  "scheduler", "stopper"}}``. ``batch`` is 0 for the per-epoch rolling
-  save and the number of microbatches consumed for a mid-epoch
+  "scheduler", "stopper"}}``, and for a GAN run ``"d"``, the
+  discriminator's state (its ``params`` hold its buffers: spectral-norm
+  vectors and BatchNorm running stats). ``batch`` is 0 for the per-epoch
+  rolling save and the number of microbatches consumed for a mid-epoch
   preemption save, where ``--resume`` re-enters the epoch.
 
 Files are written to a temporary name and renamed, so a crash mid-write
@@ -44,25 +46,35 @@ def load_checkpoint(path: str, device: str | torch.device = "cpu") -> Any:
 
 
 def save_train_checkpoint(state, epoch: int, scheduler, stopper, path: str,
-                          batch: int = 0) -> str:
-    """Full-state checkpoint for preemption resume: the train state and the
-    host's control state (epoch, microbatches of it consumed, plateau
-    scheduler, early stopper)."""
-    return save_checkpoint({
+                          d_state=None, batch: int = 0) -> str:
+    """Full-state checkpoint for preemption resume: the train state (and
+    the discriminator's, when given) and the host's control state (epoch,
+    microbatches of it consumed, plateau scheduler, early stopper)."""
+    tree = {
         "g": state.state_dict(),
         "host": {"epoch": int(epoch), "batch": int(batch),
                  "scheduler": scheduler.state_dict(),
                  "stopper": stopper.state_dict()},
-    }, path)
+    }
+    if d_state is not None:
+        tree["d"] = d_state.state_dict()
+    return save_checkpoint(tree, path)
 
 
-def load_train_checkpoint(path: str, state, scheduler, stopper):
+def load_train_checkpoint(path: str, state, scheduler, stopper,
+                          d_state=None):
     """Restore a ``save_train_checkpoint`` file into a freshly built state
-    (same model and optimizer configuration), onto the state's device.
-    Returns (state, start_epoch, start_batch): resume at epoch
-    ``start_epoch``, skipping its first ``start_batch`` microbatches."""
+    (same model and optimizer configuration), and its ``d`` into
+    ``d_state`` when given, in place, onto the states' device. Returns
+    (state, start_epoch, start_batch): resume at epoch ``start_epoch``,
+    skipping its first ``start_batch`` microbatches."""
     tree = load_checkpoint(path, state.device)
     state.load_state_dict(_reconcile_optional(tree["g"], state))
+    if d_state is not None:
+        if "d" not in tree:
+            raise ValueError(f"{path} holds no discriminator state (not a "
+                             "GAN run's checkpoint)")
+        d_state.load_state_dict(_reconcile_optional(tree["d"], d_state))
     scheduler.load_state_dict(tree["host"]["scheduler"])
     stopper.load_state_dict(tree["host"]["stopper"])
     batch = int(tree["host"].get("batch", 0))

@@ -1,12 +1,14 @@
-"""The training runtime (counterpart of ``food101_sr_tpu/training/loop.py``,
-its supervised branch): epoch loop, validation, plateau LR, early stop,
-best and rolling checkpoints, resume, preemption, final test evaluation.
+"""The training runtime (counterpart of ``food101_sr_tpu/training/loop.py``):
+epoch loop, validation, plateau LR, early stop, best and rolling
+checkpoints, resume, preemption, final test evaluation; supervised or,
+with ``loss_function="gan"``, the relativistic GAN (a D step every
+``d_update_every`` batches, a G step every batch).
 
 The host owns control flow (epochs, logging cadence, plateau decisions,
-early stop); the step's math, its diagnostics and its non-finite guard
-stay on the device, and metric tensors become Python floats only on log
-boundaries. ``train(config, device="cuda")`` runs on the card and raises
-without one; the tests pass ``device="cpu"``.
+early stop, the D cadence); the steps' math, their diagnostics and their
+non-finite guards stay on the device, and metric tensors become Python
+floats only on log boundaries. ``train(config, device="cuda")`` runs on
+the card and raises without one; the tests pass ``device="cpu"``.
 
 Each epoch's record also carries the input and step times: the train
 part's wall time and images/s (loader included), the step alone (CUDA
@@ -33,7 +35,7 @@ from ..data import SRDataLoader, SyntheticSource, prepare_batch
 from ..data import subset_indices, train_val_split
 from ..losses import get_loss_function
 from ..metrics import MetricsCalculator
-from ..models import get_model
+from ..models import Discriminator, build_model, get_model
 from ..utils import RunLogger
 from .checkpoint import (load_checkpoint, load_train_checkpoint,
                          save_checkpoint, save_train_checkpoint,
@@ -43,7 +45,8 @@ from .preempt import PreemptionGuard
 from .schedule import EarlyStopping, ReduceLROnPlateau
 from .state import SRTrainState, make_adam
 from .steps import (make_accum_apply, make_eval_step, make_forward,
-                    make_grad_step, make_train_step)
+                    make_gan_d_step, make_gan_g_step, make_grad_step,
+                    make_train_step)
 
 # The JAX package's keys and defaults (``food101_sr_tpu/training/loop.py``).
 # Values the port does not run yet raise in ``check_ported``.
@@ -98,8 +101,6 @@ DEFAULTS: dict[str, Any] = {
 # key -> (the values the port does not run, or None for "any value but
 # the default"; the ROADMAP item that brings it)
 _NOT_PORTED = {
-    "loss_function": (("gan", "perceptual"),
-                      "ROADMAP item 6 (the GAN branch and VGG19)"),
     "dataset": (("food101",), "ROADMAP item 9a (Food101Source and the "
                               "port's JPEG decoder)"),
     "dtype": (("bfloat16",), "ROADMAP item 9c (bf16 training)"),
@@ -128,6 +129,15 @@ def _build_sources(cfg):
     n = int(cfg["synthetic_size"])
     return (SyntheticSource(n=n, seed=cfg["seed"]),
             SyntheticSource(n=max(n // 4, 8), seed=cfg["seed"] + 100))
+
+
+def _noise_generator(seed: int, epoch: int, batch_idx: int,
+                    device: torch.device) -> torch.Generator:
+    """The D step's instance-noise generator, keyed by (seed, epoch,
+    batch), so that a resumed run replays the same noise."""
+    key = np.random.SeedSequence([seed, epoch, batch_idx]).generate_state(
+        2, np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(key >> np.uint64(1)))
 
 
 def _mean(values):
@@ -189,6 +199,7 @@ def train(config: Mapping[str, Any] | None = None,
 def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
     scale = int(cfg["scale_factor"])
     crop = int(cfg["crop_size"])
+    is_gan = cfg["loss_function"] == "gan"
     print(f"Running on {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'})"
           f" | Arch: {cfg['architecture']}")
@@ -205,6 +216,12 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
 
     batch = int(cfg["batch_size"])
     accum = max(int(cfg.get("grad_accum", 1) or 1), 1)
+    if accum > 1 and is_gan:
+        raise ValueError(
+            "--grad_accum applies to supervised losses only (the GAN "
+            "branch alternates two optimizers on the reference's 5-step "
+            "cadence; accumulate there by lowering d_update_every "
+            "instead)")
     if batch % accum:
         raise ValueError(
             f"batch_size={batch} must be divisible by grad_accum={accum}")
@@ -247,12 +264,31 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
             model.state_dict(), loaded.get("params", loaded)))
 
     ema_decay = float(cfg["ema"]) or None
-    state = SRTrainState.create(model, make_adam(float(cfg["lr"])),
-                                ema=ema_decay is not None)
+    lr = float(cfg["lr"])
+    state = SRTrainState.create(
+        model, make_adam(lr, clip_norm=1.0 if is_gan else None),
+        ema=ema_decay is not None)
     first, last = FIRST_LAST[cfg["architecture"]]
-    criterion = get_loss_function(cfg["loss_function"])
+    # a GAN run validates (and plateaus) on the MAE
+    criterion = get_loss_function("mae" if is_gan else cfg["loss_function"],
+                                  weights_dir=cfg["weights_dir"],
+                                  device=device)
     train_step = make_train_step(model, criterion, scale, first, last,
                                  ema_decay=ema_decay)
+    d_state = None
+    if is_gan:
+        d_model = build_model(
+            Discriminator, device=device,
+            generator=torch.Generator().manual_seed(cfg["seed"] + 2))
+        # the plateau schedule sets G's learning rate only
+        d_state = SRTrainState.create(d_model, make_adam(lr * 0.1))
+        percep = get_loss_function("perceptual",
+                                   weights_dir=cfg["weights_dir"],
+                                   device=device)
+        d_step = make_gan_d_step(model, d_model, scale)
+        g_gan_step = make_gan_g_step(model, d_model, percep, scale, first,
+                                     last, ema_decay=ema_decay)
+        d_every = int(cfg["d_update_every"])
     if accum > 1:
         grad_step = make_grad_step(model, criterion, scale)
         accum_apply = make_accum_apply(accum, first, last,
@@ -272,7 +308,7 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
     start_epoch, start_batch = 0, 0
     if cfg["resume"]:
         state, start_epoch, start_batch = load_train_checkpoint(
-            cfg["resume"], state, scheduler, stopper)
+            cfg["resume"], state, scheduler, stopper, d_state)
         if start_batch % accum:
             raise ValueError(
                 f"checkpoint resumes mid-epoch at microbatch {start_batch}, "
@@ -308,6 +344,7 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                       f"<= trace start {trace_start}; the trace includes "
                       f"the first steps")
                 trace_start = skip
+            d_metrics = {}
             clock = _StepClock(device)
             t_epoch = time.perf_counter()
             for batch_idx, hr_u8 in enumerate(bar, start=skip):
@@ -317,7 +354,16 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                     _stop_profiler(profiler, cfg["profile_dir"], device)
                     profiler = None
                 clock.start()
-                if accum == 1:
+                if is_gan:
+                    if batch_idx % d_every == 0:
+                        d_state, d_metrics = d_step(
+                            state, d_state, hr_u8,
+                            _noise_generator(cfg["seed"] + 3, epoch,
+                                            batch_idx, device))
+                    state, d_state, metrics = g_gan_step(state, d_state,
+                                                         hr_u8)
+                    logical_idx = batch_idx
+                elif accum == 1:
                     state, metrics = train_step(state, hr_u8)
                     logical_idx = batch_idx
                 else:
@@ -341,8 +387,11 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
 
                 if logical_idx % int(cfg["log_every"]) == 0:
                     log_data = {k: float(v) for k, v in metrics.items()}
+                    log_data.update({k: float(v)
+                                     for k, v in d_metrics.items()})
                     logger.log(log_data)
-                    if log_data.get("nonfinite_steps", 0):
+                    if (log_data.get("nonfinite_steps", 0)
+                            or log_data.get("nonfinite_steps_D", 0)):
                         print(f"WARNING: non-finite loss/grads at epoch "
                               f"{epoch} update {logical_idx}; update skipped "
                               f"(state kept)")
@@ -360,7 +409,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                 _stop_profiler(profiler, cfg["profile_dir"], device)
             if preempted:
                 save_train_checkpoint(state, epoch, scheduler, stopper,
-                                      last_path, batch=batch_idx + 1)
+                                      last_path, d_state=d_state,
+                                      batch=batch_idx + 1)
                 print(f"Preemption: full state saved mid-epoch {epoch} after "
                       f"batch {batch_idx} -> {last_path}; continue with "
                       f"--resume {last_path}")
@@ -404,7 +454,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                                 ckpt_path)
                 logger.save(ckpt_path)
             # rolling full-state checkpoint for preemption resume (--resume)
-            save_train_checkpoint(state, epoch, scheduler, stopper, last_path)
+            save_train_checkpoint(state, epoch, scheduler, stopper, last_path,
+                                  d_state=d_state)
             if stopper.should_stop:
                 print("Early stopping triggered")
                 break

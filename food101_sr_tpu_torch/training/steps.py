@@ -8,19 +8,24 @@ tensors, so nothing in it waits for the device: the diagnostics, the
 non-finite guard and the optimizer update all run there. The eval step
 and the forward take an optional parameter dict (the EMA, a loaded
 checkpoint), applied with ``torch.func.functional_call`` so the live
-parameters stay as they are. The GAN steps come with the GAN slice of the
-port (ROADMAP item 6).
+parameters stay as they are. The GAN steps (``make_gan_d_step``,
+``make_gan_g_step``) keep the discriminator's buffers (spectral-norm
+vectors, BatchNorm running stats), which its forwards change in place,
+under the same guard.
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
 from ..data.pipeline import prepare_batch
+from ..losses import mae_loss, tv_loss
 from ..metrics.metrics import psnr
+from ..models.layers import chained_power_iterations
 from .diagnostics import grad_norm, layer_grad_ratio, update_ratio
 from .state import SRTrainState
 
@@ -156,3 +161,134 @@ def make_forward(model: nn.Module):
         return _apply(model.eval(), lr_img, params)
 
     return forward
+
+
+# ---------------------------------------------------------------------------
+# GAN branch (the reference's relativistic GAN): D and G steps. The loop
+# runs the D step every ``d_update_every`` batches and the G step on every
+# batch.
+# ---------------------------------------------------------------------------
+
+def add_noise(img: torch.Tensor, sigma: float = 0.15,
+              noise: torch.Tensor | torch.Generator | None = None
+              ) -> torch.Tensor:
+    """Instance noise ``img + sigma * N(0, 1)``: the draws are ``noise``
+    when it is a tensor of ``img``'s shape, else drawn from the generator
+    ``noise`` on ``img``'s device."""
+    if sigma <= 0:
+        return img
+    if not isinstance(noise, torch.Tensor):
+        noise = torch.randn(img.shape, generator=noise, device=img.device,
+                            dtype=img.dtype)
+    return img + sigma * noise
+
+
+def _bce(logits: torch.Tensor, label: float) -> torch.Tensor:
+    return F.binary_cross_entropy_with_logits(
+        logits, torch.full_like(logits, label))
+
+
+def _snapshot(model: nn.Module) -> tuple[list, list]:
+    """The module's buffers and copies of them, for ``_keep_if``."""
+    bufs = list(model.buffers())
+    return bufs, [b.clone() for b in bufs]
+
+
+@torch.no_grad()
+def _keep_if(ok: torch.Tensor, snapshot: tuple[list, list]) -> None:
+    """Where ``ok`` is False, put the snapshot's values back."""
+    for b, old in zip(*snapshot):
+        b.copy_(torch.where(ok, b, old))
+
+
+def make_gan_d_step(g_model: nn.Module, d_model: nn.Module, scale: int,
+                    noise_sigma: float = 0.2):
+    """Discriminator step ``d_step(g_state, d_state, hr_u8, noise) ->
+    (d_state, metrics)``: relativistic average BCE-with-logits with labels
+    0.9 / 0.1, instance noise of ``noise_sigma`` on both inputs. ``noise``
+    is a ``torch.Generator`` on the batch's device, or the two draws
+    ``(real, fake)`` as (N, 3, H, W) tensors.
+
+    As in the JAX package, the fake comes from an eval-mode G forward
+    without a graph, so the D step leaves G as it is; real and fake go
+    through D in two train-mode forwards, real first, each one power
+    iteration and one BatchNorm update, the second chained to the first
+    (``chained_power_iterations``). A non-finite loss or gradient leaves
+    D's parameters, moments and buffers as they were and ticks its
+    ``skipped``."""
+
+    def d_step(g_state: SRTrainState, d_state: SRTrainState,
+               hr_u8: torch.Tensor, noise):
+        if g_state.model is not g_model or d_state.model is not d_model:
+            raise ValueError("d_step: a state holds another model")
+        lr_img, hr = prepare_batch(hr_u8, scale)
+        with torch.no_grad():
+            fake = g_model.eval()(lr_img)
+        n_real, n_fake = noise if isinstance(noise, (tuple, list)) else \
+            (noise, noise)
+        noisy_real = add_noise(hr, noise_sigma, n_real)
+        noisy_fake = add_noise(fake, noise_sigma, n_fake)
+        snap = _snapshot(d_model)
+        d_model.train()
+        with chained_power_iterations(d_model):
+            real_logits = d_model(noisy_real)
+            fake_logits = d_model(noisy_fake)
+            loss = (_bce(real_logits - fake_logits.mean(), 0.9)
+                    + _bce(fake_logits - real_logits.mean(), 0.1)) / 2.0
+            grads = list(torch.autograd.grad(loss, d_state.params,
+                                             materialize_grads=True))
+        loss = loss.detach()
+        with torch.no_grad():
+            ok = _finite_guard(loss, grad_norm(grads))
+            d_state.apply_updates(grads, ok)
+            _keep_if(ok, snap)
+            metrics = {
+                "train_loss_D": loss,
+                "gan_dynamics/prob_real": torch.sigmoid(real_logits).mean(),
+                "gan_dynamics/prob_fake": torch.sigmoid(fake_logits).mean(),
+                "nonfinite_steps_D": 1.0 - ok.float(),
+                "nonfinite_total_D": d_state.skipped.clone(),
+            }
+        return d_state, metrics
+
+    return d_step
+
+
+def make_gan_g_step(g_model: nn.Module, d_model: nn.Module,
+                    perceptual_fn: Callable, scale: int, first: str,
+                    last: str, w_pixel: float = 1e-2, w_percep: float = 1.0,
+                    w_adv: float = 1e-5, w_tv: float = 2e-5,
+                    ema_decay: float | None = None):
+    """Generator step ``g_step(g_state, d_state, hr_u8) -> (g_state,
+    d_state, metrics)``: ``w_pixel * MAE + w_percep * perceptual + w_adv *
+    BCE(fake - mean(real), 1) + w_tv * TV`` with the reference's weights,
+    and the supervised step's diagnostics and guarded update (and EMA).
+    D runs in train mode on the fake (sr) first, then on the real (hr,
+    without a graph: its logits are constants of the loss), so its
+    spectral vectors and running stats advance as the JAX package's do;
+    a skipped step puts them back too, and leaves D's ``skipped`` as it
+    was."""
+
+    def g_step(g_state: SRTrainState, d_state: SRTrainState,
+               hr_u8: torch.Tensor):
+        if g_state.model is not g_model or d_state.model is not d_model:
+            raise ValueError("g_step: a state holds another model")
+        lr_img, hr = prepare_batch(hr_u8, scale)
+        snap = _snapshot(d_model)
+        g_model.train()
+        d_model.train()
+        sr = g_model(lr_img)
+        fake_logits = d_model(sr)
+        with torch.no_grad():
+            real_logits = d_model(hr)
+        loss = (w_pixel * mae_loss(sr, hr) + w_percep * perceptual_fn(sr, hr)
+                + w_adv * _bce(fake_logits - real_logits.mean(), 1.0)
+                + w_tv * tv_loss(sr))
+        grads = list(torch.autograd.grad(loss, g_state.params,
+                                         materialize_grads=True))
+        g_state, metrics = _finalize_update(g_state, grads, loss.detach(),
+                                            first, last, ema_decay)
+        _keep_if(metrics["nonfinite_steps"] == 0, snap)
+        return g_state, d_state, metrics
+
+    return g_step

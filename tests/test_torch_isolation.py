@@ -16,6 +16,7 @@ import torch
 import food101_sr_tpu_torch
 from food101_sr_tpu_torch import _build
 from food101_sr_tpu_torch.data import SRDataLoader
+from food101_sr_tpu_torch.losses import PerceptualLoss, get_loss_function
 from food101_sr_tpu_torch.metrics import LPIPSAlex, MetricsCalculator
 from food101_sr_tpu_torch.models import build_model, get_model
 from food101_sr_tpu_torch.ops import (blur_kernel, mean_kernel,
@@ -28,12 +29,18 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
              "food101_sr_tpu")
 
 
-# the modules of the training slices, named so the check cannot miss them
-NEW_MODULES = ("food101_sr_tpu_torch.data.pil_bicubic",
+# the modules of the training and GAN slices, named so the check cannot
+# miss them
+NEW_MODULES = ("food101_sr_tpu_torch.convert",
+               "food101_sr_tpu_torch.data.pil_bicubic",
                "food101_sr_tpu_torch.data.pipeline",
                "food101_sr_tpu_torch.data.sources",
+               "food101_sr_tpu_torch.losses",
+               "food101_sr_tpu_torch.losses.perceptual",
                "food101_sr_tpu_torch.losses.tv",
+               "food101_sr_tpu_torch.models.discriminator",
                "food101_sr_tpu_torch.models.feature_nets",
+               "food101_sr_tpu_torch.models.layers",
                "food101_sr_tpu_torch.train",
                "food101_sr_tpu_torch.training.checkpoint",
                "food101_sr_tpu_torch.training.diagnostics",
@@ -102,7 +109,8 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
 
 @pytest.mark.parametrize("entry", [get_model, build_model, SRServer,
                                    MetricsCalculator, LPIPSAlex, train,
-                                   SRDataLoader])
+                                   SRDataLoader, PerceptualLoss,
+                                   get_loss_function])
 def test_entry_points_default_to_cuda(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
@@ -113,7 +121,11 @@ def test_cuda_entry_points_raise_without_a_card():
     for make in (lambda: get_model("AttentionSR"), SRServer,
                  MetricsCalculator,
                  lambda: train({"dataset": "synthetic",
-                                "architecture": "AttentionSR"})):
+                                "architecture": "AttentionSR"}),
+                 lambda: train({"dataset": "synthetic",
+                                "architecture": "AttentionSR",
+                                "loss_function": "gan"}),
+                 lambda: get_loss_function("perceptual")):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
 

@@ -485,7 +485,6 @@ def test_cli_dests_and_defaults_equal_the_root_cli(monkeypatch, argv):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--loss_function", "gan"], ["--loss_function", "perceptual"],
     ["--quantize", "qat"], ["--dtype", "bfloat16"], ["--cache_device"],
     ["--cache_canvas", "256"], ["--cache_budget_gb", "2"],
     ["--cache_host", "store"], ["--cache_host_budget_gb", "8"],

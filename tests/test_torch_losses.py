@@ -11,8 +11,9 @@ from food101_sr_tpu.losses import get_loss_function as jax_get_loss_function
 from food101_sr_tpu.losses import mae_loss as jax_mae
 from food101_sr_tpu.losses import mse_loss as jax_mse
 from food101_sr_tpu.losses import tv_loss as jax_tv
-from food101_sr_tpu_torch.losses import (get_loss_function, mae_loss,
-                                         mse_loss, nlpd_loss, tv_loss)
+from food101_sr_tpu_torch.losses import (PerceptualLoss, get_loss_function,
+                                         mae_loss, mse_loss, nlpd_loss,
+                                         tv_loss)
 
 
 def _pair(shape=(2, 20, 18, 3), seed=0):
@@ -58,9 +59,13 @@ def test_get_loss_function_matches_jax(name):
     assert got == pytest.approx(want, rel=1e-5)
 
 
-def test_get_loss_function_names():
+def test_get_loss_function_names(tmp_path):
     assert get_loss_function("nlpd") is nlpd_loss
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        get_loss_function("perceptual")
+    with pytest.warns(UserWarning, match="vgg19_features.npz"):
+        percep = get_loss_function("Perceptual", weights_dir=str(tmp_path),
+                                   device="cpu")
+    assert isinstance(percep, PerceptualLoss) and not percep.pretrained
+    x = torch.rand(1, 3, 16, 16)
+    assert float(percep(x, x)) == 0.0
     with pytest.raises(ValueError, match="Unknown"):
         get_loss_function("l3")
