@@ -51,7 +51,22 @@ Phases, one short line each; any failure raises and the exit code is 1:
           profile of 3 iterations split by net (G, D, VGG19: convolutions
           and the rest) and K2; K2 at the steps' shape, forward and
           backward, against its plain version; peak memory
-10. loop  training.train() on the card, in a child process of its own
+10. generators  SRCNN (hidden 64), ResNetSR (16 blocks x 64, BatchNorm)
+          and RRDB (23 RRDBs x 64, growth 32) at registry size, seeded,
+          channels-last, one after the other: each takes the train phase's
+          step from seeded weights (f32, TF32 convs, NLPD, Adam 4e-4, batch
+          16 of 200 px uint8 crops made on the device): raw gradients on
+          2 crops against the CPU's plain path (GEN_ARCHS' comment says
+          how each leaf is scaled), 2 warm-up and 5 timed steps under CUDA
+          events, the first timed one launching K1 8 times and K2 0 times,
+          a profile of 2 steps for the busy share, peak memory, and a NaN
+          loss leaving the parameters, Adam's state and the BatchNorm
+          buffers bit-equal with skipped 1; then SRServer("auto") on the
+          trained weights serves 16 64x64 requests from 8 threads in bf16
+          (each within 1 level of a direct forward) and one image larger
+          than tile + 2 * halo, tiled (within 1 level of the whole-image
+          forward in float32, TF32 off)
+11. loop  training.train() on the card, in a child process of its own
           (``chip_smoke.py --loop DIR``) that alone gets the determinism
           switches (CUBLAS_WORKSPACE_CONFIG, deterministic algorithms, no
           cuDNN autotuning): the registry AttentionSR x4 f32, synthetic
@@ -77,16 +92,19 @@ Phases, one short line each; any failure raises and the exit code is 1:
           NHWC 32 per G step, D step, val and test batch; final metrics
           finite; a run preempted after 3 updates and resumed ends with
           a full-state checkpoint, D's state included, bit-equal to the
-          uninterrupted run's
-11. done  the kernels' JSON line and the elapsed time
+          uninterrupted run's. Then the same GAN run around the registry
+          RRDB (K1 4 per test batch, K2 none), preempted and resumed alike
+12. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
 K2 32 per device batch, all through the NHWC entry, and K1 4 for the one
 NLPD call), one train step (K1 4 forward and 4 backward, K2 NHWC 32, K2
-plane 0), one GAN D step and one G step (K2 NHWC 32 each, K1 0), and the
-uninterrupted train() runs of the loop phase, NLPD (``loop_launches``)
-and GAN (``gan_loop_launches``). The last line is the JSON device record;
+plane 0), one GAN D step and one G step (K2 NHWC 32 each, K1 0), one
+train step of each of the other generators (K1 8, K2 0:
+``generator_launches``), and the uninterrupted train() runs of the loop
+phase, NLPD (``loop_launches``), GAN (``gan_loop_launches``) and RRDB GAN
+(``rrdb_gan_loop_launches``). The last line is the JSON device record;
 the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -157,6 +175,20 @@ G_GRAD_TOL, D_GRAD_TOL, BUF_TOL = 1e-2, 2e-2, 1e-5
 GAN_LOOP_CFG = {**LOOP_CFG, "loss_function": "gan", "epochs": 1,
                 "d_update_every": 2}
 GAN_LOOP_PREEMPT = 3
+# the generators phase: the other three registry nets, each served (bf16,
+# GEN_REQUESTS 64x64 requests and one tiled image) and trained as the
+# train phase trains AttentionSR (GEN_WARMUP + GEN_TIMED steps, a profile
+# of GEN_PROFILED); gradients on GRAD_BATCH crops held per leaf within
+# GRAD_TOL of its term sum or G_GRAD_TOL of its max abs, whichever is
+# looser for the leaf: a conv bias ahead of a train-mode BatchNorm has an
+# exact-zero gradient, rounding noise on both sides, which only the term
+# sum scales; a deep net's early leaves get gradients that passed through
+# many layers, which only the max abs scales (the GAN phase's finding)
+GEN_ARCHS = ("SRCNN", "RESNET", "RRDB")
+GEN_REQUESTS = 16
+GEN_WARMUP, GEN_TIMED, GEN_PROFILED = 2, 5, 2
+# the loop phase's RRDB GAN run: GAN_LOOP_CFG around the registry RRDB
+RRDB_GAN_LOOP_CFG = {**GAN_LOOP_CFG, "architecture": "RRDB"}
 
 # Peak rates (NVIDIA data sheets, dense): HBM bytes/s and float32 (non-tensor)
 # flop/s by card model; matched against the device name, first hit wins.
@@ -513,8 +545,11 @@ def _term_sums(model, sums: dict):
 def _worst(names, on_card, on_cpu, sums) -> dict:
     """Per leaf, the largest card-CPU difference over the leaf's largest
     sum of absolute terms (asserted to be at least its max abs) and, for
-    the record, over its max abs: the worst of each and the ratios."""
-    out = {"term_sum": (0.0, ""), "max_abs": (0.0, ""), "ratio": {}}
+    the record, over its max abs: the worst of each, the worst leaf by the
+    lesser of the two over their phases' tolerances (``either``), and the
+    ratios."""
+    out = {"term_sum": (0.0, ""), "max_abs": (0.0, ""), "either": (0.0, ""),
+           "ratio": {}}
     for name, a, b in zip(names, on_card, on_cpu, strict=True):
         diff, peak = (a.cpu() - b).abs().max().item(), b.abs().max().item()
         if sums[name] < peak * (1 - 1e-5):
@@ -528,13 +563,20 @@ def _worst(names, on_card, on_cpu, sums) -> dict:
             err = diff / (scale + 1e-30)
             if err >= out[key][0]:
                 out[key] = (err, name)
+        # the generators phase: within the train phase's tolerance of the
+        # term sum or the GAN phase's of the max abs (1 = at the limit)
+        either = min(diff / (sums[name] + 1e-30) / GRAD_TOL,
+                     diff / ((peak or sums[name]) + 1e-30) / G_GRAD_TOL)
+        if either >= out["either"][0]:
+            out["either"] = (either, name)
     return out
 
 
-def _grad_check(model, batch: int = GRAD_BATCH,
-                crop: int = TRAIN_CROP) -> dict:
-    """One step's raw gradients of ``model`` on ``batch`` seeded crops: on
-    the card (K1, K2) and on a CPU copy (their plain versions), TF32 off.
+def _grad_check(model, batch: int = GRAD_BATCH, crop: int = TRAIN_CROP,
+                arch: str = "AttentionSR") -> dict:
+    """One step's raw gradients of ``model`` (registry ``arch``) on
+    ``batch`` seeded crops: on the card (K1, K2) and on a CPU copy (their
+    plain versions), TF32 off.
     Per leaf, the largest difference over the leaf's scale: its largest
     sum of absolute terms (``_term_sums``; asserted) and, for the record,
     its max abs."""
@@ -543,7 +585,7 @@ def _grad_check(model, batch: int = GRAD_BATCH,
     from food101_sr_tpu_torch.ops import full_fp32
     from food101_sr_tpu_torch.training import loss_and_grads
 
-    cpu = get_model("AttentionSR", device="cpu")
+    cpu = get_model(arch, device="cpu")
     cpu.load_state_dict(model.state_dict())
     hr = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (batch, crop, crop, 3), np.uint8))
@@ -580,11 +622,16 @@ _KERNEL_GROUPS = (("K1 blur (f101_blur5)", ("blur5",)),
                   ("elementwise", ("elementwise", "vectorized", "where")))
 
 
-def _profile(step, state, hr_u8, steps: int, step_ms: float) -> None:
+def _profile(step, state, hr_u8, steps: int, step_ms: float,
+             verbose: bool = True, label: str = "profile"
+             ) -> tuple[float, float]:
     """Device time of ``steps`` train steps by kernel group and the top
     kernels, from torch.profiler; the busy share is the device time per
     step over ``step_ms``, the step time measured without the profiler
-    (whose own host cost stretches the profiled steps)."""
+    (whose own host cost stretches the profiled steps). Returns kernels
+    and device ms per step (0, 0 when the profiler saw no device time);
+    prints the groups and top kernels when ``verbose``, on lines that
+    start with ``label``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -595,9 +642,11 @@ def _profile(step, state, hr_u8, steps: int, step_ms: float) -> None:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        print("profile: the profiler recorded no device time", flush=True)
-        return
+        print(f"{label}: the profiler recorded no device time", flush=True)
+        return 0.0, 0.0
     total = sum(e.time_range.elapsed_us() for e in kernels)
+    if not verbose:
+        return len(kernels) / steps, total / steps / 1e3
     groups: dict = {}
     by_name: dict = {}
     for e in kernels:
@@ -608,7 +657,7 @@ def _profile(step, state, hr_u8, steps: int, step_ms: float) -> None:
         groups[group] = groups.get(group, 0.0) + us
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + us, n + 1)
-    print(f"profile: {steps} steps, {len(kernels) / steps:.0f} kernels and "
+    print(f"{label}: {steps} steps, {len(kernels) / steps:.0f} kernels and "
           f"{total / steps / 1e3:.3f} ms of device time per step, busy share "
           f"{total / steps / 1e3 / step_ms:.3f} of the {step_ms:.3f} ms step",
           flush=True)
@@ -618,6 +667,7 @@ def _profile(step, state, hr_u8, steps: int, step_ms: float) -> None:
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  top: {us / steps / 1e3:.3f} ms/step, {n // steps}/step "
               f"{name[:90]}", flush=True)
+    return len(kernels) / steps, total / steps / 1e3
 
 
 def _train_kernels(rates) -> tuple[dict, dict]:
@@ -1162,6 +1212,221 @@ def phase_gan(rates) -> dict:
     return t2
 
 
+def _serve_generator(arch: str, state_dict: dict, rng) -> dict:
+    """The generators phase's serving part: ``state_dict`` (the registry
+    ``arch`` after the phase's train steps) through ``SRServer("auto")``
+    in bf16, channels-last: GEN_REQUESTS 64x64 requests from 8 threads,
+    each within LEVEL_TOL of a direct forward of its input alone, then one
+    image larger than tile + 2 * halo, tiled; the tiled result held within
+    LEVEL_TOL of the whole-image forward in float32, TF32 off. Served
+    after training because the seeded ResNetSR's BatchNorms have no
+    running stats yet: its outputs reach ~1e4, where float32 rounding
+    alone moves a uint8 level (25 levels on the card before the
+    reordering), whatever the tiling."""
+    from food101_sr_tpu_torch.ops import full_fp32
+    from food101_sr_tpu_torch.serving import SRServer
+
+    server = SRServer("auto", state_dict=state_dict, device="cuda",
+                      dtype=torch.bfloat16)
+    try:
+        if server.architecture != arch:
+            raise AssertionError(f"SRServer('auto') took {arch}'s weights "
+                                 f"for {server.architecture}")
+        win = server.tile + 2 * server.halo
+        side = server.tile * (-(-win // server.tile) + 1)  # > the window
+        for s in (server.tile, min(win, side)):  # cuDNN picks algorithms
+            server.forward_u8(torch.zeros((8, s, s, 3), dtype=torch.uint8,
+                                          device="cuda"))
+        torch.cuda.synchronize()
+        small = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                 for _ in range(GEN_REQUESTS)]
+        large = rng.integers(0, 256, (side, side, 3), np.uint8)
+        b0 = server.batcher.n_batches
+        with cf.ThreadPoolExecutor(max_workers=8) as pool:
+            t0 = time.perf_counter()
+            out = list(pool.map(server.upscale, small))
+            t_small = time.perf_counter() - t0
+        n_batches = server.batcher.n_batches - b0
+        i1 = server.batcher.n_items
+        tiled_bf16 = server.upscale(large)
+        n_windows = server.batcher.n_items - i1
+        lv_small = max(_levels(o, _direct(server, i))
+                       for i, o in zip(small, out))
+        halo = server.halo
+    finally:
+        server.close()
+    exact = SRServer("auto", state_dict=state_dict, device="cuda",
+                     dtype=torch.float32)
+    try:
+        with full_fp32():
+            whole32 = _direct(exact, large)
+            lv_tiled = _levels(exact.upscale(large), whole32)
+    finally:
+        exact.close()
+    if not (all(o.shape == (256, 256, 3) and o.dtype == np.uint8
+                for o in out) and tiled_bf16.shape == (4 * side, 4 * side, 3)):
+        raise AssertionError(f"{arch} served shapes")
+    if max(lv_small, lv_tiled) > LEVEL_TOL:
+        raise AssertionError(f"{arch} serving: batched vs direct {lv_small}, "
+                             f"tiled vs whole (f32) {lv_tiled} levels")
+    if n_windows < 2:
+        raise AssertionError(f"{arch}: the {side}^2 image was not tiled")
+    return {"images_per_s": len(small) / t_small, "batches": n_batches,
+            "halo": halo, "window": win, "tiled_side": side,
+            "windows": n_windows,
+            "levels_batched": lv_small, "levels_tiled_f32": lv_tiled,
+            "levels_tiled_bf16_vs_f32": _levels(tiled_bf16, whole32)}
+
+
+def _train_generator(arch: str) -> dict:
+    """The generators phase's training part for registry ``arch`` (f32,
+    channels-last, TF32 convs, NLPD, Adam 4e-4, batch TRAIN_BATCH of
+    TRAIN_CROP px uint8 crops made on the device): raw gradients on
+    GRAD_BATCH crops against the CPU; GEN_WARMUP + GEN_TIMED steps under
+    CUDA events, the first timed one counting the kernels' launches; a
+    profile of GEN_PROFILED steps for the busy share; the guard on a NaN
+    loss."""
+    from food101_sr_tpu_torch.losses import get_loss_function
+    from food101_sr_tpu_torch.models import get_model, param_count
+    from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
+                                          mean_plane_kernel)
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               make_adam, make_train_step)
+
+    t0 = time.perf_counter()
+    model = get_model(arch, device="cuda",
+                      generator=torch.Generator().manual_seed(0)).train()
+    worst = _grad_check(model, arch=arch)
+    t_grad = time.perf_counter() - t0
+    if not worst["either"][0] <= 1.0:
+        raise AssertionError(f"{arch} gradients, card vs CPU plain: "
+                             f"{worst['either'][1]} at {worst['either'][0]} "
+                             f"of the limit")
+    loss_fn = get_loss_function("nlpd")
+    first, last = FIRST_LAST[arch]
+    state = SRTrainState.create(model, make_adam(TRAIN_LR))
+    step = make_train_step(model, loss_fn, 4, first, last)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hr_u8 = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3),
+                          dtype=torch.uint8, device="cuda", generator=gen)
+    losses = []
+    for _ in range(GEN_WARMUP):
+        state, m = step(state, hr_u8)
+        losses.append(m["train_loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(GEN_TIMED + 1)]
+    ev[0].record()
+    for i in range(GEN_TIMED):
+        if i == 0:  # ---- main path: one train step, counts from zero ----
+            blur_kernel.launches = 0
+            mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
+        state, m = step(state, hr_u8)
+        if i == 0:
+            launches = (blur_kernel.launches, mean_nhwc_kernel.launches,
+                        mean_plane_kernel.launches)
+            # ---- end of main path ----
+        losses.append(m["train_loss"])
+        ev[i + 1].record()
+    ev[-1].synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(GEN_TIMED)]
+    mean_ms = float(np.mean(step_ms))
+    losses = [float(v) for v in losses]
+    if launches != (8, 0, 0):
+        raise AssertionError(f"{arch}: one train step launched (K1, K2 nhwc, "
+                             f"K2 plane) {launches}, expected (8, 0, 0)")
+    if not (all(np.isfinite(losses)) and int(state.skipped) == 0):
+        raise AssertionError(f"{arch}: train losses {losses}, skipped "
+                             f"{int(state.skipped)}")
+    # the groups and top kernels for the deepest net
+    kernels, dev_ms = _profile(step, state, hr_u8, GEN_PROFILED, mean_ms,
+                               verbose=arch == "RRDB",
+                               label=f"generators {arch} profile")
+
+    # the guard: a NaN loss keeps params, Adam's state and the buffers
+    nan_step = make_train_step(model, lambda sr, hr: loss_fn(sr, hr) * np.nan,
+                               4, first, last)
+    before = _bits(state)
+    state, m = nan_step(state, hr_u8)
+    after = _bits(state)
+    n_bufs = sum(1 for _ in model.buffers())
+    if not (_bit_equal(before[:-1], after[:-1]) and int(state.skipped) == 1
+            and float(m["nonfinite_steps"]) == 1.0):
+        raise AssertionError(f"{arch} guard: state kept "
+                             f"{_bit_equal(before[:-1], after[:-1])}, "
+                             f"skipped {int(state.skipped)}")
+    return {"params": param_count(model), "grad": worst,
+            "state_dict": {k: v.detach().cpu().clone()
+                           for k, v in model.state_dict().items()},
+            "grad_s": t_grad, "step_ms": mean_ms, "step_ms_all": step_ms,
+            "images_per_s": TRAIN_BATCH / mean_ms * 1e3, "peak_bytes": peak,
+            "kernels_per_step": kernels, "device_ms_per_step": dev_ms,
+            "busy_share": dev_ms / mean_ms, "losses": losses,
+            "launches": {"K1": launches[0], "K2 nhwc": launches[1],
+                         "K2 nchw": launches[2]},
+            "guard_tensors": len(before) - 1, "guard_buffers": n_bufs}
+
+
+def phase_generators() -> dict:
+    """SRCNN, ResNetSR and RRDB at registry size on the card (module
+    docstring, phase 10): each trained from seeded weights, then served.
+    Returns per net the numbers the phase prints, K1's and K2's launches
+    per step included."""
+    rng = np.random.default_rng(10)
+    out = {}
+    for arch in GEN_ARCHS:
+        t0 = time.perf_counter()
+        tr = _train_generator(arch)
+        torch.cuda.empty_cache()
+        serve = _serve_generator(arch, tr["state_dict"], rng)
+        torch.cuda.empty_cache()
+        g = tr["grad"]
+        print(f"generators: {arch} x4 ({tr['params']} params) | serve bf16 "
+              f"(SRServer('auto') on the trained weights): "
+              f"{GEN_REQUESTS} 64x64 req from 8 threads in {serve['batches']}"
+              f" batches, {serve['images_per_s']:.1f} images/s, max "
+              f"{serve['levels_batched']} level(s) from direct; "
+              f"{serve['tiled_side']}^2 tiled (halo {serve['halo']}, "
+              f"{serve['windows']} windows of {serve['window']} px): f32 "
+              f"tiled vs whole "
+              f"{serve['levels_tiled_f32']} level(s), bf16 vs f32 "
+              f"{serve['levels_tiled_bf16_vs_f32']} | train f32 batch "
+              f"{TRAIN_BATCH}x{TRAIN_CROP}^2 NLPD: {tr['step_ms']:.3f} ms/step "
+              f"(CUDA events, {GEN_TIMED} steps; min "
+              f"{min(tr['step_ms_all']):.3f}, max {max(tr['step_ms_all']):.3f})"
+              f", {tr['images_per_s']:.1f} images/s, busy share "
+              f"{tr['busy_share']:.3f} ({tr['device_ms_per_step']:.3f} ms "
+              f"device, {tr['kernels_per_step']:.0f} kernels per step), peak "
+              f"{tr['peak_bytes'] / 2**30:.3f} GiB | launches per step: K1 "
+              f"{tr['launches']['K1']}, K2 nhwc {tr['launches']['K2 nhwc']}, "
+              f"K2 nchw {tr['launches']['K2 nchw']} | gradients on "
+              f"{GRAD_BATCH}x{TRAIN_CROP}^2 vs CPU (TF32 off): worst "
+              f"{g['either'][1]} at {g['either'][0]:.3g} of the limit "
+              f"(term sum: worst {g['term_sum'][0]:.3g} at {g['term_sum'][1]}"
+              f", tol {GRAD_TOL}; max abs: worst {g['max_abs'][0]:.3g} at "
+              f"{g['max_abs'][1]}, tol {G_GRAD_TOL}), {tr['grad_s']:.1f} s | "
+              f"guard on a NaN loss: {tr['guard_tensors']} tensors "
+              f"({tr['guard_buffers']} buffers) bit-equal, skipped 1 | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"generators: {arch} step ms "
+              + " ".join(f"{t:.3f}" for t in tr["step_ms_all"]) + " | loss "
+              + " ".join(f"{v:.6f}" for v in tr["losses"]), flush=True)
+        out[arch] = {
+            "params": tr["params"], "served_images_per_s":
+            serve["images_per_s"], "step_ms": tr["step_ms"],
+            "images_per_s": tr["images_per_s"], "busy_share":
+            tr["busy_share"], "device_ms_per_step": tr["device_ms_per_step"],
+            "kernels_per_step": tr["kernels_per_step"],
+            "peak_bytes": tr["peak_bytes"], "launches": tr["launches"],
+            "grad_either": g["either"][0], "grad_term_sum": g["term_sum"][0],
+            "grad_max_abs": g["max_abs"][0], "halo": serve["halo"],
+            "levels_tiled_f32": serve["levels_tiled_f32"]}
+    print("generators numbers: " + json.dumps(out), flush=True)
+    return out
+
+
+
 def _deterministic() -> None:
     """The loop phase's determinism switches, set in its own process
     (cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA starts, so the parent
@@ -1266,7 +1531,7 @@ def _loop_kernels(nb: dict, rates) -> dict:
 
 
 def phase_loop(tmp: str) -> dict:
-    """training.train() on the card (module docstring, phase 10), in the
+    """training.train() on the card (module docstring, phase 11), in the
     process that _deterministic() set up; run logs and weights go under
     ``tmp``. Returns the uninterrupted run's launch counts by entry point
     and the kernels' errors at the loop's shapes."""
@@ -1337,6 +1602,7 @@ def phase_loop(tmp: str) -> dict:
         raise AssertionError(f"loop: epochs-0 run {evald} vs {final}")
     n_tensors = sum(isinstance(t, torch.Tensor) for t in flat_full.values())
     gan = _loop_gan(w, runs, nb, n_blocks)
+    rgan = _loop_gan(w, runs, nb, 0, RRDB_GAN_LOOP_CFG, "rgan")
     print(f"loop: train() AttentionSR x4 {n_blocks}x"
           f"{best.input_conv.out_channels} f32, synthetic "
           f"{LOOP_CFG['synthetic_size']} images, crop {LOOP_CFG['crop_size']}, "
@@ -1364,38 +1630,42 @@ def phase_loop(tmp: str) -> dict:
         "profile_device_ms_per_step": device_ms / LOOP_PROFILED,
         "profile_wall_ms_per_step": trace_ms / LOOP_PROFILED,
         "busy_share": device_ms / trace_ms,
-        "gan_epoch": gan["epoch"]}
+        "gan_epoch": gan["epoch"], "rrdb_gan_epoch": rgan["epoch"]}
     print("loop numbers: " + json.dumps(numbers), flush=True)
     return {"launches": {"K1": total[0], "K2 nhwc": total[1],
                          "K2 nchw": total[2]},
-            "gan_launches": gan["launches"], **kernels}
+            "gan_launches": gan["launches"],
+            "rrdb_gan_launches": rgan["launches"], **kernels}
 
 
-def _loop_gan(w: str, runs: str, nb: dict, n_blocks: int) -> dict:
-    """The loop phase's GAN run (GAN_LOOP_CFG): train() uninterrupted, its
-    launches counted from zero; then preempted after GAN_LOOP_PREEMPT
-    updates and resumed, whose full-state checkpoint (G, D and the host
-    state) must equal the uninterrupted run's bit for bit."""
+def _loop_gan(w: str, runs: str, nb: dict, n_blocks: int,
+              base: dict = GAN_LOOP_CFG, tag: str = "gan") -> dict:
+    """A GAN run of the loop phase (``base``: GAN_LOOP_CFG, or
+    RRDB_GAN_LOOP_CFG with ``n_blocks`` 0, the SE squeezes of its G):
+    train() uninterrupted, its launches counted from zero; then preempted
+    after GAN_LOOP_PREEMPT updates and resumed, whose full-state
+    checkpoint (G, D and the host state) must equal the uninterrupted
+    run's bit for bit. Run names and checkpoints start with ``tag``."""
     from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
                                           mean_plane_kernel)
     from food101_sr_tpu_torch.training import load_checkpoint, train
 
     t0 = time.perf_counter()
-    cfg = {**GAN_LOOP_CFG, "weights_dir": w}
+    cfg = {**base, "weights_dir": w}
     # ---- main path: one GAN train() run, counts from zero ----
     blur_kernel.launches = 0
     mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
-    final = train({**cfg, "save_name": "gan", "run_name": "gan"})
+    final = train({**cfg, "save_name": tag, "run_name": tag})
     total = (blur_kernel.launches, mean_nhwc_kernel.launches,
              mean_plane_kernel.launches)
     # ---- end of main path ----
-    part = train({**cfg, "save_name": "gpart", "run_name": "gpart",
+    part = train({**cfg, "save_name": f"{tag}part", "run_name": f"{tag}part",
                   "preempt_after_updates": GAN_LOOP_PREEMPT})
-    train({**cfg, "save_name": "gpart2", "run_name": "gpart2",
-           "resume": os.path.join(w, "gpart_last.pth")})
-    full = _flat(load_checkpoint(os.path.join(w, "gan_last.pth")))
-    resumed = _flat(load_checkpoint(os.path.join(w, "gpart2_last.pth")))
-    with open(os.path.join(runs, "gan", "log.jsonl")) as f:
+    train({**cfg, "save_name": f"{tag}part2", "run_name": f"{tag}part2",
+           "resume": os.path.join(w, f"{tag}part_last.pth")})
+    full = _flat(load_checkpoint(os.path.join(w, f"{tag}_last.pth")))
+    resumed = _flat(load_checkpoint(os.path.join(w, f"{tag}part2_last.pth")))
+    with open(os.path.join(runs, tag, "log.jsonl")) as f:
         (epoch,) = [r for r in map(json.loads, f) if "epoch" in r]
 
     steps = nb["steps"]
@@ -1405,19 +1675,20 @@ def _loop_gan(w: str, runs: str, nb: dict, n_blocks: int) -> dict:
     want = (4 * nb["test"],
             n_blocks * (steps + d_steps + nb["val"] + nb["test"]), 0)
     if total != want:
-        raise AssertionError(f"loop gan: launches (K1, K2 nhwc, K2 plane) "
+        raise AssertionError(f"loop {tag}: launches (K1, K2 nhwc, K2 plane) "
                              f"{total}, expected {want}")
     if not (set(final) == {"psnr", "ssim", "lpips", "nlpd", "val_psnr"}
             and all(np.isfinite(list(final.values())))):
-        raise AssertionError(f"loop gan: final metrics {final}")
+        raise AssertionError(f"loop {tag}: final metrics {final}")
     diff = sorted(set(full) ^ set(resumed)) or [
         k for k in full if not _same(full[k], resumed[k])]
     if not part.get("preempted") or diff or not any(
             k.startswith("/d/") for k in full):
-        raise AssertionError(f"loop gan: preempted {part}, resumed state "
+        raise AssertionError(f"loop {tag}: preempted {part}, resumed state "
                              f"differs at {diff[:5]}")
     n_tensors = sum(isinstance(t, torch.Tensor) for t in full.values())
-    print(f"loop gan: train() loss gan, D nf=64 every "
+    print(f"loop {tag}: train() {cfg['architecture']} x4, loss gan, D nf=64 "
+          f"every "
           f"{cfg['d_update_every']} batches ({d_steps} D steps), VGG19, "
           f"{cfg['epochs']} epoch of {steps} steps | final psnr "
           f"{final['psnr']:.4f} ssim {final['ssim']:.5f} lpips "
@@ -1437,7 +1708,7 @@ def _loop_gan(w: str, runs: str, nb: dict, n_blocks: int) -> dict:
 
 
 def run_loop_phase() -> dict:
-    """Phase 10 in a child process of its own, which alone gets the
+    """Phase 11 in a child process of its own, which alone gets the
     determinism environment; its results come back through a file in a
     temporary directory that also holds its runs and weights."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
@@ -1596,15 +1867,22 @@ def main() -> int:
           flush=True)
     k1_train, k2_train = phase_train(rates)
     k2_gan = phase_gan(rates)
+    gens = phase_generators()
+    for d, key in ((k1_train, "K1"), (k2_train, "K2 nhwc"),
+                   (k2_nchw, "K2 nchw")):
+        d["generator_launches"] = {a: g["launches"][key]
+                                   for a, g in gens.items()}
     loop = run_loop_phase()
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
         d["loop_launches"] = loop["launches"][key]
         d["gan_loop_launches"] = loop["gan_launches"][key]
+        d["rrdb_gan_loop_launches"] = loop["rrdb_gan_launches"][key]
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc")):
         d["loop_max_abs_err"] = loop["max_abs_err"][key]
         d["at_loop_val"] = loop["at_val"][key]
     keys = ("name", "route", "source", "replaces", "launches",
-            "loop_launches", "gan_loop_launches", "max_abs_err",
+            "loop_launches", "gan_loop_launches", "generator_launches",
+            "rrdb_gan_loop_launches", "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
             "at_loop_val", "half_device_ms", "nchw_copy_ms",

@@ -37,14 +37,20 @@ def scale_stages(scale: int) -> tuple:
 
 class Conv(nn.Conv2d):
     """2-D conv with symmetric ``(k-1)//2`` padding. Initialized
-    kaiming-normal (fan_in, gain sqrt 2) with zero bias, or ICNR for
-    ``icnr_scale > 1`` (a conv that feeds a pixel shuffle)."""
+    kaiming-normal (gain sqrt 2 over ``fan``, "fan_in" or "fan_out",
+    times ``init_scale``) with zero bias, or ICNR for ``icnr_scale > 1``
+    (a conv that feeds a pixel shuffle)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, bias: bool = True, icnr_scale: int = 0):
+                 stride: int = 1, bias: bool = True, icnr_scale: int = 0,
+                 fan: str = "fan_in", init_scale: float = 1.0):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding=(kernel_size - 1) // 2, bias=bias)
+        if fan not in ("fan_in", "fan_out"):
+            raise ValueError(f"fan must be fan_in or fan_out, got {fan!r}")
         self.icnr_scale = icnr_scale
+        self.fan = fan
+        self.init_scale = init_scale
 
 
 def prelu() -> nn.PReLU:
@@ -82,6 +88,54 @@ class AttentionResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r = self.se(self.conv2(self.prelu(self.conv1(x))))
         return x + r * self.res_scale
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's ``TorchBatchNorm`` semantics:
+    momentum 0.1 (flax's 0.9), eps 1e-5, the biased batch variance to
+    normalize and the Bessel-corrected one into ``running_var`` (torch's
+    own rule). As in JAX, the scale, the bias and the running stats stay
+    in float32 whatever the net's dtype (``.to(torch.bfloat16)`` moves
+    them across devices but keeps their dtype), and the normalization runs
+    in float32 before the result is cast to the input's dtype."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def _apply(self, fn, recurse=True):
+        kept = {n: t.detach() for n, t in (*self._parameters.items(),
+                                           *self._buffers.items())
+                if t is not None and t.dtype == torch.float32}
+        super()._apply(fn, recurse)
+        for name, old in kept.items():
+            new = getattr(self, name)
+            if new.dtype != torch.float32:
+                f32 = old.to(device=new.device)
+                if name in self._parameters:
+                    self._parameters[name].data = f32
+                else:
+                    self._buffers[name] = f32
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(x.dtype)
+
+
+class ResidualBlock(nn.Module):
+    """conv3x3 -> BN -> PReLU -> conv3x3 -> BN, identity skip, no residual
+    scaling (ResNetSR's block)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = Conv(channels, channels, 3)
+        self.bn1 = BatchNorm2d(channels)
+        self.prelu = prelu()
+        self.conv2 = Conv(channels, channels, 3)
+        self.bn2 = BatchNorm2d(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        r = self.prelu(self.bn1(self.conv1(x)))
+        return x + self.bn2(self.conv2(r))
 
 
 def upsample_block(in_channels: int, out_channels: int = 64,
@@ -210,10 +264,12 @@ def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with the JAX package's distributions: kaiming-normal
-    convs (ICNR for pixel-shuffle feeders) and spectral-norm kernels, zero
-    biases, lecun-normal linears, PReLU slope 0.25, power-iteration
-    vectors ``N(0, 1/len)``, BatchNorm at ones, zeros and unit running
-    variance. Draws on the CPU in module order."""
+    convs over their ``fan`` times their ``init_scale`` (SRCNN's fan_out,
+    RRDB's 0.1-scaled dense convs and 0.01-scaled trunk projection; ICNR
+    for pixel-shuffle feeders) and spectral-norm kernels, zero biases,
+    lecun-normal linears, PReLU slope 0.25, power-iteration vectors
+    ``N(0, 1/len)``, BatchNorm at ones, zeros and unit running variance.
+    Draws on the CPU in module order."""
     for m in model.modules():
         if isinstance(m, _SpectralNorm):
             w = m.weight_orig
@@ -228,11 +284,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
         elif isinstance(m, Conv):
             cout = m.weight.shape[0]
-            fan_in = m.weight[0].numel()
+            fan = (m.weight[0].numel() if m.fan == "fan_in"
+                   else cout * m.weight[0, 0].numel())
             r2 = m.icnr_scale ** 2
-            std = math.sqrt(2.0 / fan_in)
+            std = math.sqrt(2.0 / fan) * m.init_scale
             if r2 > 1 and cout % r2 == 0:
-                sub = _normal((cout // r2, *m.weight.shape[1:]), std, generator)
+                sub = _normal((cout // r2, *m.weight.shape[1:]), std,
+                              generator)
                 w = sub.repeat_interleave(r2, dim=0)
             else:
                 w = _normal(m.weight.shape, std, generator)

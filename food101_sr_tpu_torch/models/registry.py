@@ -1,6 +1,8 @@
 """Model registry (counterpart of ``food101_sr_tpu/models/registry.py``):
-name -> module at the reference's sizes. This slice ports AttentionSR
-(32 blocks x 96 channels); the other generators come in later slices.
+name -> module at the reference's sizes (SRCNN hidden 64; RESNET 16
+blocks x 64 channels; AttentionSR 32 blocks x 96 channels; RRDB 23 RRDBs
+x 64 channels, growth 32), and the architecture of a state_dict read from
+its keys and tensor shapes.
 """
 from __future__ import annotations
 
@@ -9,11 +11,34 @@ from torch import nn
 
 from .attention_sr import AttentionSR
 from .layers import init_weights
+from .resnet_sr import ResNetSR
+from .rrdb import RRDBNet
+from .srcnn import SRCNN
 
 _REGISTRY = {
+    "SRCNN": lambda scale: SRCNN(scale_factor=scale, hidden_dim=64),
+    "RESNET": lambda scale: ResNetSR(
+        scale_factor=scale, num_residuals=16, num_channels=64),
     "AttentionSR": lambda scale: AttentionSR(
         scale_factor=scale, num_residuals=32, num_channels=96),
+    "RRDB": lambda scale: RRDBNet(
+        scale_factor=scale, num_channels=64, growth=32, num_blocks=23),
 }
+
+_QUANTIZE_MODES = ("", "int8", "int8_dot", "qat")
+
+
+def _check_quantize(arch: str, quantize: str) -> None:
+    """JAX's refusals (SRCNN has no body stack to quantize; unknown modes),
+    then the port's own: no mode runs until ROADMAP item 8."""
+    if quantize and arch not in ("RESNET", "AttentionSR", "RRDB"):
+        raise ValueError(f"quantize: {arch} has no quantizable body stack")
+    if quantize not in _QUANTIZE_MODES:
+        raise ValueError(f"Unknown quantize mode: {quantize!r}")
+    if quantize:
+        raise NotImplementedError(
+            f"quantize={quantize!r} is not ported to PyTorch yet: ROADMAP "
+            "item 8 (quantization and QAT)")
 
 
 def build_model(module_fn, dtype: torch.dtype = torch.float32,
@@ -35,10 +60,114 @@ def build_model(module_fn, dtype: torch.dtype = torch.float32,
 def get_model(name: str, scale_factor: int = 4,
               dtype: torch.dtype = torch.float32,
               device: str | torch.device = "cuda",
-              generator: torch.Generator | None = None) -> nn.Module:
+              generator: torch.Generator | None = None,
+              quantize: str = "") -> nn.Module:
     """Registry model ``name`` with seeded random weights, on ``device``."""
     if name not in _REGISTRY:
-        raise ValueError(f"Unknown or not yet ported architecture: {name}")
+        raise ValueError(f"Unknown architecture: {name}")
+    _check_quantize(name, quantize)
     return build_model(lambda: _REGISTRY[name](scale_factor), dtype, device,
                        generator)
 
+
+def model_names() -> list[str]:
+    return list(_REGISTRY)
+
+
+def param_count(model: nn.Module) -> int:
+    """Total parameter count (the running stats are buffers, as in JAX's
+    ``batch_stats``, and are not counted)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def architecture_of(model: nn.Module) -> str | None:
+    """Registry name of a port generator's class; None for another
+    module."""
+    for name, cls in (("SRCNN", SRCNN), ("RESNET", ResNetSR),
+                      ("AttentionSR", AttentionSR), ("RRDB", RRDBNet)):
+        if isinstance(model, cls):
+            return name
+    return None
+
+
+def detect_architecture(state_dict: dict) -> str:
+    """Architecture name from a state_dict's keys (checkpoints store no
+    metadata: the tensors are the schema)."""
+    keys = set(state_dict)
+    if "net.0.weight_orig" in keys:
+        return "Discriminator"
+    if "conv1.weight" in keys and "input_conv.weight" not in keys:
+        return "SRCNN"
+    if any(k.startswith("rrdb.") for k in keys):
+        return "RRDB"
+    if "res_blocks.0.se.fc.0.weight" in keys:
+        return "AttentionSR"
+    if "res_blocks.0.bn1.weight" in keys:
+        return "RESNET"
+    raise ValueError("unrecognized checkpoint: the state_dict matches no "
+                     "known architecture")
+
+
+def _count(keys, prefix: str) -> int:
+    """1 + the largest index ``i`` of keys ``{prefix}.{i}.*``."""
+    return 1 + max(int(k.split(".")[1]) for k in keys
+                   if k.startswith(prefix + "."))
+
+
+def model_for_params(state_dict: dict, scale_factor: int = 4,
+                     dtype: torch.dtype = torch.float32,
+                     device: str | torch.device = "cuda",
+                     quantize: str = "") -> nn.Module:
+    """The generator matching ``state_dict``, with its widths and depths
+    read from the tensor shapes (so non-registry variants load without
+    flags) and the weights loaded strictly, on ``device`` in eval mode.
+
+    For the post-upsampling nets the checkpoint's upsample stages set the
+    scale and override ``scale_factor``: each stage's factor comes from
+    its conv's cout = 64 * s^2. SRCNN's weights are scale-independent, so
+    ``scale_factor`` is taken as given there."""
+    arch = detect_architecture(state_dict)
+    if arch == "Discriminator":
+        raise ValueError("model_for_params: a Discriminator state_dict is "
+                         "not a generator")
+    _check_quantize(arch, quantize)
+    sd = state_dict
+    if arch == "SRCNN":
+        hidden = sd["conv2.weight"].shape[0]
+        return _loaded(lambda: SRCNN(scale_factor, hidden), sd, dtype,
+                       device)
+    # one conv (the only biased layer) per stage
+    n_up = sum(1 for k in sd if k.startswith("upsample.")
+               and k.endswith(".bias"))
+    scale = 1
+    for i in range(n_up):
+        cout = sd[f"upsample.{3 * i}.weight"].shape[0]
+        s = round((cout / 64) ** 0.5)
+        if cout != 64 * s * s:
+            # not an assert: under ``python -O`` it would vanish and a
+            # malformed checkpoint would silently serve the wrong scale
+            raise ValueError(
+                f"upsample.{3 * i}: weight cout {cout} is not 64*s^2 for any "
+                "integer s: a malformed or unsupported upsample stage")
+        scale *= s
+    nf = sd["input_conv.weight"].shape[0]
+    if arch == "RRDB":
+        growth = sd["rrdb.0.dense1.conv1.weight"].shape[0]
+        blocks = _count(sd, "rrdb")
+        return _loaded(lambda: RRDBNet(scale, nf, growth, blocks), sd, dtype,
+                       device)
+    cls = AttentionSR if arch == "AttentionSR" else ResNetSR
+    n_res = _count(sd, "res_blocks")
+    return _loaded(lambda: cls(scale, nf, n_res), sd, dtype, device)
+
+
+def _loaded(module_fn, state_dict: dict, dtype: torch.dtype,
+            device: str | torch.device) -> nn.Module:
+    """``module_fn()`` with ``state_dict`` loaded strictly, without drawing
+    an init first."""
+    with torch.device("meta"):
+        model = module_fn()
+    model = model.to_empty(device="cpu")
+    model.load_state_dict(state_dict, strict=True)
+    return model.to(device=device, dtype=dtype,
+                    memory_format=torch.channels_last).eval()

@@ -1,0 +1,107 @@
+"""RRDBNet, the ESRGAN residual-in-residual dense block generator
+(counterpart of ``food101_sr_tpu/models/rrdb.py``, the ``concat`` layout,
+with the materialized tail).
+
+conv3 head (no activation) -> N RRDBs (three 5-conv dense blocks each,
+LeakyReLU 0.2, residual scale 0.2 inside and outside) -> conv3 -> global
+skip -> x2 stages [conv3x3(->4*64) -> PixelShuffle -> PReLU] ->
+conv9x9(64->3). The registry size (``RRDB``: 64 channels, growth 32, 23
+blocks) has 16,896,453 parameters.
+
+Init as in JAX: the dense convs kaiming-normal x 0.1 (ESRGAN's), and the
+trunk projection ``mid_conv`` x 0.01, without which the 23-block trunk
+starts ~66x the size of its input.
+
+The JAX package's ``split`` dense layout computes the same function
+rewritten per source to fill the TPU's MXU; the port runs ``concat`` and
+refuses ``split`` until an H100 A/B decides it (ROADMAP item 7a).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import Conv, scale_stages, upsample_block
+
+
+class ResidualDenseBlock(nn.Module):
+    """conv_k sees [x, c1..c_{k-1}] on the channel axis; convs 1-4 emit
+    ``growth`` channels through LeakyReLU(0.2), conv5 projects back to
+    ``channels``; the residual is scaled by ``res_scale``."""
+
+    def __init__(self, channels: int, growth: int = 32,
+                 res_scale: float = 0.2):
+        super().__init__()
+        self.res_scale = res_scale
+        for k in range(4):
+            setattr(self, f"conv{k + 1}",
+                    Conv(channels + k * growth, growth, 3, init_scale=0.1))
+        self.conv5 = Conv(channels + 4 * growth, channels, 3, init_scale=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = [x]
+        for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
+            inp = feats[0] if len(feats) == 1 else torch.cat(feats, 1)
+            feats.append(F.leaky_relu(conv(inp), 0.2))
+        return x + self.conv5(torch.cat(feats, 1)) * self.res_scale
+
+
+class RRDB(nn.Module):
+    """Residual in residual: three dense blocks, the outer residual scaled
+    by ``res_scale``."""
+
+    def __init__(self, channels: int, growth: int = 32,
+                 res_scale: float = 0.2):
+        super().__init__()
+        self.res_scale = res_scale
+        self.dense1 = ResidualDenseBlock(channels, growth, res_scale)
+        self.dense2 = ResidualDenseBlock(channels, growth, res_scale)
+        self.dense3 = ResidualDenseBlock(channels, growth, res_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.dense3(self.dense2(self.dense1(x))) * self.res_scale
+
+
+class RRDBNet(nn.Module):
+    """(N, C, H, W) in and out at ``scale_factor`` times the size, run
+    channels-last. Parameters ``input_conv``, ``rrdb.{i}.dense{j}.conv{k}``,
+    ``mid_conv``, ``upsample.{3s,3s+2}``, ``output_conv`` (the layout
+    ``convert.params_from_jax`` writes). ``dense_layout`` is "auto" or
+    "concat" (the same computation here); "split" raises."""
+
+    memory_format = torch.channels_last
+
+    def __init__(self, scale_factor: int = 4, num_channels: int = 64,
+                 growth: int = 32, num_blocks: int = 23,
+                 dense_layout: str = "auto"):
+        super().__init__()
+        if dense_layout == "split":
+            raise NotImplementedError(
+                "RRDBNet dense_layout='split' is not ported to PyTorch yet: "
+                "ROADMAP item 7a (an H100 A/B of the split dense layout)")
+        if dense_layout not in ("auto", "concat"):
+            raise ValueError(f"Unknown dense_layout: {dense_layout!r}")
+        self.scale_factor = scale_factor
+        self.num_channels = num_channels
+        self.growth = growth
+        self.num_blocks = num_blocks
+        self.input_conv = Conv(3, num_channels, 3)
+        self.rrdb = nn.ModuleList(RRDB(num_channels, growth)
+                                  for _ in range(num_blocks))
+        self.mid_conv = Conv(num_channels, num_channels, 3, init_scale=0.01)
+        tail, cin = [], num_channels
+        for s in scale_stages(scale_factor):
+            tail += upsample_block(cin, 64, s)
+            cin = 64
+        self.upsample = nn.Sequential(*tail)
+        self.output_conv = Conv(64, 3, 9)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        initial = self.input_conv(
+            x.contiguous(memory_format=self.memory_format))
+        r = initial
+        for block in self.rrdb:
+            r = block(r)
+        x = initial + self.mid_conv(r)
+        return self.output_conv(self.upsample(x))

@@ -13,16 +13,41 @@ from __future__ import annotations
 import math
 
 
-def receptive_radius(model) -> int:
-    """Receptive-field radius (LR pixels) the halo must cover, for a net
-    with ``num_residuals`` blocks: head conv9 (4) + two conv3 per block +
-    mid conv3 + tail convs at LR scale + margin = ``2*n + 16`` (80 for the
-    32-block registry AttentionSR)."""
+# Receptive-field radii at LR resolution by architecture (the JAX
+# package's table): head conv9 (4) + two conv3 per residual block + mid
+# conv3 + tail convs at LR scale, with margin; SRCNN's bicubic support and
+# its three convs at HR come to at most 8 LR pixels.
+RECEPTIVE_RADIUS = {"SRCNN": 8, "RESNET": 48, "AttentionSR": 80, "RRDB": 40}
+
+# RRDBNet's effective halo (LR px). Its theoretical radius is 15 px per
+# RRDB (3 dense blocks x 5 conv3), ~365 for the 23-block registry net, but
+# both residual ladders scale by 0.2, so far-field contributions decay
+# fast: the JAX package measured the half-uint8 crossing of a maximal
+# center-pixel perturbation's response at r=14 at random init and r=7 for
+# its trained checkpoints (tools/rrdb_erf.py). The bound is empirical:
+# RRDB tiling is exact to the output's quantization, not to float.
+RRDB_EFFECTIVE_RADIUS = 40
+
+
+def receptive_radius(arch: str | None, model=None) -> int:
+    """Receptive-field radius (LR pixels) the halo must cover for exact
+    tiling. Depth-aware when ``model`` is given: a net with
+    ``num_residuals`` blocks (ResNetSR, AttentionSR) needs ``2*n + 16``
+    (48 and 80 at registry depth); RRDBNet (``growth``) needs
+    ``min(15*num_blocks + 20, RRDB_EFFECTIVE_RADIUS)``, exact for shallow
+    nets and the measured effective radius for deep ones. Otherwise the
+    table by ``arch``; a model and name that are none of the four
+    raise."""
     n_res = getattr(model, "num_residuals", None)
-    if n_res is None:
-        raise ValueError(f"receptive_radius: {type(model).__name__} has no "
-                         "num_residuals (only AttentionSR is ported)")
-    return 2 * int(n_res) + 16
+    if n_res is not None:
+        return 2 * int(n_res) + 16
+    if getattr(model, "growth", None) is not None:
+        return min(15 * int(model.num_blocks) + 20, RRDB_EFFECTIVE_RADIUS)
+    if arch not in RECEPTIVE_RADIUS:
+        raise ValueError(f"receptive_radius: {arch!r} "
+                         f"({type(model).__name__}) is none of "
+                         f"{sorted(RECEPTIVE_RADIUS)}")
+    return RECEPTIVE_RADIUS[arch]
 
 
 def window_starts(size: int, tile: int, halo: int):

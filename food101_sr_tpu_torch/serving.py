@@ -9,6 +9,9 @@ engine works on numpy arrays.
     server = SRServer("AttentionSR")          # seeded weights, bf16, cuda
     sr = server.upscale(lr_uint8_hwc)         # (H*4, W*4, 3) uint8
     server.close()
+
+    SRServer("auto", state_dict=sd)           # the net that sd's keys and
+                                              # shapes describe
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models import get_model
+from .models import architecture_of, get_model, model_for_params
 from .parallel.spatial import plan_windows, receptive_radius
 
 _STOP = object()  # queue sentinel: close() puts it behind all pending work
@@ -147,14 +150,18 @@ class SRServer:
 
     Small images (padded by edge replication to a multiple of ``tile``) ride
     the micro-batcher whole; larger ones are cut into ``tile + 2*halo``
-    windows (halo = the model's receptive-field radius, so the result equals
-    the whole-image forward) that ride the same batcher. ToTensor and the
-    255-quantization run on the device. ``model`` overrides the registry
-    net (it must expose ``scale_factor`` and ``num_residuals``);
-    ``state_dict`` loads weights with ``strict=True``; otherwise the weights
-    are seeded from ``generator`` (seed 0 when None). ``window_ms`` and
-    ``adaptive_window`` set the micro-batcher's collect window
-    (:class:`MicroBatcher`), with the JAX ``SRServer``'s defaults.
+    windows (halo = the model's receptive-field radius,
+    ``parallel.spatial.receptive_radius``, so the result equals the
+    whole-image forward) that ride the same batcher. ToTensor and the
+    255-quantization run on the device. ``architecture`` is a registry
+    name (SRCNN, RESNET, AttentionSR, RRDB), or "auto" with a
+    ``state_dict``: the net is then built from the state_dict's keys and
+    shapes (``models.model_for_params``). ``model`` overrides the registry
+    net (it must expose ``scale_factor``; its halo comes from its class or
+    depth); ``state_dict`` loads weights with ``strict=True``; otherwise
+    the weights are seeded from ``generator`` (seed 0 when None).
+    ``window_ms`` and ``adaptive_window`` set the micro-batcher's collect
+    window (:class:`MicroBatcher`), with the JAX ``SRServer``'s defaults.
     """
 
     def __init__(self, architecture: str = "AttentionSR",
@@ -166,16 +173,29 @@ class SRServer:
                  window_ms: float = 3.0, adaptive_window: bool = False):
         self.device = torch.device(device)
         self.dtype = dtype
-        if model is None:
+        override = model is not None
+        if model is None and architecture == "auto":
+            if state_dict is None:
+                raise ValueError('SRServer: architecture="auto" needs a '
+                                 "state_dict")
+            model = model_for_params(state_dict, scale_factor=scale,
+                                     dtype=dtype, device=self.device)
+            state_dict = None  # loaded
+        elif model is None:
             model = get_model(architecture, scale_factor=scale, dtype=dtype,
                               device=self.device, generator=generator)
         self.model = model.to(device=self.device, dtype=dtype,
                               memory_format=torch.channels_last).eval()
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+        # an override is known by its class (or its depth), never by the
+        # default name
+        self.architecture = (architecture_of(self.model)
+                             if override or architecture == "auto"
+                             else architecture)
         self.scale = self.model.scale_factor
         self.tile = tile
-        self.halo = receptive_radius(self.model)
+        self.halo = receptive_radius(self.architecture, self.model)
         self.batcher = MicroBatcher(self._sr_u8, max_batch=max_batch,
                                     window_ms=window_ms,
                                     adaptive=adaptive_window)

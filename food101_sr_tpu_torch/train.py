@@ -6,6 +6,9 @@ CUDA device.
     python -m food101_sr_tpu_torch.train --dataset synthetic \\
         --architecture AttentionSR --epochs 2 --synthetic_size 96
 
+``--architecture`` is SRCNN (the default), RESNET, AttentionSR or RRDB, at
+the registry's sizes.
+
 ``--loss_function gan`` trains the relativistic GAN (a spectral-norm
 discriminator, the VGG19 perceptual loss, a D step every 5 batches:
 ``d_update_every`` in ``training.DEFAULTS``); ``perceptual`` is the
@@ -27,8 +30,8 @@ def build_parser() -> argparse.ArgumentParser:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     # Reference-compatible flags (same names and defaults).
     p.add_argument("--architecture", type=str, default="SRCNN",
-                   help="registry name; the port has AttentionSR (the other "
-                        "generators: ROADMAP item 7)")
+                   choices=["SRCNN", "RESNET", "AttentionSR", "RRDB"],
+                   help="registry name")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--lr", type=float, default=0.0004)
     p.add_argument("--epochs", type=int, default=10)

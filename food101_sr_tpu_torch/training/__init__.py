@@ -12,7 +12,8 @@ from .schedule import EarlyStopping, ReduceLROnPlateau
 from .state import SRTrainState, Transform, make_adam
 from .steps import (add_noise, loss_and_grads, make_accum_apply,
                     make_eval_step, make_forward, make_gan_d_step,
-                    make_gan_g_step, make_grad_step, make_train_step)
+                    make_gan_g_step, make_grad_step, make_train_step,
+                    snapshot_buffers)
 
 __all__ = [
     "DEFAULTS", "EarlyStopping", "FIRST_LAST", "PreemptionGuard",
@@ -21,6 +22,7 @@ __all__ = [
     "load_train_checkpoint", "loss_and_grads", "make_accum_apply",
     "make_adam", "make_eval_step", "make_forward", "make_gan_d_step",
     "make_gan_g_step", "make_grad_step", "make_train_step",
-    "save_checkpoint", "save_train_checkpoint", "train", "update_ratio",
+    "save_checkpoint", "save_train_checkpoint", "snapshot_buffers", "train",
+    "update_ratio",
     "warm_start_params", "weight_norm",
 ]

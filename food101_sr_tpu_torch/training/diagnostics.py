@@ -43,4 +43,9 @@ def update_ratio(params, grads, lr: float) -> torch.Tensor:
 
 # First/last top-level modules per architecture (parameter registration
 # order: input conv first, output conv last).
-FIRST_LAST = {"AttentionSR": ("input_conv", "output_conv")}
+FIRST_LAST = {
+    "SRCNN": ("conv1", "conv3"),
+    "RESNET": ("input_conv", "output_conv"),
+    "AttentionSR": ("input_conv", "output_conv"),
+    "RRDB": ("input_conv", "output_conv"),
+}

@@ -46,7 +46,7 @@ from .schedule import EarlyStopping, ReduceLROnPlateau
 from .state import SRTrainState, make_adam
 from .steps import (make_accum_apply, make_eval_step, make_forward,
                     make_gan_d_step, make_gan_g_step, make_grad_step,
-                    make_train_step)
+                    make_train_step, snapshot_buffers)
 
 # The JAX package's keys and defaults (``food101_sr_tpu/training/loop.py``).
 # Values the port does not run yet raise in ``check_ported``.
@@ -371,6 +371,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                     # trailing partial group at epoch end is dropped
                     if batch_idx % accum == 0:
                         grads_sum = loss_sum = None
+                        # the group's guard puts the buffers back to here
+                        snap = snapshot_buffers(model)
                     loss_i, g_i = grad_step(hr_u8)
                     if grads_sum is None:
                         grads_sum, loss_sum = g_i, loss_i
@@ -380,7 +382,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                     if batch_idx % accum != accum - 1:
                         clock.stop()
                         continue  # mid-group: no update, no metrics to log
-                    state, metrics = accum_apply(state, grads_sum, loss_sum)
+                    state, metrics = accum_apply(state, grads_sum, loss_sum,
+                                                 snap)
                     grads_sum = None
                     logical_idx = batch_idx // accum
                 clock.stop()

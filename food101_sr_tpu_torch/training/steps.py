@@ -8,10 +8,11 @@ tensors, so nothing in it waits for the device: the diagnostics, the
 non-finite guard and the optimizer update all run there. The eval step
 and the forward take an optional parameter dict (the EMA, a loaded
 checkpoint), applied with ``torch.func.functional_call`` so the live
-parameters stay as they are. The GAN steps (``make_gan_d_step``,
-``make_gan_g_step``) keep the discriminator's buffers (spectral-norm
-vectors, BatchNorm running stats), which its forwards change in place,
-under the same guard.
+parameters stay as they are. Every step keeps the buffers that its
+train-mode forwards change in place under the same guard: the
+generator's (ResNetSR's BatchNorm running stats) and, in the GAN steps
+(``make_gan_d_step``, ``make_gan_g_step``), the discriminator's
+(spectral-norm vectors, BatchNorm running stats).
 """
 from __future__ import annotations
 
@@ -28,6 +29,20 @@ from ..metrics.metrics import psnr
 from ..models.layers import chained_power_iterations
 from .diagnostics import grad_norm, layer_grad_ratio, update_ratio
 from .state import SRTrainState
+
+
+def snapshot_buffers(model: nn.Module) -> tuple[list, list]:
+    """The module's buffers and copies of them, for the guard: a skipped
+    step puts the copies back."""
+    bufs = list(model.buffers())
+    return bufs, [b.clone() for b in bufs]
+
+
+@torch.no_grad()
+def _keep_if(ok: torch.Tensor, snapshot: tuple[list, list]) -> None:
+    """Where ``ok`` is False, put the snapshot's values back."""
+    for b, old in zip(*snapshot):
+        b.copy_(torch.where(ok, b, old))
 
 
 def loss_and_grads(model: nn.Module, loss_fn: Callable, scale: int,
@@ -53,9 +68,12 @@ def _finite_guard(loss: torch.Tensor, gnorm: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _finalize_update(state: SRTrainState, grads: list, loss: torch.Tensor,
-                     first: str, last: str, ema_decay: float | None):
+                     first: str, last: str, ema_decay: float | None,
+                     snapshot: tuple[list, list] | None = None):
     """Diagnostics on the raw gradients, the non-finite guard, and the
-    guarded update (``SRTrainState.apply_updates``)."""
+    guarded update (``SRTrainState.apply_updates``); a skipped update also
+    puts back the model's buffers from ``snapshot``, taken before the
+    step's forwards."""
     gnorm = grad_norm(grads)
     ok = _finite_guard(loss, gnorm)
     metrics = {
@@ -68,6 +86,8 @@ def _finalize_update(state: SRTrainState, grads: list, loss: torch.Tensor,
         "nonfinite_steps": 1.0 - ok.float(),
     }
     state.apply_updates(grads, ok, ema_decay)
+    if snapshot is not None:
+        _keep_if(ok, snapshot)
     metrics["nonfinite_total"] = state.skipped.clone()
     return state, metrics
 
@@ -76,14 +96,17 @@ def make_train_step(model: nn.Module, loss_fn: Callable, scale: int,
                     first: str, last: str, ema_decay: float | None = None):
     """Supervised step ``step(state, hr_u8) -> (state, metrics)``: loss,
     gradients, diagnostics, non-finite guard and optimizer update (and the
-    params EMA when ``ema_decay`` is set and the state keeps one).
+    params EMA when ``ema_decay`` is set and the state keeps one); a
+    skipped update leaves the model's buffers as they were too.
     ``state`` must be built over ``model``."""
 
     def train_step(state: SRTrainState, hr_u8: torch.Tensor):
         if state.model is not model:
             raise ValueError("train_step: the state holds another model")
+        snap = snapshot_buffers(model)
         loss, grads = loss_and_grads(model, loss_fn, scale, hr_u8)
-        return _finalize_update(state, grads, loss, first, last, ema_decay)
+        return _finalize_update(state, grads, loss, first, last, ema_decay,
+                                snap)
 
     return train_step
 
@@ -99,7 +122,9 @@ def make_train_step(model: nn.Module, loss_fn: Callable, scale: int,
 def make_grad_step(model: nn.Module, loss_fn: Callable, scale: int):
     """Gradient-only microbatch step ``grad_step(hr_u8) -> (loss, grads)``
     at the current parameters; no update (``make_accum_apply`` applies the
-    group once)."""
+    group once). The model's buffers (BatchNorm running stats) advance
+    through the group's microbatches in turn, as JAX threads its
+    collections."""
 
     def grad_step(hr_u8: torch.Tensor):
         return loss_and_grads(model, loss_fn, scale, hr_u8)
@@ -109,18 +134,21 @@ def make_grad_step(model: nn.Module, loss_fn: Callable, scale: int):
 
 def make_accum_apply(accum: int, first: str, last: str,
                      ema_decay: float | None = None):
-    """``apply(state, grads_sum, loss_sum) -> (state, metrics)``: one
-    guarded update from ``accum`` summed microbatch gradients. The average
-    (sum / accum) is what the guard sees, so one NaN microbatch skips the
-    whole group and leaves the state as it was."""
+    """``apply(state, grads_sum, loss_sum, snapshot=None) -> (state,
+    metrics)``: one guarded update from ``accum`` summed microbatch
+    gradients. The average (sum / accum) is what the guard sees, so one
+    NaN microbatch skips the whole group and leaves the state as it was,
+    the model's buffers too when ``snapshot`` (``snapshot_buffers``, taken
+    before the group's first microbatch) is given."""
     inv = 1.0 / float(accum)
 
     @torch.no_grad()
     def apply_step(state: SRTrainState, grads_sum: list,
-                   loss_sum: torch.Tensor):
+                   loss_sum: torch.Tensor,
+                   snapshot: tuple[list, list] | None = None):
         grads = torch._foreach_mul(grads_sum, inv)
         return _finalize_update(state, grads, loss_sum * inv, first, last,
-                                ema_decay)
+                                ema_decay, snapshot)
 
     return apply_step
 
@@ -188,19 +216,6 @@ def _bce(logits: torch.Tensor, label: float) -> torch.Tensor:
         logits, torch.full_like(logits, label))
 
 
-def _snapshot(model: nn.Module) -> tuple[list, list]:
-    """The module's buffers and copies of them, for ``_keep_if``."""
-    bufs = list(model.buffers())
-    return bufs, [b.clone() for b in bufs]
-
-
-@torch.no_grad()
-def _keep_if(ok: torch.Tensor, snapshot: tuple[list, list]) -> None:
-    """Where ``ok`` is False, put the snapshot's values back."""
-    for b, old in zip(*snapshot):
-        b.copy_(torch.where(ok, b, old))
-
-
 def make_gan_d_step(g_model: nn.Module, d_model: nn.Module, scale: int,
                     noise_sigma: float = 0.2):
     """Discriminator step ``d_step(g_state, d_state, hr_u8, noise) ->
@@ -228,7 +243,7 @@ def make_gan_d_step(g_model: nn.Module, d_model: nn.Module, scale: int,
             (noise, noise)
         noisy_real = add_noise(hr, noise_sigma, n_real)
         noisy_fake = add_noise(fake, noise_sigma, n_fake)
-        snap = _snapshot(d_model)
+        snap = snapshot_buffers(d_model)
         d_model.train()
         with chained_power_iterations(d_model):
             real_logits = d_model(noisy_real)
@@ -266,15 +281,15 @@ def make_gan_g_step(g_model: nn.Module, d_model: nn.Module,
     D runs in train mode on the fake (sr) first, then on the real (hr,
     without a graph: its logits are constants of the loss), so its
     spectral vectors and running stats advance as the JAX package's do;
-    a skipped step puts them back too, and leaves D's ``skipped`` as it
-    was."""
+    a skipped step puts them and G's own buffers back too, and leaves D's
+    ``skipped`` as it was."""
 
     def g_step(g_state: SRTrainState, d_state: SRTrainState,
                hr_u8: torch.Tensor):
         if g_state.model is not g_model or d_state.model is not d_model:
             raise ValueError("g_step: a state holds another model")
         lr_img, hr = prepare_batch(hr_u8, scale)
-        snap = _snapshot(d_model)
+        snap, g_snap = snapshot_buffers(d_model), snapshot_buffers(g_model)
         g_model.train()
         d_model.train()
         sr = g_model(lr_img)
@@ -287,7 +302,7 @@ def make_gan_g_step(g_model: nn.Module, d_model: nn.Module,
         grads = list(torch.autograd.grad(loss, g_state.params,
                                          materialize_grads=True))
         g_state, metrics = _finalize_update(g_state, grads, loss.detach(),
-                                            first, last, ema_decay)
+                                            first, last, ema_decay, g_snap)
         _keep_if(metrics["nonfinite_steps"] == 0, snap)
         return g_state, d_state, metrics
 

@@ -18,7 +18,8 @@ from food101_sr_tpu_torch import _build
 from food101_sr_tpu_torch.data import SRDataLoader
 from food101_sr_tpu_torch.losses import PerceptualLoss, get_loss_function
 from food101_sr_tpu_torch.metrics import LPIPSAlex, MetricsCalculator
-from food101_sr_tpu_torch.models import build_model, get_model
+from food101_sr_tpu_torch.models import (build_model, get_model,
+                                         model_for_params)
 from food101_sr_tpu_torch.ops import (blur_kernel, mean_kernel,
                                       mean_nhwc_kernel, mean_plane_kernel)
 from food101_sr_tpu_torch.serving import SRServer
@@ -29,8 +30,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
              "food101_sr_tpu")
 
 
-# the modules of the training and GAN slices, named so the check cannot
-# miss them
+# the modules of the training, GAN and generator slices, named so the
+# check cannot miss them
 NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.data.pil_bicubic",
                "food101_sr_tpu_torch.data.pipeline",
@@ -41,6 +42,11 @@ NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.models.discriminator",
                "food101_sr_tpu_torch.models.feature_nets",
                "food101_sr_tpu_torch.models.layers",
+               "food101_sr_tpu_torch.models.registry",
+               "food101_sr_tpu_torch.models.resnet_sr",
+               "food101_sr_tpu_torch.models.rrdb",
+               "food101_sr_tpu_torch.models.srcnn",
+               "food101_sr_tpu_torch.parallel.spatial",
                "food101_sr_tpu_torch.train",
                "food101_sr_tpu_torch.training.checkpoint",
                "food101_sr_tpu_torch.training.diagnostics",
@@ -107,7 +113,8 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
     assert all(w.launches == 0 for w in counted)
 
 
-@pytest.mark.parametrize("entry", [get_model, build_model, SRServer,
+@pytest.mark.parametrize("entry", [get_model, build_model, model_for_params,
+                                   SRServer,
                                    MetricsCalculator, LPIPSAlex, train,
                                    SRDataLoader, PerceptualLoss,
                                    get_loss_function])
@@ -119,6 +126,10 @@ def test_cuda_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for make in (lambda: get_model("AttentionSR"), SRServer,
+                 lambda: get_model("RRDB"), lambda: SRServer("RESNET"),
+                 lambda: model_for_params(
+                     get_model("SRCNN", device="cpu").state_dict()),
+                 lambda: train({"dataset": "synthetic"}),
                  MetricsCalculator,
                  lambda: train({"dataset": "synthetic",
                                 "architecture": "AttentionSR"}),
@@ -168,3 +179,21 @@ def test_wrappers_check_inputs_on_the_cpu_as_on_cuda():
     if torch.cuda.is_available():
         with pytest.raises(ValueError, match="size=7"):
             blur_kernel(x.cuda(), size=7)
+
+
+def test_served_batchnorm_stays_float32_in_a_bf16_server():
+    """The registry ResNetSR served in bf16 on the CPU: its convs in bf16,
+    its BatchNorms' parameters and running stats in float32 (as the JAX
+    package keeps them), also through a later ``.to(torch.bfloat16)``."""
+    srv = SRServer("RESNET", dtype=torch.bfloat16, device="cpu")
+    try:
+        assert srv.model.input_conv.weight.dtype == torch.bfloat16
+        bns = [m for m in srv.model.modules()
+               if isinstance(m, torch.nn.BatchNorm2d)]
+        assert len(bns) == 33
+        srv.model.to(torch.bfloat16)
+        for m in bns:
+            assert {t.dtype for t in (m.weight, m.bias, m.running_mean,
+                                      m.running_var)} == {torch.float32}
+    finally:
+        srv.close()

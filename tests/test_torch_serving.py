@@ -218,11 +218,11 @@ def test_plan_windows_matches_jax(h, w, tile, halo):
 
 def test_receptive_radius_matches_jax(nets):
     jnet, _, model = nets
-    assert receptive_radius(model) == \
+    assert receptive_radius("AttentionSR", model) == \
         jax_receptive_radius("AttentionSR", jnet) == 20
     with torch.device("meta"):
         registry_net = AttentionSR(4, 96, 32)
-    assert receptive_radius(registry_net) == \
+    assert receptive_radius("AttentionSR", registry_net) == \
         jax_receptive_radius("AttentionSR") == 80
     with pytest.raises(ValueError):
-        receptive_radius(torch.nn.Conv2d(3, 3, 3))
+        receptive_radius(None, torch.nn.Conv2d(3, 3, 3))
