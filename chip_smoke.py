@@ -28,7 +28,26 @@ Phases, one short line each; any failure raises and the exit code is 1:
           LPIPS, NLPD through K1); NLPD and LPIPS are held against the
           plain CPU calculator's
 7. close  the server stops
-8. train  the supervised step on the registry AttentionSR x4 (float32,
+8. http   the port's HTTP front end (food101_sr_tpu_torch.serve) on
+          127.0.0.1, in this process: a zoo of the registry AttentionSR x4
+          (bf16, seeded, warmed, instrumented) and the committed SRCNN
+          asset (float32); two rounds of 32 64x64 PNGs (the front end's
+          first traffic, then warm) and 8 tiled 200x152 PNGs, each round
+          from 8 client threads, every response bit-equal to
+          SRServer.upscale of its input (PNG is lossless and the device
+          batch has one shape); images/s and the client's p50/p95 per
+          round; /statz's attribution per round (decode and encode per
+          request; collect, h2d, exec_fetch, exec, d2h per batch); a JPEG request and a ?format=jpeg
+          response where libjpeg is present, else both refused 415 naming
+          it; the SRCNN asset's responses (TF32 off) within 1 level of the
+          JAX package's goldens, and its bf16 distance; a --tta server's
+          responses within 1 level of the eight dihedral forwards averaged
+          by hand; predict.main on 16 64x64 PNGs and a tiled one, every
+          output equal to upscale's; a shutdown with 4 requests inside
+          their handlers answers each; 404, 413, 400 (truncated) and 415
+          (16-bit PNG); then K2 NHWC at the --tta forwards' shape
+          (32,96,64,64) bf16 against its plain version, with its times
+9. train  the supervised step on the registry AttentionSR x4 (float32,
           channels-last, train mode), NLPD loss, Adam 4e-4, batch 16 of
           seeded 200x200 uint8 crops made on the device: one step's raw
           gradients on 2 crops against the CPU's plain path (TF32 off);
@@ -37,7 +56,7 @@ Phases, one short line each; any failure raises and the exit code is 1:
           times; the NCHW copy before the pyramid and the target half of
           K1's backward, timed; the non-finite guard; the eval step; a
           profile of 3 steps; peak memory
-9. gan    the relativistic GAN's D and G steps on the same generator,
+10. gan   the relativistic GAN's D and G steps on the same generator,
           batch and lr (G Adam with clip 1, D Adam at lr/10), the
           spectral-norm Discriminator at nf=64 and VGG19 through conv5_4
           (seeded: no weights file on the card host): one D step's and
@@ -51,7 +70,7 @@ Phases, one short line each; any failure raises and the exit code is 1:
           profile of 3 iterations split by net (G, D, VGG19: convolutions
           and the rest) and K2; K2 at the steps' shape, forward and
           backward, against its plain version; peak memory
-10. generators  SRCNN (hidden 64), ResNetSR (16 blocks x 64, BatchNorm)
+11. generators  SRCNN (hidden 64), ResNetSR (16 blocks x 64, BatchNorm)
           and RRDB (23 RRDBs x 64, growth 32) at registry size, seeded,
           channels-last, one after the other: each takes the train phase's
           step from seeded weights (f32, TF32 convs, NLPD, Adam 4e-4, batch
@@ -66,7 +85,7 @@ Phases, one short line each; any failure raises and the exit code is 1:
           (each within 1 level of a direct forward) and one image larger
           than tile + 2 * halo, tiled (within 1 level of the whole-image
           forward in float32, TF32 off)
-11. loop  training.train() on the card, in a child process of its own
+12. loop  training.train() on the card, in a child process of its own
           (``chip_smoke.py --loop DIR``) that alone gets the determinism
           switches (CUBLAS_WORKSPACE_CONFIG, deterministic algorithms, no
           cuDNN autotuning): the registry AttentionSR x4 f32, synthetic
@@ -94,13 +113,15 @@ Phases, one short line each; any failure raises and the exit code is 1:
           a full-state checkpoint, D's state included, bit-equal to the
           uninterrupted run's. Then the same GAN run around the registry
           RRDB (K1 4 per test batch, K2 none), preempted and resumed alike
-12. done  the kernels' JSON line and the elapsed time
+13. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
 K2 32 per device batch, all through the NHWC entry, and K1 4 for the one
-NLPD call), one train step (K1 4 forward and 4 backward, K2 NHWC 32, K2
-plane 0), one GAN D step and one G step (K2 NHWC 32 each, K1 0), one
+NLPD call), the http phase (K2 NHWC 32 per device batch of the zoo and
+of predict's server, 64 per --tta device batch, K1 0: ``http_launches``;
+the --tta requests' alone on K2's TTA-shape row), one train step (K1 4
+forward and 4 backward, K2 NHWC 32, K2 plane 0), one GAN D step and one G step (K2 NHWC 32 each, K1 0), one
 train step of each of the other generators (K1 8, K2 0:
 ``generator_launches``), and the uninterrupted train() runs of the loop
 phase, NLPD (``loop_launches``), GAN (``gan_loop_launches``) and RRDB GAN
@@ -112,13 +133,20 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import io
 import json
 import os
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -189,6 +217,18 @@ GEN_REQUESTS = 16
 GEN_WARMUP, GEN_TIMED, GEN_PROFILED = 2, 5, 2
 # the loop phase's RRDB GAN run: GAN_LOOP_CFG around the registry RRDB
 RRDB_GAN_LOOP_CFG = {**GAN_LOOP_CFG, "architecture": "RRDB"}
+# the http phase: two rounds of HTTP_REQUESTS 64x64 PNGs and one of
+# HTTP_TILED PNGs of HTTP_TILED_SHAPE (the tiled path), each from
+# HTTP_THREADS client threads,
+# TTA_REQUESTS 64x64 PNGs to a --tta server, predict.main on
+# PREDICT_IMAGES 64x64 PNGs and one tiled image, DRAIN_REQUESTS tiled
+# requests in flight at shutdown; the committed SRCNN asset and the JAX
+# package's float32 goldens for it (tools/export_port_assets.py)
+HTTP_REQUESTS, HTTP_TILED, HTTP_THREADS = 32, 8, 8
+HTTP_TILED_SHAPE = (200, 152)
+TTA_REQUESTS, TTA_CHECKED, PREDICT_IMAGES, DRAIN_REQUESTS = 16, 2, 16, 4
+ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "food101_sr_tpu_torch", "assets")
 
 # Peak rates (NVIDIA data sheets, dense): HBM bytes/s and float32 (non-tensor)
 # flop/s by card model; matched against the device name, first hit wins.
@@ -703,7 +743,7 @@ def _train_kernels(rates) -> tuple[dict, dict]:
 
 
 def phase_train(rates) -> tuple[dict, dict]:
-    """The supervised train step on the card (module docstring, phase 8).
+    """The supervised train step on the card (module docstring, phase 9).
     Returns the K1 and K2 records at the step's shapes, launches included."""
     from food101_sr_tpu_torch.losses import get_loss_function
     from food101_sr_tpu_torch.models import get_model
@@ -998,7 +1038,7 @@ def _gan_grad_check(g, d, percep) -> dict:
 
 
 def phase_gan(rates) -> dict:
-    """The GAN branch on the card (module docstring, phase 9). Returns the
+    """The GAN branch on the card (module docstring, phase 10). Returns the
     K2 record at the GAN steps' shape, launches per step included."""
     from food101_sr_tpu_torch.losses import get_loss_function
     from food101_sr_tpu_torch.models import (Discriminator, build_model,
@@ -1234,10 +1274,7 @@ def _serve_generator(arch: str, state_dict: dict, rng) -> dict:
                                  f"for {server.architecture}")
         win = server.tile + 2 * server.halo
         side = server.tile * (-(-win // server.tile) + 1)  # > the window
-        for s in (server.tile, min(win, side)):  # cuDNN picks algorithms
-            server.forward_u8(torch.zeros((8, s, s, 3), dtype=torch.uint8,
-                                          device="cuda"))
-        torch.cuda.synchronize()
+        server.warmup([(s, s) for s in (server.tile, min(win, side))])
         small = [rng.integers(0, 256, (64, 64, 3), np.uint8)
                  for _ in range(GEN_REQUESTS)]
         large = rng.integers(0, 256, (side, side, 3), np.uint8)
@@ -1370,7 +1407,7 @@ def _train_generator(arch: str) -> dict:
 
 def phase_generators() -> dict:
     """SRCNN, ResNetSR and RRDB at registry size on the card (module
-    docstring, phase 10): each trained from seeded weights, then served.
+    docstring, phase 11): each trained from seeded weights, then served.
     Returns per net the numbers the phase prints, K1's and K2's launches
     per step included."""
     rng = np.random.default_rng(10)
@@ -1425,6 +1462,452 @@ def phase_generators() -> dict:
     print("generators numbers: " + json.dumps(out), flush=True)
     return out
 
+
+
+def _http(port: int, path: str, body: bytes | None = None,
+          headers: dict | None = None) -> tuple:
+    """(status, headers, body, client ms) of one request to 127.0.0.1;
+    HTTP errors are returned, not raised."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET",
+                                 headers=headers or {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        out = e.code, e.headers, e.read()
+    return (*out, (time.perf_counter() - t0) * 1e3)
+
+
+def _raw_http(port: int, payload: bytes) -> bytes:
+    """Raw bytes in (half-closed after), the whole response out."""
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        s.sendall(payload)
+        s.shutdown(socket.SHUT_WR)
+        chunks = []
+        while True:
+            b = s.recv(65536)
+            if not b:
+                return b"".join(chunks)
+            chunks.append(b)
+
+
+def _burst(port: int, path: str, bodies: list, threads: int):
+    """POST every body from ``threads`` client threads: (responses, wall
+    seconds); any status but 200 fails."""
+    with cf.ThreadPoolExecutor(max_workers=threads) as pool:
+        t0 = time.perf_counter()
+        res = list(pool.map(lambda b: _http(port, path, b), bodies))
+        wall = time.perf_counter() - t0
+    bad = [r[0] for r in res if r[0] != 200]
+    if bad:
+        raise AssertionError(f"POST {path}: statuses {bad}")
+    return res, wall
+
+
+def _bucket(name: str, res: list, wall: float) -> dict:
+    ms = [r[3] for r in res]
+    return {"bucket": name, "requests": len(res),
+            "images_per_s": len(res) / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p95_ms": float(np.percentile(ms, 95))}
+
+
+def _statz_delta(a: dict, b: dict) -> dict:
+    """One bucket's attribution from two /statz readings around it: host
+    ms per request (decode, encode) and batcher ms per device batch."""
+    served = b["served"] - a["served"]
+    batches = b["device_batches"] - a["device_batches"]
+    out = {"served": served, "batches": batches}
+    for k in ("t_decode_s", "t_encode_s"):
+        out[f"{k[2:-2]}_ms_per_request"] = (b[k] - a[k]) / served * 1e3
+    for k in ("t_collect_s", "t_h2d_s", "t_exec_fetch_s", "t_exec_s",
+              "t_d2h_s"):
+        out[f"{k[2:-2]}_ms_per_batch"] = (b[k] - a[k]) / batches * 1e3
+    return out
+
+
+def _hand_tta(server, img: np.ndarray) -> np.ndarray:
+    """The x8 self-ensemble of one (unpadded-bucket) image done by hand:
+    each dihedral transform (torch.rot90 and a flip, not the flips and
+    transposes of ops/tta.py) forwarded alone in row 0 of a batch of
+    4 * max_batch rows, the TTA forwards' shape (bf16 cuDNN picks its
+    algorithm by shape), undone, averaged in float32 and rounded to the
+    server's dtype as the server does."""
+    rows = 4 * server.batcher.max_batch
+    x = (torch.from_numpy(img).cuda().permute(2, 0, 1)[None].float()
+         / 255.0).to(server.dtype)
+    acc = 0
+    with torch.inference_mode():
+        for k in range(4):
+            for flip in (False, True):
+                t = torch.rot90(x, k, (2, 3))
+                t = torch.flip(t, (3,)) if flip else t
+                batch = t.new_zeros((rows, *t.shape[1:]))
+                batch[0] = t[0]
+                y = server.model(batch)[:1]
+                y = torch.flip(y, (3,)) if flip else y
+                acc = acc + torch.rot90(y, -k, (2, 3)).float()
+    y = (acc / 8).to(server.dtype).float()
+    y8 = (y.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    return y8[0].permute(1, 2, 0).cpu().numpy()
+
+
+def _drain(server, imgs: list) -> tuple[list, float]:
+    """A front end of its own over ``server``: every request of ``imgs``
+    is inside its handler when ``shutdown()`` (what SIGTERM runs) is
+    called; returns the responses and the seconds from shutdown to the
+    last handler's end."""
+    from food101_sr_tpu_torch import native
+    from food101_sr_tpu_torch.serve import SRHTTPServer, make_handler
+
+    entered = threading.Semaphore(0)
+
+    class Counting(make_handler(server)):
+        def do_POST(self):
+            entered.release()
+            super().do_POST()
+
+    httpd = SRHTTPServer(("127.0.0.1", 0), Counting)
+    port = httpd.server_address[1]
+    loop = threading.Thread(target=httpd.serve_forever)
+    loop.start()
+    results = [None] * len(imgs)
+
+    def client(i):
+        results[i] = _http(port, "/sr", native.encode_png_rgb8(imgs[i]))
+
+    clients = [threading.Thread(target=client, args=(i,))
+               for i in range(len(imgs))]
+    for c in clients:
+        c.start()
+    try:
+        for _ in clients:
+            if not entered.acquire(timeout=300):
+                raise AssertionError("drain: a request never reached its "
+                                     "handler")
+    finally:
+        t0 = time.perf_counter()
+        httpd.shutdown()
+        httpd.server_close()  # joins the handler threads
+        drain_s = time.perf_counter() - t0
+        for c in clients + [loop]:
+            c.join(timeout=300)
+    if any(c.is_alive() for c in clients + [loop]):
+        raise AssertionError("drain: a thread outlived shutdown")
+    return results, drain_s
+
+
+def _k2_tta(rates, launches: int) -> dict:
+    """K2 NHWC at the --tta forwards' SE shape, (4 * max_batch, 96, 64,
+    64) channels-last, against its plain version (f32 relative, bf16 one
+    ulp) and timed in bf16, the main path's dtype."""
+    from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
+                                                       spatial_mean_plain)
+
+    shape = (32, 96, 64, 64)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    base = torch.rand(shape, device="cuda", generator=gen) * 2.0 - 0.5
+    abs_err = rel = ulp = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = base.to(dtype).contiguous(memory_format=torch.channels_last)
+        got, want = mean_nhwc_kernel(x).float(), spatial_mean_plain(x).float()
+        diff = (got - want).abs()
+        abs_err = max(abs_err, diff.max().item())
+        if dtype == torch.float32:
+            rel = (diff / want.abs().clamp_min(1e-6)).max().item()
+        else:
+            ulp = (diff / _ulp_bf16(want)).max().item()
+    if not (rel <= K2_RTOL and ulp <= 1.0):
+        raise AssertionError(f"K2 nhwc at {shape} disagrees with its plain "
+                             f"version: rel {rel} (f32), {ulp} ulp (bf16)")
+    x = (torch.rand(shape, device="cuda", generator=gen)
+         .to(torch.bfloat16).contiguous(memory_format=torch.channels_last))
+    t = _timings(lambda: mean_nhwc_kernel(x), lambda: spatial_mean_plain(x),
+                 lambda: x.mean((2, 3)), launches=1)
+    n = x.numel()
+    t["bound_ms"], t["bound_by"] = bound(2 * n + 2 * shape[0] * shape[1], n,
+                                         rates)
+    print(f"K2 spatial mean, nhwc, TTA shape 32x96x64x64: max_abs_err "
+          f"{abs_err:.3g} (f32 rel {rel:.2g} <= {K2_RTOL}, bf16 {ulp:.2g} ulp "
+          f"<= 1) | bf16: kernel {t['ms']:.4f} ms, device "
+          f"{t['device_ms']:.4f}, host {t['host_us']:.1f} us, plain "
+          f"{t['plain_ms']:.4f}, x.mean {t['library_ms']:.4f}, bound "
+          f"{t['bound_ms']:.4f} ({t['bound_by']}) | {launches} launches "
+          "in the http phase's --tta requests", flush=True)
+    return {"name": "K2 spatial mean (SE squeeze), nhwc input, TTA shape",
+            "route": "cuda", "source": "food101_sr_tpu_torch/csrc/kernels.cu",
+            "replaces": "food101_sr_tpu/ops/spatial_mean.py:45",
+            "wrapper": "food101_sr_tpu_torch/ops/spatial_mean.py:"
+                       "mean_nhwc_kernel",
+            "at": "1 launch: (32,96,64,64) bfloat16 channels-last, the SE "
+                  "squeeze of the --tta forwards (4 x max_batch rows)",
+            "launches": launches, "max_abs_err": abs_err, **t}
+
+
+def _png_16bit() -> bytes:
+    """An 8x8 16-bit RGB PNG (which the port refuses by name)."""
+    from food101_sr_tpu_torch import native
+
+    ihdr = struct.pack(">IIBBBBB", 8, 8, 16, 2, 0, 0, 0)
+    return (native.PNG_SIGNATURE + native._chunk(b"IHDR", ihdr)
+            + native._chunk(b"IDAT", zlib.compress(bytes(8 * 49)))
+            + native._chunk(b"IEND", b""))
+
+
+def phase_http(rates) -> tuple[dict, dict]:
+    """The port's HTTP front end and offline CLI on the card (module
+    docstring, phase 8). Returns the phase's launches by kernel and K2's
+    record at the --tta shape."""
+    from food101_sr_tpu_torch import native, predict
+    from food101_sr_tpu_torch.ops import (blur_kernel, full_fp32,
+                                          mean_nhwc_kernel, mean_plane_kernel)
+    from food101_sr_tpu_torch.serve import (SRHTTPServer, device_name,
+                                            make_handler)
+    from food101_sr_tpu_torch.serving import SRServer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(11)
+    asset = os.path.join(ASSETS, "winner_srcnn.pth")
+    goldens = np.load(os.path.join(ASSETS, "winner_srcnn_goldens.npz"))
+    gold = [(goldens[f"lr_{i}"], goldens[f"sr_{i}"]) for i in range(4)]
+    attn = SRServer("AttentionSR", device="cuda", dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(0),
+                    adaptive_window=True, instrument=True)
+    srcnn = SRServer("auto", checkpoint=asset, device="cuda",
+                     dtype=torch.float32)
+    tta = SRServer("AttentionSR", device="cuda", dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(0),
+                   adaptive_window=True, tta=True)
+    servers, httpds, bursts = [attn, srcnn, tta], [], []
+    tmp = tempfile.TemporaryDirectory()
+
+    def start(handler) -> int:
+        httpd = SRHTTPServer(("127.0.0.1", 0), handler)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        httpds.append((httpd, thread))
+        return httpd.server_address[1]
+
+    try:
+        n_blocks = attn.model.num_residuals
+        t0 = time.perf_counter()
+        attn.warmup()  # --warmup
+        tta.warmup([(attn.tile, attn.tile)])
+        srcnn.warmup()
+        warm_s = time.perf_counter() - t0
+        port = start(make_handler({"attn": attn, "srcnn": srcnn}))
+        tport = start(make_handler(tta))
+        cold = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                for _ in range(HTTP_REQUESTS)]
+        small = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                 for _ in range(HTTP_REQUESTS)]
+        tiled = [rng.integers(0, 256, (*HTTP_TILED_SHAPE, 3), np.uint8)
+                 for _ in range(HTTP_TILED)]
+        tta_imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                    for _ in range(TTA_REQUESTS)]
+        pred_imgs = {f"p{i:02d}.png": rng.integers(0, 256, (64, 64, 3),
+                                                   np.uint8)
+                     for i in range(PREDICT_IMAGES)}
+        pred_imgs["tiled.png"] = rng.integers(0, 256, (*HTTP_TILED_SHAPE, 3),
+                                              np.uint8)
+        pred_in = os.path.join(tmp.name, "in")
+        pred_out = os.path.join(tmp.name, "out")
+        os.makedirs(pred_in)
+        for name, img in pred_imgs.items():
+            with open(os.path.join(pred_in, name), "wb") as f:
+                f.write(native.encode_png_rgb8(img))
+        cold_b = [native.encode_png_rgb8(x) for x in cold]
+        small_b = [native.encode_png_rgb8(x) for x in small]
+        tiled_b = [native.encode_png_rgb8(x) for x in tiled]
+        tta_b = [native.encode_png_rgb8(x) for x in tta_imgs]
+        gold_b = [native.encode_png_rgb8(x) for x, _ in gold]
+        jpeg_ok = native.jpeg_available()
+        jpeg_body = (native.encode_jpeg_rgb8(small[0], 95) if jpeg_ok
+                     else b"\xff\xd8\xff\xe0" + bytes(64))
+        torch.cuda.synchronize()
+
+        # ---- main path: counts from zero -------------------------------
+        blur_kernel.launches = 0
+        mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
+        b_attn, b_tta = attn.batcher.n_batches, tta.batcher.n_batches
+        # the front end's first traffic (cold), then the same bucket warm,
+        # then the tiled bucket; /statz read between them
+        stats = [json.loads(_http(port, "/statz")[2])["attn"]]
+        for bodies in (cold_b, small_b, tiled_b):
+            bursts.append(_burst(port, "/sr?model=attn", bodies,
+                                 HTTP_THREADS))
+            stats.append(json.loads(_http(port, "/statz")[2])["attn"])
+        health = json.loads(_http(port, "/healthz")[2])
+        r_jpeg_in = _http(port, "/sr?model=attn", jpeg_body)
+        r_jpeg_out = _http(port, "/sr?model=attn&format=jpeg", small_b[0])
+        with full_fp32():  # float32 as the goldens' CPU run, TF32 off
+            r_gold = [_http(port, "/sr?model=srcnn", b) for b in gold_b]
+        k2_before = mean_nhwc_kernel.launches
+        r_tta, wall_tta = _burst(tport, "/sr", tta_b, HTTP_THREADS)
+        tta_launches = mean_nhwc_kernel.launches - k2_before
+        b_tta = tta.batcher.n_batches - b_tta
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            predict.main([pred_in, "--out_dir", pred_out, "--warmup"])
+        pred_line = buf.getvalue().strip().splitlines()[-1]
+        r_drain, drain_s = _drain(attn, tiled[:DRAIN_REQUESTS])
+        torch.cuda.synchronize()
+        launches = {"K1": blur_kernel.launches,
+                    "K2 nhwc": mean_nhwc_kernel.launches,
+                    "K2 nchw": mean_plane_kernel.launches}
+        b_attn = attn.batcher.n_batches - b_attn
+        # ---- end of main path ------------------------------------------
+
+        # the predict server (seeded alike) warms two buckets and serves;
+        # what is not the zoo's or the TTA server's is its batches
+        rest = launches["K2 nhwc"] - n_blocks * (b_attn + 2 * b_tta)
+        if (launches["K1"] or launches["K2 nchw"] or rest <= 0
+                or rest % n_blocks or tta_launches != 2 * n_blocks * b_tta):
+            raise AssertionError(f"http launches {launches}: {b_attn} zoo "
+                                 f"and {b_tta} --tta device batches, "
+                                 f"{tta_launches} K2 in the --tta requests")
+        if not (health["device"] == attn.device.type
+                and health["device_name"] == device_name(attn.device)
+                and health["jpeg"] == jpeg_ok
+                and set(health["models"]) == {"attn", "srcnn"}):
+            raise AssertionError(f"/healthz {health}")
+
+        # every PNG response is the engine's result bit for bit
+        for imgs, res in ((cold, bursts[0][0]), (small, bursts[1][0]),
+                          (tiled, bursts[2][0]),
+                          (tiled[:DRAIN_REQUESTS], r_drain)):
+            for img, (code, hdrs, data, _) in zip(imgs, res):
+                if not (code == 200 and hdrs["Content-Type"] == "image/png"
+                        and np.array_equal(native.decode_image(data),
+                                           attn.upscale(img))):
+                    raise AssertionError(f"{img.shape} response ({code}) is "
+                                         "not SRServer.upscale's result")
+        if jpeg_ok:
+            want = attn.upscale(native.decode_image(jpeg_body))
+            if not (r_jpeg_in[0] == 200 and np.array_equal(
+                    native.decode_image(r_jpeg_in[2]), want)
+                    and r_jpeg_out[0] == 200
+                    and r_jpeg_out[1]["Content-Type"] == "image/jpeg"
+                    and native.decode_image(r_jpeg_out[2]).shape
+                    == (256, 256, 3)):
+                raise AssertionError("JPEG request or response failed")
+            jpeg_note = "libjpeg present: JPEG request and response served"
+        else:
+            if not (r_jpeg_in[0] == r_jpeg_out[0] == 415
+                    and b"libjpeg" in r_jpeg_in[2]
+                    and b"libjpeg" in r_jpeg_out[2]):
+                raise AssertionError(f"JPEG without libjpeg: {r_jpeg_in[:1]} "
+                                     f"{r_jpeg_in[2][:80]} {r_jpeg_out[:1]}")
+            jpeg_note = ("libjpeg absent on this host: a JPEG request and a "
+                         "?format=jpeg response were refused 415 naming it "
+                         f"({native.build_error('fast_jpeg')})")
+        print(f"http: jpeg: {jpeg_note}", flush=True)
+
+        # the SRCNN asset in f32 against the JAX package's goldens
+        lv_gold = []
+        for (x, want), (code, _, data, _) in zip(gold, r_gold):
+            if code != 200:
+                raise AssertionError(f"srcnn asset: status {code}")
+            lv_gold.append(_levels(native.decode_image(data), want))
+        if max(lv_gold) > LEVEL_TOL:
+            raise AssertionError(f"SRCNN asset vs JAX goldens: {lv_gold} "
+                                 "levels")
+        half = SRServer("auto", checkpoint=asset, device="cuda",
+                        dtype=torch.bfloat16)
+        try:
+            lv_gold_bf16 = [_levels(half.upscale(x), want) for x, want in gold]
+        finally:
+            half.close()
+
+        # --tta against the eight dihedral forwards averaged by hand
+        lv_tta = max(_levels(native.decode_image(r_tta[i][2]),
+                             _hand_tta(tta, tta_imgs[i]))
+                     for i in range(TTA_CHECKED))
+        if lv_tta > LEVEL_TOL:
+            raise AssertionError(f"--tta vs the hand-made ensemble: {lv_tta} "
+                                 "levels")
+
+        # predict: every output is the engine's result
+        pred = json.loads(pred_line)
+        if not (pred["n_images"] == len(pred_imgs) and pred["failed"] == 0):
+            raise AssertionError(f"predict: {pred_line}")
+        for name, img in pred_imgs.items():
+            path = os.path.join(pred_out, name[:-4] + "_x4.png")
+            with open(path, "rb") as f:
+                if not np.array_equal(native.decode_image(f.read()),
+                                      attn.upscale(img)):
+                    raise AssertionError(f"predict output {name} is not "
+                                         "SRServer.upscale's result")
+
+        # the error statuses of the JAX server
+        errors = {
+            "404 unknown model": _http(port, "/sr?model=nope", small_b[0]),
+            "413": _raw_http(port, b"POST /sr HTTP/1.1\r\nHost: x\r\n"
+                             b"Content-Length: 104857600\r\n\r\n"),
+            "400 truncated": _raw_http(port, b"POST /sr HTTP/1.1\r\nHost: x"
+                                       b"\r\nContent-Length: 5000\r\n\r\n"
+                                       b"0123456789"),
+            "415 16-bit PNG": _http(port, "/sr?model=attn", _png_16bit()),
+        }
+        codes = {"404 unknown model": errors["404 unknown model"][0],
+                 "413": int(errors["413"][9:12] or 0),
+                 "400 truncated": int(errors["400 truncated"][9:12] or 0),
+                 "415 16-bit PNG": errors["415 16-bit PNG"][0]}
+        if (codes != {"404 unknown model": 404, "413": 413,
+                      "400 truncated": 400, "415 16-bit PNG": 415}
+                or b"truncated" not in errors["400 truncated"]
+                or b"16-bit" not in errors["415 16-bit PNG"][2]):
+            raise AssertionError(f"error statuses {codes}")
+    finally:
+        for httpd, thread in httpds:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+        for s in servers:
+            s.close()
+        tmp.cleanup()
+
+    names = ("64x64 cold", "64x64",
+             f"{HTTP_TILED_SHAPE[0]}x{HTTP_TILED_SHAPE[1]} tiled")
+    numbers = {
+        "buckets": [{**_bucket(name, *burst), **_statz_delta(a, b)}
+                    for name, burst, a, b in zip(names, bursts, stats,
+                                                 stats[1:])],
+        "tta": _bucket("64x64 --tta", r_tta, wall_tta),
+        "predict": pred,
+        "statz": stats[-1],
+        "levels_srcnn_f32": lv_gold, "levels_srcnn_bf16": lv_gold_bf16,
+        "levels_tta_vs_hand": lv_tta, "jpeg": jpeg_ok,
+        "drain_s": drain_s, "warmup_s": warm_s, "launches": launches,
+        "tta_launches": tta_launches, "error_codes": codes,
+    }
+    for b in numbers["buckets"] + [numbers["tta"]]:
+        line = (f"http: {b['bucket']}: {b['requests']} requests from "
+                f"{HTTP_THREADS} threads, {b['images_per_s']:.1f} images/s, "
+                f"p50 {b['p50_ms']:.1f} ms, p95 {b['p95_ms']:.1f} ms (client "
+                "side)")
+        if "batches" in b:
+            line += (f" | /statz (instrumented): {b['batches']} batches; "
+                     f"decode {b['decode_ms_per_request']:.3f}, encode "
+                     f"{b['encode_ms_per_request']:.3f} ms/request; per "
+                     "batch collect {collect_ms_per_batch:.3f}, h2d "
+                     "{h2d_ms_per_batch:.3f}, exec_fetch "
+                     "{exec_fetch_ms_per_batch:.3f} (exec "
+                     "{exec_ms_per_batch:.3f}, d2h {d2h_ms_per_batch:.3f}) "
+                     "ms".format(**b))
+        print(line, flush=True)
+    print(f"http: every PNG response bit-equal to SRServer.upscale "
+          f"({2 * HTTP_REQUESTS} 64x64, {HTTP_TILED} tiled, {DRAIN_REQUESTS} "
+          f"drained) | --tta vs hand ensemble {lv_tta} level(s) | SRCNN "
+          f"asset f32 vs JAX goldens {lv_gold} level(s), bf16 "
+          f"{lv_gold_bf16} | errors {codes} | drain {drain_s:.2f} s | "
+          f"predict: {pred_line} | launches {launches}, --tta "
+          f"{tta_launches} = 2 x {n_blocks} x {b_tta} batches | "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    print("http numbers: " + json.dumps(numbers), flush=True)
+    return launches, _k2_tta(rates, tta_launches)
 
 
 def _deterministic() -> None:
@@ -1531,7 +2014,7 @@ def _loop_kernels(nb: dict, rates) -> dict:
 
 
 def phase_loop(tmp: str) -> dict:
-    """training.train() on the card (module docstring, phase 11), in the
+    """training.train() on the card (module docstring, phase 12), in the
     process that _deterministic() set up; run logs and weights go under
     ``tmp``. Returns the uninterrupted run's launch counts by entry point
     and the kernels' errors at the loop's shapes."""
@@ -1757,10 +2240,7 @@ def main() -> int:
     try:
         n_blocks = server.model.num_residuals
         win = server.tile + 2 * server.halo
-        for side in (server.tile, win):  # first calls pick cuDNN algorithms
-            server.forward_u8(torch.zeros((8, side, side, 3), dtype=torch.uint8,
-                                          device="cuda"))
-        torch.cuda.synchronize()
+        server.warmup()  # cuDNN picks its algorithms per bucket (tile, win)
         small = [rng.integers(0, 256, (64, 64, 3), np.uint8) for _ in range(64)]
         large = rng.integers(0, 256, (256, 256, 3), np.uint8)
         hr = rng.integers(0, 256, (8, 200, 200, 3), np.uint8)
@@ -1865,6 +2345,9 @@ def main() -> int:
     k2_nchw["launches"] = launches["K2 nchw"]
     print(f"close: server stopped | {time.perf_counter() - t_start:.1f} s",
           flush=True)
+    http_launches, k2_tta = phase_http(rates)
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
+        d["http_launches"] = http_launches[key]
     k1_train, k2_train = phase_train(rates)
     k2_gan = phase_gan(rates)
     gens = phase_generators()
@@ -1881,7 +2364,7 @@ def main() -> int:
         d["loop_max_abs_err"] = loop["max_abs_err"][key]
         d["at_loop_val"] = loop["at_val"][key]
     keys = ("name", "route", "source", "replaces", "launches",
-            "loop_launches", "gan_loop_launches", "generator_launches",
+            "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
             "rrdb_gan_loop_launches", "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
@@ -1889,7 +2372,8 @@ def main() -> int:
             "nchw_copy_device_ms", "step_ms", "g_step_ms", "d_step_ms",
             "images_per_s", "peak_bytes", "device_split_ms")
     kernels = [{k: d[k] for k in keys if k in d}
-               for d in (k1, k2_nhwc, k2_nchw, k1_train, k2_train, k2_gan)]
+               for d in (k1, k2_nhwc, k2_nchw, k2_tta, k1_train, k2_train,
+                         k2_gan)]
     print(f"done: elapsed_s {time.perf_counter() - t_start:.1f} | {smi}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,18 +3,22 @@
 requests into one device batch, and a server core that takes uint8 HWC
 images and returns the x``scale`` uint8 result.
 
-The HTTP front end and the image codecs are not part of this module; the
-engine works on numpy arrays.
+The engine works on numpy arrays; the HTTP front end is ``serve.py``,
+the offline CLI ``predict.py`` and the image codecs ``native``.
 
     server = SRServer("AttentionSR")          # seeded weights, bf16, cuda
+    server.warmup()                           # cuDNN picks per bucket
     sr = server.upscale(lr_uint8_hwc)         # (H*4, W*4, 3) uint8
     server.close()
 
     SRServer("auto", state_dict=sd)           # the net that sd's keys and
                                               # shapes describe
+    SRServer("auto", checkpoint="w/run_best.pth")   # a torch checkpoint file
+    SRServer("AttentionSR", tta=True)         # x8 self-ensemble per image
 """
 from __future__ import annotations
 
+import functools
 import queue
 import threading
 import time
@@ -25,9 +29,26 @@ import torch
 from torch import nn
 
 from .models import architecture_of, get_model, model_for_params
+from .ops.tta import self_ensemble
 from .parallel.spatial import plan_windows, receptive_radius
+from .training.checkpoint import load_checkpoint
 
 _STOP = object()  # queue sentinel: close() puts it behind all pending work
+
+
+class _Call:
+    """Queue item of :meth:`MicroBatcher.call`: a function, not an image."""
+
+    def __init__(self, fn: Callable[[], object]):
+        self.fn = fn
+
+
+def _identity(x):
+    return x
+
+
+def _no_sync() -> None:
+    pass
 
 
 class MicroBatcher:
@@ -38,12 +59,27 @@ class MicroBatcher:
     arrives within the collect window with the same shape (up to
     ``max_batch``), runs ONE forward over the stacked batch, and hands each
     row back. ``close()`` serves what is queued, then stops the thread.
+
+    A batch passes three stages: ``h2d`` (the stacked uint8 array to the
+    device), ``fwd`` and ``d2h`` (the rows back to numpy), each the
+    identity by default, so ``fwd`` alone may map arrays to arrays. The
+    batcher thread adds each batch's seconds to ``t_collect_s`` (the
+    collect window), ``t_h2d_s`` and ``t_exec_fetch_s`` (forward and D2H;
+    the device runs asynchronously, so only their sum is one stage), and
+    its rows to ``rows_fetched``. With ``instrument``, ``sync`` (e.g.
+    ``torch.cuda.synchronize``) runs between the forward and the D2H, and
+    ``t_exec_s`` and ``t_d2h_s`` split the sum: an extra wait per batch,
+    for attribution runs only.
     """
 
-    def __init__(self, fwd: Callable[[np.ndarray], np.ndarray],
-                 max_batch: int = 8, window_ms: float = 3.0,
-                 adaptive: bool = False):
-        self._fwd = fwd
+    def __init__(self, fwd: Callable, max_batch: int = 8,
+                 window_ms: float = 3.0, adaptive: bool = False, *,
+                 h2d: Callable[[np.ndarray], object] = _identity,
+                 d2h: Callable[[object], np.ndarray] = _identity,
+                 sync: Callable[[], None] = _no_sync,
+                 instrument: bool = False):
+        self._fwd, self._h2d, self._d2h, self._sync = fwd, h2d, d2h, sync
+        self.instrument = instrument
         self.max_batch = max_batch
         self.window = window_ms / 1e3
         # Adaptive coalescing: keep the short window until the previous
@@ -55,6 +91,13 @@ class MicroBatcher:
         self._last_fill = 0
         self.n_batches = 0
         self.n_items = 0
+        # per-stage seconds, written by the batcher thread only
+        self.t_collect_s = 0.0
+        self.t_h2d_s = 0.0
+        self.t_exec_fetch_s = 0.0
+        self.t_exec_s = 0.0   # instrument only
+        self.t_d2h_s = 0.0    # instrument only
+        self.rows_fetched = 0
         self._q: queue.Queue = queue.Queue()
         self._lock = threading.Lock()  # orders submits against close()
         self._closed = False
@@ -77,6 +120,18 @@ class MicroBatcher:
         """Enqueue several items at once, then wait for all of them, so the
         batcher groups them (and concurrent same-shape items of other
         requests) into ``max_batch`` device batches."""
+        return self._wait(self._put(xs))
+
+    def call(self, fn: Callable[[], object]):
+        """Run ``fn()`` on the batcher thread, between device batches, and
+        return its result. That thread runs every forward, and PyTorch
+        keeps cuDNN and cuBLAS handles per thread: a warm-up forward made
+        here is one the first request finds done, where one made on
+        another thread leaves the handles to that request. Counts nothing
+        in the batch counters."""
+        return self._wait(self._put([_Call(fn)]))[0]
+
+    def _put(self, xs) -> list:
         pending = []
         with self._lock:
             if self._closed:
@@ -85,6 +140,10 @@ class MicroBatcher:
                 ev, slot = threading.Event(), {}
                 self._q.put((x, ev, slot))
                 pending.append((ev, slot))
+        return pending
+
+    @staticmethod
+    def _wait(pending: list) -> list:
         outs = []
         for ev, slot in pending:
             ev.wait()
@@ -110,9 +169,18 @@ class MicroBatcher:
             pending = None
             if first is _STOP:
                 return
+            if isinstance(first[0], _Call):
+                _, ev, slot = first
+                try:
+                    slot["out"] = first[0].fn()
+                except Exception as e:  # noqa: BLE001 - handed to the caller
+                    slot["err"] = e
+                ev.set()
+                continue
             group = [first]
             shape = first[0].shape
-            deadline = time.perf_counter() + self.collect_window()
+            t_win0 = time.perf_counter()
+            deadline = t_win0 + self.collect_window()
             while len(group) < self.max_batch:
                 timeout = deadline - time.perf_counter()
                 if timeout <= 0:
@@ -121,20 +189,37 @@ class MicroBatcher:
                     item = self._q.get(timeout=timeout)
                 except queue.Empty:
                     break
-                if item is not _STOP and item[0].shape == shape:
+                if (item is not _STOP and not isinstance(item[0], _Call)
+                        and item[0].shape == shape):
                     group.append(item)
                 else:
                     pending = item
                     break
+            self.t_collect_s += time.perf_counter() - t_win0
             try:
                 t0 = time.perf_counter()
-                out = self._fwd(np.stack([g[0] for g in group]))
-                batch_s = time.perf_counter() - t0
+                dev = self._h2d(np.stack([g[0] for g in group]))
+                t1 = time.perf_counter()
+                dev_out = self._fwd(dev)
+                if self.instrument:
+                    self._sync()
+                    t2 = time.perf_counter()
+                    out = self._d2h(dev_out)
+                    t3 = time.perf_counter()
+                    self.t_exec_s += t2 - t1
+                    self.t_d2h_s += t3 - t2
+                else:
+                    out = self._d2h(dev_out)
+                    t3 = time.perf_counter()
             except Exception as e:  # noqa: BLE001 - handed to the callers
                 for _, ev, slot in group:
                     slot["err"] = e
                     ev.set()
                 continue
+            batch_s = t3 - t1
+            self.t_h2d_s += t1 - t0
+            self.t_exec_fetch_s += batch_s
+            self.rows_fetched += len(group)
             self._ema_exec_s = (batch_s if self._ema_exec_s == 0 else
                                 0.7 * self._ema_exec_s + 0.3 * batch_s)
             self._last_fill = len(group)
@@ -143,6 +228,21 @@ class MicroBatcher:
             for i, (_, ev, slot) in enumerate(group):
                 slot["out"] = out[i]
                 ev.set()
+
+
+def load_generator_weights(path: str) -> dict:
+    """The generator state_dict held by one of the port's torch checkpoint
+    files (``training.checkpoint``), as the JAX ``serve.py`` reads its
+    Orbax ones: a best file (a bare state_dict, or ``{"params": sd}``) or
+    a rolling ``*_last`` full-state file, whose ``g`` gives its EMA
+    weights where the run kept an EMA and its raw params otherwise."""
+    tree = load_checkpoint(path)
+    if "g" in tree and "params" not in tree:
+        g = tree["g"]
+        return {**g["params"], **(g.get("ema_params") or {})}
+    if isinstance(tree.get("params"), dict):
+        return tree["params"]
+    return tree
 
 
 class SRServer:
@@ -155,29 +255,50 @@ class SRServer:
     whole-image forward) that ride the same batcher. ToTensor and the
     255-quantization run on the device. ``architecture`` is a registry
     name (SRCNN, RESNET, AttentionSR, RRDB), or "auto" with a
-    ``state_dict``: the net is then built from the state_dict's keys and
-    shapes (``models.model_for_params``). ``model`` overrides the registry
-    net (it must expose ``scale_factor``; its halo comes from its class or
-    depth); ``state_dict`` loads weights with ``strict=True``; otherwise
-    the weights are seeded from ``generator`` (seed 0 when None).
-    ``window_ms`` and ``adaptive_window`` set the micro-batcher's collect
-    window (:class:`MicroBatcher`), with the JAX ``SRServer``'s defaults.
+    ``state_dict`` or a ``checkpoint`` file: the net is then built from the
+    weights' keys and shapes (``models.model_for_params``). ``model``
+    overrides the registry net (it must expose ``scale_factor``; its halo
+    comes from its class or depth); ``state_dict`` (or the weights in
+    ``checkpoint``, :func:`load_generator_weights`) loads with
+    ``strict=True``; otherwise the weights are seeded from ``generator``
+    (seed 0 when None). ``window_ms`` and ``adaptive_window`` set the
+    micro-batcher's collect window (:class:`MicroBatcher`), with the JAX
+    ``SRServer``'s defaults; ``instrument`` splits its execute and D2H
+    times. ``tta`` serves the x8 self-ensemble (``ops.tta``) of every
+    device batch. ``png_level`` is the zlib level of the HTTP front end's
+    PNG responses. ``quantize`` is accepted for the JAX signature's sake
+    and must be "" (ROADMAP item 8).
     """
 
     def __init__(self, architecture: str = "AttentionSR",
-                 state_dict: dict | None = None, *, scale: int = 4,
+                 state_dict: dict | None = None, *,
+                 checkpoint: str | None = None, scale: int = 4,
                  tile: int = 64, dtype: torch.dtype = torch.bfloat16,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None,
                  model: nn.Module | None = None, max_batch: int = 8,
-                 window_ms: float = 3.0, adaptive_window: bool = False):
+                 window_ms: float = 3.0, adaptive_window: bool = False,
+                 tta: bool = False, png_level: int = 1,
+                 instrument: bool = False, quantize: str = ""):
+        if quantize:
+            raise NotImplementedError(
+                f"SRServer: quantize={quantize!r} is not ported to PyTorch "
+                "yet: ROADMAP item 8 (quantization and QAT)")
+        if checkpoint:
+            if state_dict is not None:
+                raise ValueError("SRServer: give a state_dict or a "
+                                 "checkpoint, not both")
+            state_dict = load_generator_weights(checkpoint)
         self.device = torch.device(device)
         self.dtype = dtype
+        self.tta = tta
+        self.png_level = png_level
+        self.quantize = quantize
         override = model is not None
         if model is None and architecture == "auto":
             if state_dict is None:
                 raise ValueError('SRServer: architecture="auto" needs a '
-                                 "state_dict")
+                                 "state_dict or a checkpoint")
             model = model_for_params(state_dict, scale_factor=scale,
                                      dtype=dtype, device=self.device)
             state_dict = None  # loaded
@@ -196,18 +317,35 @@ class SRServer:
         self.scale = self.model.scale_factor
         self.tile = tile
         self.halo = receptive_radius(self.architecture, self.model)
-        self.batcher = MicroBatcher(self._sr_u8, max_batch=max_batch,
-                                    window_ms=window_ms,
-                                    adaptive=adaptive_window)
+        sync = (functools.partial(torch.cuda.synchronize, self.device)
+                if self.device.type == "cuda" else _no_sync)
+        self.batcher = MicroBatcher(
+            self.forward_u8, max_batch=max_batch, window_ms=window_ms,
+            adaptive=adaptive_window, instrument=instrument,
+            h2d=lambda stack: torch.from_numpy(stack).to(self.device),
+            d2h=lambda y8: y8.cpu().numpy(), sync=sync)
         self.n_served = 0
         self._served_lock = threading.Lock()
+        # host seconds of the front end's decode and encode (handler threads)
+        self.t_decode_s = 0.0
+        self.t_encode_s = 0.0
+
+    def add_host_time(self, which: str, dt: float) -> None:
+        """Add ``dt`` seconds to ``t_decode_s`` ("decode") or
+        ``t_encode_s`` (anything else), from any thread."""
+        with self._served_lock:
+            if which == "decode":
+                self.t_decode_s += dt
+            else:
+                self.t_encode_s += dt
 
     @torch.inference_mode()
     def forward_u8(self, x8: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 on the device -> (B, sH, sW, 3) uint8, B <=
         max_batch. The net always runs ``max_batch`` rows (zero rows fill
-        the rest): cuDNN picks its algorithm per shape, and in bf16 two
-        algorithms round differently, by several uint8 levels on random
+        the rest), under ``tta`` both of the ensemble's forwards
+        ``4 * max_batch``: cuDNN picks its algorithm per shape, and in bf16
+        two algorithms round differently, by several uint8 levels on random
         weights. One shape per bucket makes a request's result independent
         of how many others shared its batch."""
         n, pad = x8.shape[0], self.batcher.max_batch - x8.shape[0]
@@ -218,13 +356,34 @@ class SRServer:
             x8 = torch.cat([x8, x8.new_zeros((pad, *x8.shape[1:]))])
         # NHWC bytes viewed as (B, 3, H, W): already channels-last, no copy
         x = (x8.permute(0, 3, 1, 2).float() / 255.0).to(self.dtype)
-        y = self.model(x)[:n].float()
-        y8 = (y.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        y = self_ensemble(self.model, x) if self.tta else self.model(x)
+        y8 = (y[:n].float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
         return y8.permute(0, 2, 3, 1)
 
-    def _sr_u8(self, stack: np.ndarray) -> np.ndarray:
-        return self.forward_u8(torch.from_numpy(stack).to(self.device)) \
-            .cpu().numpy()
+    def warmup(self, sizes=None) -> None:
+        """Run one ``max_batch``-row forward per LR bucket before taking
+        traffic (the JAX server compiles its programs here): cuDNN picks
+        its algorithms and the allocator grows on a shape's first call,
+        which would otherwise land on the first request of each bucket.
+        Every device batch has ``max_batch`` rows, so one forward per
+        bucket covers it. The forwards run on the batcher thread
+        (:meth:`MicroBatcher.call`), whose per-thread cuDNN and cuBLAS
+        handles traffic uses. ``sizes``: (h, w) padded LR buckets, by
+        default the single-tile bucket and the tiled path's window.
+        Touches no batcher counter."""
+        if sizes is None:
+            win = self.tile + 2 * self.halo
+            sizes = [(self.tile, self.tile), (win, win)]
+
+        def run():
+            for h, w in sizes:
+                self.forward_u8(torch.zeros(
+                    (self.batcher.max_batch, h, w, 3), dtype=torch.uint8,
+                    device=self.device))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        self.batcher.call(run)
 
     def upscale(self, img: np.ndarray) -> np.ndarray:
         """(H, W, 3) uint8 -> (H*scale, W*scale, 3) uint8."""

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import food101_sr_tpu_torch
-from food101_sr_tpu_torch import _build
+from food101_sr_tpu_torch import _build, native, predict, serve
 from food101_sr_tpu_torch.data import SRDataLoader
 from food101_sr_tpu_torch.losses import PerceptualLoss, get_loss_function
 from food101_sr_tpu_torch.metrics import LPIPSAlex, MetricsCalculator
@@ -30,8 +30,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
              "food101_sr_tpu")
 
 
-# the modules of the training, GAN and generator slices, named so the
-# check cannot miss them
+# the modules of the training, GAN, generator and serving slices, named so
+# the check cannot miss them
 NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.data.pil_bicubic",
                "food101_sr_tpu_torch.data.pipeline",
@@ -46,7 +46,11 @@ NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.models.resnet_sr",
                "food101_sr_tpu_torch.models.rrdb",
                "food101_sr_tpu_torch.models.srcnn",
+               "food101_sr_tpu_torch.native",
+               "food101_sr_tpu_torch.ops.tta",
                "food101_sr_tpu_torch.parallel.spatial",
+               "food101_sr_tpu_torch.predict",
+               "food101_sr_tpu_torch.serve",
                "food101_sr_tpu_torch.train",
                "food101_sr_tpu_torch.training.checkpoint",
                "food101_sr_tpu_torch.training.diagnostics",
@@ -117,14 +121,22 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
                                    SRServer,
                                    MetricsCalculator, LPIPSAlex, train,
                                    SRDataLoader, PerceptualLoss,
-                                   get_loss_function])
+                                   get_loss_function, serve.build_parser,
+                                   predict.build_parser])
 def test_entry_points_default_to_cuda(entry):
-    assert inspect.signature(entry).parameters["device"].default == "cuda"
+    """A function's ``device`` parameter; a CLI's ``--device`` flag."""
+    if entry in (serve.build_parser, predict.build_parser):
+        assert entry().get_default("device") == "cuda"
+    else:
+        assert inspect.signature(entry).parameters["device"].default == \
+            "cuda"
 
 
-def test_cuda_entry_points_raise_without_a_card():
+def test_cuda_entry_points_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    (tmp_path / "a.png").write_bytes(native.encode_png_rgb8(
+        torch.zeros(8, 8, 3, dtype=torch.uint8).numpy()))
     for make in (lambda: get_model("AttentionSR"), SRServer,
                  lambda: get_model("RRDB"), lambda: SRServer("RESNET"),
                  lambda: model_for_params(
@@ -136,7 +148,12 @@ def test_cuda_entry_points_raise_without_a_card():
                  lambda: train({"dataset": "synthetic",
                                 "architecture": "AttentionSR",
                                 "loss_function": "gan"}),
-                 lambda: get_loss_function("perceptual")):
+                 lambda: get_loss_function("perceptual"),
+                 lambda: SRServer("SRCNN", tta=True),
+                 lambda: serve.main(["--architecture", "SRCNN", "--port",
+                                     "0"]),
+                 lambda: predict.main([str(tmp_path), "--out_dir",
+                                       str(tmp_path / "out")])):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
 

@@ -159,6 +159,23 @@ def test_forward_error_reaches_the_caller_and_batcher_survives():
     mb.close()
 
 
+def test_call_runs_on_the_batcher_thread_and_counts_nothing():
+    def boom():
+        raise ValueError("boom")
+
+    mb = MicroBatcher(lambda s: s, window_ms=0.0)
+    try:
+        assert mb.call(threading.current_thread) is mb._thread
+        with pytest.raises(ValueError, match="boom"):
+            mb.call(boom)
+        assert mb.submit(np.ones((2, 2), np.uint8)).sum() == 4
+        assert (mb.n_batches, mb.n_items, mb.rows_fetched) == (1, 1, 1)
+    finally:
+        mb.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        mb.call(threading.current_thread)
+
+
 def test_adaptive_window_policy():
     """Fixed window for sparse traffic; after a >=75%-full dispatch the
     window extends toward 0.75 x the batch-exec EMA, capped at 100 ms."""
