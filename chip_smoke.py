@@ -37,9 +37,12 @@ Phases, one short line each; any failure raises and the exit code is 1:
           SRServer.upscale of its input (PNG is lossless and the device
           batch has one shape); images/s and the client's p50/p95 per
           round; /statz's attribution per round (decode and encode per
-          request; collect, h2d, exec_fetch, exec, d2h per batch); a JPEG request and a ?format=jpeg
-          response where libjpeg is present, else both refused 415 naming
-          it; the SRCNN asset's responses (TF32 off) within 1 level of the
+          request; collect, h2d, exec_fetch, exec, d2h per batch); a
+          round of 32 64x64 JPEG uploads answered ?format=jpeg, each
+          response byte-equal to encode_jpeg_rgb8(SRServer.upscale) at
+          quality 90, with its images/s, p50/p95 and encode ms; a JPEG
+          request and response; a CMYK upload 415 naming CMYK; /healthz
+          "jpeg": true; the SRCNN asset's responses (TF32 off) within 1 level of the
           JAX package's goldens, and its bf16 distance; a --tta server's
           responses within 1 level of the eight dihedral forwards averaged
           by hand; predict.main on 16 64x64 PNGs and a tiled one, every
@@ -113,7 +116,23 @@ Phases, one short line each; any failure raises and the exit code is 1:
           a full-state checkpoint, D's state included, bit-equal to the
           uninterrupted run's. Then the same GAN run around the registry
           RRDB (K1 4 per test batch, K2 none), preempted and resumed alike
-13. done  the kernels' JSON line and the elapsed time
+13. food101  in the loop phase's process, after it: the port's JPEG codec
+          and the Food-101 data path. The committed fixtures
+          (food101_sr_tpu_torch/assets/jpeg/, tools/export_port_assets.py)
+          decode to the JAX package's digests, the CMYK one is refused
+          naming CMYK, two encodes hash to JAX's bytes, random region
+          decodes equal full-decode-then-crop, and SRDataLoader's first
+          two train and eval batches over the committed mini Food-101
+          tree hash to JAX's; then a Food-101-layout tree of 96 + 24
+          seeded 512x384 and 384x512 images, encoded by the port at q92,
+          is written to a temporary directory and train() runs on it with
+          the loop phase's settings (K1 8 per step and 4 per val or test
+          batch, K2 NHWC 32 per step and batch: the main path, counts
+          from zero around it); the train CLI runs once with no --dataset
+          (SRCNN, --subset 0.25). Prints decode ms (full 512x384, 200^2
+          crop), encode ms (256^2, 800x608), the loader's batches/s alone
+          (8 threads) and train()'s images/s beside the synthetic run's
+14. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
@@ -123,9 +142,10 @@ of predict's server, 64 per --tta device batch, K1 0: ``http_launches``;
 the --tta requests' alone on K2's TTA-shape row), one train step (K1 4
 forward and 4 backward, K2 NHWC 32, K2 plane 0), one GAN D step and one G step (K2 NHWC 32 each, K1 0), one
 train step of each of the other generators (K1 8, K2 0:
-``generator_launches``), and the uninterrupted train() runs of the loop
+``generator_launches``), the uninterrupted train() runs of the loop
 phase, NLPD (``loop_launches``), GAN (``gan_loop_launches``) and RRDB GAN
-(``rrdb_gan_loop_launches``). The last line is the JSON device record;
+(``rrdb_gan_loop_launches``), and train() on Food-101 JPEGs
+(``food101_loop_launches``). The last line is the JSON device record;
 the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -134,6 +154,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import io
+import itertools
 import json
 import os
 import socket
@@ -229,6 +250,42 @@ HTTP_TILED_SHAPE = (200, 152)
 TTA_REQUESTS, TTA_CHECKED, PREDICT_IMAGES, DRAIN_REQUESTS = 16, 2, 16, 4
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "food101_sr_tpu_torch", "assets")
+
+# the food101 phase: the committed JPEG fixtures and the JAX package's
+# goldens for them (tools/export_port_assets.py writes both), and train()
+# on a Food-101-layout tree made on the card: FOOD_TRAIN train and
+# FOOD_TEST test images at FOOD_SHAPES (Food-101's usual 512 px sides),
+# encoded by the port at FOOD_QUALITY, with the loop phase's settings
+JPEG_ASSETS = os.path.join(ASSETS, "jpeg")
+FOOD_TRAIN, FOOD_TEST, FOOD_QUALITY = 96, 24, 92
+FOOD_SHAPES = ((384, 512), (512, 384))
+FOOD_CROPS = 40  # random crops held against full-decode-then-crop
+FOOD_CLI_SUBSET = 0.25
+LOADER_THREADS = 8
+JPEG_ROUND = 32  # 64x64 JPEG uploads answered as JPEG, HTTP_THREADS at once
+
+
+def jpeg_test_image(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
+    """A seeded uint8 (h, w, 3) image with edges, gradients and +-noise
+    levels of noise, made with integer arithmetic only, so that every host
+    makes the same bytes (the encode goldens are digests of its JPEGs)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ramp = (3 * xx[..., None] + 2 * yy[..., None]
+            + np.array([0, 85, 170])) % 256
+    blocks = ((xx // 37 + yy // 29) % 3)[..., None] * 40
+    noise = rng.integers(-noise, noise + 1, (h, w, 3))
+    return np.clip(ramp // 2 + blocks + noise + 20, 0, 255).astype(np.uint8)
+
+
+def sha256(a) -> str:
+    """Digest of an array's C-order bytes (or of bytes)."""
+    import hashlib
+
+    if isinstance(a, np.ndarray):
+        a = np.ascontiguousarray(a).tobytes()
+    return hashlib.sha256(a).hexdigest()
+
 
 # Peak rates (NVIDIA data sheets, dense): HBM bytes/s and float32 (non-tensor)
 # flop/s by card model; matched against the device name, first hit wins.
@@ -1723,9 +1780,15 @@ def phase_http(rates) -> tuple[dict, dict]:
         tiled_b = [native.encode_png_rgb8(x) for x in tiled]
         tta_b = [native.encode_png_rgb8(x) for x in tta_imgs]
         gold_b = [native.encode_png_rgb8(x) for x, _ in gold]
-        jpeg_ok = native.jpeg_available()
-        jpeg_body = (native.encode_jpeg_rgb8(small[0], 95) if jpeg_ok
-                     else b"\xff\xd8\xff\xe0" + bytes(64))
+        if not native.jpeg_available():
+            raise AssertionError("the JPEG codec did not build: "
+                                 f"{native.build_error('fast_jpeg')}")
+        jpeg_body = native.encode_jpeg_rgb8(small[0], 95)
+        jpeg_imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                     for _ in range(JPEG_ROUND)]
+        jpeg_b = [native.encode_jpeg_rgb8(x, 90) for x in jpeg_imgs]
+        with open(os.path.join(JPEG_ASSETS, "streams", "cmyk.jpg"), "rb") as f:
+            cmyk_body = f.read()
         torch.cuda.synchronize()
 
         # ---- main path: counts from zero -------------------------------
@@ -1735,13 +1798,16 @@ def phase_http(rates) -> tuple[dict, dict]:
         # the front end's first traffic (cold), then the same bucket warm,
         # then the tiled bucket; /statz read between them
         stats = [json.loads(_http(port, "/statz")[2])["attn"]]
-        for bodies in (cold_b, small_b, tiled_b):
-            bursts.append(_burst(port, "/sr?model=attn", bodies,
-                                 HTTP_THREADS))
+        for path, bodies in (("/sr?model=attn", cold_b),
+                             ("/sr?model=attn", small_b),
+                             ("/sr?model=attn", tiled_b),
+                             ("/sr?model=attn&format=jpeg", jpeg_b)):
+            bursts.append(_burst(port, path, bodies, HTTP_THREADS))
             stats.append(json.loads(_http(port, "/statz")[2])["attn"])
         health = json.loads(_http(port, "/healthz")[2])
         r_jpeg_in = _http(port, "/sr?model=attn", jpeg_body)
         r_jpeg_out = _http(port, "/sr?model=attn&format=jpeg", small_b[0])
+        r_cmyk = _http(port, "/sr?model=attn", cmyk_body)
         with full_fp32():  # float32 as the goldens' CPU run, TF32 off
             r_gold = [_http(port, "/sr?model=srcnn", b) for b in gold_b]
         k2_before = mean_nhwc_kernel.launches
@@ -1770,7 +1836,7 @@ def phase_http(rates) -> tuple[dict, dict]:
                                  f"{tta_launches} K2 in the --tta requests")
         if not (health["device"] == attn.device.type
                 and health["device_name"] == device_name(attn.device)
-                and health["jpeg"] == jpeg_ok
+                and health["jpeg"] is True
                 and set(health["models"]) == {"attn", "srcnn"}):
             raise AssertionError(f"/healthz {health}")
 
@@ -1784,25 +1850,28 @@ def phase_http(rates) -> tuple[dict, dict]:
                                            attn.upscale(img))):
                     raise AssertionError(f"{img.shape} response ({code}) is "
                                          "not SRServer.upscale's result")
-        if jpeg_ok:
-            want = attn.upscale(native.decode_image(jpeg_body))
-            if not (r_jpeg_in[0] == 200 and np.array_equal(
-                    native.decode_image(r_jpeg_in[2]), want)
-                    and r_jpeg_out[0] == 200
-                    and r_jpeg_out[1]["Content-Type"] == "image/jpeg"
-                    and native.decode_image(r_jpeg_out[2]).shape
-                    == (256, 256, 3)):
-                raise AssertionError("JPEG request or response failed")
-            jpeg_note = "libjpeg present: JPEG request and response served"
-        else:
-            if not (r_jpeg_in[0] == r_jpeg_out[0] == 415
-                    and b"libjpeg" in r_jpeg_in[2]
-                    and b"libjpeg" in r_jpeg_out[2]):
-                raise AssertionError(f"JPEG without libjpeg: {r_jpeg_in[:1]} "
-                                     f"{r_jpeg_in[2][:80]} {r_jpeg_out[:1]}")
-            jpeg_note = ("libjpeg absent on this host: a JPEG request and a "
-                         "?format=jpeg response were refused 415 naming it "
-                         f"({native.build_error('fast_jpeg')})")
+        want = attn.upscale(native.decode_image(jpeg_body))
+        if not (r_jpeg_in[0] == 200 and np.array_equal(
+                native.decode_image(r_jpeg_in[2]), want)
+                and r_jpeg_out[0] == 200
+                and r_jpeg_out[1]["Content-Type"] == "image/jpeg"
+                and r_jpeg_out[2] == native.encode_jpeg_rgb8(
+                    attn.upscale(small[0]), 90)):
+            raise AssertionError("JPEG request or response failed")
+        # the JPEG round: each response is the port's encode of the
+        # engine's result for the decoded upload, byte for byte
+        for body, (code, hdrs, data, _) in zip(jpeg_b, bursts[3][0]):
+            if not (code == 200 and hdrs["Content-Type"] == "image/jpeg"
+                    and data == native.encode_jpeg_rgb8(
+                        attn.upscale(native.decode_image(body)), 90)):
+                raise AssertionError(f"JPEG round response ({code}) is not "
+                                     "encode_jpeg_rgb8(SRServer.upscale)")
+        if not (r_cmyk[0] == 415 and b"CMYK" in r_cmyk[2]):
+            raise AssertionError(f"CMYK upload: {r_cmyk[0]} {r_cmyk[2][:80]}")
+        jpeg_note = (f"a JPEG request, a ?format=jpeg response and "
+                     f"{JPEG_ROUND} 64x64 JPEG uploads answered as JPEG, "
+                     "byte-equal to encode_jpeg_rgb8(SRServer.upscale); a "
+                     "CMYK upload 415 naming it")
         print(f"http: jpeg: {jpeg_note}", flush=True)
 
         # the SRCNN asset in f32 against the JAX package's goldens
@@ -1870,7 +1939,8 @@ def phase_http(rates) -> tuple[dict, dict]:
         tmp.cleanup()
 
     names = ("64x64 cold", "64x64",
-             f"{HTTP_TILED_SHAPE[0]}x{HTTP_TILED_SHAPE[1]} tiled")
+             f"{HTTP_TILED_SHAPE[0]}x{HTTP_TILED_SHAPE[1]} tiled",
+             "64x64 JPEG in and out")
     numbers = {
         "buckets": [{**_bucket(name, *burst), **_statz_delta(a, b)}
                     for name, burst, a, b in zip(names, bursts, stats,
@@ -1879,7 +1949,7 @@ def phase_http(rates) -> tuple[dict, dict]:
         "predict": pred,
         "statz": stats[-1],
         "levels_srcnn_f32": lv_gold, "levels_srcnn_bf16": lv_gold_bf16,
-        "levels_tta_vs_hand": lv_tta, "jpeg": jpeg_ok,
+        "levels_tta_vs_hand": lv_tta, "jpeg": True,
         "drain_s": drain_s, "warmup_s": warm_s, "launches": launches,
         "tta_launches": tta_launches, "error_codes": codes,
     }
@@ -1957,17 +2027,18 @@ def _trace_busy(path: str) -> tuple[float, float]:
     return busy / 1e3, span / 1e3
 
 
-def _loop_batches() -> dict:
+def _loop_batches(n: int | None = None, n_test: int | None = None) -> dict:
     """Batch counts and sizes of the loop phase's loaders, from LOOP_CFG by
-    train()'s own rules: a 10% val split of the training source, a test
-    source of n // 4 images, and eval batches clamped to the split."""
+    train()'s own rules: a 10% val split of the n training images, a test
+    source of n_test images (the synthetic source's n // 4 by default),
+    and eval batches clamped to the split."""
     from food101_sr_tpu_torch.data import subset_indices, train_val_split
 
-    n, seed, batch = (LOOP_CFG[k] for k in
-                      ("synthetic_size", "seed", "batch_size"))
+    seed, batch = LOOP_CFG["seed"], LOOP_CFG["batch_size"]
+    n = LOOP_CFG["synthetic_size"] if n is None else n
     train_idx, val_idx = train_val_split(subset_indices(n, 1.0, seed), 0.1,
                                          seed + 1)
-    n_test = max(n // 4, 8)
+    n_test = max(n // 4, 8) if n_test is None else n_test
     val_b, test_b = min(batch, len(val_idx)), min(batch, n_test)
     return {"steps": len(train_idx) // batch, "val_batch": val_b,
             "val": len(val_idx) // val_b, "test_batch": test_b,
@@ -2118,7 +2189,10 @@ def phase_loop(tmp: str) -> dict:
     return {"launches": {"K1": total[0], "K2 nhwc": total[1],
                          "K2 nchw": total[2]},
             "gan_launches": gan["launches"],
-            "rrdb_gan_launches": rgan["launches"], **kernels}
+            "rrdb_gan_launches": rgan["launches"],
+            "images_per_s": [r["time/images_per_s"] for r in epochs],
+            "n_blocks": n_blocks,
+            **kernels}
 
 
 def _loop_gan(w: str, runs: str, nb: dict, n_blocks: int,
@@ -2190,14 +2264,225 @@ def _loop_gan(w: str, runs: str, nb: dict, n_blocks: int,
                       "loader_produce_ms": epoch["time/loader_produce_ms"]}}
 
 
+def _write_food_tree(root: str) -> None:
+    """A Food-101-layout tree under root: FOOD_TRAIN + FOOD_TEST seeded
+    images at FOOD_SHAPES, encoded by the port at FOOD_QUALITY."""
+    from food101_sr_tpu_torch import native
+
+    base = os.path.join(root, "food-101")
+    os.makedirs(os.path.join(base, "meta"))
+    rel = {"train": [], "test": []}
+    for n in range(FOOD_TRAIN + FOOD_TEST):
+        cls = ("pizza", "sushi", "ramen", "tacos")[n % 4]
+        os.makedirs(os.path.join(base, "images", cls), exist_ok=True)
+        h, w = FOOD_SHAPES[n % len(FOOD_SHAPES)]
+        data = native.encode_jpeg_rgb8(
+            jpeg_test_image(h, w, 1000 + n, noise=6), FOOD_QUALITY)
+        name = f"{cls}/{2000000 + n}"
+        with open(os.path.join(base, "images", name + ".jpg"), "wb") as f:
+            f.write(data)
+        rel["train" if n < FOOD_TRAIN else "test"].append(name)
+    for split, names in rel.items():
+        with open(os.path.join(base, "meta", f"{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+
+
+def _jpeg_fixtures() -> dict:
+    """Part 1 of the food101 phase: the committed streams against the JAX
+    package's decode digests, the CMYK refusal, both encode digests, and
+    random region decodes against full-decode-then-crop."""
+    from food101_sr_tpu_torch import native
+
+    with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
+        goldens = json.load(f)
+    checked = 0
+    for name, g in goldens["streams"].items():
+        with open(os.path.join(JPEG_ASSETS, g["file"]), "rb") as f:
+            data = f.read()
+        if "refused" in g:
+            try:
+                native.decode_image(data)
+            except native.UnsupportedImage as e:
+                if g["refused"] not in str(e):
+                    raise AssertionError(f"{name}: refused as {e}")
+                continue
+            raise AssertionError(f"{name} decoded; expected a refusal "
+                                 f"naming {g['refused']}")
+        px = native.decode_image(data)
+        if list(px.shape) != g["shape"] or sha256(px) != g["sha256"]:
+            raise AssertionError(f"stream {name}: {px.shape} decode differs "
+                                 "from the JAX package's")
+        checked += 1
+    for g in goldens["encode"]:
+        img = jpeg_test_image(g["h"], g["w"], g["seed"])
+        if sha256(native.encode_jpeg_rgb8(img, g["quality"])) != g["sha256"]:
+            raise AssertionError(f"encode {g['w']}x{g['h']} q{g['quality']} "
+                                 "differs from the JAX package's bytes")
+    rng = np.random.default_rng(21)
+    tree = os.path.join(JPEG_ASSETS, "food-101", "images")
+    files = sorted(os.path.join(d, f) for d, _, fs in os.walk(tree)
+                   for f in fs)
+    files += [os.path.join(JPEG_ASSETS, g["file"])
+              for g in goldens["streams"].values() if "refused" not in g]
+    crops = 0
+    for path in files:
+        with open(path, "rb") as f:
+            data = f.read()
+        full = native.decode_jpeg_rgb8(data)
+        h, w = full.shape[:2]
+        for _ in range(max(1, FOOD_CROPS // len(files) + 1)):
+            ch, cw = int(rng.integers(1, h + 1)), int(rng.integers(1, w + 1))
+            y0 = int(rng.integers(0, h - ch + 1))
+            x0 = int(rng.integers(0, w - cw + 1))
+            got = native.decode_jpeg_crop_rgb8(data, x0, y0, cw, ch)
+            if not np.array_equal(got, full[y0:y0 + ch, x0:x0 + cw]):
+                raise AssertionError(f"{path}: region ({x0},{y0},{cw},{ch}) "
+                                     "differs from full-decode-then-crop")
+            crops += 1
+    return {"goldens": goldens, "streams": checked,
+            "encodes": len(goldens["encode"]), "crops": crops}
+
+
+def phase_food101(tmp: str, loop: dict) -> dict:
+    """The food101 phase (module docstring), in the loop phase's process
+    after phase_loop: fixtures against the JAX package's goldens, the
+    loader over the committed mini tree against JAX's batch digests,
+    train() on a tree made here (the main path: launches counted from
+    zero just around it), the train CLI with no --dataset, and the codec
+    and loader numbers. ``loop`` is phase_loop's result (its synthetic
+    images/s, for the same-process comparison)."""
+    from food101_sr_tpu_torch import native
+    from food101_sr_tpu_torch import train as cli
+    from food101_sr_tpu_torch.data import Food101Source, SRDataLoader
+    from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
+                                          mean_plane_kernel)
+    from food101_sr_tpu_torch.training import train
+
+    t0 = time.perf_counter()
+    fx = _jpeg_fixtures()
+    lg = fx["goldens"]["loader"]
+    mini = Food101Source(JPEG_ASSETS, lg["split"])
+    for mode, is_train in (("train", True), ("eval", False)):
+        loader = SRDataLoader(mini, crop_size=lg["crop_size"],
+                              batch_size=lg["batch_size"], train=is_train,
+                              seed=lg["seed"], device="cuda",
+                              num_workers=LOADER_THREADS)
+        loader.set_epoch(0)
+        got = [sha256(b.cpu().numpy()) for b in loader][:lg["batches"]]
+        if got != lg[mode]:
+            raise AssertionError(f"loader {mode} batches over the mini tree "
+                                 "differ from the JAX package's")
+
+    root = os.path.join(tmp, "food")
+    _write_food_tree(root)
+    src = Food101Source(root, "train")
+    sample = src.bytes_at(0)
+    (h, w), crop = FOOD_SHAPES[0], LOOP_CFG["crop_size"]
+    if native.jpeg_dims(sample) != (w, h):
+        raise AssertionError("the on-card tree's first image is not "
+                             f"{w}x{h}")
+    offs = itertools.cycle(np.random.default_rng(3).integers(
+        0, min(h, w) - crop, (64, 2)).tolist())
+    enc = {f"{g['w']}x{g['h']}": jpeg_test_image(g["h"], g["w"], g["seed"])
+           for g in fx["goldens"]["encode"]}
+    # host_us is host wall time per call; the codec runs on the host
+    numbers = {
+        "decode_full_ms": host_us(lambda: native.decode_jpeg_rgb8(sample),
+                                  1, 50) / 1e3,
+        "decode_crop_ms": host_us(lambda: native.decode_jpeg_crop_rgb8(
+            sample, *next(offs), crop, crop), 1, 50) / 1e3,
+        "encode_ms": {k: host_us(lambda img=img: native.encode_jpeg_rgb8(
+            img, 90), 1, 20) / 1e3 for k, img in enc.items()},
+        "jpeg_bytes": os.path.getsize(src.paths[0]),
+    }
+    loader = SRDataLoader(src, crop_size=crop, batch_size=LOOP_CFG["batch_size"],
+                          train=True, seed=0, device="cuda",
+                          num_workers=LOADER_THREADS)
+    n_batches, t_load = 0, time.perf_counter()
+    for epoch in range(3):
+        loader.set_epoch(epoch)
+        n_batches += sum(1 for _ in loader)
+    torch.cuda.synchronize()
+    numbers["loader_batches_per_s"] = n_batches / (time.perf_counter() - t_load)
+    numbers["loader_threads"] = LOADER_THREADS
+
+    nb = _loop_batches(FOOD_TRAIN, FOOD_TEST)
+    os.environ["FOOD101_SR_RUN_DIR"] = runs = os.path.join(tmp, "runs")
+    w_dir = os.path.join(tmp, "weights")
+    cfg = {**LOOP_CFG, "dataset": "food101", "data_root": root,
+           "weights_dir": w_dir, "save_name": "food", "run_name": "food"}
+    # ---- main path: train() on Food-101 JPEGs, counts from zero ----
+    blur_kernel.launches = 0
+    mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
+    final = train(cfg)
+    total = (blur_kernel.launches, mean_nhwc_kernel.launches,
+             mean_plane_kernel.launches)
+    # ---- end of main path ----
+    n_blocks, n_ep = loop["n_blocks"], cfg["epochs"]
+    want = (n_ep * (8 * nb["steps"] + 4 * nb["val"]) + 4 * nb["test"],
+            n_blocks * (n_ep * (nb["steps"] + nb["val"]) + nb["test"]), 0)
+    if total != want:
+        raise AssertionError(f"food101: launches (K1, K2 nhwc, K2 plane) "
+                             f"{total}, expected {want}: K1 8 a step and 4 a "
+                             f"val or test batch, K2 nhwc {n_blocks} a step "
+                             "and a batch")
+    if not (set(final) == {"psnr", "ssim", "lpips", "nlpd", "val_psnr"}
+            and all(np.isfinite(list(final.values())))):
+        raise AssertionError(f"food101: final metrics {final}")
+    with open(os.path.join(runs, "food", "log.jsonl")) as f:
+        epochs = [r for r in map(json.loads, f) if "epoch" in r]
+    if len(epochs) != n_ep:
+        raise AssertionError(f"food101: {len(epochs)} epoch records")
+
+    if cli.build_parser().parse_args([]).dataset != "food101":
+        raise AssertionError("the train CLI's default dataset is not food101")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_out = cli.main(["--data_root", root, "--subset",
+                            str(FOOD_CLI_SUBSET), "--epochs", "1",
+                            "--weights_dir", w_dir, "--save_name", "cli",
+                            "--run_name", "cli", "--use_wandb", "false"])
+    if not (set(cli_out) == {"psnr", "ssim", "lpips", "nlpd", "val_psnr"}
+            and all(np.isfinite(list(cli_out.values())))):
+        raise AssertionError(f"food101 CLI: {cli_out}")
+
+    numbers.update(
+        train_images_per_s=[r["time/images_per_s"] for r in epochs],
+        synthetic_images_per_s=loop["images_per_s"],
+        train_step_ms=[r["time/step_ms"] for r in epochs],
+        loader_wait_ms=[r["time/loader_wait_ms"] for r in epochs],
+        loader_produce_ms=[r["time/loader_produce_ms"] for r in epochs],
+        final=final, cli=cli_out, launches=list(total))
+    print(f"food101: {fx['streams']} streams decode to the JAX package's "
+          f"digests, CMYK refused by name, {fx['encodes']} encodes byte-equal, "
+          f"{fx['crops']} region decodes equal full-then-crop | loader over "
+          f"the mini tree: {lg['batches']} train and {lg['batches']} eval "
+          f"batches equal JAX's | train() AttentionSR x4 on {FOOD_TRAIN} + "
+          f"{FOOD_TEST} JPEGs ({nb['steps']} steps of "
+          f"{LOOP_CFG['batch_size']}, crop {crop}, {n_ep} epochs): launches "
+          f"(K1, K2 nhwc, K2 plane) {total}, final psnr {final['psnr']:.4f} "
+          f"| images/s with the loader {numbers['train_images_per_s']} "
+          f"(synthetic, same process: {loop['images_per_s']}) | decode "
+          f"{w}x{h} 4:2:0 {numbers['decode_full_ms']:.3f} ms, 200^2 crop "
+          f"{numbers['decode_crop_ms']:.3f} ms | encode q90 "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      numbers["encode_ms"].items())
+          + f" | loader alone {numbers['loader_batches_per_s']:.2f} batches/s "
+          f"({LOADER_THREADS} threads) | CLI (no --dataset, SRCNN, subset "
+          f"{FOOD_CLI_SUBSET}) psnr {cli_out['psnr']:.4f} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("food101 numbers: " + json.dumps(numbers), flush=True)
+    return {"K1": total[0], "K2 nhwc": total[1], "K2 nchw": total[2]}
+
+
 def run_loop_phase() -> dict:
-    """Phase 11 in a child process of its own, which alone gets the
+    """Phases 12 and 13 in a child process of its own, which alone gets the
     determinism environment; its results come back through a file in a
     temporary directory that also holds its runs and weights."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
         env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": LOOP_CUBLAS}
         rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                             "--loop", tmp], env=env, timeout=600).returncode
+                             "--loop", tmp], env=env, timeout=900).returncode
         if rc != 0:
             raise RuntimeError(f"the loop phase exited with {rc}")
         with open(os.path.join(tmp, "loop.json")) as f:
@@ -2210,6 +2495,7 @@ def loop_main(tmp: str) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     out = phase_loop(tmp)
+    out["food101_launches"] = phase_food101(tmp, out)
     with open(os.path.join(tmp, "loop.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -2360,12 +2646,13 @@ def main() -> int:
         d["loop_launches"] = loop["launches"][key]
         d["gan_loop_launches"] = loop["gan_launches"][key]
         d["rrdb_gan_loop_launches"] = loop["rrdb_gan_launches"][key]
+        d["food101_loop_launches"] = loop["food101_launches"][key]
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc")):
         d["loop_max_abs_err"] = loop["max_abs_err"][key]
         d["at_loop_val"] = loop["at_val"][key]
     keys = ("name", "route", "source", "replaces", "launches",
             "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
-            "rrdb_gan_loop_launches", "max_abs_err",
+            "rrdb_gan_loop_launches", "food101_loop_launches", "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
             "at_loop_val", "half_device_ms", "nchw_copy_ms",

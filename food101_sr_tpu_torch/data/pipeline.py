@@ -3,7 +3,8 @@
 
 Work is split as in the JAX package:
 
-  host (uint8):    source image -> resize-if-small (Pillow's bicubic,
+  host (uint8):    source image (for JPEG bytes, only the crop region
+                   is decoded) -> resize-if-small (Pillow's bicubic,
                    shorter side to the crop, ``pil_bicubic``) -> random or
                    centre crop -> random hflip
   device (a step): uint8 -> float / 255 ('ToTensor') -> antialiased
@@ -29,6 +30,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..native import decode_image, decode_jpeg_crop_rgb8, jpeg_dims
 from ..ops.resize import degrade_bicubic
 from .pil_bicubic import resize_bicubic_u8
 
@@ -64,6 +66,44 @@ def load_hr_crop(img: np.ndarray, crop_size: int, train: bool,
     if train and rng.random() < 0.5:
         crop = crop[:, ::-1, :]
     return np.ascontiguousarray(crop)
+
+
+def load_sample(source, i: int, crop_size: int, train: bool,
+                rng: np.random.Generator) -> np.ndarray:
+    """One HR crop from ``source[i]``, as the JAX package's ``load_sample``
+    makes it, drawing the RNG in the same order (top, left, then the
+    flip). When the source has raw bytes (``bytes_at``) of a JPEG at
+    least crop-sized on both sides, only the crop region is decoded: the
+    codec's region decode gives full-decode-then-crop's pixels, so the
+    batch is the same either way. Otherwise the bytes are decoded in full
+    and go through ``load_hr_crop`` (Pillow-exact resize if small).
+
+    Where the JAX package falls back to PIL for a stream its libjpeg
+    refuses, this raises, naming the file and the feature; the loader
+    then fails the epoch."""
+    if not hasattr(source, "bytes_at"):
+        return load_hr_crop(source[i], crop_size, train, rng)
+    data = source.bytes_at(i)
+    try:
+        dims = jpeg_dims(data)
+        if dims is not None and dims[0] >= crop_size and dims[1] >= crop_size:
+            w, h = dims
+            if train:
+                top = int(rng.integers(0, h - crop_size + 1))
+                left = int(rng.integers(0, w - crop_size + 1))
+            else:
+                top = (h - crop_size) // 2
+                left = (w - crop_size) // 2
+            crop = decode_jpeg_crop_rgb8(data, left, top, crop_size,
+                                         crop_size)
+            if train and rng.random() < 0.5:
+                crop = crop[:, ::-1, :]
+            return np.ascontiguousarray(crop)
+        img = decode_image(data)
+    except ValueError as e:  # UnsupportedImage too: same type, named file
+        paths = getattr(source, "paths", None)
+        raise type(e)(f"{paths[i] if paths else f'item {i}'}: {e}") from e
+    return load_hr_crop(img, crop_size, train, rng)
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +197,9 @@ class SRDataLoader:
 
     def _produce(self, order: np.ndarray, out: queue.Queue, epoch: int,
                  start_batch: int, stop: threading.Event):
-        """Assemble batches with a thread pool: numpy releases the GIL
-        inside its larger array operations, so the workers overlap, but
+        """Assemble batches with a thread pool: the JPEG codec (a ctypes
+        call) and numpy's larger array operations release the GIL, so the
+        workers overlap, but
         their Python between those calls competes for the GIL with the
         consumer's thread (PERF.md §5 measures what that costs the train
         step). The augmentation RNG is derived per (seed, epoch, global
@@ -167,8 +208,8 @@ class SRDataLoader:
         def one(pos_and_idx):
             pos, i = pos_and_idx
             rng = np.random.default_rng((self.seed, epoch, int(pos)))
-            return load_hr_crop(self.source[int(i)], self.crop_size,
-                                self.train, rng)
+            return load_sample(self.source, int(i), self.crop_size,
+                               self.train, rng)
 
         try:
             with ThreadPoolExecutor(max_workers=self.num_workers) as pool:

@@ -1,16 +1,68 @@
 """Image sources (counterpart of ``food101_sr_tpu/data/sources.py``).
 
+Both return uint8 (H, W, 3) numpy arrays where the JAX package's return
+PIL images (the port has no PIL); the pixels are the same.
+
+``Food101Source`` reads the standard Food-101 on-disk layout,
+``root/food-101/images/<class>/<id>.jpg`` with the split lists in
+``meta/train.txt`` / ``meta/test.txt`` (or the ``.json`` variants), and
+decodes with the port's own JPEG codec (``native``). It never touches the
+network: provisioning the dataset is a deployment concern.
+
 ``SyntheticSource`` makes deterministic procedural images for tests,
-benchmarks and smoke runs: the same bytes as the JAX package's source, as
-a uint8 (H, W, 3) numpy array instead of a PIL image (the port has no
-PIL). ``Food101Source`` and its JPEG region decoder come with the port's
-own native decoder (ROADMAP item 9a).
+benchmarks and smoke runs: the same bytes as the JAX package's source.
 """
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 from typing import Sequence
 
 import numpy as np
+
+from ..native import decode_image
+
+
+class Food101Source:
+    def __init__(self, root: str = "./data", split: str = "train"):
+        base = os.path.join(root, "food-101")
+        meta_txt = os.path.join(base, "meta", f"{split}.txt")
+        meta_json = os.path.join(base, "meta", f"{split}.json")
+        images = os.path.join(base, "images")
+        if os.path.exists(meta_txt):
+            with open(meta_txt) as f:
+                rel = [line.strip() for line in f if line.strip()]
+        elif os.path.exists(meta_json):
+            with open(meta_json) as f:
+                payload = json.load(f)
+            rel = [p for paths in payload.values() for p in paths]
+        else:
+            raise FileNotFoundError(
+                f"Food-101 metadata not found under {base}/meta — provision "
+                f"the dataset (e.g. `dvc pull` / bucket sync) first."
+            )
+        self.paths = [os.path.join(images, r + ".jpg") for r in sorted(rel)]
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return decode_image(self.bytes_at(i))
+
+    def bytes_at(self, i: int) -> bytes:
+        """The file's raw bytes: the loader decodes only the crop region
+        from them (``data.pipeline.load_sample``)."""
+        with open(self.paths[i], "rb") as f:
+            return f.read()
+
+    def fingerprint(self) -> str:
+        """Stable identity of the split: its file list (the JAX package's
+        string)."""
+        h = hashlib.sha1()
+        for p in self.paths:
+            h.update(p.encode())
+        return f"food101:{len(self.paths)}:{h.hexdigest()[:16]}"
 
 
 class SyntheticSource:
@@ -29,6 +81,9 @@ class SyntheticSource:
 
     def __len__(self):
         return self.n
+
+    def fingerprint(self) -> str:
+        return f"synthetic:{self.n}:{self.seed}:{tuple(self.sizes)}"
 
     def __getitem__(self, i: int) -> np.ndarray:
         rng = np.random.default_rng(self.seed * 1_000_003 + i)

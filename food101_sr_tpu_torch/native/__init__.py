@@ -15,9 +15,16 @@ codecs and never substitutes one codec for another:
   gray replicated, alpha dropped without compositing, the palette
   expanded. 16-bit and Adam7-interlaced PNGs raise :class:`UnsupportedImage`
   naming them.
-- JPEG, both ways, through libjpeg (``fast_jpeg.cpp``, the JAX package's
-  source). Where libjpeg is missing the library does not build, and every
-  JPEG call raises :class:`UnsupportedImage` naming libjpeg.
+- JPEG, both ways, with the port's own codec (``fast_jpeg.cpp``), which
+  needs no library: libjpeg-turbo's integer pipeline (ISLOW IDCT, fancy
+  upsampling, fixed-point color) written out, so decodes are pixel-equal
+  and encodes byte-equal to the JAX package's libjpeg binding. Baseline
+  and progressive Huffman streams with 1 or 3 components decode; a region
+  decode returns full-decode-then-crop's pixels while decoding only the
+  rows and blocks the region needs. Arithmetic coding, lossless and
+  hierarchical streams, 12-bit samples and CMYK/YCCK raise
+  :class:`UnsupportedImage` naming the feature; broken or truncated
+  streams raise ValueError.
 
 Each C++ unit is compiled with ``g++`` on first use into the package's
 git-ignored ``_build/`` directory, under a name carrying a hash of its
@@ -239,49 +246,53 @@ def decode_png_rgb8(data: bytes) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# JPEG: libjpeg through fast_jpeg.cpp
+# JPEG: the port's codec in fast_jpeg.cpp
 # ---------------------------------------------------------------------------
 
 def _register_jpeg(lib):
-    lib.fastjpeg_dims.restype = ctypes.c_int
-    lib.fastjpeg_dims.argtypes = [
-        ctypes.c_char_p, ctypes.c_long,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-    ]
-    lib.fastjpeg_decode_rgb8.restype = ctypes.c_int
-    lib.fastjpeg_decode_rgb8.argtypes = [
-        ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_long,
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-    ]
-    lib.fastjpeg_decode_crop_rgb8.restype = ctypes.c_int
-    lib.fastjpeg_decode_crop_rgb8.argtypes = [
-        ctypes.c_char_p, ctypes.c_long,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_char_p, ctypes.c_long,
-    ]
-    lib.fastjpeg_encode_rgb8.restype = ctypes.c_long
-    lib.fastjpeg_encode_rgb8.argtypes = [
-        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_char_p, ctypes.c_long,
-    ]
+    p, ll, i = ctypes.c_char_p, ctypes.c_long, ctypes.c_int
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.fastjpeg_error.restype = ctypes.c_char_p
+    lib.fastjpeg_error.argtypes = []
+    lib.fastjpeg_dims.restype = i
+    lib.fastjpeg_dims.argtypes = [p, ll, ip, ip]
+    lib.fastjpeg_decode_rgb8.restype = i
+    lib.fastjpeg_decode_rgb8.argtypes = [p, ll, ctypes.c_void_p, ll, ip, ip]
+    lib.fastjpeg_decode_crop_rgb8.restype = i
+    lib.fastjpeg_decode_crop_rgb8.argtypes = [p, ll, i, i, i, i,
+                                              ctypes.c_void_p, ll]
+    lib.fastjpeg_encode_rgb8.restype = ll
+    lib.fastjpeg_encode_rgb8.argtypes = [ctypes.c_void_p, i, i, i,
+                                         ctypes.c_void_p, ll]
 
 
 def jpeg_available() -> bool:
-    """Whether libjpeg is present here (``fast_jpeg.cpp`` builds)."""
-    return _load("fast_jpeg", ("-ljpeg",), _register_jpeg) is not None
+    """Whether the JPEG codec's C++ unit builds and loads here (it needs
+    only a C++ compiler)."""
+    return _load("fast_jpeg", (), _register_jpeg) is not None
 
 
 def _jpeg_lib() -> ctypes.CDLL:
-    lib = _load("fast_jpeg", ("-ljpeg",), _register_jpeg)
+    lib = _load("fast_jpeg", (), _register_jpeg)
     if lib is None:
-        raise UnsupportedImage("JPEG needs libjpeg, which this host lacks "
-                               f"({build_error('fast_jpeg')})")
+        raise UnsupportedImage("the JPEG codec (native/fast_jpeg.cpp, no "
+                               "library needed) did not build here: "
+                               f"{build_error('fast_jpeg')}")
     return lib
 
 
+def _jpeg_raise(lib, rc: int):
+    """Raise for a failed codec call: -2 is a stream the codec refuses by
+    name, anything else a broken one."""
+    msg = lib.fastjpeg_error().decode()
+    if rc == -2:
+        raise UnsupportedImage(msg)
+    raise ValueError(msg or "JPEG: stream does not decode")
+
+
 def jpeg_dims(data: bytes) -> Optional[tuple]:
-    """(width, height) from the JPEG header only; None if the header does
-    not parse."""
+    """(width, height) from the JPEG frame header only; None if no frame
+    header parses."""
     w, h = ctypes.c_int(), ctypes.c_int()
     if _jpeg_lib().fastjpeg_dims(data, len(data), ctypes.byref(w),
                                  ctypes.byref(h)) != 0:
@@ -290,53 +301,62 @@ def jpeg_dims(data: bytes) -> Optional[tuple]:
 
 
 def decode_jpeg_rgb8(data: bytes) -> np.ndarray:
-    """JPEG bytes -> uint8 HxWx3 (gray and YCbCr converted to RGB by
-    libjpeg). ValueError if the stream does not decode."""
+    """JPEG bytes -> uint8 HxWx3, pixel-equal to libjpeg-turbo's RGB
+    output (gray replicated). Raises :class:`UnsupportedImage` for a
+    stream the codec refuses by name, ValueError for a broken one."""
     lib = _jpeg_lib()
     dims = jpeg_dims(data)
     if dims is None:
-        raise ValueError("JPEG: header does not parse")
+        raise ValueError(f"JPEG: header does not parse "
+                         f"({lib.fastjpeg_error().decode()})")
     w, h = dims
     if w * h > MAX_PIXELS:
         raise ValueError(f"JPEG: {w}x{h} exceeds {MAX_PIXELS} pixels")
     out = np.empty((h, w, 3), np.uint8)
     w2, h2 = ctypes.c_int(), ctypes.c_int()
-    if lib.fastjpeg_decode_rgb8(data, len(data),
-                                out.ctypes.data_as(ctypes.c_char_p),
-                                out.nbytes, ctypes.byref(w2),
-                                ctypes.byref(h2)) != 0:
-        raise ValueError("JPEG: stream does not decode")
+    rc = lib.fastjpeg_decode_rgb8(data, len(data), out.ctypes.data,
+                                  out.nbytes, ctypes.byref(w2),
+                                  ctypes.byref(h2))
+    if rc != 0:
+        _jpeg_raise(lib, rc)
     return out
 
 
 def encode_jpeg_rgb8(arr: np.ndarray, quality: int = 90) -> bytes:
-    """uint8 HxWx3 -> JPEG bytes at ``quality`` (clamped to 1..100)."""
+    """uint8 HxWx3 -> JPEG bytes at ``quality`` (clamped to 1..100): the
+    bytes libjpeg-turbo writes with its defaults at that quality (4:2:0,
+    the standard tables, JFIF)."""
     if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"expected uint8 HxWx3, got {arr.dtype} {arr.shape}")
     lib = _jpeg_lib()
     h, w = arr.shape[:2]
     arr = np.ascontiguousarray(arr)
-    cap = arr.nbytes + 65536  # JPEG can't exceed raw + headers in practice
-    out = ctypes.create_string_buffer(cap)
-    n = lib.fastjpeg_encode_rgb8(arr.ctypes.data_as(ctypes.c_char_p), w, h,
-                                 int(quality), out, cap)
+    # at most 26 bits per coefficient, each 0xFF byte stuffed: well under
+    # 4 bytes per sample
+    out = np.empty(4 * arr.nbytes + 4096, np.uint8)
+    n = lib.fastjpeg_encode_rgb8(arr.ctypes.data, w, h, int(quality),
+                                 out.ctypes.data, out.nbytes)
     if n <= 0:
         raise ValueError(f"JPEG: encode of {arr.shape} failed")
-    return out.raw[:n]
+    return out[:n].tobytes()
 
 
 def decode_jpeg_crop_rgb8(data: bytes, x0: int, y0: int, cw: int,
                           ch: int) -> Optional[np.ndarray]:
-    """Decode exactly the [y0:y0+ch, x0:x0+cw] region of a JPEG, paying
-    only for the scanlines and iMCU columns it touches; the pixels equal
-    a full decode's. None when the region or the stream is unsupported
-    (the caller decodes in full)."""
+    """Exactly the [y0:y0+ch, x0:x0+cw] region of a full decode, paying
+    only for the iMCU rows up to the region's last (every scan's) and the
+    blocks it touches. None when the region is not inside the image;
+    raises as :func:`decode_jpeg_rgb8` for the stream."""
     lib = _jpeg_lib()
-    out = np.empty((ch, cw, 3), np.uint8)
-    ok = lib.fastjpeg_decode_crop_rgb8(
-        data, len(data), int(x0), int(y0), int(cw), int(ch),
-        out.ctypes.data_as(ctypes.c_char_p), out.nbytes)
-    return out if ok == 0 else None
+    out = np.empty((max(ch, 0), max(cw, 0), 3), np.uint8)
+    rc = lib.fastjpeg_decode_crop_rgb8(data, len(data), int(x0), int(y0),
+                                       int(cw), int(ch), out.ctypes.data,
+                                       out.nbytes)
+    if rc == -3:
+        return None
+    if rc != 0:
+        _jpeg_raise(lib, rc)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -351,10 +371,10 @@ _OTHER_FORMATS = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, by the format's signature: PNG
     (:func:`decode_png_rgb8`) or JPEG (:func:`decode_jpeg_rgb8`). Raises
-    :class:`UnsupportedImage` for a recognised format or variant this host
-    does not decode (BMP, GIF, TIFF, WebP; 16-bit or interlaced PNG; JPEG
-    without libjpeg), ValueError for bytes that are no image or a broken
-    one."""
+    :class:`UnsupportedImage` for a recognised format or variant the port
+    does not decode (BMP, GIF, TIFF, WebP; 16-bit or interlaced PNG;
+    arithmetic, lossless, 12-bit or CMYK JPEG), ValueError for bytes that
+    are no image or a broken one."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png_rgb8(data)
     if data.startswith(b"\xff\xd8\xff"):

@@ -11,9 +11,9 @@ SRServer`: checkpoint or seeded weights, fixed-shape device batches, exact
 halo tiling for large images, optional x8 self-ensemble) without the HTTP
 layer: a pool of submitter threads keeps the micro-batcher full, so
 same-bucket images coalesce into device batches as concurrent requests
-would. Images are read with the port's codecs (``native``: PNG, and JPEG
-where libjpeg is present); a file that does not decode is a counted
-failure, reported by name on stderr.
+would. Images are read and written with the port's codecs (``native``:
+PNG and JPEG, neither needing a library); a file that does not decode is
+a counted failure, reported by name on stderr.
 
 Prints one JSON summary line (``n_images``, ``failed``, ``wall_s``,
 ``images_per_s``, ...). Exits 1 when every image failed, or with
@@ -127,8 +127,6 @@ def main(argv=None) -> None:
         p.error(f"these inputs matched no images: {empty!r}")
     if not paths:
         p.error(f"no images found under {args.inputs!r}")
-    if args.format == "jpeg" and not native.jpeg_available():
-        p.error("--format jpeg needs libjpeg, which this host lacks")
     os.makedirs(args.out_dir, exist_ok=True)
 
     server = SRServer(args.architecture, checkpoint=args.checkpoint,

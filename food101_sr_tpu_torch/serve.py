@@ -11,9 +11,10 @@ One process owns the card; each model loads once into an
 :class:`~food101_sr_tpu_torch.serving.SRServer`, whose micro-batcher
 coalesces concurrent same-bucket requests (and the windows of large,
 tiled images) into fixed-shape device batches. Requests are decoded and
-responses encoded by the port's own codecs (``native``: PNG anywhere,
-JPEG where libjpeg is present); an image this host cannot decode is
-answered 415 with the reason, never decoded another way.
+responses encoded by the port's own codecs (``native``: PNG and JPEG,
+neither needing a library); an image the codecs refuse (a 16-bit PNG, an
+arithmetic-coded or CMYK JPEG, another format) is answered 415 with the
+reason, never decoded another way.
 
 Routes: ``GET /healthz``, ``GET /statz``, ``POST /sr[?model=NAME]
 [&format=png|jpeg][&quality=Q]`` (or ``Accept: image/jpeg``).
@@ -156,9 +157,9 @@ def make_handler(server, default: str | None = None):
                 return
             jpeg_out = fmt in ("jpeg", "jpg")
             if jpeg_out and not native.jpeg_available():
-                self._send(415, b"JPEG responses need libjpeg, which this "
-                                b"host lacks; ask for format=png",
-                           "text/plain")
+                self._send(415, ("the JPEG codec did not build here: "
+                                 f"{native.build_error('fast_jpeg')}; ask "
+                                 "for format=png").encode(), "text/plain")
                 return
             try:
                 length = int(self.headers.get("Content-Length", "0"))

@@ -3,8 +3,15 @@ JAX package's ``train.py`` (the reference's public flags plus the
 extensions in ``training.DEFAULTS``), running ``training.train`` on the
 CUDA device.
 
+    python -m food101_sr_tpu_torch.train --data_root DIR \\
+        --architecture AttentionSR --epochs 2
     python -m food101_sr_tpu_torch.train --dataset synthetic \\
         --architecture AttentionSR --epochs 2 --synthetic_size 96
+
+The default ``--dataset food101`` reads the Food-101 layout under
+``--data_root`` (``DIR/food-101/images/<class>/<id>.jpg`` and
+``meta/{train,test}.txt``) and decodes each training crop's region with
+the port's own JPEG codec, which needs no library.
 
 ``--architecture`` is SRCNN (the default), RESNET, AttentionSR or RRDB, at
 the registry's sizes.
@@ -14,8 +21,8 @@ discriminator, the VGG19 perceptual loss, a D step every 5 batches:
 ``d_update_every`` in ``training.DEFAULTS``); ``perceptual`` is the
 supervised step on the VGG19 loss. A flag whose setting the port does not
 run yet is accepted by the parser and refused by ``train`` with a
-NotImplementedError that names the ROADMAP item bringing it: ``--quantize``, ``--dtype bfloat16``,
-``--cache_*``, the multi-process flags and ``--dataset food101``.
+NotImplementedError that names the ROADMAP item bringing it: ``--quantize``,
+``--dtype bfloat16``, ``--cache_*`` and the multi-process flags.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     # Extensions (training.DEFAULTS).
     p.add_argument("--dataset", type=str, default=DEFAULTS["dataset"],
                    choices=["food101", "synthetic"],
-                   help="synthetic (food101: ROADMAP item 9a)")
+                   help="food101 (the layout under --data_root) or "
+                        "synthetic")
     p.add_argument("--data_root", type=str, default=DEFAULTS["data_root"])
     p.add_argument("--crop_size", type=int, default=DEFAULTS["crop_size"])
     p.add_argument("--scale_factor", type=int, default=DEFAULTS["scale_factor"])

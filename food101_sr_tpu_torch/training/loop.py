@@ -31,7 +31,7 @@ except ImportError:  # pragma: no cover
     def tqdm(it, **_kw):
         return it
 
-from ..data import SRDataLoader, SyntheticSource, prepare_batch
+from ..data import Food101Source, SRDataLoader, SyntheticSource, prepare_batch
 from ..data import subset_indices, train_val_split
 from ..losses import get_loss_function
 from ..metrics import MetricsCalculator
@@ -101,8 +101,6 @@ DEFAULTS: dict[str, Any] = {
 # key -> (the values the port does not run, or None for "any value but
 # the default"; the ROADMAP item that brings it)
 _NOT_PORTED = {
-    "dataset": (("food101",), "ROADMAP item 9a (Food101Source and the "
-                              "port's JPEG decoder)"),
     "dtype": (("bfloat16",), "ROADMAP item 9c (bf16 training)"),
     "quantize": (None, "ROADMAP item 8 (quantization and QAT)"),
     **{k: (None, "ROADMAP item 9b (the device and canvas caches)")
@@ -126,9 +124,12 @@ def check_ported(cfg: Mapping[str, Any]) -> None:
 
 
 def _build_sources(cfg):
-    n = int(cfg["synthetic_size"])
-    return (SyntheticSource(n=n, seed=cfg["seed"]),
-            SyntheticSource(n=max(n // 4, 8), seed=cfg["seed"] + 100))
+    if cfg["dataset"] == "synthetic":
+        n = int(cfg["synthetic_size"])
+        return (SyntheticSource(n=n, seed=cfg["seed"]),
+                SyntheticSource(n=max(n // 4, 8), seed=cfg["seed"] + 100))
+    return (Food101Source(cfg["data_root"], "train"),
+            Food101Source(cfg["data_root"], "test"))
 
 
 def _noise_generator(seed: int, epoch: int, batch_idx: int,

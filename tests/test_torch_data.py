@@ -3,23 +3,37 @@ training.schedule) against the JAX package on the CPU: Pillow's bicubic
 resize byte for byte, the synthetic source's bytes, the seeded splits,
 SRDataLoader batches byte for byte over two epochs (with the resize at
 crop 200), the mid-epoch fast-forward, the worker-error path, and the
-plateau and early-stop decisions. Every comparison here is exact: the
-pipeline moves uint8 bytes and the schedules compare Python floats."""
+plateau and early-stop decisions; and over a Food-101-layout JPEG tree,
+Food101Source, load_sample (the region decode and the resize path) and
+the loader's batches. Every comparison here is exact: the pipeline moves
+uint8 bytes and the schedules compare Python floats."""
+import json
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
+from food101_sr_tpu.data import Food101Source as JaxFood101
 from food101_sr_tpu.data import SRDataLoader as JaxLoader
 from food101_sr_tpu.data import SyntheticSource as JaxSource
+from food101_sr_tpu.data import load_sample as jax_load_sample
 from food101_sr_tpu.data import subset_indices as jax_subset_indices
 from food101_sr_tpu.data import train_val_split as jax_train_val_split
 from food101_sr_tpu.training.schedule import EarlyStopping as JaxStopper
 from food101_sr_tpu.training.schedule import ReduceLROnPlateau as JaxPlateau
-from food101_sr_tpu_torch.data import (SRDataLoader, SyntheticSource,
-                                       load_hr_crop, resize_bicubic_u8,
+from food101_sr_tpu_torch.data import (Food101Source, SRDataLoader,
+                                       SyntheticSource, load_hr_crop,
+                                       load_sample, resize_bicubic_u8,
                                        subset_indices, train_val_split)
+from food101_sr_tpu_torch.native import UnsupportedImage
 from food101_sr_tpu_torch.training import EarlyStopping, ReduceLROnPlateau
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+from tools.make_fake_food101 import make_image  # noqa: E402
 
 
 # (in_h, in_w) -> (out_w, out_h), PIL's order: the loader's 160x200 -> 250x200
@@ -143,6 +157,127 @@ def test_loader_worker_error_raises_and_stops_the_producer():
     assert next(it).shape == (2, 32, 32, 3)
     it.close()
     assert threading.active_count() <= before
+
+
+# ---------------------------------------------------------------------------
+# Food-101 layout: a small tree of make_fake_food101 images at crop 64
+# ---------------------------------------------------------------------------
+
+FOOD_CROP = 64
+# (h, w, mode, progressive): most take the region path; two are below the
+# crop (the resize path); one grey, one progressive
+FOOD_TRAIN = [(70, 90, "RGB", False), (96, 64, "RGB", False),
+              (80, 81, "RGB", True), (64, 64, "RGB", False),
+              (50, 77, "RGB", False), (73, 99, "L", False),
+              (88, 70, "RGB", False), (66, 100, "RGB", False),
+              (91, 65, "RGB", False), (60, 40, "RGB", False)]
+FOOD_TEST = [(75, 85, "RGB", False), (64, 90, "RGB", False),
+             (100, 70, "RGB", False), (82, 66, "L", False)]
+
+
+def _food_tree(root: Path, splits: dict, seed: int = 0) -> Path:
+    """root/food-101/images/<class>/<id>.jpg and meta/{split}.txt, saved
+    at make_fake_food101's quality 92."""
+    base = root / "food-101"
+    (base / "meta").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    n = 0
+    for split, shapes in splits.items():
+        rel = []
+        for h, w, mode, progressive in shapes:
+            cls = ("pizza", "sushi", "ramen")[n % 3]
+            (base / "images" / cls).mkdir(parents=True, exist_ok=True)
+            name = f"{cls}/{1000000 + n}"
+            Image.fromarray(make_image(rng, h, w)).convert(mode).save(
+                base / "images" / f"{name}.jpg", quality=92,
+                progressive=progressive)
+            rel.append(name)
+            n += 1
+        (base / "meta" / f"{split}.txt").write_text("\n".join(rel) + "\n")
+    return root
+
+
+@pytest.fixture(scope="module")
+def food_tree(tmp_path_factory):
+    return _food_tree(tmp_path_factory.mktemp("food"),
+                      {"train": FOOD_TRAIN, "test": FOOD_TEST})
+
+
+def test_food101_source_equals_jax(food_tree, tmp_path):
+    for split in ("train", "test"):
+        ours = Food101Source(str(food_tree), split)
+        theirs = JaxFood101(str(food_tree), split)
+        assert ours.paths == theirs.paths and len(ours) == len(theirs)
+        assert ours.fingerprint() == theirs.fingerprint()
+        for i in range(len(ours)):
+            assert ours.bytes_at(i) == theirs.bytes_at(i)
+            got, want = ours[i], np.asarray(theirs[i], np.uint8)
+            assert got.dtype == np.uint8 and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+    # the torchvision-written .json split lists
+    meta = food_tree / "food-101" / "meta"
+    lines = (meta / "test.txt").read_text().split()
+    alt = tmp_path / "alt" / "food-101"
+    (alt / "meta").mkdir(parents=True)
+    (alt / "images").symlink_to(food_tree / "food-101" / "images")
+    (alt / "meta" / "test.json").write_text(json.dumps(
+        {"a": lines[:2], "b": lines[2:]}))
+    assert Food101Source(str(tmp_path / "alt"), "test").paths == \
+        JaxFood101(str(tmp_path / "alt"), "test").paths
+    msgs = []
+    for source in (Food101Source, JaxFood101):
+        with pytest.raises(FileNotFoundError) as e:
+            source(str(tmp_path / "missing"), "train")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    assert msgs[0].startswith("Food-101 metadata not found under")
+    assert SyntheticSource(n=9, seed=2).fingerprint() == \
+        JaxSource(n=9, seed=2).fingerprint()
+
+
+def test_load_sample_equals_jax(food_tree):
+    ours = Food101Source(str(food_tree), "train")
+    theirs = JaxFood101(str(food_tree), "train")
+    for i in range(len(ours)):
+        for train in (True, False):
+            for seed in range(3):
+                got = load_sample(ours, i, FOOD_CROP, train,
+                                  np.random.default_rng((seed, i)))
+                want = jax_load_sample(theirs, i, FOOD_CROP, train,
+                                       np.random.default_rng((seed, i)))
+                assert got.shape == (FOOD_CROP, FOOD_CROP, 3)
+                np.testing.assert_array_equal(got, want)
+
+
+def test_food101_loader_batches_equal_jax(food_tree):
+    for split, train in (("train", True), ("test", False)):
+        kw = dict(crop_size=FOOD_CROP, batch_size=2, train=train, seed=3,
+                  num_workers=3)
+        ours = SRDataLoader(Food101Source(str(food_tree), split),
+                            device="cpu", **kw)
+        theirs = JaxLoader(JaxFood101(str(food_tree), split), **kw)
+        got, want = _epochs(ours), _epochs(theirs)
+        assert len(got[0]) == len(want[0]) == len(ours) > 0
+        for ge, we in zip(got, want):
+            for g, w in zip(ge, we):
+                np.testing.assert_array_equal(g, w)
+
+
+def test_load_sample_names_a_refused_file(food_tree, tmp_path):
+    """JAX's loader falls back to PIL for a stream its libjpeg refuses; the
+    port's raises naming the file and the feature, and the loader fails
+    the epoch."""
+    root = _food_tree(tmp_path, {"train": FOOD_TRAIN[:2]})
+    src = Food101Source(str(root), "train")
+    Image.open(src.paths[1]).convert("CMYK").save(src.paths[1])
+    with pytest.raises(UnsupportedImage, match="CMYK") as e:
+        load_sample(src, 1, FOOD_CROP, True, np.random.default_rng(0))
+    assert src.paths[1] in str(e.value)
+    loader = SRDataLoader(src, crop_size=FOOD_CROP, batch_size=2,
+                          device="cpu", num_workers=2)
+    with pytest.raises(RuntimeError, match="worker failed") as info:
+        list(loader)
+    assert isinstance(info.value.__cause__, UnsupportedImage)
 
 
 def _values(seed, n=24):

@@ -1,5 +1,7 @@
 """Guards of the port's boundaries: food101_sr_tpu_torch and chip_smoke.py
-import nothing of JAX, PIL or the JAX package; kernel wrappers never fall
+import nothing of JAX, PIL or the JAX package; the port's C++ and CUDA
+include no JPEG library's header and nothing links one; kernel wrappers
+never fall
 back from a device they have no kernel for; entry points default to CUDA
 and fail there without a card instead of moving to the CPU."""
 import ast
@@ -102,6 +104,25 @@ def test_sources_import_nothing_forbidden(path):
              else sorted((ROOT / path).rglob("*.py")))
     for f in files:
         assert not _imported_roots(f) & set(FORBIDDEN), f
+
+
+def test_codecs_use_no_jpeg_library():
+    """The JPEG codec is the port's own: no source includes jpeglib.h,
+    turbojpeg.h or nvjpeg.h, no build command or script names -ljpeg, and
+    the built library depends on no libjpeg."""
+    pkg = ROOT / "food101_sr_tpu_torch"
+    for src in sorted(pkg.rglob("*.cpp")) + sorted(pkg.rglob("*.cu")) + \
+            sorted(pkg.rglob("*.h")):
+        includes = [ln for ln in src.read_text().splitlines()
+                    if ln.lstrip().startswith("#include")]
+        for header in ("jpeglib.h", "turbojpeg.h", "nvjpeg.h"):
+            assert not any(header in ln for ln in includes), (src, header)
+    for py in sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert "-ljpeg" not in py.read_text(), py
+    assert native.jpeg_available()
+    deps = subprocess.run(["ldd", native._libs["fast_jpeg"]._name],
+                          capture_output=True, text=True).stdout
+    assert "jpeg" not in deps.replace(native._libs["fast_jpeg"]._name, "")
 
 
 # mean_kernel dispatches by layout to two counted entry points

@@ -1,6 +1,7 @@
 """The port's training runtime (food101_sr_tpu_torch.training: train(),
 checkpoints, resume, preemption, grad accumulation; and the CLI) on the
-CPU, against the JAX package where both can run the same thing.
+CPU, against the JAX package where both can run the same thing, on
+synthetic data and on a Food-101-layout JPEG tree.
 
 Both registries' AttentionSR are narrowed to 2 blocks x 16 channels for
 the module. Per CLAUDE.md's numerics rule nothing is compared after an
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import food101_sr_tpu.models.registry as jax_registry
 import food101_sr_tpu_torch.models.registry as registry
@@ -34,6 +36,7 @@ from food101_sr_tpu_torch.convert import params_from_jax
 from food101_sr_tpu_torch.losses import get_loss_function
 from food101_sr_tpu_torch.models import AttentionSR, build_model
 from food101_sr_tpu_torch.models.feature_nets import LPIPS_TAP_CHANNELS
+import food101_sr_tpu_torch.train as cli
 from food101_sr_tpu_torch.train import build_parser, main
 from food101_sr_tpu_torch.training import (FIRST_LAST, EarlyStopping,
                                            ReduceLROnPlateau, SRTrainState,
@@ -45,6 +48,9 @@ from food101_sr_tpu_torch.training import (FIRST_LAST, EarlyStopping,
                                            warm_start_params)
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+from tools.make_fake_food101 import make_image  # noqa: E402
+
 SCALE, BLOCKS, CHANNELS = 4, 2, 16
 FIRST, LAST = FIRST_LAST["AttentionSR"]
 
@@ -158,6 +164,89 @@ def test_loop_matches_jax_train_at_lr0(tmp_path, lpips_weights, monkeypatch):
     assert len(steps) == 2 * 10 and all(r["nonfinite_steps"] == 0
                                         for r in steps)
     assert all(r["time/images_per_s"] > 0 for r in ours)
+
+
+@pytest.fixture(scope="module")
+def food_root(tmp_path_factory):
+    """A Food-101-layout tree (make_fake_food101's images at its quality
+    92): 96 train and 24 test JPEGs of 28-56 px at crop 32, so that a few
+    take the resize path; as in the synthetic run, the val split (10
+    images) and the test split give eval batches of 8 under both
+    packages' clamps."""
+    root = tmp_path_factory.mktemp("food")
+    base = root / "food-101"
+    (base / "meta").mkdir(parents=True)
+    rng = np.random.default_rng(5)
+    n = 0
+    for split, count in (("train", 96), ("test", 24)):
+        rel = []
+        for _ in range(count):
+            cls = ("pizza", "sushi", "ramen")[n % 3]
+            (base / "images" / cls).mkdir(parents=True, exist_ok=True)
+            h, w = (int(v) for v in rng.integers(28, 57, 2))
+            Image.fromarray(make_image(rng, h, w)).save(
+                base / "images" / cls / f"{1000000 + n}.jpg", quality=92)
+            rel.append(f"{cls}/{1000000 + n}")
+            n += 1
+        (base / "meta" / f"{split}.txt").write_text("\n".join(rel) + "\n")
+    return root
+
+
+def test_food101_loop_matches_jax_train_at_lr0(tmp_path, food_root,
+                                               lpips_weights, monkeypatch):
+    """train(dataset="food101") against JAX's train() on the same JPEG
+    tree, from shared weights at lr 0, one epoch: the tolerances of
+    test_loop_matches_jax_train_at_lr0 (its docstring says why SSIM's is
+    absolute). The loaders' batches are byte-equal (test_torch_data.py),
+    so this holds the rest of the loop on Food-101 data."""
+    monkeypatch.setenv("FOOD101_SR_RUN_DIR", str(tmp_path / "runs"))
+    _, params = _jax_params(seed=1)
+    jax_save_checkpoint({"params": params}, str(tmp_path / "init_jax"))
+    torch.save(params_from_jax(params), tmp_path / "init.pth")
+    cfg = dict(COMMON, dataset="food101", data_root=str(food_root), lr=0.0,
+               epochs=1, log_every=5, seed=4, weights_dir=str(lpips_weights))
+    want = jax_train({**cfg, "pretrained_weights": str(tmp_path / "init_jax"),
+                      "save_name": "jax", "run_name": "jax"})
+    got = train({**cfg, "pretrained_weights": str(tmp_path / "init.pth"),
+                 "save_name": "port", "run_name": "port"}, device="cpu")
+    (theirs,) = _epoch_records(tmp_path / "runs", "jax")
+    (ours,) = _epoch_records(tmp_path / "runs", "port")
+    assert ours["lr"] == theirs["lr"]
+    assert abs(ours["val_psnr"] - theirs["val_psnr"]) <= 1e-4
+    assert ours["val_loss"] == pytest.approx(theirs["val_loss"], rel=1e-5)
+    for k in ("psnr", "lpips", "nlpd"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    assert abs(got["ssim"] - want["ssim"]) <= 1e-5
+    assert abs(got["val_psnr"] - want["val_psnr"]) <= 1e-4
+
+
+def test_cli_default_dataset_trains_on_a_food101_tree(tmp_path, food_root,
+                                                      monkeypatch):
+    """``python -m food101_sr_tpu_torch.train --data_root DIR`` with no
+    --dataset reads the Food-101 tree (here on the CPU, cut by
+    --subset)."""
+    monkeypatch.setenv("FOOD101_SR_RUN_DIR", str(tmp_path / "runs"))
+    seen = {}
+
+    def on_cpu(config):
+        seen.update(config)
+        return train(config, device="cpu")
+
+    monkeypatch.setattr(cli, "train", on_cpu)
+    out = cli.main(["--architecture", "AttentionSR", "--data_root",
+                    str(food_root), "--subset", "0.5", "--crop_size", "32",
+                    "--batch_size", "8", "--epochs", "1", "--weights_dir",
+                    str(tmp_path / "w"), "--use_wandb", "false"])
+    assert seen["dataset"] == "food101"
+    assert set(out) == {"psnr", "ssim", "lpips", "nlpd", "val_psnr"}
+    assert all(np.isfinite(v) for v in out.values())
+    (run,) = (tmp_path / "runs").iterdir()
+    (rec,) = _epoch_records(tmp_path / "runs", run.name)
+    assert rec["time/images_per_s"] > 0
+    with pytest.raises(FileNotFoundError, match="Food-101 metadata"):
+        cli.main(["--data_root", str(tmp_path / "nothing"), "--epochs", "1",
+                  "--weights_dir", str(tmp_path / "w"), "--use_wandb",
+                  "false"])
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +580,6 @@ def test_cli_dests_and_defaults_equal_the_root_cli(monkeypatch, argv):
     ["--cache_host_reuse", "4"], ["--cache_window", "64"],
     ["--coordinator", "localhost:1234"], ["--num_processes", "2"],
     ["--process_id", "0"], ["--distributed", "auto"],
-    ["--dataset", "food101"],
 ])
 def test_cli_unported_flags_raise_naming_the_roadmap_item(flags):
     argv = ["--architecture", "AttentionSR", "--dataset", "synthetic", *flags]

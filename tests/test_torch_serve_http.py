@@ -214,17 +214,50 @@ def test_jpeg_response_format(pair):
 
 
 def test_jpeg_refused_by_name_without_libjpeg(pair, monkeypatch):
+    """The codec needs no libjpeg; JPEG is refused only on a host where
+    its C++ unit does not build, with 415 naming that, and PNG still
+    serves."""
     monkeypatch.setitem(native._libs, "fast_jpeg", None)
-    monkeypatch.setitem(native._errors, "fast_jpeg", "jpeglib.h: not found")
+    monkeypatch.setitem(native._errors, "fast_jpeg", "g++: not found")
     port = pair[3]
     assert json.loads(_request(port, "/healthz")[2])["jpeg"] is False
     jpeg = b"\xff\xd8\xff\xe0" + bytes(64)
     code, _, data = _request(port, "/sr", jpeg)
-    assert code == 415 and b"libjpeg" in data
+    assert code == 415 and b"did not build" in data and b"g++" in data
     png = native.encode_png_rgb8(_img(8, 8, 2))
     code, _, data = _request(port, "/sr?format=jpeg", png)
-    assert code == 415 and b"libjpeg" in data
+    assert code == 415 and b"did not build" in data
     assert _request(port, "/sr", png)[0] == 200
+
+
+def test_jpeg_upload_and_response_match_jax_server(pair):
+    """A JPEG upload decodes as the JAX server decodes it (PIL): the PNG
+    responses agree within 1 level; a ?format=jpeg response is the port's
+    encode of SRServer.upscale at quality 90, and equals the JAX server's
+    bytes wherever their pixels agree; a CMYK upload is 415 naming it."""
+    jsrv, psrv, jport, pport = pair
+    img = _img(16, 12, seed=70)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    body = buf.getvalue()
+    outs = []
+    for port in (jport, pport):
+        code, hdrs, data = _request(port, "/sr", body)
+        assert code == 200 and hdrs["Content-Type"] == "image/png"
+        outs.append(native.decode_image(data).astype(np.int16))
+    assert np.abs(outs[0] - outs[1]).max() <= 1
+    sr = psrv.upscale(native.decode_image(body))
+    code, hdrs, data = _request(pport, "/sr?format=jpeg", body)
+    assert code == 200 and hdrs["Content-Type"] == "image/jpeg"
+    assert data == native.encode_jpeg_rgb8(sr, 90)
+    jcode, _, jdata = _request(jport, "/sr?format=jpeg", body)
+    assert jcode == 200
+    if np.array_equal(outs[0], outs[1]):
+        assert jdata == data
+    cmyk = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(cmyk, format="JPEG")
+    code, _, data = _request(pport, "/sr", cmyk.getvalue())
+    assert code == 415 and b"CMYK" in data
 
 
 def _raw_request(port, payload: bytes, recv_timeout=10.0) -> bytes:
