@@ -18,7 +18,8 @@ Phases, one short line each; any failure raises and the exit code is 1:
           channels-last input (the main path) and the plane kernel on
           NCHW input, with the same times and x.mean as the yardstick
 5. serve  the registry AttentionSR x4 (32 blocks x 96 channels, seeded
-          weights, bf16, channels-last) serves 64x64 requests from 16
+          weights, bf16, channels-last, the phase-space upsample tail:
+          SRServer's default, as in the JAX server) serves 64x64 requests from 16
           threads at a time
           and one 256x256 request (tiled: halo 80, 224 px windows); each
           batched result is held against a direct forward of its input
@@ -51,9 +52,11 @@ Phases, one short line each; any failure raises and the exit code is 1:
           (16-bit PNG); then K2 NHWC at the --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
 9. train  the supervised step on the registry AttentionSR x4 (float32,
-          channels-last, train mode), NLPD loss, Adam 4e-4, batch 16 of
+          channels-last, the phase-space tail as train() runs it, train
+          mode), NLPD loss, Adam 4e-4, batch 16 of
           seeded 200x200 uint8 crops made on the device: one step's raw
-          gradients on 2 crops against the CPU's plain path (TF32 off);
+          gradients on 2 crops against the CPU's plain path (TF32 off),
+          with the phase tail and with the materialized one;
           2 warm-up and 10 timed steps (the loss falls); K1 and K2 at
           the step's shapes against their plain versions, with their
           times; the NCHW copy before the pyramid and the target half of
@@ -132,7 +135,31 @@ Phases, one short line each; any failure raises and the exit code is 1:
           (SRCNN, --subset 0.25). Prints decode ms (full 512x384, 200^2
           crop), encode ms (256^2, 800x608), the loader's batches/s alone
           (8 threads) and train()'s images/s beside the synthetic run's
-14. done  the kernels' JSON line and the elapsed time
+14. tail  the phase-space upsample tail: ResNetSR, AttentionSR and RRDB
+          x4 at registry size (seeded, channels-last) with phase_tail on
+          and off on the same weights, batch 8 at 64^2 and 224^2, in
+          float32 (TF32 off; within 1 level of each other) and bf16: the
+          levels between the two, each forward's ms and the tail's alone
+          (CUDA events); the bf16 AttentionSR's channels-last against its
+          NCHW twin with either tail (ROADMAP fault 2)
+15. quant int8 serving and QAT: the int8 GEMM's int32 accumulators on the
+          card bit-equal to the CPU's at every body
+          conv shape of the three nets; SRServer(arch, quantize="int8")
+          for each net in bf16, 16 64x64 requests from 8 threads within
+          1 level of a direct int8 forward, and its int8-vs-bf16 SNR on 8
+          seeded HR images; ``serve --quantize int8`` over HTTP (32 64x64
+          PNGs, images/s and p50/p95, each response equal to upscale);
+          ``predict --quantize int8`` on 4 PNGs; forward ms at 8 x 224^2
+          in int8, int8_dot and bf16; one QAT step against the float
+          step (AttentionSR, phase tail, batch 16 of 200^2): raw
+          gradients on 2 crops against the CPU's plain path, once with
+          the CPU's int8 levels and PReLU branches made in the card's
+          forward (float rounding alone) and once without (the choices
+          that differ are counted), ms, K1 8 and
+          K2 nhwc 32 a step, the loss falling on one batch; then
+          train(quantize="qat") for one epoch of the loop's settings, its
+          launches against the closed form and its losses finite
+16. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
@@ -144,8 +171,11 @@ forward and 4 backward, K2 NHWC 32, K2 plane 0), one GAN D step and one G step (
 train step of each of the other generators (K1 8, K2 0:
 ``generator_launches``), the uninterrupted train() runs of the loop
 phase, NLPD (``loop_launches``), GAN (``gan_loop_launches``) and RRDB GAN
-(``rrdb_gan_loop_launches``), and train() on Food-101 JPEGs
-(``food101_loop_launches``). The last line is the JSON device record;
+(``rrdb_gan_loop_launches``), train() on Food-101 JPEGs
+(``food101_loop_launches``), the tail phase's forwards (K2 nhwc 32 per
+AttentionSR forward: ``tail_launches``), int8 serving (the three int8
+servers, the HTTP round and predict: ``quant_serve_launches``) and
+train(quantize="qat") (``qat_loop_launches``). The last line is the JSON device record;
 the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -263,6 +293,51 @@ FOOD_CROPS = 40  # random crops held against full-decode-then-crop
 FOOD_CLI_SUBSET = 0.25
 LOADER_THREADS = 8
 JPEG_ROUND = 32  # 64x64 JPEG uploads answered as JPEG, HTTP_THREADS at once
+
+# the tail phase: the three post-upsampling nets at registry size with the
+# phase-space tail on and off (the same seeded weights), TAIL_BATCH images
+# at each of TAIL_SIDES LR px, float32 with TF32 off and bf16; forwards and
+# the tail alone timed over TAIL_ITERS calls; the phase tail's float32
+# output within TAIL_F32_RTOL of the materialized one's peak (sums in
+# another order; uint8 levels say little here: the seeded ResNetSR's
+# BatchNorms at running stats 0 and 1 give outputs in the thousands)
+TAIL_ARCHS = ("AttentionSR", "RESNET", "RRDB")
+TAIL_SIDES, TAIL_BATCH, TAIL_ITERS, TAIL_F32_RTOL = (64, 224), 8, 5, 1e-5
+# the quant phase: the int8 GEMM's accumulators on the card against the
+# CPU's at every body conv shape of the three nets (cin -> cout at
+# QUANT_BATCH x 64^2); each net served in int8 (QUANT_REQUESTS 64x64
+# requests from HTTP_THREADS threads, within LEVEL_TOL of a direct int8
+# forward) and its int8-vs-bf16 SNR on QUANT_HR seeded HR images; one
+# HTTP round of HTTP_REQUESTS through ``serve --quantize int8``;
+# predict --quantize int8 on QUANT_PREDICT PNGs; forwards at QUANT_BATCH
+# x QUANT_SIDE^2 in int8, int8_dot and bf16; train(quantize="qat") at the
+# loop's settings for one epoch; one QAT step and one float step, timed
+# over GEN_WARMUP + GEN_TIMED steps
+QUANT_SHAPES = {"AttentionSR": ((96, 96),), "RESNET": ((64, 64),),
+                "RRDB": ((64, 32), (96, 32), (128, 32), (160, 32),
+                         (192, 64))}
+QUANT_BATCH, QUANT_SIDE, QUANT_REQUESTS, QUANT_HR = 8, 224, 16, 8
+QUANT_PREDICT = 4
+QAT_LOOP_CFG = {**LOOP_CFG, "quantize": "qat", "epochs": 1}
+# the QAT step's raw gradients on GRAD_BATCH crops, card against CPU, per
+# leaf over its largest sum of absolute terms (_term_sums, on the
+# fake-quantized inputs), twice. First with the CPU's discrete choices
+# made in the card's forward (_decisions: each activation's int8 levels
+# and each PReLU element's branch): the two sides then differ by float
+# rounding alone and are held to GRAD_TOL, as the float step is; a
+# backward left to TF32 or a fake-quant the card skipped fails there.
+# Then each side on its own choices: fake-quant rounds every body conv's
+# input to a grid of 255 levels per sample, so a float32 difference of an
+# ulp moves a value that sits on a rounding boundary by a whole step
+# (1/127 of the sample's range), a PReLU input near 0 can take the other
+# branch, and the steps spread through the later layers. That run is held
+# to QAT_GRAD_TOL, and beyond GRAD_TOL only where some of the card's
+# choices differ from the CPU's (counted). Runs on an H100 80GB HBM3
+# measured 3.6e-6 of a term sum with the choices shared and 3.6e-3
+# without (and 2.4e-2 to 3.8e-2 of a leaf's max abs, at PReLU slopes: g*x
+# summed over every negative activation of a layer cancels far below its
+# terms)
+QAT_GRAD_TOL = 2e-2
 
 
 def jpeg_test_image(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
@@ -599,7 +674,8 @@ def _term_sums(model, sums: dict):
             h.remove()
     for n, m in layers.items():
         pairs = [(x.abs(), g.abs(), x) for x, g in
-                 (p for p in seen.get(n, []) if len(p) == 2)]
+                 (_weight_terms(m, *p) for p in seen.get(n, [])
+                  if len(p) == 2)]
         if not pairs:
             continue
         if isinstance(m, (nn.Conv2d, SNConv2d)):
@@ -639,6 +715,31 @@ def _term_sums(model, sums: dict):
             sums[f"{n}.bias"] = bias.max().item()
 
 
+def _weight_terms(m, x: torch.Tensor, g: torch.Tensor):
+    """A layer's input and output gradient where its weight gradient is a
+    plain conv's of them: a QAT conv's fake-quantized input (the conv's
+    true operand; the STE passes the gradient through); for a phase-space
+    conv of the upsample tail (``phase_in > 1``) the HR conv's, the input
+    put back in canonical pixel-shuffle order (``phase_in_map``) and
+    shuffled, a grouped output's gradient shuffled phase-major (a tail's
+    last conv already emits HR); any other layer's as they are."""
+    from food101_sr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
+    from food101_sr_tpu_torch.ops.quantize import fake_quant_act
+    from food101_sr_tpu_torch.ops.subpixel_conv import phase_major_shuffle
+
+    if getattr(m, "quantize", "") == "qat":
+        return fake_quant_act(x), g
+    r = getattr(m, "phase_in", 0)
+    if r <= 1:
+        return x, g
+    if m.phase_in_map is not None:
+        canon = torch.empty_like(x)
+        canon[:, list(m.phase_in_map)] = x
+        x = canon
+    return (pixel_shuffle(x, r),
+            g if m.subpixel_r > 1 else phase_major_shuffle(g, r))
+
+
 def _worst(names, on_card, on_cpu, sums) -> dict:
     """Per leaf, the largest card-CPU difference over the leaf's largest
     sum of absolute terms (asserted to be at least its max abs) and, for
@@ -669,29 +770,120 @@ def _worst(names, on_card, on_cpu, sums) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _decisions(model, rec: dict, mode: str):
+    """Within the block, the discrete choices of ``model``'s forward: the
+    int8 level of each fake-quantized activation (QAT nets;
+    ``ops.quantize.fake_quant_act``, in call order) and the branch of each
+    PReLU input element (its sign; per module, in call order). By
+    ``mode``: "record" keeps them in ``rec`` (on the CPU, with the
+    fake-quantized values); "compare" counts this forward's choices that
+    differ from the recorded ones (the yielded dict: fake-quant levels and
+    the largest difference, PReLU branches); "replay" makes the recorded
+    choices, each activation's recorded fake-quantized values taken
+    through the straight-through estimator, each PReLU applied on its
+    recorded branches."""
+    from torch import nn
+
+    from food101_sr_tpu_torch.ops import quantize as q
+
+    own = q.fake_quant_act
+    acts, masks = rec.setdefault("acts", []), rec.setdefault("masks", {})
+    stats = {"calls": 0, "elements": 0, "flips": 0, "max_levels": 0,
+             "branches": 0, "kinks": 0}
+    it, calls = iter(acts), {}
+
+    def record(x):
+        y = own(x)
+        acts.append((q.quantize_per_sample(x)[0].cpu(), y.detach().cpu()))
+        return y
+
+    def compare(x):
+        levels = next(it)[0]
+        diff = (q.quantize_per_sample(x)[0].cpu().int() - levels.int()).abs()
+        stats["flips"] += int((diff > 0).sum())
+        stats["elements"] += diff.numel()
+        stats["max_levels"] = max(stats["max_levels"], int(diff.max()))
+        stats["calls"] += 1
+        return own(x)
+
+    def replay(x):
+        xf = x.float()
+        stats["calls"] += 1
+        return q._ste(xf, next(it)[1].to(xf.device)).to(x.dtype)
+
+    def prelu(mod, inp, out, name):
+        x, i = inp[0], calls.get(name, 0)
+        calls[name] = i + 1
+        if mode == "record":
+            masks.setdefault(name, []).append((x > 0).cpu())
+            return None
+        m = masks[name][i].to(x.device)
+        if mode == "compare":
+            stats["kinks"] += int(((x > 0) != m).sum())
+            stats["branches"] += m.numel()
+            return None
+        a = mod.weight.view(1, -1, 1, 1) if mod.weight.numel() > 1 \
+            else mod.weight
+        return torch.where(m, x, a * x)
+
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, n=n: prelu(mod, inp, out, n))
+        for n, m in model.named_modules() if isinstance(m, nn.PReLU)]
+    q.fake_quant_act = {"record": record, "compare": compare,
+                        "replay": replay}[mode]
+    try:
+        yield stats
+    finally:
+        q.fake_quant_act = own
+        for h in hooks:
+            h.remove()
+    if mode != "record" and stats["calls"] != len(acts):
+        raise AssertionError(f"{mode}: {stats['calls']} fake-quantized "
+                             f"activations, {len(acts)} recorded")
+
+
 def _grad_check(model, batch: int = GRAD_BATCH, crop: int = TRAIN_CROP,
                 arch: str = "AttentionSR") -> dict:
-    """One step's raw gradients of ``model`` (registry ``arch``) on
-    ``batch`` seeded crops: on the card (K1, K2) and on a CPU copy (their
-    plain versions), TF32 off.
+    """One step's raw gradients of ``model`` (registry ``arch``, its
+    ``quantize`` and ``phase_tail``) on ``batch`` seeded crops: on the
+    card (K1, K2) and on a CPU copy (their plain versions), TF32 off.
     Per leaf, the largest difference over the leaf's scale: its largest
     sum of absolute terms (``_term_sums``; asserted) and, for the record,
-    its max abs."""
+    its max abs. For a QAT net also ``choices`` (the card's fake-quant
+    levels and PReLU branches that differ from the CPU's, ``_decisions``)
+    and ``shared``: the card's gradients again with the CPU's choices
+    made in its forward, so that the two sides differ by float rounding
+    alone."""
     from food101_sr_tpu_torch.losses import nlpd_loss
     from food101_sr_tpu_torch.models import get_model
     from food101_sr_tpu_torch.ops import full_fp32
     from food101_sr_tpu_torch.training import loss_and_grads
 
-    cpu = get_model(arch, device="cpu")
+    cpu = get_model(arch, device="cpu",
+                    quantize=getattr(model, "quantize", ""),
+                    phase_tail=getattr(model, "phase_tail", False))
     cpu.load_state_dict(model.state_dict())
     hr = torch.from_numpy(np.random.default_rng(4).integers(
         0, 256, (batch, crop, crop, 3), np.uint8))
-    with full_fp32():
-        _, on_card = loss_and_grads(model, nlpd_loss, 4, hr.cuda())
-    with _term_sums(cpu, {}) as sums:
+    qat = getattr(model, "quantize", "") == "qat"
+    rec: dict = {}
+    with _term_sums(cpu, {}) as sums, contextlib.ExitStack() as stack:
+        if qat:
+            stack.enter_context(_decisions(cpu, rec, "record"))
         _, on_cpu = loss_and_grads(cpu, nlpd_loss, 4, hr)
-    return _worst([k for k, _ in cpu.named_parameters()], on_card, on_cpu,
-                  sums)
+    with full_fp32(), contextlib.ExitStack() as stack:
+        choices = stack.enter_context(_decisions(model, rec, "compare")) \
+            if qat else None
+        _, on_card = loss_and_grads(model, nlpd_loss, 4, hr.cuda())
+    names = [k for k, _ in cpu.named_parameters()]
+    out = _worst(names, on_card, on_cpu, sums)
+    if qat:
+        with full_fp32(), _decisions(model, rec, "replay"):
+            _, shared = loss_and_grads(model, nlpd_loss, 4, hr.cuda())
+        out["shared"] = _worst(names, shared, on_cpu, sums)
+        out["choices"] = choices
+    return out
 
 
 def _bits(state) -> list[torch.Tensor]:
@@ -810,23 +1002,31 @@ def phase_train(rates) -> tuple[dict, dict]:
                                                make_adam, make_eval_step,
                                                make_train_step)
 
-    t0 = time.perf_counter()
-    model = get_model("AttentionSR", device="cuda",
-                      generator=torch.Generator().manual_seed(0)).train()
-    arch = f"AttentionSR x4 {model.num_residuals}x" \
-           f"{model.input_conv.out_channels} f32 channels-last"
-    worst = _grad_check(model)
-    (err, leaf), (err_peak, leaf_peak) = worst["term_sum"], worst["max_abs"]
-    if not err <= GRAD_TOL:
-        raise AssertionError(f"train gradients, card vs CPU plain: {leaf} "
-                             f"off by {err} of its largest term sum")
-    print(f"train: {arch} | raw gradients on {GRAD_BATCH}x{TRAIN_CROP}^2, "
-          f"card (K1, K2, TF32 off) vs CPU plain: worst leaf {leaf} "
-          f"{err:.3g} of its largest sum of absolute terms (tol {GRAD_TOL});"
-          f" worst over the max abs: {leaf_peak} {err_peak:.3g} (its term "
-          f"sum is {worst['ratio'][leaf_peak]:.0f}x its size; largest ratio "
-          f"{max(worst['ratio'].values()):.0f}) | "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # both tails' gradients (train --no_phase_tail runs the materialized
+    # one); the steps below train the default, the phase tail
+    t_phase = time.perf_counter()
+    for phase_tail in (False, True):
+        t0 = time.perf_counter()
+        model = get_model("AttentionSR", device="cuda", phase_tail=phase_tail,
+                          generator=torch.Generator().manual_seed(0)).train()
+        arch = (f"AttentionSR x4 {model.num_residuals}x"
+                f"{model.input_conv.out_channels} f32 channels-last, "
+                f"{'phase' if phase_tail else 'materialized'} tail")
+        worst = _grad_check(model)
+        (err, leaf), (err_peak, leaf_peak) = (worst["term_sum"],
+                                              worst["max_abs"])
+        if not err <= GRAD_TOL:
+            raise AssertionError(f"train gradients ({arch}), card vs CPU "
+                                 f"plain: {leaf} off by {err} of its "
+                                 "largest term sum")
+        print(f"train: {arch} | raw gradients on {GRAD_BATCH}x{TRAIN_CROP}^2"
+              f", card (K1, K2, TF32 off) vs CPU plain: worst leaf {leaf} "
+              f"{err:.3g} of its largest sum of absolute terms (tol "
+              f"{GRAD_TOL}); worst over the max abs: {leaf_peak} "
+              f"{err_peak:.3g} (its term sum is "
+              f"{worst['ratio'][leaf_peak]:.0f}x its size; largest ratio "
+              f"{max(worst['ratio'].values()):.0f}) | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     loss_fn = get_loss_function("nlpd")
     first, last = FIRST_LAST["AttentionSR"]
@@ -925,7 +1125,8 @@ def phase_train(rates) -> tuple[dict, dict]:
           f"{k2['ms']:.4f} ms, device {k2['device_ms']:.4f}, host "
           f"{k2['host_us']:.1f} us, plain {k2['plain_ms']:.4f}, x.mean "
           f"{k2['library_ms']:.4f}, bound {k2['bound_ms']:.4f} "
-          f"({k2['bound_by']}) | train phase {time.perf_counter() - t0:.1f} s",
+          f"({k2['bound_by']}) | train phase "
+          f"{time.perf_counter() - t_phase:.1f} s",
           flush=True)
     k1.update({"name": "K1 depthwise Gaussian blur 5x5, train step",
                "route": "cuda", "source": "food101_sr_tpu_torch/csrc/kernels.cu",
@@ -1040,7 +1241,7 @@ def _gan_grad_check(g, d, percep) -> dict:
 
     sgd0 = Transform(lambda params, lr: torch.optim.SGD(params, lr=lr,
                                                         fused=True), 0.0)
-    g_cpu = get_model("AttentionSR", device="cpu")
+    g_cpu = get_model("AttentionSR", device="cpu", phase_tail=g.phase_tail)
     g_cpu.load_state_dict(g.state_dict())
     d_cpu = build_model(lambda: Discriminator(nf=GAN_NF), device="cpu")
     d_cpu.load_state_dict(d.state_dict())
@@ -1107,7 +1308,7 @@ def phase_gan(rates) -> dict:
                                                make_gan_g_step)
 
     t0 = time.perf_counter()
-    g = get_model("AttentionSR", device="cuda",
+    g = get_model("AttentionSR", device="cuda", phase_tail=True,
                   generator=torch.Generator().manual_seed(0)).train()
     d = build_model(lambda: Discriminator(nf=GAN_NF), device="cuda",
                     generator=torch.Generator().manual_seed(2))
@@ -1388,7 +1589,7 @@ def _train_generator(arch: str) -> dict:
                                                make_adam, make_train_step)
 
     t0 = time.perf_counter()
-    model = get_model(arch, device="cuda",
+    model = get_model(arch, device="cuda", phase_tail=True,
                       generator=torch.Generator().manual_seed(0)).train()
     worst = _grad_check(model, arch=arch)
     t_grad = time.perf_counter() - t0
@@ -2475,6 +2676,499 @@ def phase_food101(tmp: str, loop: dict) -> dict:
     return {"K1": total[0], "K2 nhwc": total[1], "K2 nchw": total[2]}
 
 
+def _u8(y: torch.Tensor) -> torch.Tensor:
+    """A net's output as the server rounds it: clamp, x255, round."""
+    return (y.float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+
+
+def _counts() -> tuple[int, int, int]:
+    from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
+                                          mean_plane_kernel)
+
+    return (blur_kernel.launches, mean_nhwc_kernel.launches,
+            mean_plane_kernel.launches)
+
+
+def _zero_counts() -> None:
+    from food101_sr_tpu_torch.ops import (blur_kernel, mean_nhwc_kernel,
+                                          mean_plane_kernel)
+
+    blur_kernel.launches = 0
+    mean_nhwc_kernel.launches = mean_plane_kernel.launches = 0
+
+
+def phase_tails() -> dict:
+    """The phase-space upsample tail on the card (module docstring, phase
+    14). Returns the phase's numbers and its launches by kernel."""
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.ops import full_fp32
+
+    t0 = time.perf_counter()
+    cl = torch.channels_last
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    xs = {s: torch.rand((TAIL_BATCH, 3, s, s), device="cuda", generator=gen)
+          for s in TAIL_SIDES}
+    rows, layout, n_blocks = [], [], 0
+    # ---- main path: every forward of the phase, counts from zero ----
+    _zero_counts()
+    for arch in TAIL_ARCHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            nets = {pt: get_model(arch, device="cuda", dtype=dtype,
+                                  phase_tail=pt,
+                                  generator=torch.Generator().manual_seed(0))
+                    for pt in (False, True)}
+            if arch == "AttentionSR":
+                n_blocks = nets[False].num_residuals
+            for s in TAIL_SIDES:
+                x = xs[s].to(dtype).contiguous(memory_format=cl)
+                c = nets[False].input_conv.out_channels
+                feat = torch.randn((TAIL_BATCH, c, s, s), device="cuda",
+                                   generator=gen).to(dtype) \
+                    .contiguous(memory_format=cl)
+                with torch.inference_mode(), full_fp32():
+                    raw = {pt: m(x).float() for pt, m in nets.items()}
+                    fwd = {pt: cuda_ms(lambda m=m: m(x), TAIL_ITERS, 1)
+                           for pt, m in nets.items()}
+                    tail = {pt: cuda_ms(
+                        lambda m=m: m.output_conv(m.upsample(feat)),
+                        TAIL_ITERS, 1) for pt, m in nets.items()}
+                lv = _levels(_u8(raw[True]).cpu().numpy(),
+                             _u8(raw[False]).cpu().numpy())
+                rel = ((raw[True] - raw[False]).abs().max()
+                       / raw[False].abs().max()).item()
+                del raw
+                if dtype == torch.float32 and not rel <= TAIL_F32_RTOL:
+                    raise AssertionError(f"tail: {arch} {s}^2 float32 phase "
+                                         f"tail {rel:.3g} of the peak from "
+                                         "the materialized one")
+                rows.append({"arch": arch, "dtype": str(dtype)[6:],
+                             "side": s, "levels": lv, "rel_err": rel,
+                             "fwd_ms": fwd[False], "fwd_phase_ms": fwd[True],
+                             "tail_ms": tail[False],
+                             "tail_phase_ms": tail[True]})
+                print(f"tail: {arch} {str(dtype)[6:]} {TAIL_BATCH}x{s}^2: "
+                      f"phase vs materialized {lv} level(s), {rel:.3g} of "
+                      f"the peak | forward "
+                      f"{fwd[False]:.3f} -> {fwd[True]:.3f} ms | tail alone "
+                      f"{tail[False]:.3f} -> {tail[True]:.3f} ms", flush=True)
+            # ROADMAP fault 2: channels-last against NCHW in bf16
+            if arch == "AttentionSR" and dtype == torch.bfloat16:
+                for pt, m in nets.items():
+                    nchw = get_model(arch, device="cuda", dtype=dtype,
+                                     phase_tail=pt,
+                                     generator=torch.Generator().manual_seed(0))
+                    nchw.to(memory_format=torch.contiguous_format)
+                    nchw.memory_format = torch.contiguous_format
+                    for s in TAIL_SIDES:
+                        x = xs[s].to(dtype)
+                        with torch.inference_mode():
+                            lv = _levels(
+                                _u8(m(x.contiguous(memory_format=cl)))
+                                .cpu().numpy(),
+                                _u8(nchw(x.contiguous())).cpu().numpy())
+                        layout.append({"phase_tail": pt, "side": s,
+                                       "levels": lv})
+                    del nchw
+            del nets
+    torch.cuda.synchronize()
+    launches = _counts()
+    # ---- end of main path ----
+    # AttentionSR: per dtype and side, 2 nets x (1 + 1 warm-up + the timed
+    # forwards) channels-last; the layout check's 2 tails x sides forwards
+    # channels-last and as many NCHW (the plane entry); the tails alone
+    # have no SE block
+    n_cl = 2 * len(TAIL_SIDES) * 2 * (2 + TAIL_ITERS) + 2 * len(TAIL_SIDES)
+    want = (0, n_blocks * n_cl, n_blocks * 2 * len(TAIL_SIDES))
+    if launches != want:
+        raise AssertionError(f"tail: launches (K1, K2 nhwc, K2 plane) "
+                             f"{launches}, expected {want}: {n_blocks} per "
+                             "AttentionSR forward")
+    print("tail: bf16 AttentionSR channels-last vs NCHW (ROADMAP fault 2): "
+          + ", ".join(f"{'phase' if r['phase_tail'] else 'materialized'} "
+                      f"{r['side']}^2 {r['levels']} level(s)"
+                      for r in layout)
+          + f" | launches (K1, K2 nhwc, K2 plane) {launches} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    numbers = {"rows": rows, "layout_levels": layout}
+    print("tail numbers: " + json.dumps(numbers), flush=True)
+    return {"launches": {"K1": launches[0], "K2 nhwc": launches[1],
+                         "K2 nchw": launches[2]}, **numbers}
+
+
+def _int8_card_vs_cpu() -> dict:
+    """The int8 GEMM's int32 accumulators and int8_conv2d's output on the card against the CPU's on the same
+    tensors, at every body conv shape of the three nets; largest output
+    difference (bit-equal expected: the same float ops on the same
+    integers)."""
+    from food101_sr_tpu_torch.ops import quantize as q
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    checked, out_err = [], 0.0
+    for arch, shapes in QUANT_SHAPES.items():
+        for cin, cout in shapes:
+            x = torch.randn((QUANT_BATCH, cin, 64, 64), device="cuda",
+                            generator=gen).contiguous(
+                                memory_format=torch.channels_last)
+            w = torch.randn((cout, cin, 3, 3), device="cuda", generator=gen)
+            b = torch.randn((cout,), device="cuda", generator=gen)
+            xq, _ = q.quantize_per_sample(x)
+            wq, _ = q.quantize_kernel_per_cout(w)
+            xq_cpu, _ = q.quantize_per_sample(x.cpu())
+            if not torch.equal(xq.cpu(), xq_cpu):
+                raise AssertionError(f"quant: {arch} {cin}->{cout} "
+                                     "activations quantize differently")
+            got = q.int8_accumulators(xq, wq, 1)
+            if not torch.equal(got.cpu(), q.int8_accumulators(xq_cpu,
+                                                              wq.cpu(), 1)):
+                raise AssertionError(f"quant: {arch} {cin}->{cout} int32 "
+                                     "accumulators differ from the CPU's")
+            y = q.int8_conv2d(x, w, b)
+            y_cpu = q.int8_conv2d(x.cpu(), w.cpu(), b.cpu())
+            out_err = max(out_err, (y.cpu() - y_cpu).abs().max().item())
+            checked.append(f"{cin}->{cout}")
+    return {"shapes": checked, "max_abs_err": out_err}
+
+
+def _serve_int8(arch: str, rng) -> dict:
+    """SRServer(arch, quantize="int8") in bf16: QUANT_REQUESTS 64x64
+    requests from HTTP_THREADS threads, each within LEVEL_TOL of a direct
+    int8 forward of its input; then the int8 and the bf16 server's
+    outputs on QUANT_HR seeded HR images degraded x4 (SNR of int8 against
+    bf16, and each one's PSNR against the HR)."""
+    from food101_sr_tpu_torch.ops import degrade_bicubic
+    from food101_sr_tpu_torch.serving import SRServer
+
+    servers = {mode: SRServer(arch, device="cuda", dtype=torch.bfloat16,
+                              quantize=mode,
+                              generator=torch.Generator().manual_seed(0))
+               for mode in ("int8", "")}
+    try:
+        for srv in servers.values():
+            srv.warmup([(64, 64)])
+        srv = servers["int8"]
+        imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                for _ in range(QUANT_REQUESTS)]
+        b0 = srv.batcher.n_batches
+        with cf.ThreadPoolExecutor(max_workers=HTTP_THREADS) as pool:
+            t0 = time.perf_counter()
+            outs = list(pool.map(srv.upscale, imgs))
+            wall = time.perf_counter() - t0
+        batches = srv.batcher.n_batches - b0
+        lv = max(_levels(o, _direct(srv, i)) for i, o in zip(imgs, outs))
+        if lv > LEVEL_TOL:
+            raise AssertionError(f"quant: {arch} int8 served vs direct int8 "
+                                 f"forward: {lv} levels")
+        hr = torch.from_numpy(rng.integers(0, 256, (QUANT_HR, 256, 256, 3),
+                                           np.uint8)).cuda()
+        lr = degrade_bicubic(hr.permute(0, 3, 1, 2).float() / 255, 4)
+        lr8 = list(_u8(lr).permute(0, 2, 3, 1).cpu().numpy())
+        sr = {m: np.stack([s.upscale(i) for i in lr8]).astype(np.float64)
+              for m, s in servers.items()}
+        ref = hr.cpu().numpy().astype(np.float64)
+        err = np.mean((sr["int8"] - sr[""]) ** 2)
+        snr = float(10 * np.log10(np.mean(sr[""] ** 2) / max(err, 1e-12)))
+
+        def psnr(a):
+            return float(10 * np.log10(255.0 ** 2 / np.mean((a - ref) ** 2)))
+
+        return {"requests": len(imgs), "batches": batches,
+                "n_blocks": getattr(srv.model, "num_residuals", 0),
+                "images_per_s": len(imgs) / wall, "levels_vs_direct": lv,
+                "snr_int8_vs_bf16_db": snr, "psnr_int8": psnr(sr["int8"]),
+                "psnr_bf16": psnr(sr[""])}
+    finally:
+        for s in servers.values():
+            s.close()
+
+
+def _quant_http(rng, tmp: str) -> dict:
+    """``serve --quantize int8`` (the registry AttentionSR, seeded, bf16)
+    behind SRHTTPServer in this process: HTTP_REQUESTS 64x64 PNGs from
+    HTTP_THREADS client threads, each response equal to the server's
+    upscale; then ``predict --quantize int8`` on QUANT_PREDICT PNGs, each
+    output within LEVEL_TOL of that server's upscale."""
+    from food101_sr_tpu_torch import native, predict, serve
+
+    a = serve.parse_args(["--quantize", "int8", "--architecture",
+                          "AttentionSR", "--warmup_sizes", "64x64"])
+    srv, _ = serve.build_servers(a)
+    httpd = None
+    try:
+        srv.warmup([(64, 64)])
+        httpd = serve.SRHTTPServer(("127.0.0.1", 0), serve.make_handler(srv))
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        port = httpd.server_address[1]
+        health = json.loads(_http(port, "/healthz")[2])
+        if health["models"]["default"]["quantize"] != "int8":
+            raise AssertionError(f"quant: /healthz {health}")
+        imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                for _ in range(HTTP_REQUESTS)]
+        b0 = srv.batcher.n_batches
+        res, wall = _burst(port, "/sr", [native.encode_png_rgb8(x)
+                                         for x in imgs], HTTP_THREADS)
+        batches = srv.batcher.n_batches - b0
+        bucket = _bucket("64x64 PNG int8", res, wall)
+        for img, r in zip(imgs, res):
+            if not np.array_equal(native.decode_image(r[2]),
+                                  srv.upscale(img)):
+                raise AssertionError("quant: an HTTP response differs from "
+                                     "upscale")
+        d_in, d_out = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+        os.makedirs(d_in)
+        pimgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+                 for _ in range(QUANT_PREDICT)]
+        for i, img in enumerate(pimgs):
+            with open(os.path.join(d_in, f"q{i}.png"), "wb") as f:
+                f.write(native.encode_png_rgb8(img))
+        t0 = time.perf_counter()
+        predict.main([d_in, "--out_dir", d_out, "--quantize", "int8"])
+        pred_s = time.perf_counter() - t0
+        lv = 0
+        for i, img in enumerate(pimgs):
+            with open(os.path.join(d_out, f"q{i}_x4.png"), "rb") as f:
+                lv = max(lv, _levels(native.decode_image(f.read()),
+                                     srv.upscale(img)))
+        if lv > LEVEL_TOL:
+            raise AssertionError(f"quant: predict --quantize int8 is {lv} "
+                                 "levels from the server")
+        return {**bucket, "batches": batches, "predict_s": pred_s,
+                "predict_levels": lv}
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        srv.close()
+
+
+def _quant_forwards() -> dict:
+    """Forward ms (CUDA events) of each net at QUANT_BATCH x QUANT_SIDE^2
+    in bf16 with the int8 and int8_dot bodies and without, the phase tail
+    on (the server's default)."""
+    from food101_sr_tpu_torch.models import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = torch.rand((QUANT_BATCH, 3, QUANT_SIDE, QUANT_SIDE), device="cuda",
+                   generator=gen).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    out = {}
+    for arch in QUANT_SHAPES:
+        for mode in ("int8", "int8_dot", ""):
+            m = get_model(arch, device="cuda", dtype=torch.bfloat16,
+                          quantize=mode, phase_tail=True,
+                          generator=torch.Generator().manual_seed(0))
+            with torch.inference_mode():
+                out[f"{arch} {mode or 'bf16'}"] = cuda_ms(lambda: m(x), 5, 1)
+            del m
+    return out
+
+
+def _qat_steps() -> dict:
+    """One QAT train step and one float step of the registry AttentionSR
+    (phase tail, f32, NLPD, Adam 4e-4, TRAIN_BATCH x TRAIN_CROP^2 crops
+    made on the device): the QAT net's raw gradients on GRAD_BATCH crops
+    against the CPU's plain path (QAT_GRAD_TOL); per net GEN_WARMUP + GEN_TIMED steps
+    under CUDA events, the first timed step counting the kernels'
+    launches (K1 8, K2 nhwc 32), the loss on that one batch finite and
+    falling."""
+    from food101_sr_tpu_torch.losses import get_loss_function
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               make_adam, make_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    hr_u8 = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3),
+                          dtype=torch.uint8, device="cuda", generator=gen)
+    loss_fn = get_loss_function("nlpd")
+    first, last = FIRST_LAST["AttentionSR"]
+    out = {}
+    for mode in ("", "qat"):
+        model = get_model("AttentionSR", device="cuda", quantize=mode,
+                          phase_tail=True,
+                          generator=torch.Generator().manual_seed(0)).train()
+        if mode:
+            worst = _grad_check(model)
+            err, leaf = worst["shared"]["term_sum"]
+            if not err <= GRAD_TOL:
+                raise AssertionError(f"quant: QAT gradients with the CPU's "
+                                     "choices, card vs "
+                                     f"CPU plain: {leaf} off by {err} of its "
+                                     f"largest term sum (tol {GRAD_TOL})")
+            err, leaf = worst["term_sum"]
+            ch = worst["choices"]
+            if not (err <= GRAD_TOL or ((ch["flips"] or ch["kinks"])
+                                        and err <= QAT_GRAD_TOL)):
+                raise AssertionError(f"quant: QAT gradients, card vs CPU "
+                                     f"plain: {leaf} off by {err} of its "
+                                     f"largest term sum with {ch['flips']} "
+                                     f"int8 levels and {ch['kinks']} PReLU "
+                                     "branches differing")
+            out["grad_max_abs"] = worst["max_abs"]
+            out["grad_term_sum"] = worst["term_sum"]
+            out["grad_shared"] = worst["shared"]["term_sum"]
+            out["grad_shared_max_abs"] = worst["shared"]["max_abs"]
+            out["choices"] = worst["choices"]
+        state = SRTrainState.create(model, make_adam(TRAIN_LR))
+        step = make_train_step(model, loss_fn, 4, first, last)
+        losses = []
+        for _ in range(GEN_WARMUP):
+            state, m = step(state, hr_u8)
+            losses.append(m["train_loss"])
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(GEN_TIMED + 1)]
+        ev[0].record()
+        for i in range(GEN_TIMED):
+            if i == 0:
+                _zero_counts()
+            state, m = step(state, hr_u8)
+            if i == 0:
+                launches = _counts()
+            losses.append(m["train_loss"])
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(GEN_TIMED)]
+        losses = [float(v) for v in losses]
+        if launches != (8, model.num_residuals, 0):
+            raise AssertionError(f"quant: one {mode or 'f32'} step launched "
+                                 f"{launches}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"quant: {mode or 'f32'} step losses "
+                                 f"{losses} on one batch")
+        out[f"{mode or 'f32'}_losses"] = losses
+        out[f"{mode or 'f32'}_step_ms"] = float(np.mean(ms))
+        out[f"{mode or 'f32'}_launches"] = launches
+        del model, state, step
+    return out
+
+
+def _qat_loop(tmp: str, n_blocks: int) -> dict:
+    """train(quantize="qat") with the loop phase's settings for one epoch
+    (QAT_LOOP_CFG): its launches against the closed form, the per-step
+    losses (each on its own batch) and the final metrics finite."""
+    from food101_sr_tpu_torch.training import train
+
+    runs = os.path.join(tmp, "runs")
+    old = os.environ.get("FOOD101_SR_RUN_DIR")
+    os.environ["FOOD101_SR_RUN_DIR"] = runs
+    try:
+        nb = _loop_batches()
+        # ---- main path: one train(quantize="qat") run, counts from zero
+        _zero_counts()
+        final = train({**QAT_LOOP_CFG, "weights_dir":
+                       os.path.join(tmp, "w"), "save_name": "qat",
+                       "run_name": "qat"})
+        launches = _counts()
+        # ---- end of main path ----
+    finally:
+        if old is None:
+            os.environ.pop("FOOD101_SR_RUN_DIR", None)
+        else:
+            os.environ["FOOD101_SR_RUN_DIR"] = old
+    with open(os.path.join(runs, "qat", "log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in recs if "train_loss" in r]
+    epoch = [r for r in recs if "epoch" in r]
+    steps = nb["steps"]
+    want = (8 * steps + 4 * nb["val"] + 4 * nb["test"],
+            n_blocks * (steps + nb["val"] + nb["test"]), 0)
+    if launches != want:
+        raise AssertionError(f"quant: train(qat) launched {launches}, "
+                             f"expected {want}")
+    if not (len(losses) == steps and all(np.isfinite(losses))
+            and all(np.isfinite(list(final.values())))):
+        raise AssertionError(f"quant: train(qat) losses {losses}, final "
+                             f"{final}")
+    return {"losses": losses, "final": final, "launches": launches,
+            "images_per_s": epoch[-1]["time/images_per_s"],
+            "step_ms": epoch[-1]["time/step_ms"]}
+
+
+def phase_quant() -> dict:
+    """int8 serving and QAT training on the card (module docstring, phase
+    15). Returns the phase's numbers and its two main paths' launches."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    acc = _int8_card_vs_cpu()
+    print(f"quant: int32 accumulators bit-equal to the CPU's at {QUANT_BATCH}x{{{', '.join(acc['shapes'])}}}x64^2; "
+          f"int8_conv2d max abs diff {acc['max_abs_err']:.3g}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quant_") as tmp:
+        # ---- main path: int8 serving, counts from zero ----
+        _zero_counts()
+        served = {arch: _serve_int8(arch, rng) for arch in QUANT_SHAPES}
+        http = _quant_http(rng, tmp)
+        torch.cuda.synchronize()
+        serve_launches = _counts()
+        # ---- end of main path ----
+        n_blocks = served["AttentionSR"]["n_blocks"]
+        qat = _qat_loop(tmp, n_blocks)
+    for arch, r in served.items():
+        print(f"quant: SRServer({arch!r}, quantize='int8') bf16: "
+              f"{r['requests']} 64x64 requests in {r['batches']} batches, "
+              f"{r['images_per_s']:.1f} images/s, max {r['levels_vs_direct']}"
+              f" level(s) from a direct int8 forward | {QUANT_HR} seeded HR "
+              f"256^2 -> 64^2: int8 vs bf16 SNR {r['snr_int8_vs_bf16_db']:.2f}"
+              f" dB, PSNR vs HR int8 {r['psnr_int8']:.4f} / bf16 "
+              f"{r['psnr_bf16']:.4f} dB", flush=True)
+    print(f"quant: serve --quantize int8 over HTTP: {http['requests']} 64x64 "
+          f"PNGs from {HTTP_THREADS} threads, {http['images_per_s']:.1f} "
+          f"images/s, p50 {http['p50_ms']:.1f} ms, p95 {http['p95_ms']:.1f} "
+          f"ms, {http['batches']} batches, each response equal to upscale | "
+          f"predict --quantize int8 on {QUANT_PREDICT} PNGs in "
+          f"{http['predict_s']:.2f} s, {http['predict_levels']} level(s) "
+          f"from the server | launches (K1, K2 nhwc, K2 plane) "
+          f"{serve_launches}", flush=True)
+    if (serve_launches[0] or serve_launches[2] or not serve_launches[1]
+            or serve_launches[1] % n_blocks):
+        raise AssertionError(f"quant: int8 serving launched {serve_launches}"
+                             f": K2 nhwc {n_blocks} per AttentionSR forward "
+                             "only")
+    fwd = _quant_forwards()
+    print("quant: forward ms at "
+          f"{QUANT_BATCH}x{QUANT_SIDE}^2 bf16, phase tail: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fwd.items()), flush=True)
+    steps = _qat_steps()
+    print(f"quant: QAT step (AttentionSR, phase tail, batch {TRAIN_BATCH}x"
+          f"{TRAIN_CROP}^2) {steps['qat_step_ms']:.3f} ms against the f32 "
+          f"step's {steps['f32_step_ms']:.3f} | QAT loss on one batch "
+          f"{' '.join(f'{v:.6f}' for v in steps['qat_losses'])} | launches "
+          "per step "
+          f"{steps['qat_launches']} | QAT raw gradients vs CPU plain, with "
+          "the CPU's choices: worst "
+          f"{steps['grad_shared'][1]} {steps['grad_shared'][0]:.3g} of its "
+          f"largest term sum (tol {GRAD_TOL}; over the max abs "
+          f"{steps['grad_shared_max_abs'][1]} "
+          f"{steps['grad_shared_max_abs'][0]:.3g}); on its own: "
+          f"{steps['choices']['flips']} int8 levels of "
+          f"{steps['choices']['elements']} differ (at most by "
+          f"{steps['choices']['max_levels']}) and "
+          f"{steps['choices']['kinks']} PReLU branches of "
+          f"{steps['choices']['branches']}, worst "
+          f"{steps['grad_term_sum'][1]} {steps['grad_term_sum'][0]:.3g} of "
+          f"its largest term sum (tol {QAT_GRAD_TOL}; over the max abs "
+          f"{steps['grad_max_abs'][1]} {steps['grad_max_abs'][0]:.3g})",
+          flush=True)
+    print(f"quant: train(quantize='qat') {QAT_LOOP_CFG['epochs']} epoch: "
+          f"losses {' '.join(f'{v:.6f}' for v in qat['losses'])} | final "
+          f"psnr {qat['final']['psnr']:.4f} | {qat['images_per_s']:.1f} "
+          f"images/s, step {qat['step_ms']:.3f} ms | launches "
+          f"{qat['launches']} | {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    numbers = {"served": served, "http": http, "forward_ms": fwd,
+               "steps": {k: v for k, v in steps.items()
+                         if k.endswith("_ms")},
+               "qat_grad": {k: steps[k] for k in (
+                   "grad_shared", "grad_shared_max_abs", "grad_term_sum",
+                   "grad_max_abs", "choices")},
+               "qat_loop": {k: qat[k] for k in ("losses", "images_per_s",
+                                                "step_ms")},
+               "int8_max_abs_err": acc["max_abs_err"]}
+    print("quant numbers: " + json.dumps(numbers), flush=True)
+    return {"serve_launches": dict(zip(("K1", "K2 nhwc", "K2 nchw"),
+                                       serve_launches)),
+            "qat_launches": dict(zip(("K1", "K2 nhwc", "K2 nchw"),
+                                     qat["launches"])), **numbers}
+
+
 def run_loop_phase() -> dict:
     """Phases 12 and 13 in a child process of its own, which alone gets the
     determinism environment; its results come back through a file in a
@@ -2650,9 +3344,17 @@ def main() -> int:
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc")):
         d["loop_max_abs_err"] = loop["max_abs_err"][key]
         d["at_loop_val"] = loop["at_val"][key]
+    tails = phase_tails()
+    quant = phase_quant()
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
+        d["tail_launches"] = tails["launches"][key]
+        d["quant_serve_launches"] = quant["serve_launches"][key]
+        d["qat_loop_launches"] = quant["qat_launches"][key]
     keys = ("name", "route", "source", "replaces", "launches",
             "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
-            "rrdb_gan_loop_launches", "food101_loop_launches", "max_abs_err",
+            "rrdb_gan_loop_launches", "food101_loop_launches",
+            "tail_launches", "quant_serve_launches", "qat_loop_launches",
+            "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
             "at_loop_val", "half_device_ms", "nchw_copy_ms",

@@ -1,22 +1,24 @@
 """AttentionSR, the channel-attention SR net (counterpart of
-``food101_sr_tpu/models/attention_sr.py``), with the standard upsample tail.
+``food101_sr_tpu/models/attention_sr.py``).
 
-The JAX package's ``phase_tail`` computes the same function in pixel-shuffle
-phase space; the port keeps the standard tail, and the tests hold it
-against the JAX net with ``phase_tail`` both on and off.
+``phase_tail`` runs the upsample tail in pixel-shuffle phase space at LR
+resolution (``layers.upsample_tail``), the same function with the same
+weights; ``quantize`` runs the body convs (the residual blocks' and the
+mid conv) in dynamic int8 for inference ("int8", "int8_dot") or
+fake-quantized for QAT ("qat"), as in the JAX net.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .layers import (AttentionResidualBlock, Conv, prelu, scale_stages,
-                     upsample_block)
+from .layers import AttentionResidualBlock, Conv, prelu, upsample_tail
 
 
 class AttentionSR(nn.Module):
     """conv9 -> PReLU -> N attention residual blocks -> conv3, global skip,
-    then x2 stages (conv, pixel shuffle, PReLU) and a conv9 to RGB.
+    then x2 stages (conv, pixel shuffle, PReLU) and a conv9 to RGB, or
+    with ``phase_tail`` the same tail in phase space.
     (N, C, H, W) in and out, at ``scale_factor`` times the size.
 
     The net runs in ``memory_format``, channels-last by default: cuDNN's
@@ -28,21 +30,21 @@ class AttentionSR(nn.Module):
     memory_format = torch.channels_last
 
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
-                 num_residuals: int = 32):
+                 num_residuals: int = 32, quantize: str = "",
+                 phase_tail: bool = False):
         super().__init__()
         self.scale_factor = scale_factor
         self.num_residuals = num_residuals
+        self.quantize = quantize
+        self.phase_tail = phase_tail
         self.input_conv = Conv(3, num_channels, 9)
         self.prelu = prelu()
         self.res_blocks = nn.ModuleList(
-            AttentionResidualBlock(num_channels) for _ in range(num_residuals))
-        self.mid_conv = Conv(num_channels, num_channels, 3)
-        tail, cin = [], num_channels
-        for s in scale_stages(scale_factor):
-            tail += upsample_block(cin, 64, s)
-            cin = 64
-        self.upsample = nn.Sequential(*tail)
-        self.output_conv = Conv(64, 3, 9)
+            AttentionResidualBlock(num_channels, quantize=quantize)
+            for _ in range(num_residuals))
+        self.mid_conv = Conv(num_channels, num_channels, 3, quantize=quantize)
+        self.upsample, self.output_conv = upsample_tail(
+            num_channels, scale_factor, phase_tail)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.prelu(self.input_conv(

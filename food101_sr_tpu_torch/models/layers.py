@@ -16,7 +16,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quantize import fake_quant_conv2d, int8_conv2d
 from ..ops.spatial_mean import spatial_mean
+from ..ops.subpixel_conv import (grouped_out_map, phase_conv2d,
+                                 phase_conv2d_grouped, subpixel_conv2d)
 
 
 def scale_stages(scale: int) -> tuple:
@@ -35,22 +38,99 @@ def scale_stages(scale: int) -> tuple:
     return tuple(out)
 
 
+def _keep_float32(module: nn.Module, apply, fn, recurse: bool):
+    """``module._apply`` that keeps the float32 parameters and buffers in
+    float32: ``apply`` (the parent's ``_apply``) runs, then every tensor
+    that was float32 and is not any more comes back as float32 on its new
+    device (a ``.to(torch.bfloat16)`` moves them but keeps their dtype)."""
+    kept = {n: t.detach() for n, t in (*module._parameters.items(),
+                                       *module._buffers.items())
+            if t is not None and t.dtype == torch.float32}
+    apply(fn, recurse)
+    for name, old in kept.items():
+        new = getattr(module, name)
+        if new.dtype != torch.float32:
+            f32 = old.to(device=new.device)
+            if name in module._parameters:
+                module._parameters[name].data = f32
+            else:
+                module._buffers[name] = f32
+    return module
+
+
 class Conv(nn.Conv2d):
     """2-D conv with symmetric ``(k-1)//2`` padding. Initialized
     kaiming-normal (gain sqrt 2 over ``fan``, "fan_in" or "fan_out",
     times ``init_scale``) with zero bias, or ICNR for ``icnr_scale > 1``
-    (a conv that feeds a pixel shuffle)."""
+    (a conv that feeds a pixel shuffle).
+
+    The forward picks the compute path, as the JAX package's ``_RawConv``
+    does (the weights are the HR conv's OIHW weights on every path, so
+    the state_dict is the same):
+
+    - ``phase_in > 1``: the input is ``phase_in``-phase pixel-shuffle
+      layout at LR resolution (``phase_in_map``: each input channel's
+      canonical index) and the conv runs there: the dense phase form with
+      the HR image out when ``subpixel_r > 1`` (a tail's last conv), the
+      grouped polyphase form otherwise (``ops.subpixel_conv``);
+    - ``quantize``: "qat" the fake-quantized conv (trainable), "int8" or
+      "int8_dot" the dynamic-int8 conv (``ops.quantize``; the two JAX
+      lowerings are one computation here). A quantized
+      conv keeps its weight and bias in float32 in any dtype, as JAX
+      quantizes the float32 parameters;
+    - ``subpixel_r > 1``: the phase decomposition of a stride-1 conv with
+      few outputs, where H and W divide by r and ``out*r*r <= 256``;
+    - otherwise the direct conv.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, bias: bool = True, icnr_scale: int = 0,
-                 fan: str = "fan_in", init_scale: float = 1.0):
+                 fan: str = "fan_in", init_scale: float = 1.0,
+                 subpixel_r: int = 0, quantize: str = "",
+                 phase_in: int = 0, phase_in_map: tuple | None = None):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding=(kernel_size - 1) // 2, bias=bias)
         if fan not in ("fan_in", "fan_out"):
             raise ValueError(f"fan must be fan_in or fan_out, got {fan!r}")
+        if quantize not in ("", "int8", "int8_dot", "qat"):
+            raise ValueError(f"Unknown quantize mode: {quantize!r}")
+        if phase_in > 1 and (stride != 1 or quantize):
+            raise ValueError("phase-space convs are stride-1 and full "
+                             "precision")
         self.icnr_scale = icnr_scale
         self.fan = fan
         self.init_scale = init_scale
+        self.subpixel_r = subpixel_r
+        self.quantize = quantize
+        self.phase_in = phase_in
+        self.phase_in_map = phase_in_map
+
+    def _apply(self, fn, recurse=True):
+        if self.quantize:
+            return _keep_float32(self, super()._apply, fn, recurse)
+        return super()._apply(fn, recurse)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.phase_in > 1:
+            if self.subpixel_r > 1:
+                return phase_conv2d(x, self.weight, self.bias, self.phase_in,
+                                    in_map=self.phase_in_map,
+                                    shuffle_out=True)
+            return phase_conv2d_grouped(x, self.weight, self.bias,
+                                        self.phase_in,
+                                        in_map=self.phase_in_map)
+        if self.quantize == "qat":
+            return fake_quant_conv2d(x, self.weight, self.bias,
+                                     stride=self.stride[0])
+        if self.quantize:
+            return int8_conv2d(x, self.weight, self.bias,
+                               stride=self.stride[0])
+        r = self.subpixel_r
+        h, w = x.shape[2], x.shape[3]
+        if (r > 1 and self.stride[0] == 1 and h % r == 0 and w % r == 0
+                and self.out_channels * r * r <= 256):
+            return subpixel_conv2d(x, self.weight, self.bias, r)
+        return super().forward(x)
 
 
 def prelu() -> nn.PReLU:
@@ -77,11 +157,12 @@ class SEBlock(nn.Module):
 class AttentionResidualBlock(nn.Module):
     """conv3x3 -> PReLU -> conv3x3 -> SE, no BN, residual scaled by 0.1."""
 
-    def __init__(self, channels: int, res_scale: float = 0.1):
+    def __init__(self, channels: int, res_scale: float = 0.1,
+                 quantize: str = ""):
         super().__init__()
-        self.conv1 = Conv(channels, channels, 3)
+        self.conv1 = Conv(channels, channels, 3, quantize=quantize)
         self.prelu = prelu()
-        self.conv2 = Conv(channels, channels, 3)
+        self.conv2 = Conv(channels, channels, 3, quantize=quantize)
         self.se = SEBlock(channels)
         self.res_scale = res_scale
 
@@ -103,19 +184,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def _apply(self, fn, recurse=True):
-        kept = {n: t.detach() for n, t in (*self._parameters.items(),
-                                           *self._buffers.items())
-                if t is not None and t.dtype == torch.float32}
-        super()._apply(fn, recurse)
-        for name, old in kept.items():
-            new = getattr(self, name)
-            if new.dtype != torch.float32:
-                f32 = old.to(device=new.device)
-                if name in self._parameters:
-                    self._parameters[name].data = f32
-                else:
-                    self._buffers[name] = f32
-        return self
+        return _keep_float32(self, super()._apply, fn, recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float()).to(x.dtype)
@@ -125,12 +194,12 @@ class ResidualBlock(nn.Module):
     """conv3x3 -> BN -> PReLU -> conv3x3 -> BN, identity skip, no residual
     scaling (ResNetSR's block)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, quantize: str = ""):
         super().__init__()
-        self.conv1 = Conv(channels, channels, 3)
+        self.conv1 = Conv(channels, channels, 3, quantize=quantize)
         self.bn1 = BatchNorm2d(channels)
         self.prelu = prelu()
-        self.conv2 = Conv(channels, channels, 3)
+        self.conv2 = Conv(channels, channels, 3, quantize=quantize)
         self.bn2 = BatchNorm2d(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -139,13 +208,50 @@ class ResidualBlock(nn.Module):
 
 
 def upsample_block(in_channels: int, out_channels: int = 64,
-                   scale: int = 2) -> list[nn.Module]:
+                   scale: int = 2, phase_in: int = 0,
+                   phase_in_map: tuple | None = None) -> list[nn.Module]:
     """One x``scale`` tail stage: conv3x3 (ICNR) -> PixelShuffle -> PReLU,
     as a flat list so the stages of a tail share one ``nn.Sequential``
-    (state_dict keys ``upsample.{3s}`` / ``upsample.{3s+2}``)."""
-    return [Conv(in_channels, out_channels * scale * scale, 3,
-                 icnr_scale=scale),
-            nn.PixelShuffle(scale), prelu()]
+    (state_dict keys ``upsample.{3s}`` / ``upsample.{3s+2}``).
+
+    ``phase_in >= 1`` runs the stage in phase space (the JAX
+    ``UpsampleBlock``'s phase form): the input is ``phase_in``-phase
+    layout at LR resolution (1: the trunk itself, whose conv outputs are
+    the stage's own shuffle layout), the conv is the grouped phase conv
+    for ``phase_in > 1``, and no shuffle is materialized (an
+    ``nn.Identity`` holds its place); PReLU's one slope commutes with any
+    channel layout. The same weights either way."""
+    conv = Conv(in_channels, out_channels * scale * scale, 3,
+                icnr_scale=scale, phase_in=phase_in,
+                phase_in_map=phase_in_map)
+    shuffle = nn.Identity() if phase_in >= 1 else nn.PixelShuffle(scale)
+    return [conv, shuffle, prelu()]
+
+
+def upsample_tail(in_channels: int, scale_factor: int,
+                  phase_tail: bool = False) -> tuple[nn.Sequential, Conv]:
+    """The post-upsampling tail of ResNetSR, AttentionSR and RRDBNet: x``s``
+    stages from ``scale_stages`` (64 channels each), then the conv9x9 to
+    RGB (``output_conv``, ``subpixel_r=scale_factor``). ``phase_tail``
+    runs every tail conv at LR resolution in pixel-shuffle phase space and
+    shuffles once, at the very end: a stage reads ``r_acc``-phase input
+    (the product of the earlier stages' factors), a grouped stage's
+    ``(py, px, c, by, bx)`` channel order folds into the next conv's
+    gather (``grouped_out_map``), and the output conv is the dense phase
+    conv at ``scale_factor`` phases. Returns (``upsample``,
+    ``output_conv``)."""
+    layers, cin, r_acc, in_map = [], in_channels, 1, None
+    for s in scale_stages(scale_factor):
+        layers += upsample_block(cin, 64, s, r_acc if phase_tail else 0,
+                                 in_map)
+        if phase_tail:
+            in_map = (grouped_out_map(64 * s * s, r_acc, s=s)
+                      if r_acc > 1 else None)
+            r_acc *= s
+        cin = 64
+    return nn.Sequential(*layers), Conv(
+        64, 3, 9, subpixel_r=scale_factor,
+        phase_in=r_acc if phase_tail else 0, phase_in_map=in_map)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,11 @@ name -> module at the reference's sizes (SRCNN hidden 64; RESNET 16
 blocks x 64 channels; AttentionSR 32 blocks x 96 channels; RRDB 23 RRDBs
 x 64 channels, growth 32), and the architecture of a state_dict read from
 its keys and tensor shapes.
+
+Each entry takes the scale and the JAX registry's ``quantize`` and
+``phase_tail`` flags as keywords; SRCNN has neither a body stack nor a
+tail, so it ignores ``phase_tail`` and ``get_model`` refuses it a
+``quantize`` mode.
 """
 from __future__ import annotations
 
@@ -16,29 +21,27 @@ from .rrdb import RRDBNet
 from .srcnn import SRCNN
 
 _REGISTRY = {
-    "SRCNN": lambda scale: SRCNN(scale_factor=scale, hidden_dim=64),
-    "RESNET": lambda scale: ResNetSR(
-        scale_factor=scale, num_residuals=16, num_channels=64),
-    "AttentionSR": lambda scale: AttentionSR(
-        scale_factor=scale, num_residuals=32, num_channels=96),
-    "RRDB": lambda scale: RRDBNet(
-        scale_factor=scale, num_channels=64, growth=32, num_blocks=23),
+    "SRCNN": lambda scale, quantize="", phase_tail=False: SRCNN(
+        scale_factor=scale, hidden_dim=64),
+    "RESNET": lambda scale, **flags: ResNetSR(
+        scale_factor=scale, num_residuals=16, num_channels=64, **flags),
+    "AttentionSR": lambda scale, **flags: AttentionSR(
+        scale_factor=scale, num_residuals=32, num_channels=96, **flags),
+    "RRDB": lambda scale, **flags: RRDBNet(
+        scale_factor=scale, num_channels=64, growth=32, num_blocks=23,
+        **flags),
 }
 
 _QUANTIZE_MODES = ("", "int8", "int8_dot", "qat")
 
 
 def _check_quantize(arch: str, quantize: str) -> None:
-    """JAX's refusals (SRCNN has no body stack to quantize; unknown modes),
-    then the port's own: no mode runs until ROADMAP item 8."""
+    """JAX's refusals: SRCNN has no body stack to quantize, and an unknown
+    mode is an error."""
     if quantize and arch not in ("RESNET", "AttentionSR", "RRDB"):
         raise ValueError(f"quantize: {arch} has no quantizable body stack")
     if quantize not in _QUANTIZE_MODES:
         raise ValueError(f"Unknown quantize mode: {quantize!r}")
-    if quantize:
-        raise NotImplementedError(
-            f"quantize={quantize!r} is not ported to PyTorch yet: ROADMAP "
-            "item 8 (quantization and QAT)")
 
 
 def build_model(module_fn, dtype: torch.dtype = torch.float32,
@@ -61,13 +64,22 @@ def get_model(name: str, scale_factor: int = 4,
               dtype: torch.dtype = torch.float32,
               device: str | torch.device = "cuda",
               generator: torch.Generator | None = None,
-              quantize: str = "") -> nn.Module:
-    """Registry model ``name`` with seeded random weights, on ``device``."""
+              quantize: str = "", phase_tail: bool = False) -> nn.Module:
+    """Registry model ``name`` with seeded random weights, on ``device``.
+
+    ``quantize="int8"`` (or ``"int8_dot"``, the same computation here)
+    runs the body convs of RESNET, AttentionSR and RRDB in dynamic int8
+    for inference; ``"qat"`` is the trainable twin on fake-quantized
+    weights and activations (``ops.quantize``). The weights are the float
+    ones either way. ``phase_tail`` runs the upsample tail in phase space
+    (``ops.subpixel_conv``), the same function and weights. JAX's defaults:
+    both off."""
     if name not in _REGISTRY:
         raise ValueError(f"Unknown architecture: {name}")
     _check_quantize(name, quantize)
-    return build_model(lambda: _REGISTRY[name](scale_factor), dtype, device,
-                       generator)
+    return build_model(lambda: _REGISTRY[name](
+        scale_factor, quantize=quantize, phase_tail=phase_tail), dtype,
+        device, generator)
 
 
 def model_names() -> list[str]:
@@ -117,10 +129,13 @@ def _count(keys, prefix: str) -> int:
 def model_for_params(state_dict: dict, scale_factor: int = 4,
                      dtype: torch.dtype = torch.float32,
                      device: str | torch.device = "cuda",
-                     quantize: str = "") -> nn.Module:
+                     quantize: str = "", phase_tail: bool = False
+                     ) -> nn.Module:
     """The generator matching ``state_dict``, with its widths and depths
     read from the tensor shapes (so non-registry variants load without
-    flags) and the weights loaded strictly, on ``device`` in eval mode.
+    flags) and the weights loaded strictly, on ``device`` in eval mode;
+    ``quantize`` and ``phase_tail`` as in :func:`get_model` (a QAT
+    checkpoint holds the float weights, so it loads unchanged).
 
     For the post-upsampling nets the checkpoint's upsample stages set the
     scale and override ``scale_factor``: each stage's factor comes from
@@ -154,11 +169,14 @@ def model_for_params(state_dict: dict, scale_factor: int = 4,
     if arch == "RRDB":
         growth = sd["rrdb.0.dense1.conv1.weight"].shape[0]
         blocks = _count(sd, "rrdb")
-        return _loaded(lambda: RRDBNet(scale, nf, growth, blocks), sd, dtype,
-                       device)
+        return _loaded(lambda: RRDBNet(scale, nf, growth, blocks,
+                                       quantize=quantize,
+                                       phase_tail=phase_tail),
+                       sd, dtype, device)
     cls = AttentionSR if arch == "AttentionSR" else ResNetSR
     n_res = _count(sd, "res_blocks")
-    return _loaded(lambda: cls(scale, nf, n_res), sd, dtype, device)
+    return _loaded(lambda: cls(scale, nf, n_res, quantize=quantize,
+                               phase_tail=phase_tail), sd, dtype, device)
 
 
 def _loaded(module_fn, state_dict: dict, dtype: torch.dtype,

@@ -1,9 +1,11 @@
 """ResNetSR, the post-upsampling SRResNet/EDSR hybrid (counterpart of
-``food101_sr_tpu/models/resnet_sr.py`` with the materialized tail).
+``food101_sr_tpu/models/resnet_sr.py``).
 
 conv9x9(3->C) + PReLU -> N residual blocks (BatchNorm) -> conv3x3 + BN ->
 global skip -> x2 stages [conv3x3(->4*64) -> PixelShuffle -> PReLU] ->
-conv9x9(64->3). The BatchNorms keep their parameters and running stats in
+conv9x9(64->3), or with ``phase_tail`` the same tail in phase space;
+``quantize`` applies to the residual blocks' convs and the mid conv (the
+BatchNorms, head and tail stay full precision). The BatchNorms keep their parameters and running stats in
 float32 in any dtype (``layers.BatchNorm2d``), as the JAX package's do.
 """
 from __future__ import annotations
@@ -11,8 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import (BatchNorm2d, Conv, ResidualBlock, prelu, scale_stages,
-                     upsample_block)
+from .layers import BatchNorm2d, Conv, ResidualBlock, prelu, upsample_tail
 
 
 class ResNetSR(nn.Module):
@@ -26,22 +27,22 @@ class ResNetSR(nn.Module):
     memory_format = torch.channels_last
 
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
-                 num_residuals: int = 16):
+                 num_residuals: int = 16, quantize: str = "",
+                 phase_tail: bool = False):
         super().__init__()
         self.scale_factor = scale_factor
         self.num_residuals = num_residuals
+        self.quantize = quantize
+        self.phase_tail = phase_tail
         self.input_conv = Conv(3, num_channels, 9)
         self.prelu = prelu()
         self.res_blocks = nn.ModuleList(
-            ResidualBlock(num_channels) for _ in range(num_residuals))
-        self.mid_conv = Conv(num_channels, num_channels, 3)
+            ResidualBlock(num_channels, quantize=quantize)
+            for _ in range(num_residuals))
+        self.mid_conv = Conv(num_channels, num_channels, 3, quantize=quantize)
         self.bn_mid = BatchNorm2d(num_channels)
-        tail, cin = [], num_channels
-        for s in scale_stages(scale_factor):
-            tail += upsample_block(cin, 64, s)
-            cin = 64
-        self.upsample = nn.Sequential(*tail)
-        self.output_conv = Conv(64, 3, 9)
+        self.upsample, self.output_conv = upsample_tail(
+            num_channels, scale_factor, phase_tail)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.prelu(self.input_conv(

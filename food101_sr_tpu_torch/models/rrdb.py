@@ -1,11 +1,13 @@
 """RRDBNet, the ESRGAN residual-in-residual dense block generator
-(counterpart of ``food101_sr_tpu/models/rrdb.py``, the ``concat`` layout,
-with the materialized tail).
+(counterpart of ``food101_sr_tpu/models/rrdb.py``, the ``concat`` layout).
 
 conv3 head (no activation) -> N RRDBs (three 5-conv dense blocks each,
 LeakyReLU 0.2, residual scale 0.2 inside and outside) -> conv3 -> global
 skip -> x2 stages [conv3x3(->4*64) -> PixelShuffle -> PReLU] ->
-conv9x9(64->3). The registry size (``RRDB``: 64 channels, growth 32, 23
+conv9x9(64->3), or with ``phase_tail`` the same tail in phase space.
+``quantize`` applies to the dense convs and the trunk projection
+``mid_conv``, which keep the ``concat`` layout as in JAX (per-conv
+activation scales are defined on the concatenated input). The registry size (``RRDB``: 64 channels, growth 32, 23
 blocks) has 16,896,453 parameters.
 
 Init as in JAX: the dense convs kaiming-normal x 0.1 (ESRGAN's), and the
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv, scale_stages, upsample_block
+from .layers import Conv, upsample_tail
 
 
 class ResidualDenseBlock(nn.Module):
@@ -31,13 +33,15 @@ class ResidualDenseBlock(nn.Module):
     ``channels``; the residual is scaled by ``res_scale``."""
 
     def __init__(self, channels: int, growth: int = 32,
-                 res_scale: float = 0.2):
+                 res_scale: float = 0.2, quantize: str = ""):
         super().__init__()
         self.res_scale = res_scale
         for k in range(4):
             setattr(self, f"conv{k + 1}",
-                    Conv(channels + k * growth, growth, 3, init_scale=0.1))
-        self.conv5 = Conv(channels + 4 * growth, channels, 3, init_scale=0.1)
+                    Conv(channels + k * growth, growth, 3, init_scale=0.1,
+                         quantize=quantize))
+        self.conv5 = Conv(channels + 4 * growth, channels, 3, init_scale=0.1,
+                          quantize=quantize)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats = [x]
@@ -52,12 +56,12 @@ class RRDB(nn.Module):
     by ``res_scale``."""
 
     def __init__(self, channels: int, growth: int = 32,
-                 res_scale: float = 0.2):
+                 res_scale: float = 0.2, quantize: str = ""):
         super().__init__()
         self.res_scale = res_scale
-        self.dense1 = ResidualDenseBlock(channels, growth, res_scale)
-        self.dense2 = ResidualDenseBlock(channels, growth, res_scale)
-        self.dense3 = ResidualDenseBlock(channels, growth, res_scale)
+        self.dense1 = ResidualDenseBlock(channels, growth, res_scale, quantize)
+        self.dense2 = ResidualDenseBlock(channels, growth, res_scale, quantize)
+        self.dense3 = ResidualDenseBlock(channels, growth, res_scale, quantize)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.dense3(self.dense2(self.dense1(x))) * self.res_scale
@@ -74,7 +78,8 @@ class RRDBNet(nn.Module):
 
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
                  growth: int = 32, num_blocks: int = 23,
-                 dense_layout: str = "auto"):
+                 dense_layout: str = "auto", quantize: str = "",
+                 phase_tail: bool = False):
         super().__init__()
         if dense_layout == "split":
             raise NotImplementedError(
@@ -86,16 +91,15 @@ class RRDBNet(nn.Module):
         self.num_channels = num_channels
         self.growth = growth
         self.num_blocks = num_blocks
+        self.quantize = quantize
+        self.phase_tail = phase_tail
         self.input_conv = Conv(3, num_channels, 3)
-        self.rrdb = nn.ModuleList(RRDB(num_channels, growth)
+        self.rrdb = nn.ModuleList(RRDB(num_channels, growth, quantize=quantize)
                                   for _ in range(num_blocks))
-        self.mid_conv = Conv(num_channels, num_channels, 3, init_scale=0.01)
-        tail, cin = [], num_channels
-        for s in scale_stages(scale_factor):
-            tail += upsample_block(cin, 64, s)
-            cin = 64
-        self.upsample = nn.Sequential(*tail)
-        self.output_conv = Conv(64, 3, 9)
+        self.mid_conv = Conv(num_channels, num_channels, 3, init_scale=0.01,
+                             quantize=quantize)
+        self.upsample, self.output_conv = upsample_tail(
+            num_channels, scale_factor, phase_tail)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.input_conv(

@@ -101,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--quantize", default="", choices=["", "int8", "int8_dot"],
-                   help="int8 inference: ROADMAP item 8 (raises)")
+                   help="dynamic-int8 body convs (see the server's "
+                        "--quantize)")
     p.add_argument("--warmup", action="store_true",
                    help="run each shape bucket once before timing")
     p.add_argument("--strict", action="store_true",
@@ -117,10 +118,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.quantize:
-        raise NotImplementedError(f"--quantize {args.quantize} is not ported "
-                                  "to PyTorch yet: ROADMAP item 8 "
-                                  "(quantization and QAT)")
 
     paths, empty = collect_inputs(args.inputs)
     if empty:
@@ -133,7 +130,8 @@ def main(argv=None) -> None:
                       scale=args.scale, tile=args.tile,
                       max_batch=args.max_batch, dtype=getattr(torch,
                                                               args.dtype),
-                      tta=args.tta, device=args.device)
+                      tta=args.tta, device=args.device,
+                      quantize=args.quantize)
     try:
         if args.warmup:
             server.warmup()

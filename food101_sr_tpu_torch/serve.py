@@ -290,12 +290,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "POST /sr?model=NAME routes (first entry is the "
                         "default). Overrides --architecture/--checkpoint.")
     p.add_argument("--quantize", default="", choices=["", "int8", "int8_dot"],
-                   help="int8 serving: ROADMAP item 8 (raises)")
+                   help="dynamic-int8 body convs (per-sample activation and "
+                        "per-channel weight scales; int8_dot, JAX's "
+                        "im2col lowering, is the same GEMM here). RESNET/"
+                        "AttentionSR/RRDB; with --model, SRCNN entries are "
+                        "served in float with a note")
     p.add_argument("--no_phase_tail", action="store_true",
-                   help="accepted for the JAX CLI's sake: the port runs the "
-                        "materialized upsample tail either way, the same "
-                        "function, until ops/subpixel_conv.py is ported "
-                        "(ROADMAP item 4)")
+                   help="run the materialized upsample tail instead of the "
+                        "phase-space one (the same function and weights)")
     p.add_argument("--batch_window_ms", type=float, default=3.0,
                    help="micro-batcher coalescing window")
     p.add_argument("--adaptive_window", action="store_true", default=True,
@@ -320,18 +322,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv=None) -> argparse.Namespace:
     """Parsed flags with every ``--model`` spec validated (as ``specs``);
-    the unported ``--mesh`` and ``--quantize`` raise naming their ROADMAP
-    items before anything is built."""
+    the unported ``--mesh`` raises naming its ROADMAP item before
+    anything is built."""
     p = build_parser()
     a = p.parse_args(argv)
     if a.mesh:
         raise NotImplementedError("--mesh (multi-GPU serving) is not ported "
                                   "to PyTorch yet: ROADMAP item 10 "
                                   "(multi-GPU)")
-    if a.quantize:
-        raise NotImplementedError(f"--quantize {a.quantize} is not ported to "
-                                  "PyTorch yet: ROADMAP item 8 "
-                                  "(quantization and QAT)")
     specs = []
     for spec in a.model:
         name, _, rest = spec.partition("=")
@@ -349,18 +347,40 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_servers(a: argparse.Namespace):
     """(server or {name: server} zoo, default name or None) for parsed
-    arguments; every --model spec was validated before any is built."""
-    def build(arch, ckpt):
+    arguments; every --model spec was validated before any is built.
+
+    In a zoo, ``--quantize`` means "quantize what can be", as in the JAX
+    server: an SRCNN entry (by name, or an "auto" checkpoint that turns
+    out to be one) has no body stack and is served in float with a note
+    instead of failing the zoo. A single model stays strict."""
+    def build(arch, ckpt, quantize=a.quantize):
         return SRServer(arch, checkpoint=ckpt or None, scale=a.scale_factor,
                         tile=a.tile, dtype=_DTYPES[a.dtype], device=a.device,
                         png_level=a.png_level, max_batch=a.max_batch,
                         tta=a.tta, window_ms=a.batch_window_ms,
                         instrument=a.instrument,
                         adaptive_window=(a.adaptive_window
-                                         and not a.no_adaptive_window))
+                                         and not a.no_adaptive_window),
+                        quantize=quantize, phase_tail=not a.no_phase_tail)
+
+    def build_spec(name, arch, ckpt):
+        q = a.quantize
+        if q and arch == "SRCNN":
+            print(f"--quantize {q}: model {name!r} (SRCNN) has no "
+                  "quantizable body stack; serving it in float", flush=True)
+            q = ""
+        try:
+            return build(arch, ckpt, q)
+        except ValueError as e:
+            if not (q and "quantizable" in str(e)):
+                raise
+            print(f"--quantize {q}: model {name!r} ({arch}) is not "
+                  "quantizable; serving it in float", flush=True)
+            return build(arch, ckpt, "")
 
     if a.specs:
-        zoo = {name: build(arch, ckpt) for name, arch, ckpt in a.specs}
+        zoo = {name: build_spec(name, arch, ckpt)
+               for name, arch, ckpt in a.specs}
         return zoo, next(iter(zoo))
     return build(a.architecture, a.checkpoint), None
 

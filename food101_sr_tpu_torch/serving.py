@@ -15,6 +15,7 @@ the offline CLI ``predict.py`` and the image codecs ``native``.
                                               # shapes describe
     SRServer("auto", checkpoint="w/run_best.pth")   # a torch checkpoint file
     SRServer("AttentionSR", tta=True)         # x8 self-ensemble per image
+    SRServer("RESNET", quantize="int8")       # dynamic-int8 body convs
 """
 from __future__ import annotations
 
@@ -266,8 +267,18 @@ class SRServer:
     ``SRServer``'s defaults; ``instrument`` splits its execute and D2H
     times. ``tta`` serves the x8 self-ensemble (``ops.tta``) of every
     device batch. ``png_level`` is the zlib level of the HTTP front end's
-    PNG responses. ``quantize`` is accepted for the JAX signature's sake
-    and must be "" (ROADMAP item 8).
+    PNG responses.
+
+    ``phase_tail`` (default on, as in the JAX server) runs the upsample
+    tail of RESNET, AttentionSR and RRDB in phase space at LR resolution
+    (``ops.subpixel_conv``): the same function and weights; SRCNN has no
+    tail. ``quantize`` ("int8", "int8_dot") runs their body convs in
+    dynamic int8 (``ops.quantize``); SRCNN refuses it. A ``model``
+    override comes with its own flags. Under ``quantize`` tiling is exact
+    only up to quantization error: the per-sample activation scales
+    depend on a window's content, so the same pixel in two overlapping
+    windows lands on slightly different int8 grids (the float paths stay
+    exact).
     """
 
     def __init__(self, architecture: str = "AttentionSR",
@@ -279,11 +290,8 @@ class SRServer:
                  model: nn.Module | None = None, max_batch: int = 8,
                  window_ms: float = 3.0, adaptive_window: bool = False,
                  tta: bool = False, png_level: int = 1,
-                 instrument: bool = False, quantize: str = ""):
-        if quantize:
-            raise NotImplementedError(
-                f"SRServer: quantize={quantize!r} is not ported to PyTorch "
-                "yet: ROADMAP item 8 (quantization and QAT)")
+                 instrument: bool = False, quantize: str = "",
+                 phase_tail: bool = True):
         if checkpoint:
             if state_dict is not None:
                 raise ValueError("SRServer: give a state_dict or a "
@@ -293,20 +301,24 @@ class SRServer:
         self.dtype = dtype
         self.tta = tta
         self.png_level = png_level
-        self.quantize = quantize
         override = model is not None
         if model is None and architecture == "auto":
             if state_dict is None:
                 raise ValueError('SRServer: architecture="auto" needs a '
                                  "state_dict or a checkpoint")
             model = model_for_params(state_dict, scale_factor=scale,
-                                     dtype=dtype, device=self.device)
+                                     dtype=dtype, device=self.device,
+                                     quantize=quantize, phase_tail=phase_tail)
             state_dict = None  # loaded
         elif model is None:
             model = get_model(architecture, scale_factor=scale, dtype=dtype,
-                              device=self.device, generator=generator)
+                              device=self.device, generator=generator,
+                              quantize=quantize, phase_tail=phase_tail)
         self.model = model.to(device=self.device, dtype=dtype,
                               memory_format=torch.channels_last).eval()
+        # what the net runs (an override's own settings)
+        self.quantize = getattr(self.model, "quantize", "")
+        self.phase_tail = getattr(self.model, "phase_tail", False)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
         # an override is known by its class (or its depth), never by the

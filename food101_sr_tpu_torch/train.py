@@ -19,10 +19,14 @@ the registry's sizes.
 ``--loss_function gan`` trains the relativistic GAN (a spectral-norm
 discriminator, the VGG19 perceptual loss, a D step every 5 batches:
 ``d_update_every`` in ``training.DEFAULTS``); ``perceptual`` is the
-supervised step on the VGG19 loss. A flag whose setting the port does not
-run yet is accepted by the parser and refused by ``train`` with a
-NotImplementedError that names the ROADMAP item bringing it: ``--quantize``,
-``--dtype bfloat16``, ``--cache_*`` and the multi-process flags.
+supervised step on the VGG19 loss. ``--quantize qat`` trains RESNET,
+AttentionSR or RRDB with fake-quantized body convs (the float checkpoint
+it writes serves with ``--quantize int8``). The upsample tail runs in
+phase space unless ``--no_phase_tail`` (the same function and weights). A
+flag whose setting the port does not run yet is accepted by the parser
+and refused by ``train`` with a NotImplementedError that names the
+ROADMAP item bringing it: ``--dtype bfloat16``, ``--cache_*`` and the
+multi-process flags.
 """
 from __future__ import annotations
 
@@ -88,15 +92,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "batch_size/k per optimizer update: 1/k the "
                         "activation memory, the unsplit batch's math")
     p.add_argument("--quantize", type=str, default=DEFAULTS["quantize"],
-                   choices=["", "qat"], help="qat: ROADMAP item 8")
+                   choices=["", "qat"],
+                   help="qat: quantization-aware training, the body convs on "
+                        "fake-quantized (int8-grid, STE) weights and "
+                        "activations, so the float checkpoint serves with "
+                        "--quantize int8. RESNET, AttentionSR, RRDB")
     p.add_argument("--phase_tail", action="store_true",
                    default=DEFAULTS["phase_tail"],
-                   help="accepted for the JAX CLI's sake: the port runs the "
-                        "materialized upsample tail either way, the same "
-                        "function, until ops/subpixel_conv.py is ported "
-                        "(ROADMAP item 4)")
+                   help="(default on) run the upsample tail in pixel-shuffle "
+                        "phase space at LR resolution: the same function, "
+                        "weights and checkpoints")
     p.add_argument("--no_phase_tail", action="store_false", dest="phase_tail",
-                   help="the materialized tail (what the port runs)")
+                   help="train with the materialized upsample tail")
     # The device and canvas caches: ROADMAP item 9b.
     p.add_argument("--cache_device", action="store_true",
                    default=DEFAULTS["cache_device"],

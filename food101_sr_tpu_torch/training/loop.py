@@ -79,10 +79,9 @@ DEFAULTS: dict[str, Any] = {
                                 # validated and saved as the best checkpoint
     "grad_accum": 1,            # k>1: each update = k sequential microbatches
                                 # of batch_size/k
-    "quantize": "",
-    "phase_tail": True,         # accepted; the port runs the materialized
-                                # tail, the same function, until
-                                # ops/subpixel_conv.py is ported (item 4)
+    "quantize": "",             # "qat": fake-quantized body convs (STE)
+    "phase_tail": True,         # the upsample tail in phase space at LR
+                                # resolution (same function and weights)
     "cache_device": False,
     "cache_canvas": 0,
     "cache_budget_gb": 4.0,
@@ -102,7 +101,6 @@ DEFAULTS: dict[str, Any] = {
 # the default"; the ROADMAP item that brings it)
 _NOT_PORTED = {
     "dtype": (("bfloat16",), "ROADMAP item 9c (bf16 training)"),
-    "quantize": (None, "ROADMAP item 8 (quantization and QAT)"),
     **{k: (None, "ROADMAP item 9b (the device and canvas caches)")
        for k in ("cache_device", "cache_canvas", "cache_budget_gb",
                  "cache_host", "cache_host_budget_gb", "cache_host_reuse",
@@ -257,8 +255,16 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
             f"batch_size/grad_accum.")
 
     # --- model & state ----------------------------------------------------
+    quantize = str(cfg.get("quantize") or "")
+    if quantize and quantize != "qat":
+        raise ValueError(
+            f"--quantize {quantize!r} is inference-only (serve/predict); "
+            "training supports only 'qat': int8 round/clip has zero "
+            "gradient, so the body would never learn")
     model = get_model(cfg["architecture"], scale_factor=scale, device=device,
-                      generator=torch.Generator().manual_seed(cfg["seed"]))
+                      generator=torch.Generator().manual_seed(cfg["seed"]),
+                      quantize=quantize,
+                      phase_tail=bool(cfg.get("phase_tail")))
     if cfg["pretrained_weights"]:
         loaded = load_checkpoint(cfg["pretrained_weights"], device)
         model.load_state_dict(warm_start_params(

@@ -40,7 +40,8 @@ def narrow_nets():
     """Both registries' AttentionSR at 2 blocks x 16 channels."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(registry._REGISTRY, "AttentionSR",
-                   lambda scale: AttentionSR(scale, CHANNELS, BLOCKS))
+                   lambda scale, **flags: AttentionSR(scale, CHANNELS, BLOCKS,
+                                                     **flags))
         mp.setitem(jax_registry._REGISTRY, "AttentionSR",
                    lambda scale, dtype, remat, quantize, phase_tail:
                    JaxAttentionSR(scale_factor=scale, num_residuals=BLOCKS,

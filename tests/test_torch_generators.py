@@ -385,15 +385,22 @@ def test_model_for_params_refusals():
     bad = dict(sd, **{"upsample.3.weight": torch.zeros(200, 64, 3, 3)})
     with pytest.raises(ValueError, match="64\\*s\\^2"):
         model_for_params(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        model_for_params(sd, device="cpu", quantize="int8")
+    # the quantize modes build (ROADMAP item 8): the body convs take the
+    # mode, the head and tail stay float, the weights load strictly
+    q = model_for_params(sd, device="cpu", quantize="int8")
+    assert (q.quantize, q.res_blocks[0].conv1.quantize,
+            q.mid_conv.quantize, q.input_conv.quantize,
+            q.output_conv.quantize) == ("int8", "int8", "int8", "", "")
+    rrdb = params_from_jax(_jax("RRDB")[1]["params"])
+    q = model_for_params(rrdb, device="cpu", quantize="qat")
+    assert q.rrdb[1].dense3.conv5.quantize == q.mid_conv.quantize == "qat"
+    with pytest.raises(ValueError, match="Unknown quantize mode"):
+        model_for_params(sd, device="cpu", quantize="int4")
     srcnn = params_from_jax(_jax("SRCNN")[1]["params"])
     with pytest.raises(ValueError, match="no quantizable body"):
         model_for_params(srcnn, device="cpu", quantize="int8")
     with pytest.raises(ValueError, match="no quantizable body"):
         get_model("SRCNN", device="cpu", quantize="qat")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        get_model("RRDB", device="cpu", quantize="qat")
     with pytest.raises(ValueError, match="matches no known"):
         detect_architecture({"foo.weight": torch.zeros(1)})
 

@@ -50,9 +50,9 @@ def narrow_nets():
     """Both registries' RESNET at 2 x 16 and RRDB at 2 x 16, growth 8."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(registry._REGISTRY, "RESNET",
-                   lambda scale: ResNetSR(scale, 16, 2))
+                   lambda scale, **flags: ResNetSR(scale, 16, 2, **flags))
         mp.setitem(registry._REGISTRY, "RRDB",
-                   lambda scale: RRDBNet(scale, 16, 8, 2))
+                   lambda scale, **flags: RRDBNet(scale, 16, 8, 2, **flags))
         mp.setitem(jax_registry._REGISTRY, "RESNET",
                    lambda scale, dtype, remat, quantize, phase_tail:
                    JaxResNetSR(scale_factor=scale, num_channels=16,

@@ -32,8 +32,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
              "food101_sr_tpu")
 
 
-# the modules of the training, GAN, generator and serving slices, named so
-# the check cannot miss them
+# the modules of the training, GAN, generator, serving and phase-tail and
+# quantization slices, named so the check cannot miss them
 NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.data.pil_bicubic",
                "food101_sr_tpu_torch.data.pipeline",
@@ -49,6 +49,9 @@ NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.models.rrdb",
                "food101_sr_tpu_torch.models.srcnn",
                "food101_sr_tpu_torch.native",
+               "food101_sr_tpu_torch.ops.pixel_shuffle",
+               "food101_sr_tpu_torch.ops.quantize",
+               "food101_sr_tpu_torch.ops.subpixel_conv",
                "food101_sr_tpu_torch.ops.tta",
                "food101_sr_tpu_torch.parallel.spatial",
                "food101_sr_tpu_torch.predict",
@@ -171,6 +174,12 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
                                 "loss_function": "gan"}),
                  lambda: get_loss_function("perceptual"),
                  lambda: SRServer("SRCNN", tta=True),
+                 lambda: SRServer("RESNET", quantize="int8"),
+                 lambda: get_model("RRDB", quantize="int8_dot",
+                                   phase_tail=True),
+                 lambda: train({"dataset": "synthetic",
+                                "architecture": "RESNET",
+                                "quantize": "qat"}),
                  lambda: serve.main(["--architecture", "SRCNN", "--port",
                                      "0"]),
                  lambda: predict.main([str(tmp_path), "--out_dir",

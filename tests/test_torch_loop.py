@@ -60,7 +60,8 @@ def narrow_nets():
     """Both registries' AttentionSR at 2 blocks x 16 channels."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(registry._REGISTRY, "AttentionSR",
-                   lambda scale: AttentionSR(scale, CHANNELS, BLOCKS))
+                   lambda scale, **flags: AttentionSR(scale, CHANNELS, BLOCKS,
+                                                     **flags))
         mp.setitem(jax_registry._REGISTRY, "AttentionSR",
                    lambda scale, dtype, remat, quantize, phase_tail:
                    JaxAttentionSR(scale_factor=scale, num_residuals=BLOCKS,
@@ -528,6 +529,41 @@ def test_zero_epochs_is_eval_only(full_run, tmp_path):
 # (k) partial warm start
 # ---------------------------------------------------------------------------
 
+def test_qat_trains_and_its_checkpoint_loads_for_int8(tmp_path,
+                                                      monkeypatch):
+    """``quantize="qat"`` (ROADMAP item 8; the CLI's ``--quantize qat``)
+    trains on the CPU: every body conv of the step runs fake-quantized
+    (2 blocks x 2 convs + the mid conv per forward), the losses and final
+    metrics are finite, and the best checkpoint, the float tree, loads
+    strictly into the int8 net."""
+    from food101_sr_tpu_torch.models import layers, model_for_params
+
+    monkeypatch.setenv("FOOD101_SR_RUN_DIR", str(tmp_path / "runs"))
+    calls = []
+    fq = layers.fake_quant_conv2d
+    monkeypatch.setattr(layers, "fake_quant_conv2d",
+                        lambda *a, **k: calls.append(1) or fq(*a, **k))
+    cfg = {**vars(build_parser().parse_args(
+        ["--architecture", "AttentionSR", "--dataset", "synthetic",
+         "--quantize", "qat", "--epochs", "1", "--lr", "1e-3",
+         "--crop_size", "32", "--batch_size", "8", "--log_every", "1",
+         "--weights_dir", str(tmp_path / "w"), "--save_name", "qat",
+         "--run_name", "qat"])),
+           "synthetic_size": 96, "use_wandb": False}
+    got = train(cfg, device="cpu")
+    assert all(np.isfinite(v) for v in got.values())
+    # 10 train steps, one val and 3 test batches, the best checkpoint's
+    # test pass: each forward runs the 5 body convs
+    assert len(calls) % (2 * BLOCKS + 1) == 0 and len(calls) >= 50
+    steps = [json.loads(line) for line in
+             (tmp_path / "runs" / "qat" / "log.jsonl").read_text()
+             .splitlines() if "train_loss" in line]
+    assert len(steps) == 10 and all(np.isfinite(r["train_loss"])
+                                    for r in steps)
+    sd = torch.load(tmp_path / "w" / "qat_best.pth")
+    q = model_for_params(sd, device="cpu", quantize="int8")
+    assert q.res_blocks[1].conv2.quantize == "int8"
+
 def test_partial_warm_start_keeps_init_where_shapes_differ(tmp_path):
     init = _port_model(_jax_params(0)[1]).state_dict()
     donor = _port_model(_jax_params(1)[1]).state_dict()
@@ -574,7 +610,7 @@ def test_cli_dests_and_defaults_equal_the_root_cli(monkeypatch, argv):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--quantize", "qat"], ["--dtype", "bfloat16"], ["--cache_device"],
+    ["--dtype", "bfloat16"], ["--cache_device"],
     ["--cache_canvas", "256"], ["--cache_budget_gb", "2"],
     ["--cache_host", "store"], ["--cache_host_budget_gb", "8"],
     ["--cache_host_reuse", "4"], ["--cache_window", "64"],

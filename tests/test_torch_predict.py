@@ -3,7 +3,7 @@ input collection and output naming agree with the JAX package's
 ``predict.py`` on the same trees; end to end (small and tiled) every
 output equals the engine's ``upscale`` of its input; an input the port
 cannot decode is a counted failure named on stderr; the ``--strict``
-exit codes; the unported ``--quantize``."""
+exit codes; ``--quantize int8`` against the int8 engine."""
 import json
 import sys
 from pathlib import Path
@@ -119,8 +119,28 @@ def test_strict_exit_codes(tmp_path, files, strict, code):
     assert (tmp_path / "out" / "ok_x4.png").exists() == ("ok.png" in files)
 
 
-def test_quantize_raises_naming_item_8(tmp_path):
-    _write_png(tmp_path / "a.png", 8, 8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        predict.main([str(tmp_path), "--out_dir", str(tmp_path / "o"),
-                      "--quantize", "int8", "--device", "cpu"])
+def test_quantize_int8_runs_on_the_cpu(tmp_path, capsys):
+    """``--quantize int8`` (ROADMAP item 8): a narrow ResNetSR checkpoint
+    through "auto", each output equal to an int8 server's ``upscale``."""
+    from food101_sr_tpu_torch.models import ResNetSR, build_model
+    from food101_sr_tpu_torch.training import save_checkpoint
+
+    sd = build_model(lambda: ResNetSR(4, 16, 2), device="cpu").state_dict()
+    ckpt = save_checkpoint(sd, str(tmp_path / "resnet_best.pth"))
+    (tmp_path / "in").mkdir()
+    img = _write_png(tmp_path / "in" / "a.png", 16, 16)
+    predict.main([str(tmp_path / "in"), "--out_dir", str(tmp_path / "o"),
+                  "--architecture", "auto", "--checkpoint", ckpt,
+                  "--quantize", "int8", "--tile", "16", "--device", "cpu",
+                  "--dtype", "float32"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["n_images"] == 1
+    srv = SRServer("auto", checkpoint=ckpt, tile=16, device="cpu",
+                   dtype=torch.float32, quantize="int8")
+    try:
+        assert srv.model.res_blocks[0].conv1.quantize == "int8"
+        want = srv.upscale(img)
+    finally:
+        srv.close()
+    got = native.decode_image((tmp_path / "o" / "a_x4.png").read_bytes())
+    assert np.array_equal(got, want)

@@ -382,14 +382,37 @@ def test_warmup_runs_each_bucket_without_traffic(pair):
     assert np.array_equal(psrv.upscale(img), before)
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh"], "item 10"),
-                                       (["--quantize", "int8"], "item 8")])
+@pytest.mark.parametrize("argv,item", [(["--mesh"], "item 10")])
 def test_unported_flags_raise_naming_their_items(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.parse_args(argv)
-    if item == "item 8":
-        with pytest.raises(NotImplementedError, match=item):
-            SRServer("SRCNN", device="cpu", quantize="int8")
+
+
+def test_quantize_flag_quantizes_what_can_be():
+    """``--quantize int8`` (ROADMAP item 8) on the CPU: a zoo quantizes
+    RESNET and serves SRCNN, by name or as an "auto" checkpoint, in float
+    with a note, as the JAX server does; a single SRCNN stays strict;
+    ``--no_phase_tail`` reaches the net."""
+    a = serve.parse_args(["--quantize", "int8", "--model", "fast=SRCNN",
+                          "--model", "q=RESNET", "--model",
+                          f"asset=auto@{ASSET}", "--device", "cpu",
+                          "--tile", "16", "--max_batch", "2",
+                          "--no_phase_tail"])
+    zoo, default = serve.build_servers(a)
+    try:
+        assert default == "fast"
+        assert {n: s.quantize for n, s in zoo.items()} == {
+            "fast": "", "q": "int8", "asset": ""}
+        assert zoo["q"].model.res_blocks[0].conv1.quantize == "int8"
+        assert zoo["q"].phase_tail is False
+        img = np.random.default_rng(0).integers(0, 256, (16, 16, 3),
+                                                np.uint8)
+        assert zoo["q"].upscale(img).shape == (64, 64, 3)
+    finally:
+        for s in zoo.values():
+            s.close()
+    with pytest.raises(ValueError, match="quantizable"):
+        SRServer("SRCNN", device="cpu", quantize="int8")
 
 
 def test_cli_zoo_serves_and_drains_on_sigterm(tmp_path):
