@@ -91,6 +91,25 @@ Phases, one short line each; any failure raises and the exit code is 1:
           (each within 1 level of a direct forward) and one image larger
           than tile + 2 * halo, tiled (within 1 level of the whole-image
           forward in float32, TF32 off)
+11b. bf16 bf16 training with float32 master weights: K1 on a bf16
+          prediction's own pyramid (cast to float32 around the kernel) and
+          the NHWC K2 entry at the bf16 step's SE input (16,96,50,50) bf16
+          channels-last, forward and through its backward, against their
+          plain versions, with times; then SRCNN, ResNetSR, AttentionSR and
+          RRDB at registry size (phase tail, channels-last, NLPD, Adam 4e-4,
+          batch 16 of 200 px crops on the device): one bf16 step's raw
+          gradients on 2 crops against the card's float32 step with TF32
+          off (BF16_GRAD_TOL of each leaf's term sum), then the float32 and
+          the bf16 step each timed (2 + 5 steps under CUDA events, the
+          loss falling on one batch), the first timed step's launches
+          against the closed form (a float32 step K1 8; a bf16 step K1 12:
+          pred's own pyramid; K2 nhwc 32 for AttentionSR), a profile of 2
+          steps for the busy share, peak memory, the parameters and Adam's
+          moments float32; then one bf16 GAN D step and G step (AttentionSR,
+          D nf=64, VGG19 seeded) against their float32 twins on the card,
+          as run (BF16_GAN_TOL; the activation elements on the other
+          branch counted) and with the float32 steps' branches applied
+          (BF16_GRAD_TOL)
 12. loop  training.train() on the card, in a child process of its own
           (``chip_smoke.py --loop DIR``) that alone gets the determinism
           switches (CUBLAS_WORKSPACE_CONFIG, deterministic algorithms, no
@@ -135,6 +154,19 @@ Phases, one short line each; any failure raises and the exit code is 1:
           (SRCNN, --subset 0.25). Prints decode ms (full 512x384, 200^2
           crop), encode ms (256^2, 800x608), the loader's batches/s alone
           (8 threads) and train()'s images/s beside the synthetic run's
+13b. caches in the loop phase's process after phase 13: train(dtype=
+          "bfloat16") for one epoch of the loop's settings (K1 12 a step, 8
+          a val batch, 4 a test batch; its best checkpoint float32, loading
+          strictly into the float32 registry model); each cache's eval
+          batches byte-equal to SRDataLoader's on the on-card JPEG tree, and
+          train crops windows of their canvases; then train() on that tree
+          with cache_device, cache_host (twice: the second run opens the
+          store; the setup ms of both), cache_host with cache_host_reuse 4,
+          and cache_device in bf16, each with its launches against the
+          closed form and its images/s and loader wait beside the
+          SRDataLoader run of phase 13; the cache_device and the window runs
+          preempted after 3 updates and resumed, bit-equal to the
+          uninterrupted runs' full-state checkpoints
 14. tail  the phase-space upsample tail: ResNetSR, AttentionSR and RRDB
           x4 at registry size (seeded, channels-last) with phase_tail on
           and off on the same weights, batch 8 at 64^2 and 224^2, in
@@ -175,7 +207,12 @@ phase, NLPD (``loop_launches``), GAN (``gan_loop_launches``) and RRDB GAN
 (``food101_loop_launches``), the tail phase's forwards (K2 nhwc 32 per
 AttentionSR forward: ``tail_launches``), int8 serving (the three int8
 servers, the HTTP round and predict: ``quant_serve_launches``) and
-train(quantize="qat") (``qat_loop_launches``). The last line is the JSON device record;
+train(quantize="qat") (``qat_loop_launches``), one bf16 train step of
+each generator (``bf16_launches``) and the loop child's bf16 and cache
+runs (``bf16_loop_launches``, ``cache_device_loop_launches``,
+``cache_host_loop_launches``, ``cache_host_reopened_loop_launches``,
+``cache_host_reuse_loop_launches``, ``bf16_cache_device_loop_launches``).
+The last line is the JSON device record;
 the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -217,7 +254,7 @@ LEVEL_TOL = 1   # uint8 levels between served and direct forward
 # the train step: the training loop's defaults (batch 16 of 200 px crops,
 # NLPD, Adam 4e-4); gradients on 2 crops held per leaf within 5e-5 of the
 # leaf's largest sum of absolute terms (float32 sums in another order;
-# _term_sums says why not of the gradient's own max abs)
+# utils/term_sums.py says why not of the gradient's own max abs)
 TRAIN_BATCH, TRAIN_CROP, TRAIN_LR = 16, 200, 4e-4
 WARMUP_STEPS, TIMED_STEPS, PROFILED_STEPS = 2, 10, 3
 GRAD_BATCH, GRAD_TOL = 2, 5e-5
@@ -268,6 +305,37 @@ GEN_REQUESTS = 16
 GEN_WARMUP, GEN_TIMED, GEN_PROFILED = 2, 5, 2
 # the loop phase's RRDB GAN run: GAN_LOOP_CFG around the registry RRDB
 RRDB_GAN_LOOP_CFG = {**GAN_LOOP_CFG, "architecture": "RRDB"}
+# the bf16 phase: each registry generator's bf16 step (float32 master
+# weights) beside its float32 step, BF16_WARMUP + BF16_TIMED steps each and
+# a profile of BF16_PROFILED; one bf16 step's raw gradients on GRAD_BATCH
+# crops held against the card's own float32 step (TF32 off), per leaf over
+# its largest sum of absolute terms (utils/term_sums.py, from the float32
+# pass), within BF16_GRAD_TOL. The bounds are calibrated on the CPU from
+# the bf16-vs-float32 distances of the JAX package's narrow nets and of
+# the port's (tests/test_torch_bf16.py), twice over and rounded up to a
+# power of two. BF16_GRAD_TOL, float rounding alone: per leaf the smaller
+# of the two packages' distances (they differ most at the leaves JAX sums
+# in bf16: SRCNN's conv biases, 0.53), at worst 0.050 (ResNetSR; the GAN
+# steps 0.038 D, 0.039 G). It holds the supervised steps, and the bf16
+# GAN steps with the float32 steps' activation branches applied. The GAN
+# steps as they run are held to BF16_GAN_TOL, calibrated by the larger
+# of the two distances, 0.066 (JAX's G step at an SE block's first
+# weight): an activation input near 0 takes the other branch in bf16, and
+# where its layer is small (an SE block's 6 hidden units, D's 100) one
+# such element moves a leaf by a fair share of its term sum at 2 crops
+BF16_ARCHS = ("SRCNN", "RESNET", "AttentionSR", "RRDB")
+BF16_WARMUP, BF16_TIMED, BF16_PROFILED = 2, 5, 2
+BF16_GRAD_TOL, BF16_GAN_TOL = 2.0 ** -3, 2.0 ** -2
+# the loop child's bf16 and cache runs (phase_caches): the cache_device
+# and window runs preempted after CACHE_PREEMPT updates and resumed; the
+# keys of the runs' launches in the kernels line
+CACHE_PREEMPT = 3
+CACHE_LAUNCH_KEYS = {"bf16": "bf16_loop_launches",
+                     "cdev": "cache_device_loop_launches",
+                     "chost": "cache_host_loop_launches",
+                     "chost2": "cache_host_reopened_loop_launches",
+                     "cwin": "cache_host_reuse_loop_launches",
+                     "bf16cdev": "bf16_cache_device_loop_launches"}
 # the http phase: two rounds of HTTP_REQUESTS 64x64 PNGs and one of
 # HTTP_TILED PNGs of HTTP_TILED_SHAPE (the tiled path), each from
 # HTTP_THREADS client threads,
@@ -320,7 +388,7 @@ QUANT_BATCH, QUANT_SIDE, QUANT_REQUESTS, QUANT_HR = 8, 224, 16, 8
 QUANT_PREDICT = 4
 QAT_LOOP_CFG = {**LOOP_CFG, "quantize": "qat", "epochs": 1}
 # the QAT step's raw gradients on GRAD_BATCH crops, card against CPU, per
-# leaf over its largest sum of absolute terms (_term_sums, on the
+# leaf over its largest sum of absolute terms (term_sums, on the
 # fake-quantized inputs), twice. First with the CPU's discrete choices
 # made in the card's forward (_decisions: each activation's int8 levels
 # and each PReLU element's branch): the two sides then differ by float
@@ -633,113 +701,6 @@ def _direct(server, img: np.ndarray) -> np.ndarray:
     return out.cpu().numpy()[: h * server.scale, : w * server.scale]
 
 
-@contextlib.contextmanager
-def _term_sums(model, sums: dict):
-    """Within the block, record each conv, linear, PReLU, spectral-norm or
-    BatchNorm layer of ``model``'s inputs and output gradients (every call,
-    by forward and output-gradient hooks, on the CPU); on exit fill
-    ``sums``, per parameter, with the largest sum of absolute terms behind
-    one entry of its gradient: the weight-gradient products of |input| and
-    |output gradient| (over every call of the layer), the shared PReLU
-    slope's g*x over the negative inputs, a BatchNorm scale's g*x_hat. A
-    spectral-norm kernel W enters its layer as W/sigma, so its terms are
-    those products over sigma plus their sum weighted by |W| over sigma
-    squared (sigma's gradient; the power iteration's own derivative is
-    left out). A float32 sum's rounding error is bounded relative to that
-    sum, not to the gradient's own size, which cancellation can make
-    hundreds of times smaller (a PReLU slope sums g*x over every negative
-    activation of its layer)."""
-    from torch import nn
-
-    from food101_sr_tpu_torch.models import SNConv2d, SNLinear
-
-    seen: dict = {}
-
-    def keep(mod, inp, out, name):
-        pair = [inp[0].detach()]
-        seen.setdefault(name, []).append(pair)
-        if out.requires_grad:
-            out.register_hook(lambda g: pair.append(g.detach()))
-
-    kinds = (nn.Conv2d, nn.Linear, nn.PReLU, SNConv2d, SNLinear,
-             nn.BatchNorm2d)
-    layers = {n: m for n, m in model.named_modules() if isinstance(m, kinds)}
-    hooks = [m.register_forward_hook(
-        lambda mod, inp, out, n=n: keep(mod, inp, out, n))
-        for n, m in layers.items()]
-    try:
-        yield sums
-    finally:
-        for h in hooks:
-            h.remove()
-    for n, m in layers.items():
-        pairs = [(x.abs(), g.abs(), x) for x, g in
-                 (_weight_terms(m, *p) for p in seen.get(n, [])
-                  if len(p) == 2)]
-        if not pairs:
-            continue
-        if isinstance(m, (nn.Conv2d, SNConv2d)):
-            w = m.weight_orig if isinstance(m, SNConv2d) else m.weight
-            t = sum(torch.nn.grad.conv2d_weight(ax, w.shape, ag, m.stride,
-                                                m.padding)
-                    for ax, ag, _ in pairs)
-            bias = sum(ag.sum((0, 2, 3)) for _, ag, _ in pairs)
-        elif isinstance(m, (nn.Linear, SNLinear)):
-            w = m.weight_orig if isinstance(m, SNLinear) else m.weight
-            t = sum(ag.T @ ax for ax, ag, _ in pairs)
-            bias = sum(ag.sum(0) for _, ag, _ in pairs)
-        elif isinstance(m, nn.BatchNorm2d):
-            def x_hat(x):
-                mean = x.mean((0, 2, 3), keepdim=True)
-                var = x.var((0, 2, 3), unbiased=False, keepdim=True)
-                return ((x - mean) / torch.sqrt(var + m.eps)).abs()
-            sums[f"{n}.weight"] = sum((ag * x_hat(x)).sum((0, 2, 3))
-                                      for _, ag, x in pairs).max().item()
-            sums[f"{n}.bias"] = sum(ag.sum((0, 2, 3))
-                                    for _, ag, _ in pairs).max().item()
-            continue
-        else:  # one shared slope: g * x over the negative inputs
-            sums[f"{n}.weight"] = sum((ag * ax * (x < 0)).sum().item()
-                                      for ax, ag, x in pairs)
-            continue
-        if isinstance(m, (SNConv2d, SNLinear)):
-            with torch.no_grad():
-                wm = w.flatten(1)
-                sigma = torch.dot(m.weight_v, wm.t() @ m.weight_u).abs()
-                t = t / sigma
-                t = t.max() + (t * w.abs()).sum() / sigma
-            sums[f"{n}.weight_orig"] = t.item()
-        else:
-            sums[f"{n}.weight"] = t.max().item()
-        if m.bias is not None:
-            sums[f"{n}.bias"] = bias.max().item()
-
-
-def _weight_terms(m, x: torch.Tensor, g: torch.Tensor):
-    """A layer's input and output gradient where its weight gradient is a
-    plain conv's of them: a QAT conv's fake-quantized input (the conv's
-    true operand; the STE passes the gradient through); for a phase-space
-    conv of the upsample tail (``phase_in > 1``) the HR conv's, the input
-    put back in canonical pixel-shuffle order (``phase_in_map``) and
-    shuffled, a grouped output's gradient shuffled phase-major (a tail's
-    last conv already emits HR); any other layer's as they are."""
-    from food101_sr_tpu_torch.ops.pixel_shuffle import pixel_shuffle
-    from food101_sr_tpu_torch.ops.quantize import fake_quant_act
-    from food101_sr_tpu_torch.ops.subpixel_conv import phase_major_shuffle
-
-    if getattr(m, "quantize", "") == "qat":
-        return fake_quant_act(x), g
-    r = getattr(m, "phase_in", 0)
-    if r <= 1:
-        return x, g
-    if m.phase_in_map is not None:
-        canon = torch.empty_like(x)
-        canon[:, list(m.phase_in_map)] = x
-        x = canon
-    return (pixel_shuffle(x, r),
-            g if m.subpixel_r > 1 else phase_major_shuffle(g, r))
-
-
 def _worst(names, on_card, on_cpu, sums) -> dict:
     """Per leaf, the largest card-CPU difference over the leaf's largest
     sum of absolute terms (asserted to be at least its max abs) and, for
@@ -771,6 +732,64 @@ def _worst(names, on_card, on_cpu, sums) -> dict:
 
 
 @contextlib.contextmanager
+def _branches(models: dict, rec: dict, mode: str, stats: dict,
+              kinds: tuple = ()):
+    """Within the block, the branch each element of an activation's input
+    takes (its sign) in the forwards of ``models`` (name -> module): every
+    ReLU, LeakyReLU and PReLU module (or those of ``kinds``), per module
+    and call, in call order. By ``mode``: "record" keeps the masks in
+    ``rec``; "compare" counts in ``stats`` the elements whose branch
+    differs from the recorded one ("kinks" of "branches"; per module in
+    "by_module"); "replay" applies each activation on its recorded
+    branches, in its input's dtype."""
+    from torch import nn
+
+    kinds = kinds or (nn.ReLU, nn.LeakyReLU, nn.PReLU)
+    masks = rec.setdefault("masks", {})
+    stats.setdefault("branches", 0)
+    stats.setdefault("kinks", 0)
+    by_module = stats.setdefault("by_module", {})
+    calls: dict = {}
+
+    def hook(mod, inp, out, name):
+        x, i = inp[0], calls.get(name, 0)
+        calls[name] = i + 1
+        if mode == "record":
+            masks.setdefault(name, []).append(x > 0)
+            return None
+        m = masks[name][i].to(x.device)
+        if mode == "compare":
+            k = int(((x > 0) != m).sum())
+            stats["kinks"] += k
+            stats["branches"] += m.numel()
+            by_module[name] = by_module.get(name, 0) + k
+            return None
+        if isinstance(mod, nn.PReLU):
+            a = mod.weight.view(1, -1, 1, 1) if mod.weight.numel() > 1 \
+                else mod.weight
+            neg = a.to(x.dtype) * x
+        elif isinstance(mod, nn.LeakyReLU):
+            neg = x * torch.tensor(mod.negative_slope, dtype=x.dtype,
+                                   device=x.device)
+        else:
+            neg = torch.zeros_like(x)
+        return torch.where(m, x, neg)
+
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, n=f"{key}.{n}": hook(mod, inp, out, n))
+        for key, model in models.items()
+        for n, m in model.named_modules() if isinstance(m, kinds)]
+    try:
+        yield stats
+    finally:
+        for h in hooks:
+            h.remove()
+    if mode != "record" and calls != {n: len(v) for n, v in masks.items()}:
+        raise AssertionError(f"{mode}: activation calls {calls} differ "
+                             "from the recorded ones")
+
+
+@contextlib.contextmanager
 def _decisions(model, rec: dict, mode: str):
     """Within the block, the discrete choices of ``model``'s forward: the
     int8 level of each fake-quantized activation (QAT nets;
@@ -788,10 +807,9 @@ def _decisions(model, rec: dict, mode: str):
     from food101_sr_tpu_torch.ops import quantize as q
 
     own = q.fake_quant_act
-    acts, masks = rec.setdefault("acts", []), rec.setdefault("masks", {})
-    stats = {"calls": 0, "elements": 0, "flips": 0, "max_levels": 0,
-             "branches": 0, "kinks": 0}
-    it, calls = iter(acts), {}
+    acts = rec.setdefault("acts", [])
+    stats = {"calls": 0, "elements": 0, "flips": 0, "max_levels": 0}
+    it = iter(acts)
 
     def record(x):
         y = own(x)
@@ -812,32 +830,13 @@ def _decisions(model, rec: dict, mode: str):
         stats["calls"] += 1
         return q._ste(xf, next(it)[1].to(xf.device)).to(x.dtype)
 
-    def prelu(mod, inp, out, name):
-        x, i = inp[0], calls.get(name, 0)
-        calls[name] = i + 1
-        if mode == "record":
-            masks.setdefault(name, []).append((x > 0).cpu())
-            return None
-        m = masks[name][i].to(x.device)
-        if mode == "compare":
-            stats["kinks"] += int(((x > 0) != m).sum())
-            stats["branches"] += m.numel()
-            return None
-        a = mod.weight.view(1, -1, 1, 1) if mod.weight.numel() > 1 \
-            else mod.weight
-        return torch.where(m, x, a * x)
-
-    hooks = [m.register_forward_hook(
-        lambda mod, inp, out, n=n: prelu(mod, inp, out, n))
-        for n, m in model.named_modules() if isinstance(m, nn.PReLU)]
     q.fake_quant_act = {"record": record, "compare": compare,
                         "replay": replay}[mode]
     try:
-        yield stats
+        with _branches({"": model}, rec, mode, stats, (nn.PReLU,)):
+            yield stats
     finally:
         q.fake_quant_act = own
-        for h in hooks:
-            h.remove()
     if mode != "record" and stats["calls"] != len(acts):
         raise AssertionError(f"{mode}: {stats['calls']} fake-quantized "
                              f"activations, {len(acts)} recorded")
@@ -849,7 +848,7 @@ def _grad_check(model, batch: int = GRAD_BATCH, crop: int = TRAIN_CROP,
     ``quantize`` and ``phase_tail``) on ``batch`` seeded crops: on the
     card (K1, K2) and on a CPU copy (their plain versions), TF32 off.
     Per leaf, the largest difference over the leaf's scale: its largest
-    sum of absolute terms (``_term_sums``; asserted) and, for the record,
+    sum of absolute terms (``term_sums``; asserted) and, for the record,
     its max abs. For a QAT net also ``choices`` (the card's fake-quant
     levels and PReLU branches that differ from the CPU's, ``_decisions``)
     and ``shared``: the card's gradients again with the CPU's choices
@@ -859,6 +858,7 @@ def _grad_check(model, batch: int = GRAD_BATCH, crop: int = TRAIN_CROP,
     from food101_sr_tpu_torch.models import get_model
     from food101_sr_tpu_torch.ops import full_fp32
     from food101_sr_tpu_torch.training import loss_and_grads
+    from food101_sr_tpu_torch.utils.term_sums import term_sums
 
     cpu = get_model(arch, device="cpu",
                     quantize=getattr(model, "quantize", ""),
@@ -868,7 +868,7 @@ def _grad_check(model, batch: int = GRAD_BATCH, crop: int = TRAIN_CROP,
         0, 256, (batch, crop, crop, 3), np.uint8))
     qat = getattr(model, "quantize", "") == "qat"
     rec: dict = {}
-    with _term_sums(cpu, {}) as sums, contextlib.ExitStack() as stack:
+    with term_sums(cpu, {}) as sums, contextlib.ExitStack() as stack:
         if qat:
             stack.enter_context(_decisions(cpu, rec, "record"))
         _, on_cpu = loss_and_grads(cpu, nlpd_loss, 4, hr)
@@ -1238,6 +1238,7 @@ def _gan_grad_check(g, d, percep) -> dict:
     from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
                                                Transform, make_gan_d_step,
                                                make_gan_g_step)
+    from food101_sr_tpu_torch.utils.term_sums import term_sums
 
     sgd0 = Transform(lambda params, lr: torch.optim.SGD(params, lr=lr,
                                                         fused=True), 0.0)
@@ -1269,12 +1270,12 @@ def _gan_grad_check(g, d, percep) -> dict:
         g_step = make_gan_g_step(gm, dm, pl, 4, first, last)
         sums_d, sums_g = {}, {}
         with full_fp32():
-            with (_term_sums(dm, sums_d) if dev == "cpu"
+            with (term_sums(dm, sums_d) if dev == "cpu"
                   else contextlib.nullcontext()):
                 d_step(gs, ds, hr.to(dev), [n.to(dev) for n in noise])
             d_grads = [p.grad.clone() for p in ds.params]
             d_bufs = [b.clone() for b in dm.buffers()]
-            with (_term_sums(gm, sums_g) if dev == "cpu"
+            with (term_sums(gm, sums_g) if dev == "cpu"
                   else contextlib.nullcontext()):
                 g_step(gs, ds, hr.to(dev))
             g_grads = [p.grad.clone() for p in gs.params]
@@ -1720,6 +1721,391 @@ def phase_generators() -> dict:
     print("generators numbers: " + json.dumps(out), flush=True)
     return out
 
+
+def _bf16_grad_check(f32_model, arch: str) -> dict:
+    """One bf16 step's raw gradients of registry ``arch`` on GRAD_BATCH
+    seeded crops against the card's own float32 step on the same weights
+    with TF32 off: per leaf, the largest difference over the leaf's
+    largest sum of absolute terms (``term_sums``, from the float32 pass),
+    and for the record over its max abs. The bf16 gradients must come back
+    float32."""
+    from food101_sr_tpu_torch.losses import nlpd_loss
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.ops import full_fp32
+    from food101_sr_tpu_torch.training import loss_and_grads
+    from food101_sr_tpu_torch.utils.term_sums import term_sums
+
+    bf = get_model(arch, device="cuda", phase_tail=True,
+                   compute_dtype=torch.bfloat16)
+    bf.load_state_dict(f32_model.state_dict())
+    hr = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (GRAD_BATCH, TRAIN_CROP, TRAIN_CROP, 3), np.uint8)).cuda()
+    with full_fp32(), term_sums(f32_model, {}) as sums:
+        _, ref = loss_and_grads(f32_model, nlpd_loss, 4, hr)
+    _, got = loss_and_grads(bf, nlpd_loss, 4, hr)
+    names = [k for k, _ in bf.named_parameters()]
+    if any(g.dtype != torch.float32 for g in got):
+        raise AssertionError(f"bf16 {arch}: gradients not float32")
+    out = {"term_sum": (0.0, ""), "max_abs": (0.0, "")}
+    for name, a, b in zip(names, got, ref, strict=True):
+        diff, peak = (a - b).abs().max().item(), b.abs().max().item()
+        if sums[name] < peak * (1 - 1e-5):
+            raise AssertionError(f"{name}: term sum {sums[name]} below the "
+                                 f"gradient's max abs {peak}")
+        for key, scale in (("term_sum", sums[name]),
+                           ("max_abs", peak or sums[name])):
+            if diff / (scale + 1e-30) >= out[key][0]:
+                out[key] = (diff / (scale + 1e-30), name)
+    del bf
+    return out
+
+
+def _bf16_steps(arch: str) -> dict:
+    """The bf16 phase for registry ``arch`` (module docstring, phase 11b):
+    the float32 and the bf16 step from the same seeded weights, each
+    BF16_WARMUP + BF16_TIMED steps under CUDA events on one batch, the
+    first timed step counting the kernels' launches, a profile of
+    BF16_PROFILED steps for the busy share, peak memory, the loss lower
+    after the timed steps than before them; the bf16 step's gradients
+    against the float32 one first."""
+    from food101_sr_tpu_torch.losses import get_loss_function
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               make_adam, make_train_step)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    hr_u8 = torch.randint(0, 256, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3),
+                          dtype=torch.uint8, device="cuda", generator=gen)
+    loss_fn = get_loss_function("nlpd")
+    first, last = FIRST_LAST[arch]
+    out = {}
+    for key, cd in (("f32", None), ("bf16", torch.bfloat16)):
+        model = get_model(arch, device="cuda", phase_tail=True,
+                          compute_dtype=cd,
+                          generator=torch.Generator().manual_seed(0)).train()
+        if cd is None:
+            out["grad"] = _bf16_grad_check(model, arch)
+        state = SRTrainState.create(model, make_adam(TRAIN_LR))
+        step = make_train_step(model, loss_fn, 4, first, last)
+        losses = []
+        for _ in range(BF16_WARMUP):
+            state, m = step(state, hr_u8)
+            losses.append(m["train_loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(BF16_TIMED + 1)]
+        ev[0].record()
+        for i in range(BF16_TIMED):
+            if i == 0:  # ---- main path: one train step, counts from zero
+                _zero_counts()
+            state, m = step(state, hr_u8)
+            if i == 0:
+                launches = _counts()  # ---- end of main path ----
+            losses.append(m["train_loss"])
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(BF16_TIMED)]
+        losses = [float(v) for v in losses]
+        # falling over the timed steps: RRDB's first Adam steps at 4e-4
+        # throw its loss up (0.88 -> 16.6 on the card) before it falls
+        if not (all(np.isfinite(losses))
+                and losses[-1] < losses[BF16_WARMUP]
+                and int(state.skipped) == 0):
+            raise AssertionError(f"bf16 phase {arch} {key}: losses {losses} "
+                                 f"on one batch, skipped {int(state.skipped)}")
+        moments = [t for s in state.optimizer.state.values()
+                   for k, t in s.items() if k != "step"]
+        if not (all(p.dtype == torch.float32 for p in state.params)
+                and moments and all(t.dtype == torch.float32
+                                    for t in moments)):
+            raise AssertionError(f"bf16 phase {arch} {key}: parameters or "
+                                 "Adam's moments not float32")
+        n_blocks = model.num_residuals if arch == "AttentionSR" else 0
+        # NLPD: a float32 step blurs pred and target in one pyramid (4
+        # forward, 4 backward); a bf16 pred gets a pyramid of its own (8
+        # forward, 4 backward: the target's needs no gradient)
+        want = (12 if cd is not None else 8, n_blocks, 0)
+        if launches != want:
+            raise AssertionError(f"bf16 phase {arch} {key}: one step "
+                                 f"launched (K1, K2 nhwc, K2 plane) "
+                                 f"{launches}, expected {want}")
+        mean_ms = float(np.mean(ms))
+        _, dev_ms = _profile(step, state, hr_u8, BF16_PROFILED, mean_ms,
+                             verbose=False, label=f"bf16 {arch} {key}")
+        out[key] = {"step_ms": mean_ms, "step_ms_all": ms,
+                    "images_per_s": TRAIN_BATCH / mean_ms * 1e3,
+                    "busy_share": dev_ms / mean_ms,
+                    "device_ms_per_step": dev_ms, "peak_bytes": peak,
+                    "losses": losses,
+                    "launches": {"K1": launches[0], "K2 nhwc": launches[1],
+                                 "K2 nchw": launches[2]}}
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_kernels(rates) -> tuple[dict, dict]:
+    """K1 as the bf16 loss launches it (pred's own pyramid: TRAIN_BATCH
+    planes a level, float32, cast from bf16 around the kernel) and the
+    NHWC K2 entry on the bf16 train step's SE input (TRAIN_BATCH, 96,
+    TRAIN_CROP/4, TRAIN_CROP/4) bf16 channels-last, forward and through
+    its autograd backward, each against its plain version, with times."""
+    from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
+                                                       spatial_mean,
+                                                       spatial_mean_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    pyr = [torch.rand((TRAIN_BATCH, 3, TRAIN_CROP >> i, TRAIN_CROP >> i),
+                      device="cuda", generator=gen)
+           .to(torch.bfloat16).float() for i in range(4)]
+    err1 = _k1_err(pyr, gen)
+    shape = (TRAIN_BATCH, 96, TRAIN_CROP // 4, TRAIN_CROP // 4)
+    x = (torch.rand(shape, device="cuda", generator=gen) * 2 - 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    got, want = mean_nhwc_kernel(x).float(), spatial_mean_plain(x).float()
+    ulp = ((got - want).abs() / _ulp_bf16(want)).max().item()
+    gy = torch.rand(shape[:2], device="cuda", generator=gen).to(
+        torch.bfloat16)
+    xa, xb = (x.clone().requires_grad_(True) for _ in range(2))
+    (spatial_mean(xa) * gy).sum().backward()
+    (spatial_mean_plain(xb) * gy).sum().backward()
+    gb = xb.grad.float()
+    bwd_ulp = ((xa.grad.float() - gb).abs() / _ulp_bf16(gb)).max().item()
+    if not (err1 <= K1_TOL and ulp <= 1.0 and bwd_ulp <= 1.0
+            and xa.grad.dtype == torch.bfloat16):
+        raise AssertionError(f"bf16 kernels: K1 {err1}, K2 forward {ulp} "
+                             f"ulp, backward {bwd_ulp} ulp, grad "
+                             f"{xa.grad.dtype}")
+    t1 = _k1_timings(pyr, rates)
+    t1["max_abs_err"] = err1
+    t2 = _timings(lambda: mean_nhwc_kernel(x), lambda: spatial_mean_plain(x),
+                  lambda: x.mean((2, 3)), launches=1)
+    t2["bound_ms"], t2["bound_by"] = bound(
+        2 * x.numel() + 2 * shape[0] * shape[1], x.numel(), rates)
+
+    def fwd_bwd(fn):
+        xg = x.detach().requires_grad_(True)
+        (fn(xg) * gy).sum().backward()
+
+    t2["fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(spatial_mean))
+    t2["plain_fwd_bwd_ms"] = cuda_ms(lambda: fwd_bwd(spatial_mean_plain))
+    t2["max_abs_err"] = (got - want).abs().max().item()
+    t2["ulp"], t2["backward_ulp"] = ulp, bwd_ulp
+    return t1, t2
+
+
+def phase_bf16(rates) -> tuple[dict, dict, dict]:
+    """bf16 training on the card (module docstring, phase 11b): the four
+    generators' bf16 steps beside their float32 ones, the kernels at the
+    bf16 step's shapes, and the bf16 GAN steps. Returns the K1 and K2
+    records of the bf16 train step, launches per step included, and the
+    plane K2 entry's launches in each net's bf16 step."""
+    t0 = time.perf_counter()
+    k1, k2 = _bf16_kernels(rates)
+    print(f"bf16 kernels: K1 on bf16 pred's pyramid "
+          f"({TRAIN_BATCH},3,{{{','.join(str(TRAIN_CROP >> i) for i in range(4))}}}^2)"
+          f" f32: max_abs_err {k1['max_abs_err']:.3g}, kernel "
+          f"{k1['ms']:.4f} ms, device {k1['device_ms']:.4f}, host "
+          f"{k1['host_us']:.1f} us, plain {k1['plain_ms']:.4f}, conv2d "
+          f"{k1['library_ms']:.4f}, bound {k1['bound_ms']:.4f} "
+          f"({k1['bound_by']}) | K2 nhwc ({TRAIN_BATCH},96,{TRAIN_CROP // 4},"
+          f"{TRAIN_CROP // 4}) bf16 channels-last: forward {k2['ulp']:.2g} "
+          f"ulp, backward {k2['backward_ulp']:.2g} ulp; kernel "
+          f"{k2['ms']:.4f} ms, device {k2['device_ms']:.4f}, host "
+          f"{k2['host_us']:.1f} us, plain {k2['plain_ms']:.4f}, x.mean "
+          f"{k2['library_ms']:.4f}, bound {k2['bound_ms']:.4f} "
+          f"({k2['bound_by']}); forward+backward {k2['fwd_bwd_ms']:.4f} ms, "
+          f"plain {k2['plain_fwd_bwd_ms']:.4f}", flush=True)
+    nets = {}
+    for arch in BF16_ARCHS:
+        t = time.perf_counter()
+        r = nets[arch] = _bf16_steps(arch)
+        err, leaf = r["grad"]["term_sum"]
+        if not err <= BF16_GRAD_TOL:
+            raise AssertionError(f"bf16 {arch}: gradients against the "
+                                 f"float32 step: {leaf} off by {err} of its "
+                                 f"largest term sum (tol {BF16_GRAD_TOL})")
+        f, b = r["f32"], r["bf16"]
+        print(f"bf16: {arch} x4 batch {TRAIN_BATCH}x{TRAIN_CROP}^2 NLPD | "
+              f"step f32 {f['step_ms']:.3f} ms, bf16 {b['step_ms']:.3f} ms "
+              f"(x{f['step_ms'] / b['step_ms']:.2f}) | images/s "
+              f"{f['images_per_s']:.1f} -> {b['images_per_s']:.1f} | busy "
+              f"share {f['busy_share']:.3f} -> {b['busy_share']:.3f} | peak "
+              f"{f['peak_bytes'] / 2**30:.3f} -> {b['peak_bytes'] / 2**30:.3f}"
+              f" GiB | launches per bf16 step {b['launches']} | gradients on "
+              f"{GRAD_BATCH}x{TRAIN_CROP}^2 vs the f32 step (TF32 off): worst "
+              f"{err:.3g} of a term sum at {leaf} (tol {BF16_GRAD_TOL}), "
+              f"{r['grad']['max_abs'][0]:.3g} of a max abs at "
+              f"{r['grad']['max_abs'][1]} | params and Adam float32, bf16 "
+              f"loss {b['losses'][0]:.5f} -> {b['losses'][-1]:.5f} | "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+    gan = _bf16_gan()
+    numbers = {a: {k: {kk: vv for kk, vv in v.items() if kk != "losses"}
+                   if isinstance(v, dict) else v for k, v in r.items()}
+               for a, r in nets.items()}
+    numbers["gan"] = gan
+    print("bf16 numbers: " + json.dumps(numbers), flush=True)
+    print(f"bf16 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    att = nets["AttentionSR"]["bf16"]
+    k1.update({
+        "name": "K1 depthwise Gaussian blur 5x5, bf16 train step",
+        "route": "cuda", "source": "food101_sr_tpu_torch/csrc/kernels.cu",
+        "replaces": "food101_sr_tpu/ops/pallas_blur.py:65",
+        "wrapper": "food101_sr_tpu_torch/ops/pallas_blur.py:blur_kernel",
+        "launches": att["launches"]["K1"],
+        "bf16_launches": {a: r["bf16"]["launches"]["K1"]
+                          for a, r in nets.items()},
+        "at": f"one bf16 train step: 8 launches forward (pred's pyramid, "
+              f"cast from bf16, and the target's) and 4 backward; timed: "
+              f"pred's pyramid ({TRAIN_BATCH},3,{{200,100,50,25}}^2) float32",
+        "step_ms": att["step_ms"], "images_per_s": att["images_per_s"],
+        "peak_bytes": att["peak_bytes"]})
+    k2.update({
+        "name": "K2 spatial mean (SE squeeze), nhwc input, bf16 train step",
+        "route": "cuda", "source": "food101_sr_tpu_torch/csrc/kernels.cu",
+        "replaces": "food101_sr_tpu/ops/spatial_mean.py:45",
+        "wrapper": "food101_sr_tpu_torch/ops/spatial_mean.py:"
+                   "mean_nhwc_kernel",
+        "launches": att["launches"]["K2 nhwc"],
+        "bf16_launches": {a: r["bf16"]["launches"]["K2 nhwc"]
+                          for a, r in nets.items()},
+        "at": f"one bf16 train step of AttentionSR: 32 launches, each "
+              f"({TRAIN_BATCH},96,{TRAIN_CROP // 4},{TRAIN_CROP // 4}) "
+              "bfloat16 channels-last, backward plain",
+        "step_ms": att["step_ms"], "images_per_s": att["images_per_s"],
+        "peak_bytes": att["peak_bytes"]})
+    return k1, k2, {a: r["bf16"]["launches"]["K2 nchw"]
+                    for a, r in nets.items()}
+
+
+def _next_activation(names, leaf: str) -> str:
+    """The activation right after ``leaf``'s layer in its Sequential
+    (``classifier.2.bias`` -> ``classifier.3``) when ``names`` holds it,
+    else ""."""
+    parent, _, idx = leaf.rsplit(".", 1)[0].rpartition(".")
+    name = f"{parent}.{int(idx) + 1}" if idx.isdigit() else ""
+    return name if name in names else ""
+
+
+def _bf16_gan() -> dict:
+    """One bf16 D step and one bf16 G step of the GAN on the registry
+    AttentionSR (phase tail) and Discriminator(nf=GAN_NF), VGG19 seeded,
+    on GRAD_BATCH seeded crops and noise tensors, against the same steps
+    in float32 on the card with TF32 off: raw gradients per leaf over
+    their term sums (from the float32 steps; fused SGD at lr 0 leaves them
+    in .grad), the parameters float32. Twice: as the steps run, within
+    BF16_GAN_TOL, with the activation elements of G and D that take the
+    other branch than in the float32 steps counted (``_branches``), also
+    at the activation after each worst leaf's layer; then with the float32
+    steps' branches applied in the bf16 steps, within BF16_GRAD_TOL."""
+    from food101_sr_tpu_torch.losses import PerceptualLoss
+    from food101_sr_tpu_torch.models import (Discriminator, build_model,
+                                             get_model)
+    from food101_sr_tpu_torch.ops import full_fp32
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               Transform, make_gan_d_step,
+                                               make_gan_g_step)
+    from food101_sr_tpu_torch.utils.term_sums import term_sums
+
+    t0 = time.perf_counter()
+    sgd0 = Transform(lambda params, lr: torch.optim.SGD(params, lr=lr,
+                                                        fused=True), 0.0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        percep = PerceptualLoss(device="cuda")
+    rng = np.random.default_rng(5)
+    hr = torch.from_numpy(rng.integers(0, 256, (GRAD_BATCH, TRAIN_CROP,
+                                                TRAIN_CROP, 3), np.uint8))
+    noise = [torch.from_numpy(rng.standard_normal(
+        (GRAD_BATCH, 3, TRAIN_CROP, TRAIN_CROP), np.float32)).cuda()
+        for _ in range(2)]
+    first, last = FIRST_LAST["AttentionSR"]
+    runs, recs, kinks = {}, ({}, {}), {}
+    for key, cd, mode in (("f32", None, "record"),
+                          ("bf16", torch.bfloat16, "compare"),
+                          ("replay", torch.bfloat16, "replay")):
+        g = get_model("AttentionSR", device="cuda", phase_tail=True,
+                      compute_dtype=cd,
+                      generator=torch.Generator().manual_seed(0))
+        d = build_model(lambda: Discriminator(nf=GAN_NF, compute_dtype=cd),
+                        device="cuda",
+                        generator=torch.Generator().manual_seed(2))
+        gs, ds = SRTrainState(g, sgd0), SRTrainState(d, sgd0)
+        d_step = make_gan_d_step(g, d, 4)
+        g_step = make_gan_g_step(g, d, percep, 4, first, last)
+        sums_d, sums_g, st_d, st_g = {}, {}, {}, {}
+        # the float32 reference with TF32 off; its term sums scale both
+        ctx = full_fp32 if cd is None else contextlib.nullcontext
+        n = [t if cd is None else t.to(cd) for t in noise]
+        nets = {"G": g, "D": d}
+        with ctx():
+            with (term_sums(d, sums_d) if cd is None
+                  else contextlib.nullcontext()), \
+                    _branches(nets, recs[0], mode, st_d):
+                d_step(gs, ds, hr.cuda(), [n[0].float(), n[1]])
+            d_grads = [p.grad.clone() for p in ds.params]
+            with (term_sums(g, sums_g) if cd is None
+                  else contextlib.nullcontext()), \
+                    _branches(nets, recs[1], mode, st_g):
+                g_step(gs, ds, hr.cuda())
+            g_grads = [p.grad.clone() for p in gs.params]
+        if not all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                   for p in [*gs.params, *ds.params]):
+            raise AssertionError(f"bf16 gan {key}: a parameter or gradient "
+                                 "is not float32")
+        runs[key] = (d_grads, g_grads, sums_d, sums_g, ds.names, gs.names)
+        if mode == "compare":
+            kinks = {"D": st_d, "G": st_g}
+        del g, d, gs, ds
+    out = {}
+    for key, tol in (("bf16", BF16_GAN_TOL), ("replay", BF16_GRAD_TOL)):
+        for i, net in ((0, "D"), (1, "G")):
+            worst = (0.0, "")
+            names, sums = runs["f32"][4 + i], runs["f32"][2 + i]
+            for name, a, b in zip(names, runs[key][i], runs["f32"][i],
+                                  strict=True):
+                err = (a - b).abs().max().item() / (sums[name] + 1e-30)
+                if err >= worst[0]:
+                    worst = (err, name)
+            if not worst[0] <= tol:
+                raise AssertionError(f"bf16 gan {net} step ({key}): "
+                                     f"{worst[1]} off by {worst[0]} of its "
+                                     f"largest term sum (tol {tol})")
+            out[f"{net}_{key}"] = worst
+    # the activation elements on the other branch than in the float32
+    # steps: all of G's and D's, and those of the activation right after
+    # each worst leaf's layer (in the step of the worst leaf's net)
+    at = {}
+    for i, net in ((0, "D"), (1, "G")):
+        masks = recs[i]["masks"]
+        act = _next_activation(masks, f"{net}.{out[net + '_bf16'][1]}")
+        at[net] = (act, kinks[net]["by_module"].get(act, 0),
+                   sum(m.numel() for m in masks.get(act, [])))
+    print(f"bf16 gan: D (nf={GAN_NF}) and G (AttentionSR) steps on "
+          f"{GRAD_BATCH}x{TRAIN_CROP}^2 in bf16 vs float32 (TF32 off) | as "
+          f"run: D worst {out['D_bf16'][0]:.3g} of a term sum at "
+          f"{out['D_bf16'][1]}, G worst {out['G_bf16'][0]:.3g} at "
+          f"{out['G_bf16'][1]} (tol {BF16_GAN_TOL}); activation elements on "
+          f"the other branch: D step {kinks['D']['kinks']} of "
+          f"{kinks['D']['branches']}, G step {kinks['G']['kinks']} of "
+          f"{kinks['G']['branches']}; after D's worst leaf ({at['D'][0]}) "
+          f"{at['D'][1]} of {at['D'][2]}, after G's ({at['G'][0]}) "
+          f"{at['G'][1]} of {at['G'][2]} | float32 branches applied: D "
+          f"worst {out['D_replay'][0]:.3g} at {out['D_replay'][1]}, G worst "
+          f"{out['G_replay'][0]:.3g} at {out['G_replay'][1]} (tol "
+          f"{BF16_GRAD_TOL}) | params float32 | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"D_grad_term_sum": out["D_bf16"][0],
+            "G_grad_term_sum": out["G_bf16"][0],
+            "D_grad_term_sum_branches_shared": out["D_replay"][0],
+            "G_grad_term_sum_branches_shared": out["G_replay"][0],
+            "D_step_kinks": kinks["D"]["kinks"],
+            "G_step_kinks": kinks["G"]["kinks"],
+            "D_step_branches": kinks["D"]["branches"],
+            "G_step_branches": kinks["G"]["branches"],
+            "kinks_after_worst_leaf": at}
 
 
 def _http(port: int, path: str, body: bytes | None = None,
@@ -2673,7 +3059,195 @@ def phase_food101(tmp: str, loop: dict) -> dict:
           f"{FOOD_CLI_SUBSET}) psnr {cli_out['psnr']:.4f} | "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     print("food101 numbers: " + json.dumps(numbers), flush=True)
-    return {"K1": total[0], "K2 nhwc": total[1], "K2 nchw": total[2]}
+    return {"K1": total[0], "K2 nhwc": total[1], "K2 nchw": total[2],
+            "images_per_s": numbers["train_images_per_s"],
+            "loader_wait_ms": numbers["loader_wait_ms"]}
+
+
+def _window_of(crop: np.ndarray, canvas: np.ndarray) -> bool:
+    """Whether uint8 HWC ``crop`` is a window of ``canvas`` or of its
+    mirror image: candidate offsets from the crop's first row, then the
+    whole window compared."""
+    k = crop.shape[0]
+    for c in (canvas, canvas[:, ::-1]):
+        rows = np.lib.stride_tricks.sliding_window_view(c, k, axis=1)
+        # rows[t, l] is c[t, l:l + k] as (3, k)
+        hits = np.argwhere((rows[:c.shape[0] - k + 1]
+                            == crop[0].T[None, None]).all(axis=(2, 3)))
+        if any(np.array_equal(c[t:t + k, l:l + k], crop) for t, l in hits):
+            return True
+    return False
+
+
+def _cache_loaders(root: str) -> dict:
+    """On the food tree: each cache's eval batches (val split) byte-equal
+    to SRDataLoader's, and the first train batch of the device cache and
+    of the host canvas loader made of windows of its canvases (flipped or
+    not). Returns the counts checked."""
+    from food101_sr_tpu_torch.data import (DeviceCacheLoader, Food101Source,
+                                           HostCanvasLoader, SRDataLoader,
+                                           subset_indices, train_val_split)
+
+    seed, batch, crop = LOOP_CFG["seed"], LOOP_CFG["batch_size"], \
+        LOOP_CFG["crop_size"]
+    src = Food101Source(root, "train")
+    train_idx, val_idx = train_val_split(subset_indices(len(src), 1.0, seed),
+                                         0.1, seed + 1)
+    vb = min(batch, len(val_idx))
+    kw = dict(crop_size=crop, batch_size=vb, train=False, seed=seed,
+              device="cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
+        want = [b.cpu() for b in SRDataLoader(src, val_idx, **kw)]
+        for loader in (DeviceCacheLoader(src, val_idx, **kw),
+                       HostCanvasLoader(src, val_idx, cache_dir=store, **kw)):
+            got = [b.cpu() for b in loader]
+            if not (len(got) == len(want) and all(
+                    torch.equal(a, b) for a, b in zip(got, want))):
+                raise AssertionError(f"{type(loader).__name__} eval batches "
+                                     "differ from SRDataLoader's")
+        kw.update(batch_size=batch, train=True)
+        dev = DeviceCacheLoader(src, train_idx, **kw)
+        host = HostCanvasLoader(src, train_idx, cache_dir=store, **kw)
+        order = np.random.default_rng((seed, 0, 7)).permutation(
+            len(train_idx))[:batch]
+        n = 0
+        for loader, canv in ((dev, dev._cache[torch.from_numpy(order).cuda()]
+                              .cpu().numpy()),
+                             (host, np.stack([host.store.canvases[
+                                 host.store.row_for(i)]
+                                 for i in train_idx[order]]))):
+            loader.set_epoch(0)
+            first = next(iter(loader)).cpu().numpy()
+            if not all(_window_of(c, v) for c, v in zip(first, canv)):
+                raise AssertionError(f"{type(loader).__name__}: a train crop "
+                                     "is no window of its canvas")
+            n += len(first)
+    return {"eval_batches": len(want), "crops": n}
+
+
+def phase_caches(tmp: str, loop: dict, food: dict) -> dict:
+    """bf16 training and the dataset caches through train() (module
+    docstring, phase 13b), in the loop phase's process after the food101
+    phase: each run's main path counted from zero around it. ``loop`` is
+    phase_loop's result, ``food`` phase_food101's (its SRDataLoader run
+    on the same tree, for the same-process comparison)."""
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.training import load_checkpoint, train
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "food")
+    runs = os.environ["FOOD101_SR_RUN_DIR"]
+    w = os.path.join(tmp, "weights")
+    store = os.path.join(tmp, "store")
+    n_blocks, n_ep = loop["n_blocks"], LOOP_CFG["epochs"]
+    syn, nb = _loop_batches(), _loop_batches(FOOD_TRAIN, FOOD_TEST)
+
+    def closed_form(nb, n_ep, bf16):
+        # a bf16 pred gets its own pyramid: 8 K1 forward and 4 backward a
+        # step, 8 a val batch; the test metrics' NLPD casts to float32 (4)
+        step, val = (12, 8) if bf16 else (8, 4)
+        return (n_ep * (step * nb["steps"] + val * nb["val"])
+                + 4 * nb["test"],
+                n_blocks * (n_ep * (nb["steps"] + nb["val"]) + nb["test"]), 0)
+
+    def run(name, cfg):
+        _zero_counts()  # ---- main path: one train() run ----
+        final = train({**cfg, "save_name": name, "run_name": name})
+        total = _counts()  # ---- end of main path ----
+        if not (set(final) == {"psnr", "ssim", "lpips", "nlpd", "val_psnr"}
+                and all(np.isfinite(list(final.values())))):
+            raise AssertionError(f"caches {name}: final metrics {final}")
+        with open(os.path.join(runs, name, "log.jsonl")) as f:
+            epochs = [r for r in map(json.loads, f) if "epoch" in r]
+        return final, total, epochs
+
+    def resumed_equal(name, cfg):
+        part = train({**cfg, "save_name": f"{name}p", "run_name": f"{name}p",
+                      "preempt_after_updates": CACHE_PREEMPT})
+        train({**cfg, "save_name": f"{name}r", "run_name": f"{name}r",
+               "resume": os.path.join(w, f"{name}p_last.pth")})
+        full = _flat(load_checkpoint(os.path.join(w, f"{name}_last.pth")))
+        res = _flat(load_checkpoint(os.path.join(w, f"{name}r_last.pth")))
+        diff = sorted(set(full) ^ set(res)) or [
+            k for k in full if not _same(full[k], res[k])]
+        if not part.get("preempted") or diff:
+            raise AssertionError(f"caches {name}: preempted {part}, resumed "
+                                 f"state differs at {diff[:5]}")
+        return sum(isinstance(t, torch.Tensor) for t in full.values())
+
+    out, launches = {}, {}
+    # bf16 on the loop's synthetic settings, one epoch
+    cfg = {**LOOP_CFG, "dtype": "bfloat16", "epochs": 1, "weights_dir": w}
+    final, total, epochs = run("bf16", cfg)
+    if total != closed_form(syn, 1, True):
+        raise AssertionError(f"caches bf16: launches {total}, expected "
+                             f"{closed_form(syn, 1, True)}")
+    sd = load_checkpoint(os.path.join(w, "bf16_best.pth"), "cuda")
+    best = get_model("AttentionSR", device="cuda")
+    best.load_state_dict(sd, strict=True)
+    if any(v.dtype != torch.float32 for v in sd.values()):
+        raise AssertionError("caches bf16: the best checkpoint is not "
+                             "float32")
+    launches["bf16"] = total
+    out["bf16"] = {"final": final, "epochs": epochs}
+
+    checks = _cache_loaders(root)
+    food_cfg = {**LOOP_CFG, "dataset": "food101", "data_root": root,
+                "weights_dir": w}
+    kinds = (("cdev", {"cache_device": True}),
+             ("chost", {"cache_host": store}),
+             ("chost2", {"cache_host": store}),
+             ("cwin", {"cache_host": store, "cache_host_reuse": 4}),
+             ("bf16cdev", {"cache_device": True, "dtype": "bfloat16"}))
+    for name, extra in kinds:
+        final, total, epochs = run(name, {**food_cfg, **extra})
+        want = closed_form(nb, n_ep, "dtype" in extra)
+        if total != want:
+            raise AssertionError(f"caches {name}: launches (K1, K2 nhwc, K2 "
+                                 f"plane) {total}, expected {want}")
+        launches[name] = total
+        out[name] = {"final": final, "epochs": epochs}
+    n_resumed = {name: resumed_equal(name, {**food_cfg, **extra})
+                 for name, extra in kinds if name in ("cdev", "cwin")}
+
+    def per_epoch(name, key):
+        return [r[key] for r in out[name]["epochs"]]
+
+    setup = {k: per_epoch(k, "time/loader_setup_s")[0] * 1e3
+             for k in ("cdev", "chost", "chost2", "cwin")}
+    if not setup["chost2"] < setup["chost"]:
+        raise AssertionError(f"caches: the second cache_host run took "
+                             f"{setup['chost2']} ms to open the store, the "
+                             f"first {setup['chost']} ms to build it")
+    numbers = {
+        "srdataloader_images_per_s": food["images_per_s"],
+        "srdataloader_wait_ms": food["loader_wait_ms"],
+        **{f"{k}_images_per_s": per_epoch(k, "time/images_per_s")
+           for k, _ in kinds},
+        **{f"{k}_wait_ms": per_epoch(k, "time/loader_wait_ms")
+           for k, _ in kinds},
+        **{f"{k}_step_ms": per_epoch(k, "time/step_ms") for k, _ in kinds},
+        "setup_ms": setup,
+        "bf16_synthetic_images_per_s": per_epoch("bf16", "time/images_per_s"),
+        "f32_synthetic_images_per_s": loop["images_per_s"],
+        "launches": launches, "resumed_tensors": n_resumed, **checks}
+    print(f"caches: train(dtype=bfloat16) AttentionSR x4 synthetic, 1 "
+          f"epoch: launches {launches['bf16']}, best checkpoint float32 "
+          f"loads strict, images/s {numbers['bf16_synthetic_images_per_s']}"
+          f" (f32 {loop['images_per_s']}) | on {FOOD_TRAIN} + {FOOD_TEST} "
+          f"JPEGs, images/s per epoch: SRDataLoader {food['images_per_s']}, "
+          + ", ".join(f"{k} {numbers[f'{k}_images_per_s']}" for k, _ in kinds)
+          + " | wait ms/step: SRDataLoader " + str(food["loader_wait_ms"])
+          + ", " + ", ".join(f"{k} {numbers[f'{k}_wait_ms']}"
+                             for k, _ in kinds)
+          + f" | setup ms: {setup} | eval batches byte-equal to "
+          f"SRDataLoader's ({checks['eval_batches']} a cache), {checks['crops']}"
+          f" train crops windows of their canvases | preempted after "
+          f"{CACHE_PREEMPT} and resumed bit-equal: {n_resumed} tensors | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("caches numbers: " + json.dumps(numbers), flush=True)
+    return {k: {"K1": v[0], "K2 nhwc": v[1], "K2 nchw": v[2]}
+            for k, v in launches.items()}
 
 
 def _u8(y: torch.Tensor) -> torch.Tensor:
@@ -3190,6 +3764,7 @@ def loop_main(tmp: str) -> int:
         return 1
     out = phase_loop(tmp)
     out["food101_launches"] = phase_food101(tmp, out)
+    out["cache_launches"] = phase_caches(tmp, out, out["food101_launches"])
     with open(os.path.join(tmp, "loop.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -3335,12 +3910,15 @@ def main() -> int:
                    (k2_nchw, "K2 nchw")):
         d["generator_launches"] = {a: g["launches"][key]
                                    for a, g in gens.items()}
+    k1_bf16, k2_bf16, k2_nchw["bf16_launches"] = phase_bf16(rates)
     loop = run_loop_phase()
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
         d["loop_launches"] = loop["launches"][key]
         d["gan_loop_launches"] = loop["gan_launches"][key]
         d["rrdb_gan_loop_launches"] = loop["rrdb_gan_launches"][key]
         d["food101_loop_launches"] = loop["food101_launches"][key]
+        for run, out_key in CACHE_LAUNCH_KEYS.items():
+            d[out_key] = loop["cache_launches"][run][key]
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc")):
         d["loop_max_abs_err"] = loop["max_abs_err"][key]
         d["at_loop_val"] = loop["at_val"][key]
@@ -3354,15 +3932,17 @@ def main() -> int:
             "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
             "rrdb_gan_loop_launches", "food101_loop_launches",
             "tail_launches", "quant_serve_launches", "qat_loop_launches",
+            "bf16_launches", *CACHE_LAUNCH_KEYS.values(),
             "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
             "at_loop_val", "half_device_ms", "nchw_copy_ms",
-            "nchw_copy_device_ms", "step_ms", "g_step_ms", "d_step_ms",
+            "nchw_copy_device_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms", "ulp",
+            "backward_ulp", "step_ms", "g_step_ms", "d_step_ms",
             "images_per_s", "peak_bytes", "device_split_ms")
     kernels = [{k: d[k] for k in keys if k in d}
                for d in (k1, k2_nhwc, k2_nchw, k2_tta, k1_train, k2_train,
-                         k2_gan)]
+                         k2_gan, k1_bf16, k2_bf16)]
     print(f"done: elapsed_s {time.perf_counter() - t_start:.1f} | {smi}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

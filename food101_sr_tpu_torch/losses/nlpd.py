@@ -27,11 +27,24 @@ def laplacian_pyramid(img: torch.Tensor, n_levels: int = 4) -> list:
 
 def nlpd_loss(pred: torch.Tensor, target: torch.Tensor, n_levels: int = 4,
               alpha: float = 0.7) -> torch.Tensor:
-    """One pyramid over ``cat([pred, target])``, split at each level: every
-    plane is blurred as in two separate pyramids, with half the launches
-    (4 of K1 for 4 levels, and of each other pyramid op)."""
+    """For inputs of one dtype, one pyramid over ``cat([pred, target])``,
+    split at each level: every plane is blurred as in two separate
+    pyramids, with half the launches (4 of K1 for 4 levels, and of each
+    other pyramid op).
+
+    A bf16 ``pred`` against a float32 ``target`` (a bf16 training step)
+    gets a pyramid of its own, in bf16 between the ops as JAX's is (the
+    blur and the resize compute in float32 and return the input's dtype),
+    so 8 K1 launches forward; ``torch.cat`` would promote it to float32
+    and drop those roundings. The differences and the MAE promote to
+    float32 and the level means accumulate there, as in JAX."""
     loss_mae = torch.mean(torch.abs(pred - target))
-    n = pred.shape[0]
-    pyr = laplacian_pyramid(torch.cat([pred, target]), n_levels)
-    loss_nlpd = sum(torch.mean(torch.abs(lv[:n] - lv[n:])) for lv in pyr)
+    if pred.dtype != target.dtype:
+        pairs = zip(laplacian_pyramid(pred, n_levels),
+                    laplacian_pyramid(target, n_levels))
+    else:
+        n = pred.shape[0]
+        pairs = ((lv[:n], lv[n:]) for lv in
+                 laplacian_pyramid(torch.cat([pred, target]), n_levels))
+    loss_nlpd = sum(torch.mean(torch.abs(p - t)) for p, t in pairs)
     return alpha * loss_mae + (1.0 - alpha) * loss_nlpd

@@ -2,7 +2,9 @@
 ``food101_sr_tpu/losses/perceptual.py``): the MSE between the frozen
 VGG19 conv5_4 features of prediction and target. The net's parameters do
 not require a gradient, so they stay out of every optimizer and
-checkpoint; the target's features are computed without a graph."""
+checkpoint; the target's features are computed without a graph. As in
+the JAX package the net has no compute dtype of its own: a bf16
+prediction meets its float32 weights and is promoted to float32."""
 from __future__ import annotations
 
 import torch
@@ -24,7 +26,7 @@ class PerceptualLoss:
 
     def __call__(self, pred: torch.Tensor,
                  target: torch.Tensor) -> torch.Tensor:
-        fp = self.net(pred)
+        fp = self.net(pred.float())
         with torch.no_grad():
-            ft = self.net(target)
+            ft = self.net(target.float())
         return torch.mean((fp - ft) ** 2)

@@ -4,7 +4,7 @@ from .feature_nets import AlexNetFeatures, VGG19Features
 from .layers import (AttentionResidualBlock, BatchNorm2d, Conv,
                      ResidualBlock, SEBlock, SNConv2d, SNLinear,
                      chained_power_iterations, init_weights, scale_stages,
-                     upsample_block, upsample_tail)
+                     set_compute_dtype, upsample_block, upsample_tail)
 from .registry import (architecture_of, build_model, detect_architecture,
                        get_model, model_for_params, model_names, param_count)
 from .resnet_sr import ResNetSR
@@ -18,5 +18,5 @@ __all__ = [
     "SNLinear", "SRCNN", "VGG19Features", "architecture_of", "build_model",
     "chained_power_iterations", "detect_architecture", "get_model",
     "init_weights", "model_for_params", "model_names", "param_count",
-    "scale_stages", "upsample_block", "upsample_tail",
+    "scale_stages", "set_compute_dtype", "upsample_block", "upsample_tail",
 ]

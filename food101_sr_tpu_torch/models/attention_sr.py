@@ -5,14 +5,17 @@
 resolution (``layers.upsample_tail``), the same function with the same
 weights; ``quantize`` runs the body convs (the residual blocks' and the
 mid conv) in dynamic int8 for inference ("int8", "int8_dot") or
-fake-quantized for QAT ("qat"), as in the JAX net.
+fake-quantized for QAT ("qat"), as in the JAX net; ``compute_dtype``
+runs the convs and the SE linears in that dtype on float32 weights (JAX's
+``dtype=``, bf16 training with float32 master weights).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .layers import AttentionResidualBlock, Conv, prelu, upsample_tail
+from .layers import (AttentionResidualBlock, Conv, prelu, set_compute_dtype,
+                     upsample_tail)
 
 
 class AttentionSR(nn.Module):
@@ -31,7 +34,8 @@ class AttentionSR(nn.Module):
 
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
                  num_residuals: int = 32, quantize: str = "",
-                 phase_tail: bool = False):
+                 phase_tail: bool = False,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.scale_factor = scale_factor
         self.num_residuals = num_residuals
@@ -45,6 +49,7 @@ class AttentionSR(nn.Module):
         self.mid_conv = Conv(num_channels, num_channels, 3, quantize=quantize)
         self.upsample, self.output_conv = upsample_tail(
             num_channels, scale_factor, phase_tail)
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.prelu(self.input_conv(

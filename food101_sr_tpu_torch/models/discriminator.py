@@ -9,16 +9,22 @@ image. Modules sit at the reference's ``nn.Sequential`` indices
 ``classifier.{2,4}`` linears), the keys ``convert.discriminator_from_jax``
 writes, so a JAX discriminator loads with ``strict=True``.
 
-BatchNorm is ``nn.BatchNorm2d(momentum=0.1, eps=1e-5)``: the JAX
-package's ``TorchBatchNorm`` re-creates its unbiased running variance, and
-flax's momentum 0.9 is torch's 0.1.
+BatchNorm is ``layers.BatchNorm2d`` (momentum 0.1, eps 1e-5, float32
+statistics and normalization): the JAX package's ``TorchBatchNorm``
+re-creates torch's unbiased running variance, and flax's momentum 0.9 is
+torch's 0.1.
+
+``compute_dtype`` runs the convs and linears in that dtype on float32
+parameters, spectral vectors and running stats, as JAX's
+``Discriminator(dtype=...)``: the logits come out in the compute dtype.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .layers import SNConv2d, SNLinear
+from .layers import (BatchNorm2d, LeakyReLU, SNConv2d, SNLinear,
+                     set_compute_dtype)
 
 
 class GlobalMean(nn.Module):
@@ -30,23 +36,25 @@ class GlobalMean(nn.Module):
 
 
 class Discriminator(nn.Module):
-    def __init__(self, in_nc: int = 3, nf: int = 64):
+    def __init__(self, in_nc: int = 3, nf: int = 64,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
 
         def act():
-            return nn.LeakyReLU(0.2)
+            return LeakyReLU(0.2)
 
         self.net = nn.Sequential(
             SNConv2d(in_nc, nf, 3, 1, bias=True), act(),
-            SNConv2d(nf, nf * 2, 3, 2, bias=False), nn.BatchNorm2d(nf * 2),
+            SNConv2d(nf, nf * 2, 3, 2, bias=False), BatchNorm2d(nf * 2),
             act(),
             SNConv2d(nf * 2, nf * 4, 3, 2, bias=False),
-            nn.BatchNorm2d(nf * 4), act(),
+            BatchNorm2d(nf * 4), act(),
             SNConv2d(nf * 4, nf * 8, 3, 2, bias=False),
-            nn.BatchNorm2d(nf * 8), act())
+            BatchNorm2d(nf * 8), act())
         self.classifier = nn.Sequential(
             GlobalMean(), nn.Flatten(), SNLinear(nf * 8, 100), act(),
             SNLinear(100, 1))
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.classifier(self.net(x))

@@ -6,10 +6,19 @@ Module names follow the reference PyTorch layout, so that a state_dict
 exported from a JAX checkpoint (``convert.params_from_jax``) loads with
 ``strict=True``. Initialization matches the JAX package's distributions
 and is drawn from an explicit ``torch.Generator`` (:func:`init_weights`).
+
+A compute dtype (:func:`set_compute_dtype`) follows Flax's ``dtype``: the
+parameters stay float32, and each conv and linear casts its input, weight
+and bias to the compute dtype at every call, so autograd hands float32
+gradients back to the parameters (bf16 training with float32 master
+weights). With no compute dtype a layer runs in the dtype of its input
+and weights, as a served ``.to(torch.bfloat16)`` net does; on the same
+weights the two forwards are the same computation.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -36,6 +45,44 @@ def scale_stages(scale: int) -> tuple:
     if s > 1:
         out.append(s)
     return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def scalar_in(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: JAX multiplies a tensor by
+    ``jnp.asarray(value, x.dtype)`` (or a weakly typed scalar, which it
+    rounds alike), PyTorch by the unrounded scalar in float32 arithmetic.
+    The same float32 for float32 tensors; for bf16 ones the JAX rounding
+    (0.1 -> 0.10009765625)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """``where(x >= 0, x, slope * x)`` with the slope in ``x.dtype``, as
+    JAX's ``nn.leaky_relu``."""
+    return F.leaky_relu(x, scalar_in(slope, x.dtype))
+
+
+class LeakyReLU(nn.LeakyReLU):
+    """``nn.LeakyReLU`` through :func:`leaky_relu`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return leaky_relu(x, self.negative_slope)
+
+
+def _cast(t: torch.Tensor | None, dtype: torch.dtype | None):
+    return t if t is None or dtype is None else t.to(dtype)
+
+
+def set_compute_dtype(model: nn.Module,
+                      dtype: torch.dtype | None) -> nn.Module:
+    """Run every conv and linear of ``model`` in ``dtype`` (None: in the
+    dtype of their inputs) with the parameters kept as they are (JAX's
+    ``dtype=`` on the modules; the module docstring says how)."""
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return model
 
 
 def _keep_float32(module: nn.Module, apply, fn, recurse: bool):
@@ -77,11 +124,17 @@ class Conv(nn.Conv2d):
       "int8_dot" the dynamic-int8 conv (``ops.quantize``; the two JAX
       lowerings are one computation here). A quantized
       conv keeps its weight and bias in float32 in any dtype, as JAX
-      quantizes the float32 parameters;
+      quantizes the float32 parameters (a compute dtype casts its input
+      only);
     - ``subpixel_r > 1``: the phase decomposition of a stride-1 conv with
       few outputs, where H and W divide by r and ``out*r*r <= 256``;
     - otherwise the direct conv.
+
+    ``compute_dtype`` (:func:`set_compute_dtype`) casts the input, the
+    weight and the bias on every route but the quantized ones.
     """
+
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, bias: bool = True, icnr_scale: int = 0,
@@ -111,31 +164,53 @@ class Conv(nn.Conv2d):
         return super()._apply(fn, recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.phase_in > 1:
-            if self.subpixel_r > 1:
-                return phase_conv2d(x, self.weight, self.bias, self.phase_in,
-                                    in_map=self.phase_in_map,
-                                    shuffle_out=True)
-            return phase_conv2d_grouped(x, self.weight, self.bias,
-                                        self.phase_in,
-                                        in_map=self.phase_in_map)
+        x = _cast(x, self.compute_dtype)
         if self.quantize == "qat":
             return fake_quant_conv2d(x, self.weight, self.bias,
                                      stride=self.stride[0])
         if self.quantize:
             return int8_conv2d(x, self.weight, self.bias,
                                stride=self.stride[0])
+        weight = _cast(self.weight, self.compute_dtype)
+        bias = _cast(self.bias, self.compute_dtype)
+        if self.phase_in > 1:
+            if self.subpixel_r > 1:
+                return phase_conv2d(x, weight, bias, self.phase_in,
+                                    in_map=self.phase_in_map,
+                                    shuffle_out=True)
+            return phase_conv2d_grouped(x, weight, bias, self.phase_in,
+                                        in_map=self.phase_in_map)
         r = self.subpixel_r
         h, w = x.shape[2], x.shape[3]
         if (r > 1 and self.stride[0] == 1 and h % r == 0 and w % r == 0
                 and self.out_channels * r * r <= 256):
-            return subpixel_conv2d(x, self.weight, self.bias, r)
-        return super().forward(x)
+            return subpixel_conv2d(x, weight, bias, r)
+        return self._conv_forward(x, weight, bias)
 
 
-def prelu() -> nn.PReLU:
+class Linear(nn.Linear):
+    """``nn.Linear`` with a ``compute_dtype`` (:func:`set_compute_dtype`),
+    as JAX's ``nn.Dense(dtype=...)``."""
+
+    compute_dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        return F.linear(_cast(x, cd), _cast(self.weight, cd),
+                        _cast(self.bias, cd))
+
+
+class PReLU(nn.PReLU):
+    """``nn.PReLU`` with the slope cast to the input's dtype, as JAX's
+    ``PReLU`` (a float32 slope in a bf16 net)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.weight.to(x.dtype))
+
+
+def prelu() -> PReLU:
     """PReLU with one shared slope, initial 0.25."""
-    return nn.PReLU(num_parameters=1, init=0.25)
+    return PReLU(num_parameters=1, init=0.25)
 
 
 class SEBlock(nn.Module):
@@ -145,9 +220,9 @@ class SEBlock(nn.Module):
     def __init__(self, channels: int, reduction: int = 16):
         super().__init__()
         hidden = channels // reduction
-        self.fc = nn.Sequential(nn.Linear(channels, hidden, bias=False),
+        self.fc = nn.Sequential(Linear(channels, hidden, bias=False),
                                 nn.ReLU(),
-                                nn.Linear(hidden, channels, bias=False))
+                                Linear(hidden, channels, bias=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.sigmoid(self.fc(spatial_mean(x)))
@@ -168,7 +243,7 @@ class AttentionResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r = self.se(self.conv2(self.prelu(self.conv1(x))))
-        return x + r * self.res_scale
+        return x + r * scalar_in(self.res_scale, r.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -282,9 +357,14 @@ class _SpectralNorm(nn.Module):
     copy: the JAX package threads the updated vectors from one apply into
     the next inside one differentiated loss (the D step's real then fake
     forward), so the second forward's sigma depends on the weight through
-    both iterations."""
+    both iterations.
+
+    The power iteration and sigma run in float32 on the float32
+    parameters; ``compute_dtype`` casts the layer's input, normalized
+    weight and bias, as JAX's ``SNConv``/``SNDense`` cast theirs."""
 
     eps = 1e-12
+    compute_dtype: torch.dtype | None = None
 
     def __init__(self, weight_shape: tuple, bias: bool):
         super().__init__()
@@ -324,8 +404,9 @@ class SNConv2d(_SpectralNorm):
         self.stride, self.padding = stride, (kernel_size - 1) // 2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight(), self.bias, self.stride,
-                        self.padding)
+        cd = self.compute_dtype
+        return F.conv2d(_cast(x, cd), _cast(self.weight(), cd),
+                        _cast(self.bias, cd), self.stride, self.padding)
 
 
 class SNLinear(_SpectralNorm):
@@ -336,7 +417,9 @@ class SNLinear(_SpectralNorm):
         super().__init__((out_features, in_features), bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight(), self.bias)
+        cd = self.compute_dtype
+        return F.linear(_cast(x, cd), _cast(self.weight(), cd),
+                        _cast(self.bias, cd))
 
 
 @contextlib.contextmanager

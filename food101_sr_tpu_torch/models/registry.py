@@ -4,10 +4,10 @@ blocks x 64 channels; AttentionSR 32 blocks x 96 channels; RRDB 23 RRDBs
 x 64 channels, growth 32), and the architecture of a state_dict read from
 its keys and tensor shapes.
 
-Each entry takes the scale and the JAX registry's ``quantize`` and
-``phase_tail`` flags as keywords; SRCNN has neither a body stack nor a
-tail, so it ignores ``phase_tail`` and ``get_model`` refuses it a
-``quantize`` mode.
+Each entry takes the scale and the JAX registry's ``quantize``,
+``phase_tail`` and dtype (``compute_dtype`` here) flags as keywords;
+SRCNN has neither a body stack nor a tail, so it ignores ``phase_tail``
+and ``get_model`` refuses it a ``quantize`` mode.
 """
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ from .rrdb import RRDBNet
 from .srcnn import SRCNN
 
 _REGISTRY = {
-    "SRCNN": lambda scale, quantize="", phase_tail=False: SRCNN(
-        scale_factor=scale, hidden_dim=64),
+    "SRCNN": lambda scale, quantize="", phase_tail=False, compute_dtype=None:
+    SRCNN(scale_factor=scale, hidden_dim=64, compute_dtype=compute_dtype),
     "RESNET": lambda scale, **flags: ResNetSR(
         scale_factor=scale, num_residuals=16, num_channels=64, **flags),
     "AttentionSR": lambda scale, **flags: AttentionSR(
@@ -64,8 +64,15 @@ def get_model(name: str, scale_factor: int = 4,
               dtype: torch.dtype = torch.float32,
               device: str | torch.device = "cuda",
               generator: torch.Generator | None = None,
-              quantize: str = "", phase_tail: bool = False) -> nn.Module:
+              quantize: str = "", phase_tail: bool = False,
+              compute_dtype: torch.dtype | None = None) -> nn.Module:
     """Registry model ``name`` with seeded random weights, on ``device``.
+
+    ``dtype`` is the parameters' dtype (a served bf16 net casts the whole
+    module once); ``compute_dtype`` keeps them in ``dtype`` and runs the
+    convs and linears in ``compute_dtype``, casting at each call, as the
+    JAX registry's ``dtype=`` does (bf16 training on float32 master
+    weights).
 
     ``quantize="int8"`` (or ``"int8_dot"``, the same computation here)
     runs the body convs of RESNET, AttentionSR and RRDB in dynamic int8
@@ -78,8 +85,8 @@ def get_model(name: str, scale_factor: int = 4,
         raise ValueError(f"Unknown architecture: {name}")
     _check_quantize(name, quantize)
     return build_model(lambda: _REGISTRY[name](
-        scale_factor, quantize=quantize, phase_tail=phase_tail), dtype,
-        device, generator)
+        scale_factor, quantize=quantize, phase_tail=phase_tail,
+        compute_dtype=compute_dtype), dtype, device, generator)
 
 
 def model_names() -> list[str]:
@@ -129,13 +136,15 @@ def _count(keys, prefix: str) -> int:
 def model_for_params(state_dict: dict, scale_factor: int = 4,
                      dtype: torch.dtype = torch.float32,
                      device: str | torch.device = "cuda",
-                     quantize: str = "", phase_tail: bool = False
+                     quantize: str = "", phase_tail: bool = False,
+                     compute_dtype: torch.dtype | None = None
                      ) -> nn.Module:
     """The generator matching ``state_dict``, with its widths and depths
     read from the tensor shapes (so non-registry variants load without
     flags) and the weights loaded strictly, on ``device`` in eval mode;
-    ``quantize`` and ``phase_tail`` as in :func:`get_model` (a QAT
-    checkpoint holds the float weights, so it loads unchanged).
+    ``quantize``, ``phase_tail`` and ``compute_dtype`` as in
+    :func:`get_model` (a QAT checkpoint holds the float weights, so it
+    loads unchanged).
 
     For the post-upsampling nets the checkpoint's upsample stages set the
     scale and override ``scale_factor``: each stage's factor comes from
@@ -149,7 +158,8 @@ def model_for_params(state_dict: dict, scale_factor: int = 4,
     sd = state_dict
     if arch == "SRCNN":
         hidden = sd["conv2.weight"].shape[0]
-        return _loaded(lambda: SRCNN(scale_factor, hidden), sd, dtype,
+        return _loaded(lambda: SRCNN(scale_factor, hidden,
+                                     compute_dtype=compute_dtype), sd, dtype,
                        device)
     # one conv (the only biased layer) per stage
     n_up = sum(1 for k in sd if k.startswith("upsample.")
@@ -171,12 +181,14 @@ def model_for_params(state_dict: dict, scale_factor: int = 4,
         blocks = _count(sd, "rrdb")
         return _loaded(lambda: RRDBNet(scale, nf, growth, blocks,
                                        quantize=quantize,
-                                       phase_tail=phase_tail),
+                                       phase_tail=phase_tail,
+                                       compute_dtype=compute_dtype),
                        sd, dtype, device)
     cls = AttentionSR if arch == "AttentionSR" else ResNetSR
     n_res = _count(sd, "res_blocks")
     return _loaded(lambda: cls(scale, nf, n_res, quantize=quantize,
-                               phase_tail=phase_tail), sd, dtype, device)
+                               phase_tail=phase_tail,
+                               compute_dtype=compute_dtype), sd, dtype, device)
 
 
 def _loaded(module_fn, state_dict: dict, dtype: torch.dtype,

@@ -6,14 +6,17 @@ global skip -> x2 stages [conv3x3(->4*64) -> PixelShuffle -> PReLU] ->
 conv9x9(64->3), or with ``phase_tail`` the same tail in phase space;
 ``quantize`` applies to the residual blocks' convs and the mid conv (the
 BatchNorms, head and tail stay full precision). The BatchNorms keep their parameters and running stats in
-float32 in any dtype (``layers.BatchNorm2d``), as the JAX package's do.
+float32 in any dtype (``layers.BatchNorm2d``), as the JAX package's do;
+``compute_dtype`` runs the convs in that dtype on float32 weights (JAX's
+``dtype=``), the BatchNorms normalizing in float32.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .layers import BatchNorm2d, Conv, ResidualBlock, prelu, upsample_tail
+from .layers import (BatchNorm2d, Conv, ResidualBlock, prelu,
+                     set_compute_dtype, upsample_tail)
 
 
 class ResNetSR(nn.Module):
@@ -28,7 +31,8 @@ class ResNetSR(nn.Module):
 
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
                  num_residuals: int = 16, quantize: str = "",
-                 phase_tail: bool = False):
+                 phase_tail: bool = False,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.scale_factor = scale_factor
         self.num_residuals = num_residuals
@@ -43,6 +47,7 @@ class ResNetSR(nn.Module):
         self.bn_mid = BatchNorm2d(num_channels)
         self.upsample, self.output_conv = upsample_tail(
             num_channels, scale_factor, phase_tail)
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.prelu(self.input_conv(

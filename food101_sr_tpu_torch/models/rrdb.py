@@ -17,14 +17,16 @@ starts ~66x the size of its input.
 The JAX package's ``split`` dense layout computes the same function
 rewritten per source to fill the TPU's MXU; the port runs ``concat`` and
 refuses ``split`` until an H100 A/B decides it (ROADMAP item 7a).
+``compute_dtype`` runs the convs in that dtype on float32 weights (JAX's
+``dtype=``).
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv, upsample_tail
+from .layers import (Conv, leaky_relu, scalar_in, set_compute_dtype,
+                     upsample_tail)
 
 
 class ResidualDenseBlock(nn.Module):
@@ -47,8 +49,9 @@ class ResidualDenseBlock(nn.Module):
         feats = [x]
         for conv in (self.conv1, self.conv2, self.conv3, self.conv4):
             inp = feats[0] if len(feats) == 1 else torch.cat(feats, 1)
-            feats.append(F.leaky_relu(conv(inp), 0.2))
-        return x + self.conv5(torch.cat(feats, 1)) * self.res_scale
+            feats.append(leaky_relu(conv(inp), 0.2))
+        out = self.conv5(torch.cat(feats, 1))
+        return x + out * scalar_in(self.res_scale, out.dtype)
 
 
 class RRDB(nn.Module):
@@ -64,7 +67,8 @@ class RRDB(nn.Module):
         self.dense3 = ResidualDenseBlock(channels, growth, res_scale, quantize)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.dense3(self.dense2(self.dense1(x))) * self.res_scale
+        r = self.dense3(self.dense2(self.dense1(x)))
+        return x + r * scalar_in(self.res_scale, r.dtype)
 
 
 class RRDBNet(nn.Module):
@@ -79,7 +83,8 @@ class RRDBNet(nn.Module):
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
                  growth: int = 32, num_blocks: int = 23,
                  dense_layout: str = "auto", quantize: str = "",
-                 phase_tail: bool = False):
+                 phase_tail: bool = False,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         if dense_layout == "split":
             raise NotImplementedError(
@@ -100,6 +105,7 @@ class RRDBNet(nn.Module):
                              quantize=quantize)
         self.upsample, self.output_conv = upsample_tail(
             num_channels, scale_factor, phase_tail)
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.input_conv(

@@ -7,6 +7,10 @@ reproduces), then relu(conv9x9(3->64)) -> relu(conv1x1(64->hidden)) ->
 conv5x5(hidden->3) at HR resolution. Kaiming fan_out init. The JAX
 ``conv3`` may take the ``subpixel_conv2d`` route, an exact rewrite for the
 TPU's lanes; the port runs the plain conv.
+
+``compute_dtype`` runs the convs in that dtype on float32 weights (JAX's
+``SRCNN(dtype=...)``): the upsample stays float32, the first conv casts,
+and the output comes out in the compute dtype.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv
+from .layers import Conv, set_compute_dtype
 
 
 class SRCNN(nn.Module):
@@ -26,12 +30,14 @@ class SRCNN(nn.Module):
     memory_format = torch.channels_last
 
     def __init__(self, scale_factor: int = 4, hidden_dim: int = 64,
-                 num_channels: int = 3):
+                 num_channels: int = 3,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.scale_factor = scale_factor
         self.conv1 = Conv(num_channels, 64, 9, fan="fan_out")
         self.conv2 = Conv(64, hidden_dim, 1, fan="fan_out")
         self.conv3 = Conv(hidden_dim, num_channels, 5, fan="fan_out")
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.contiguous(memory_format=self.memory_format)

@@ -22,11 +22,18 @@ discriminator, the VGG19 perceptual loss, a D step every 5 batches:
 supervised step on the VGG19 loss. ``--quantize qat`` trains RESNET,
 AttentionSR or RRDB with fake-quantized body convs (the float checkpoint
 it writes serves with ``--quantize int8``). The upsample tail runs in
-phase space unless ``--no_phase_tail`` (the same function and weights). A
-flag whose setting the port does not run yet is accepted by the parser
-and refused by ``train`` with a NotImplementedError that names the
-ROADMAP item bringing it: ``--dtype bfloat16``, ``--cache_*`` and the
-multi-process flags.
+phase space unless ``--no_phase_tail`` (the same function and weights).
+``--dtype bfloat16`` trains in bf16 on float32 master weights (Adam, the
+EMA and the checkpoints stay float32). ``--cache_device`` draws the
+batches from uint8 canvases in device memory; ``--cache_host DIR``
+decodes the dataset once into a canvas store under DIR and streams it,
+through a device window of canvases with ``--cache_host_reuse N``.
+
+    python -m food101_sr_tpu_torch.train --dataset synthetic \
+        --architecture RRDB --dtype bfloat16 --cache_device
+
+The multi-process flags are accepted by the parser and refused by
+``train`` with a NotImplementedError that names ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -64,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scale_factor", type=int, default=DEFAULTS["scale_factor"])
     p.add_argument("--dtype", type=str, default=DEFAULTS["dtype"],
                    choices=["float32", "bfloat16"],
-                   help="float32 (bfloat16: ROADMAP item 9c)")
+                   help="compute dtype of the nets; the parameters, Adam "
+                        "and the checkpoints stay float32")
     p.add_argument("--seed", type=int, default=DEFAULTS["seed"])
     p.add_argument("--weights_dir", type=str, default=DEFAULTS["weights_dir"])
     p.add_argument("--log_every", type=int, default=DEFAULTS["log_every"])
@@ -104,22 +112,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "weights and checkpoints")
     p.add_argument("--no_phase_tail", action="store_false", dest="phase_tail",
                    help="train with the materialized upsample tail")
-    # The device and canvas caches: ROADMAP item 9b.
+    # The device and canvas caches (data/device_cache.py, canvas_cache.py).
     p.add_argument("--cache_device", action="store_true",
                    default=DEFAULTS["cache_device"],
-                   help="ROADMAP item 9b (the device and canvas caches)")
+                   help="keep the dataset in device memory as uint8 "
+                        "canvases; crop and flip drawn there")
     p.add_argument("--cache_canvas", type=int,
-                   default=DEFAULTS["cache_canvas"])
+                   default=DEFAULTS["cache_canvas"],
+                   help="train canvas side (0: max(256, crop_size))")
     p.add_argument("--cache_budget_gb", type=float,
-                   default=DEFAULTS["cache_budget_gb"])
+                   default=DEFAULTS["cache_budget_gb"],
+                   help="refuse a device cache above this")
     p.add_argument("--cache_host", type=str, default=DEFAULTS["cache_host"],
-                   metavar="DIR")
+                   metavar="DIR",
+                   help="decode once into a canvas store under DIR (reused "
+                        "across runs) and stream it to the device")
     p.add_argument("--cache_host_budget_gb", type=float,
-                   default=DEFAULTS["cache_host_budget_gb"])
+                   default=DEFAULTS["cache_host_budget_gb"],
+                   help="refuse a disk store above this")
     p.add_argument("--cache_host_reuse", type=int,
-                   default=DEFAULTS["cache_host_reuse"], metavar="K")
+                   default=DEFAULTS["cache_host_reuse"], metavar="K",
+                   help="K>1: train from a device window of canvases, K "
+                        "draws per upload in expectation")
     p.add_argument("--cache_window", type=int,
-                   default=DEFAULTS["cache_window"], metavar="N")
+                   default=DEFAULTS["cache_window"], metavar="N",
+                   help="window size in canvases (0: auto)")
     p.add_argument("--use_wandb", type=lambda s: s.lower() in ("1", "true"),
                    default=DEFAULTS["use_wandb"], nargs="?", const=True,
                    help="force W&B on/off (default: auto, on iff wandb is "

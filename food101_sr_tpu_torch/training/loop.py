@@ -14,7 +14,12 @@ Each epoch's record also carries the input and step times: the train
 part's wall time and images/s (loader included), the step alone (CUDA
 events around each step on the card; the host clock on the CPU, where a
 step runs synchronously), the consumer's wait on the loader's queue per
-step and the producer's time per batch.
+step, the producer's time per batch and a cache's one-time build.
+
+``dtype="bfloat16"`` runs G (and the GAN's D) in bf16 on float32
+parameters: Adam, the EMA, the diagnostics, the guard and the checkpoints
+stay float32. ``cache_device`` and ``cache_host`` pick the input path
+(``data/device_cache.py``, ``data/canvas_cache.py``), as in JAX.
 """
 from __future__ import annotations
 
@@ -31,12 +36,13 @@ except ImportError:  # pragma: no cover
     def tqdm(it, **_kw):
         return it
 
-from ..data import Food101Source, SRDataLoader, SyntheticSource, prepare_batch
-from ..data import subset_indices, train_val_split
+from ..data import (DeviceCacheLoader, DeviceWindowLoader, Food101Source,
+                    HostCanvasLoader, SRDataLoader, SyntheticSource,
+                    prepare_batch, subset_indices, train_val_split)
 from ..losses import get_loss_function
 from ..metrics import MetricsCalculator
 from ..models import Discriminator, build_model, get_model
-from ..utils import RunLogger
+from ..utils import RunLogger, keyed_generator
 from .checkpoint import (load_checkpoint, load_train_checkpoint,
                          save_checkpoint, save_train_checkpoint,
                          warm_start_params)
@@ -64,7 +70,8 @@ DEFAULTS: dict[str, Any] = {
     "data_root": "./data",
     "crop_size": 200,
     "scale_factor": 4,
-    "dtype": "float32",
+    "dtype": "float32",         # float32 | bfloat16: the compute dtype of
+                                # G and D (float32 parameters either way)
     "seed": 0,
     "weights_dir": "weights",
     "log_every": 100,
@@ -82,13 +89,17 @@ DEFAULTS: dict[str, Any] = {
     "quantize": "",             # "qat": fake-quantized body convs (STE)
     "phase_tail": True,         # the upsample tail in phase space at LR
                                 # resolution (same function and weights)
-    "cache_device": False,
-    "cache_canvas": 0,
-    "cache_budget_gb": 4.0,
-    "cache_host": "",
-    "cache_host_budget_gb": 64.0,
-    "cache_host_reuse": 0,
-    "cache_window": 0,
+    "cache_device": False,      # the dataset as uint8 canvases in device
+                                # memory, batches drawn there
+                                # (data/device_cache.py)
+    "cache_canvas": 0,          # train canvas side (0: max(256, crop))
+    "cache_budget_gb": 4.0,     # refuse a device cache above this
+    "cache_host": "",           # directory of the disk canvas stores
+                                # (data/canvas_cache.py); empty: off
+    "cache_host_budget_gb": 64.0,  # refuse a disk store above this
+    "cache_host_reuse": 0,      # >1: train through the device window
+                                # loader, that many draws per upload
+    "cache_window": 0,          # window size in canvases (0: auto)
     "preempt_after_updates": 0,  # >0: a graceful preemption after that many
                                  # updates, the path a SIGTERM takes
     "coordinator": "",
@@ -99,16 +110,11 @@ DEFAULTS: dict[str, Any] = {
 
 # key -> (the values the port does not run, or None for "any value but
 # the default"; the ROADMAP item that brings it)
-_NOT_PORTED = {
-    "dtype": (("bfloat16",), "ROADMAP item 9c (bf16 training)"),
-    **{k: (None, "ROADMAP item 9b (the device and canvas caches)")
-       for k in ("cache_device", "cache_canvas", "cache_budget_gb",
-                 "cache_host", "cache_host_budget_gb", "cache_host_reuse",
-                 "cache_window")},
-    **{k: (None, "ROADMAP item 10 (multi-GPU)")
-       for k in ("coordinator", "num_processes", "process_id",
-                 "distributed")},
-}
+_NOT_PORTED = {k: (None, "ROADMAP item 10 (multi-GPU)")
+               for k in ("coordinator", "num_processes", "process_id",
+                         "distributed")}
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_ported(cfg: Mapping[str, Any]) -> None:
@@ -128,15 +134,6 @@ def _build_sources(cfg):
                 SyntheticSource(n=max(n // 4, 8), seed=cfg["seed"] + 100))
     return (Food101Source(cfg["data_root"], "train"),
             Food101Source(cfg["data_root"], "test"))
-
-
-def _noise_generator(seed: int, epoch: int, batch_idx: int,
-                    device: torch.device) -> torch.Generator:
-    """The D step's instance-noise generator, keyed by (seed, epoch,
-    batch), so that a resumed run replays the same noise."""
-    key = np.random.SeedSequence([seed, epoch, batch_idx]).generate_state(
-        2, np.uint64)[0]
-    return torch.Generator(device).manual_seed(int(key >> np.uint64(1)))
 
 
 def _mean(values):
@@ -196,12 +193,13 @@ def train(config: Mapping[str, Any] | None = None,
 
 
 def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
+    dtype = _DTYPES[cfg["dtype"]]
     scale = int(cfg["scale_factor"])
     crop = int(cfg["crop_size"])
     is_gan = cfg["loss_function"] == "gan"
     print(f"Running on {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'})"
-          f" | Arch: {cfg['architecture']}")
+          f" | Arch: {cfg['architecture']} | compute dtype {cfg['dtype']}")
 
     # --- data -----------------------------------------------------------
     train_source, test_source = _build_sources(cfg)
@@ -226,14 +224,36 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
             f"batch_size={batch} must be divisible by grad_accum={accum}")
     micro = batch // accum
 
+    if cfg.get("cache_device") and cfg.get("cache_host"):
+        raise ValueError("--cache_device and --cache_host are exclusive "
+                         "input paths; pick one")
+    canvas = int(cfg.get("cache_canvas") or 0) or None
+
     def _loader(source, indices, train):
         # drop-remainder loaders; the eval batch is clamped so that a tiny
         # subset still fills one batch. The train loader yields
         # microbatches (batch / grad_accum), position-keyed, so k of them
         # hold exactly the samples of the unsplit batch.
         b = micro if train else min(batch, max(len(indices), 1))
-        return SRDataLoader(source, indices, crop_size=crop, batch_size=b,
-                            train=train, seed=cfg["seed"], device=device)
+        kw = dict(crop_size=crop, batch_size=b, seed=cfg["seed"],
+                  device=device)
+        if cfg.get("cache_device"):
+            return DeviceCacheLoader(
+                source, indices, train=train, canvas=canvas,
+                max_cache_gb=float(cfg.get("cache_budget_gb") or 4.0), **kw)
+        if cfg.get("cache_host"):
+            store = dict(cache_dir=str(cfg["cache_host"]), canvas=canvas,
+                         max_store_gb=float(
+                             cfg.get("cache_host_budget_gb") or 64.0))
+            reuse = int(cfg.get("cache_host_reuse") or 0)
+            if train and reuse > 1:
+                return DeviceWindowLoader(
+                    source, indices, reuse=reuse,
+                    window=int(cfg.get("cache_window") or 0) or None,
+                    **store, **kw)
+            return HostCanvasLoader(source, indices, train=train, **store,
+                                    **kw)
+        return SRDataLoader(source, indices, train=train, **kw)
 
     train_loader = _loader(train_source, train_idx, True)
     val_loader = _loader(train_source, val_idx, False)
@@ -264,7 +284,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
     model = get_model(cfg["architecture"], scale_factor=scale, device=device,
                       generator=torch.Generator().manual_seed(cfg["seed"]),
                       quantize=quantize,
-                      phase_tail=bool(cfg.get("phase_tail")))
+                      phase_tail=bool(cfg.get("phase_tail")),
+                      compute_dtype=dtype)
     if cfg["pretrained_weights"]:
         loaded = load_checkpoint(cfg["pretrained_weights"], device)
         model.load_state_dict(warm_start_params(
@@ -285,7 +306,7 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
     d_state = None
     if is_gan:
         d_model = build_model(
-            Discriminator, device=device,
+            lambda: Discriminator(compute_dtype=dtype), device=device,
             generator=torch.Generator().manual_seed(cfg["seed"] + 2))
         # the plateau schedule sets G's learning rate only
         d_state = SRTrainState.create(d_model, make_adam(lr * 0.1))
@@ -365,8 +386,10 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                     if batch_idx % d_every == 0:
                         d_state, d_metrics = d_step(
                             state, d_state, hr_u8,
-                            _noise_generator(cfg["seed"] + 3, epoch,
-                                            batch_idx, device))
+                            # keyed by (seed, epoch, batch): a resumed
+                            # run replays the same noise
+                            keyed_generator(device, cfg["seed"] + 3, epoch,
+                                            batch_idx))
                     state, d_state, metrics = g_gan_step(state, d_state,
                                                          hr_u8)
                     logical_idx = batch_idx
@@ -452,6 +475,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                 "time/step_ms": clock.mean_ms(),
                 "time/loader_wait_ms": train_loader.wait_s / max(n_steps, 1) * 1e3,
                 "time/loader_produce_ms": train_loader.produce_s / max(n_steps, 1) * 1e3,
+                # a cache's one-time build (0 for the streaming loader)
+                "time/loader_setup_s": getattr(train_loader, "setup_s", 0.0),
             }
             print("   -> " + " | ".join(f"{k[5:]} {v:.3f}"
                                         for k, v in timing.items()))

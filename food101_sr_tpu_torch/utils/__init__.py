@@ -1,3 +1,4 @@
 from .logging import RunLogger
+from .rng import keyed_generator
 
-__all__ = ["RunLogger"]
+__all__ = ["RunLogger", "keyed_generator"]

@@ -14,6 +14,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 from PIL import Image
 
 from food101_sr_tpu.data import Food101Source as JaxFood101

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 import food101_sr_tpu.models.registry as jax_registry
 import food101_sr_tpu_torch.models.registry as registry

@@ -15,6 +15,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from food101_sr_tpu.data.pipeline import prepare_batch as jax_prepare_batch
 from food101_sr_tpu.losses import PerceptualLoss as JaxPerceptualLoss

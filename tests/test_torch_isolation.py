@@ -17,7 +17,9 @@ import torch
 
 import food101_sr_tpu_torch
 from food101_sr_tpu_torch import _build, native, predict, serve
-from food101_sr_tpu_torch.data import SRDataLoader
+from food101_sr_tpu_torch.data import (DeviceCacheLoader, DeviceWindowLoader,
+                                       HostCanvasLoader, SRDataLoader,
+                                       SyntheticSource)
 from food101_sr_tpu_torch.losses import PerceptualLoss, get_loss_function
 from food101_sr_tpu_torch.metrics import LPIPSAlex, MetricsCalculator
 from food101_sr_tpu_torch.models import (build_model, get_model,
@@ -32,9 +34,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
              "food101_sr_tpu")
 
 
-# the modules of the training, GAN, generator, serving and phase-tail and
-# quantization slices, named so the check cannot miss them
+# the modules of the training, GAN, generator, serving, phase-tail and
+# quantization, and cache slices, named so the check cannot miss them
 NEW_MODULES = ("food101_sr_tpu_torch.convert",
+               "food101_sr_tpu_torch.data.canvas_cache",
+               "food101_sr_tpu_torch.data.device_cache",
                "food101_sr_tpu_torch.data.pil_bicubic",
                "food101_sr_tpu_torch.data.pipeline",
                "food101_sr_tpu_torch.data.sources",
@@ -64,7 +68,9 @@ NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.training.schedule",
                "food101_sr_tpu_torch.training.state",
                "food101_sr_tpu_torch.training.steps",
-               "food101_sr_tpu_torch.utils.logging")
+               "food101_sr_tpu_torch.utils.logging",
+               "food101_sr_tpu_torch.utils.rng",
+               "food101_sr_tpu_torch.utils.term_sums")
 
 
 def _all_modules():
@@ -144,7 +150,9 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
 @pytest.mark.parametrize("entry", [get_model, build_model, model_for_params,
                                    SRServer,
                                    MetricsCalculator, LPIPSAlex, train,
-                                   SRDataLoader, PerceptualLoss,
+                                   SRDataLoader, DeviceCacheLoader,
+                                   HostCanvasLoader, DeviceWindowLoader,
+                                   PerceptualLoss,
                                    get_loss_function, serve.build_parser,
                                    predict.build_parser])
 def test_entry_points_default_to_cuda(entry):
@@ -180,6 +188,19 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
                  lambda: train({"dataset": "synthetic",
                                 "architecture": "RESNET",
                                 "quantize": "qat"}),
+                 lambda: train({"dataset": "synthetic", "dtype": "bfloat16"}),
+                 lambda: train({"dataset": "synthetic",
+                                "cache_device": True}),
+                 lambda: train({"dataset": "synthetic",
+                                "cache_host": str(tmp_path / "store")}),
+                 lambda: DeviceCacheLoader(SyntheticSource(n=4),
+                                           crop_size=32, batch_size=2),
+                 lambda: next(iter(HostCanvasLoader(
+                     SyntheticSource(n=4), crop_size=32, batch_size=2,
+                     cache_dir=str(tmp_path / "store")))),
+                 lambda: next(iter(DeviceWindowLoader(
+                     SyntheticSource(n=4), crop_size=32, batch_size=2,
+                     cache_dir=str(tmp_path / "store")))),
                  lambda: serve.main(["--architecture", "SRCNN", "--port",
                                      "0"]),
                  lambda: predict.main([str(tmp_path), "--out_dir",

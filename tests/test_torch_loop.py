@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 from PIL import Image
 
 import food101_sr_tpu.models.registry as jax_registry
@@ -610,10 +611,6 @@ def test_cli_dests_and_defaults_equal_the_root_cli(monkeypatch, argv):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dtype", "bfloat16"], ["--cache_device"],
-    ["--cache_canvas", "256"], ["--cache_budget_gb", "2"],
-    ["--cache_host", "store"], ["--cache_host_budget_gb", "8"],
-    ["--cache_host_reuse", "4"], ["--cache_window", "64"],
     ["--coordinator", "localhost:1234"], ["--num_processes", "2"],
     ["--process_id", "0"], ["--distributed", "auto"],
 ])
@@ -621,3 +618,42 @@ def test_cli_unported_flags_raise_naming_the_roadmap_item(flags):
     argv = ["--architecture", "AttentionSR", "--dataset", "synthetic", *flags]
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         main(argv)
+
+
+# the bf16 and cache flags, each reaching train() and running an epoch:
+# SRCNN on 24 synthetic images (2 steps of 8), crop 32; the cache flags
+# after the one that turns their cache on
+@pytest.mark.parametrize("flags", [
+    ["--dtype", "bfloat16"], ["--cache_device"],
+    ["--cache_device", "--cache_canvas", "48"],
+    ["--cache_device", "--cache_budget_gb", "2"],
+    ["--cache_host", "{store}"],
+    ["--cache_host", "{store}", "--cache_host_budget_gb", "8"],
+    ["--cache_host", "{store}", "--cache_host_reuse", "4"],
+    ["--cache_host", "{store}", "--cache_host_reuse", "2", "--cache_window",
+     "8"],
+], ids=lambda f: f[-2].lstrip("-") if len(f) > 1 and f[-1] != "{store}"
+    else f[0].lstrip("-"))
+def test_cli_bf16_and_cache_flags_train(flags, tmp_path, monkeypatch):
+    monkeypatch.setenv("FOOD101_SR_RUN_DIR", str(tmp_path / "runs"))
+    seen = {}
+
+    def on_cpu(config):
+        seen.update(config)
+        return train({**config, "synthetic_size": 24}, device="cpu")
+
+    monkeypatch.setattr(cli, "train", on_cpu)
+    flags = [f.format(store=tmp_path / "store") for f in flags]
+    out = main(["--dataset", "synthetic", "--crop_size", "32",
+                "--batch_size", "8", "--epochs", "1", "--log_every", "1",
+                "--weights_dir", str(tmp_path / "w"), "--use_wandb",
+                "false", *flags])
+    assert all(np.isfinite(v) for v in out.values())
+    for flag, value in zip(flags, [*flags[1:], None]):
+        key = flag[2:]
+        if flag.startswith("--") and key != "cache_device":
+            assert seen[key] == type(seen[key])(value), key
+    assert seen["cache_device"] == ("--cache_device" in flags)
+    if "--cache_host" in flags:
+        assert any(p.name.startswith("canvas_")
+                   for p in (tmp_path / "store").iterdir())

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from food101_sr_tpu.losses import get_loss_function as jax_get_loss_function
 from food101_sr_tpu.losses import mae_loss as jax_mae

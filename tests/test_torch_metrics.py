@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from food101_sr_tpu.losses.nlpd import laplacian_pyramid as jax_pyramid
 from food101_sr_tpu.losses.nlpd import nlpd_loss as jax_nlpd

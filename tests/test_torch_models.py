@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from food101_sr_tpu.models import get_model as jax_get_model
 from food101_sr_tpu.models.attention_sr import AttentionSR as JaxAttentionSR

@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from food101_sr_tpu.ops.pixel_shuffle import pixel_shuffle as jax_pixel_shuffle
 from food101_sr_tpu.ops import resize as jax_resize

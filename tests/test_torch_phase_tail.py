@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from food101_sr_tpu.models import model_for_params as jax_model_for_params
 from food101_sr_tpu.models.attention_sr import AttentionSR as JaxAttentionSR

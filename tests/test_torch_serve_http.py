@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 from PIL import Image
 
 from food101_sr_tpu.models.attention_sr import AttentionSR as JaxAttentionSR

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from food101_sr_tpu.models.attention_sr import AttentionSR as JaxAttentionSR
 from food101_sr_tpu.parallel.spatial import plan_windows as jax_plan_windows

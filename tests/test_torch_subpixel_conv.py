@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 import torch.nn.functional as F
 
 from food101_sr_tpu.ops import subpixel_conv as jsub

@@ -14,6 +14,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 from torch import nn
 
 from food101_sr_tpu.data.pipeline import prepare_batch as jax_prepare_batch
