@@ -191,7 +191,29 @@ Phases, one short line each; any failure raises and the exit code is 1:
           K2 nhwc 32 a step, the loss falling on one batch; then
           train(quantize="qat") for one epoch of the loop's settings, its
           launches against the closed form and its losses finite
-16. done  the kernels' JSON line and the elapsed time
+16. dp    multi-GPU paths, after the quant phase: the one-process step
+          of registry AttentionSR x4 and ResNetSR on 2 crops (TF32 off,
+          term sums on the card) is saved; two child processes
+          (``chip_smoke.py --dp RANK PORT DIR``) form a group from the
+          explicit flags on the one card (gloo: NCCL refuses two ranks on
+          one device) and each holds K1 and K2 at its shapes against their
+          plain versions, steps on its crop, averages the gradients and
+          holds them against the one-process step (and ResNetSR's global
+          BatchNorm running stats), times its step at a global batch of
+          16 of 200^2 (8 a rank: step ms, the gradient all-reduce alone,
+          peak memory, K1 8 and K2 32 a step); then train() of AttentionSR
+          on both ranks (crop 96, global batch 4, 18 updates an epoch),
+          uninterrupted (counted from zero), preempted on rank 0 alone at
+          update 10 (both ranks stop after update 16, the first
+          agreement) and resumed bit-equal, one checkpoint writer and one
+          log; a third child (``--dp-one PORT DIR``) runs the same train()
+          alone and from the flags of a group of one under NCCL, bit-equal,
+          and gives the one-rank images/s; here, halo_sharded_apply and
+          tiled_forward_for of the registry AttentionSR over a mesh of
+          cuda:0 four times, float32 with TF32 off, within 1 level of the
+          whole image, K2 at the halo windows' shape, and
+          SRServer(use_mesh=True) bit-equal to the plain server
+17. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
@@ -211,7 +233,9 @@ train(quantize="qat") (``qat_loop_launches``), one bf16 train step of
 each generator (``bf16_launches``) and the loop child's bf16 and cache
 runs (``bf16_loop_launches``, ``cache_device_loop_launches``,
 ``cache_host_loop_launches``, ``cache_host_reopened_loop_launches``,
-``cache_host_reuse_loop_launches``, ``bf16_cache_device_loop_launches``).
+``cache_host_reuse_loop_launches``, ``bf16_cache_device_loop_launches``),
+each dp rank's uninterrupted train() (``dp_launches``) and the halo-sharded
+forward (K2 NHWC 32 per window: ``halo_launches``).
 The last line is the JSON device record;
 the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -310,22 +334,11 @@ RRDB_GAN_LOOP_CFG = {**GAN_LOOP_CFG, "architecture": "RRDB"}
 # a profile of BF16_PROFILED; one bf16 step's raw gradients on GRAD_BATCH
 # crops held against the card's own float32 step (TF32 off), per leaf over
 # its largest sum of absolute terms (utils/term_sums.py, from the float32
-# pass), within BF16_GRAD_TOL. The bounds are calibrated on the CPU from
-# the bf16-vs-float32 distances of the JAX package's narrow nets and of
-# the port's (tests/test_torch_bf16.py), twice over and rounded up to a
-# power of two. BF16_GRAD_TOL, float rounding alone: per leaf the smaller
-# of the two packages' distances (they differ most at the leaves JAX sums
-# in bf16: SRCNN's conv biases, 0.53), at worst 0.050 (ResNetSR; the GAN
-# steps 0.038 D, 0.039 G). It holds the supervised steps, and the bf16
-# GAN steps with the float32 steps' activation branches applied. The GAN
-# steps as they run are held to BF16_GAN_TOL, calibrated by the larger
-# of the two distances, 0.066 (JAX's G step at an SE block's first
-# weight): an activation input near 0 takes the other branch in bf16, and
-# where its layer is small (an SE block's 6 hidden units, D's 100) one
-# such element moves a leaf by a fair share of its term sum at 2 crops
+# pass), within BF16_GRAD_TOL; the GAN steps as they run within
+# BF16_GAN_TOL. Both bounds live in utils/term_sums.py, which says how
+# tests/test_torch_bf16.py calibrates them
 BF16_ARCHS = ("SRCNN", "RESNET", "AttentionSR", "RRDB")
 BF16_WARMUP, BF16_TIMED, BF16_PROFILED = 2, 5, 2
-BF16_GRAD_TOL, BF16_GAN_TOL = 2.0 ** -3, 2.0 ** -2
 # the loop child's bf16 and cache runs (phase_caches): the cache_device
 # and window runs preempted after CACHE_PREEMPT updates and resumed; the
 # keys of the runs' launches in the kernels line
@@ -406,6 +419,49 @@ QAT_LOOP_CFG = {**LOOP_CFG, "quantize": "qat", "epochs": 1}
 # summed over every negative activation of a layer cancels far below its
 # terms)
 QAT_GRAD_TOL = 2e-2
+# the dp phase: data-parallel training in DP_RANKS processes of their own
+# on the one card (two ranks share it, so the backend is gloo: NCCL refuses
+# two ranks on one device). The step check: DP_ARCHS at registry size, one
+# step's raw gradients on GRAD_BATCH crops (one per rank), averaged over the
+# ranks, against the one-process step on the same crops (TF32 off), with
+# the one-process forward's activation branches (ReLU, PReLU: each input's
+# sign) applied, within GRAD_TOL of each leaf's term sum (ResNetSR:
+# GRAD_TOL of the term sum or G_GRAD_TOL of the max abs, as the
+# generators phase); as run, within GRAD_TOL of a term sum, or
+# DP_AS_RUN_TOL where some input next to 0 took the other branch at the
+# other batch split (runs on an H100 80GB HBM3 read 1.0e-4, AttentionSR,
+# and 8.5e-4, ResNetSR, with 5-6 elements flipped per rank); K1 and K2
+# at the shapes of each rank's step and train(); ResNetSR's running stats
+# within BUF_TOL; then each rank's step at a global batch of
+# DP_STEP_BATCH crops of TRAIN_CROP (DP_WARMUP + DP_TIMED steps under CUDA
+# events), its gradient all-reduce alone, its peak memory and launches.
+# train() on the ranks: DP_LOOP_CFG (80 images: 72 train, 18 updates of a
+# global 4 an epoch, at least the agreement's 16; 8 val images, 2 batches;
+# 20 test images, 5 batches), uninterrupted, then preempted on rank 0 alone
+# after DP_PREEMPT updates (both ranks stop after update 16, the first
+# agreement), then resumed
+DP_RANKS, DP_ARCHS = 2, ("AttentionSR", "RESNET")
+DP_AS_RUN_TOL = 4e-3
+DP_STEP_BATCH, DP_WARMUP, DP_TIMED, DP_ALLREDUCE = 16, 2, 5, 5
+DP_LOOP_CFG = dict(dataset="synthetic", architecture="AttentionSR",
+                   synthetic_size=80, crop_size=96, batch_size=4,
+                   loss_function="nlpd", lr=4e-4, ema=0.999, epochs=1, seed=0,
+                   log_every=1, use_wandb=False)
+DP_PREEMPT, DP_SYNC = 10, 16
+# the spatial paths over a local mesh of the card DP_MESH times (JAX's
+# tests pass virtual CPU devices the same way): halo_sharded_apply of the
+# registry AttentionSR on a DP_HALO_SHAPE LR image (slabs of 160 x 160, 2 *
+# its halo of 80 rows), tiled_forward_for at DP_TILED_SHAPE (tile DP_TILE,
+# the largest that divides both sides), float32 with TF32 off, each within
+# LEVEL_TOL of the whole-image forward; SRServer(use_mesh=True) at
+# max_batch DP_MESH * 2 against the plain server at 2 rows, bit for bit.
+# AttentionSR's SE blocks squeeze each window's mean, so a window's output
+# depends on the window, the less the more pixels it holds: on the CPU
+# (seeded registry weights) 640 x 160 reads 1 level from the whole image,
+# 640 x 32 reads 2; the narrow image's levels are printed, not held
+DP_MESH, DP_TILED_SHAPE, DP_TILE = 4, (200, 152), 8
+DP_HALO_SHAPE, DP_HALO_NARROW = (640, 160), (640, 32)
+DP_SERVE_REQUESTS = 16
 
 
 def jpeg_test_image(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
@@ -1902,6 +1958,8 @@ def phase_bf16(rates) -> tuple[dict, dict, dict]:
     bf16 step's shapes, and the bf16 GAN steps. Returns the K1 and K2
     records of the bf16 train step, launches per step included, and the
     plane K2 entry's launches in each net's bf16 step."""
+    from food101_sr_tpu_torch.utils.term_sums import BF16_GRAD_TOL
+
     t0 = time.perf_counter()
     k1, k2 = _bf16_kernels(rates)
     print(f"bf16 kernels: K1 on bf16 pred's pyramid "
@@ -2000,6 +2058,9 @@ def _bf16_gan() -> dict:
     other branch than in the float32 steps counted (``_branches``), also
     at the activation after each worst leaf's layer; then with the float32
     steps' branches applied in the bf16 steps, within BF16_GRAD_TOL."""
+    from food101_sr_tpu_torch.utils.term_sums import (BF16_GAN_TOL,
+                                                      BF16_GRAD_TOL)
+
     from food101_sr_tpu_torch.losses import PerceptualLoss
     from food101_sr_tpu_torch.models import (Discriminator, build_model,
                                              get_model)
@@ -2614,15 +2675,16 @@ def _trace_busy(path: str) -> tuple[float, float]:
     return busy / 1e3, span / 1e3
 
 
-def _loop_batches(n: int | None = None, n_test: int | None = None) -> dict:
-    """Batch counts and sizes of the loop phase's loaders, from LOOP_CFG by
-    train()'s own rules: a 10% val split of the n training images, a test
-    source of n_test images (the synthetic source's n // 4 by default),
-    and eval batches clamped to the split."""
+def _loop_batches(n: int | None = None, n_test: int | None = None,
+                  cfg: dict = LOOP_CFG) -> dict:
+    """Batch counts and sizes of a loop's loaders, from ``cfg`` (the loop
+    phase's by default) by train()'s own rules: a 10% val split of the n
+    training images, a test source of n_test images (the synthetic
+    source's n // 4 by default), and eval batches clamped to the split."""
     from food101_sr_tpu_torch.data import subset_indices, train_val_split
 
-    seed, batch = LOOP_CFG["seed"], LOOP_CFG["batch_size"]
-    n = LOOP_CFG["synthetic_size"] if n is None else n
+    seed, batch = cfg["seed"], cfg["batch_size"]
+    n = cfg["synthetic_size"] if n is None else n
     train_idx, val_idx = train_val_split(subset_indices(n, 1.0, seed), 0.1,
                                          seed + 1)
     n_test = max(n // 4, 8) if n_test is None else n_test
@@ -2630,6 +2692,26 @@ def _loop_batches(n: int | None = None, n_test: int | None = None) -> dict:
     return {"steps": len(train_idx) // batch, "val_batch": val_b,
             "val": len(val_idx) // val_b, "test_batch": test_b,
             "test": n_test // test_b}
+
+
+def _kernels_at(crop: int, batches, where: str, seed: int = 9) -> tuple:
+    """K1 (forward and backward) on the NLPD pyramids of pred and target
+    at each batch of ``batches`` (2b, 3, {crop .. crop/8}^2) and the NHWC
+    K2 entry on the SE squeeze (b, 96, crop/4, crop/4), against their
+    plain versions; raises past K1_TOL or K2_RTOL. Returns the largest
+    errors (K1 abs, K2 abs, K2 relative) and the inputs by batch."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pyrs = {b: [torch.rand((2 * b, 3, crop >> i, crop >> i), device="cuda",
+                           generator=gen) for i in range(4)] for b in batches}
+    err1 = max(_k1_err(pyr, gen) for pyr in pyrs.values())
+    rel2, err2, xs = 0.0, 0.0, {}
+    for b in batches:
+        r, e, xs[b] = _k2_nhwc_err((b, 96, crop // 4, crop // 4), gen)
+        rel2, err2 = max(rel2, r), max(err2, e)
+    if not (err1 <= K1_TOL and rel2 <= K2_RTOL):
+        raise AssertionError(f"at {where} shapes K1 is off by {err1}, "
+                             f"K2 nhwc by {rel2} relative")
+    return err1, err2, rel2, pyrs, xs
 
 
 def _loop_kernels(nb: dict, rates) -> dict:
@@ -2640,17 +2722,7 @@ def _loop_kernels(nb: dict, rates) -> dict:
     shapes are the train phase's)."""
     crop, batch = LOOP_CFG["crop_size"], LOOP_CFG["batch_size"]
     batches = sorted({batch, nb["val_batch"], nb["test_batch"]})
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    pyrs = {b: [torch.rand((2 * b, 3, crop >> i, crop >> i), device="cuda",
-                           generator=gen) for i in range(4)] for b in batches}
-    err1 = max(_k1_err(pyr, gen) for pyr in pyrs.values())
-    rel2, err2, xs = 0.0, 0.0, {}
-    for b in batches:
-        r, e, xs[b] = _k2_nhwc_err((b, 96, crop // 4, crop // 4), gen)
-        rel2, err2 = max(rel2, r), max(err2, e)
-    if not (err1 <= K1_TOL and rel2 <= K2_RTOL):
-        raise AssertionError(f"at the loop's shapes K1 is off by {err1}, "
-                             f"K2 nhwc by {rel2} relative")
+    err1, err2, rel2, pyrs, xs = _kernels_at(crop, batches, "the loop's")
     vb = nb["val_batch"]
     t1, t2 = _k1_timings(pyrs[vb], rates), _k2_nhwc_timings(xs[vb], rates)
     sides = ",".join(str(crop >> i) for i in range(4))
@@ -3743,6 +3815,542 @@ def phase_quant() -> dict:
                                      qat["launches"])), **numbers}
 
 
+def _dp_reference(tmp: str) -> None:
+    """The one-process step of each DP_ARCHS net on GRAD_BATCH seeded
+    crops on the card, TF32 off: its raw gradients, the term sums of its
+    leaves (recorded on the card), the buffers after it; saved under
+    ``tmp`` for the ranks."""
+    from food101_sr_tpu_torch.losses import nlpd_loss
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.ops import full_fp32
+    from food101_sr_tpu_torch.training import loss_and_grads
+    from food101_sr_tpu_torch.utils.term_sums import term_sums
+
+    hr = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (GRAD_BATCH, TRAIN_CROP, TRAIN_CROP, 3), np.uint8))
+    for arch in DP_ARCHS:
+        model = get_model(arch, device="cuda", phase_tail=True,
+                          generator=torch.Generator().manual_seed(0))
+        rec: dict = {}
+        with full_fp32(), term_sums(model, {}) as sums, \
+                _branches({"": model}, rec, "record", {}):
+            _, grads = loss_and_grads(model, nlpd_loss, 4, hr.cuda())
+        torch.save({"hr": hr, "grads": [g.cpu() for g in grads],
+                    "sums": sums, "buffers": {k: b.cpu() for k, b in
+                                              model.named_buffers()},
+                    "masks": {n: [m.cpu() for m in ms]
+                              for n, ms in rec["masks"].items()}},
+                   os.path.join(tmp, f"dp_ref_{arch}.pt"))
+
+
+def _dp_step_checks(rank: int, tmp: str) -> dict:
+    """A rank's part of the step check (module docstring, dp): K1 and K2
+    at the rank's shapes against their plain versions; per DP_ARCHS net
+    the averaged raw gradients on the rank's crop against the one-process
+    step's, the running stats, and the timed step at DP_STEP_BATCH."""
+    from food101_sr_tpu_torch.losses import nlpd_loss
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.ops import full_fp32
+    from food101_sr_tpu_torch.parallel import data_sharding, distributed
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               loss_and_grads, make_adam,
+                                               make_train_step)
+
+    local = DP_STEP_BATCH // DP_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(9 + rank)
+    sides = [TRAIN_CROP >> i for i in range(4)]
+    err1 = _k1_err([torch.rand((2 * local, 3, s, s), device="cuda",
+                               generator=gen) for s in sides], gen)
+    rel2, err2, _ = _k2_nhwc_err((local, 96, TRAIN_CROP // 4,
+                                  TRAIN_CROP // 4), gen)
+    if not (err1 <= K1_TOL and rel2 <= K2_RTOL):
+        raise AssertionError(f"dp rank {rank}: K1 off by {err1}, K2 nhwc "
+                             f"by {rel2} relative")
+    out = {"k1_max_abs_err": err1, "k2_max_abs_err": err2, "nets": {}}
+    hr_big = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (DP_STEP_BATCH, TRAIN_CROP, TRAIN_CROP, 3), np.uint8))
+    for arch in DP_ARCHS:
+        ref = torch.load(os.path.join(tmp, f"dp_ref_{arch}.pt"),
+                         weights_only=False)
+        # this rank's rows of the one-process step's activation branches
+        rec = {"masks": {n: [data_sharding(m) for m in ms]
+                         for n, ms in ref["masks"].items()}}
+        hr = data_sharding(ref["hr"]).contiguous().cuda()
+        runs, kinks = {}, {}
+        for mode in ("compare", "replay"):
+            model = get_model(arch, device="cuda", phase_tail=True,
+                              generator=torch.Generator().manual_seed(0))
+            stats: dict = {}
+            with full_fp32(), _branches({"": model}, rec, mode, stats):
+                loss, grads = loss_and_grads(model, nlpd_loss, 4, hr)
+                distributed.all_reduce_mean_([*grads, loss])
+            names = [k for k, _ in model.named_parameters()]
+            runs[mode] = _worst(names, grads, ref["grads"], ref["sums"])
+            if mode == "compare":
+                kinks = stats
+                bufs = {k: b for k, b in model.named_buffers()
+                        if k.endswith(("running_mean", "running_var"))}
+                buf = max((((b.cpu() - ref["buffers"][k]).abs().max()
+                            / ref["buffers"][k].abs().max()).item()
+                           for k, b in bufs.items()), default=0.0)
+        # as in the train phase, float rounding alone with the branches
+        # shared; as run, an activation input next to 0 may take the other
+        # branch at the other batch split, allowed past GRAD_TOL (to
+        # DP_AS_RUN_TOL of a term sum) only when some rank counted such an
+        # element
+        flipped = distributed.agree(kinks["kinks"] > 0, "cuda")
+        worst, as_run = runs["replay"], runs["compare"]
+        within = (worst["term_sum"][0] <= GRAD_TOL if arch == "AttentionSR"
+                  else worst["either"][0] <= 1.0)
+        ok = within and (as_run["term_sum"][0] <= GRAD_TOL or (
+            flipped and as_run["term_sum"][0] <= DP_AS_RUN_TOL))
+        if not (ok and buf <= BUF_TOL):
+            raise AssertionError(
+                f"dp rank {rank} {arch}: averaged gradients against the "
+                f"one-process step: branches shared {worst['term_sum']} of a "
+                f"term sum ({worst['either']} of the tolerance), as run "
+                f"{as_run['term_sum']} with {kinks['kinks']} of "
+                f"{kinks['branches']} branches flipped; running stats {buf}")
+        # the timed step: a fresh state at the global batch, this rank's
+        # share of it
+        model = get_model(arch, device="cuda", phase_tail=True,
+                          generator=torch.Generator().manual_seed(0))
+        state = SRTrainState.create(model, make_adam(TRAIN_LR))
+        step = make_train_step(model, nlpd_loss, 4, *FIRST_LAST[arch])
+        hr = data_sharding(hr_big).contiguous().cuda()
+        for _ in range(DP_WARMUP):
+            step(state, hr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DP_TIMED + 1)]
+        ev[0].record()
+        _zero_counts()
+        for i in range(DP_TIMED):
+            state, m = step(state, hr)
+            if i == 0:
+                launches = _counts()
+            ev[i + 1].record()
+        ev[-1].synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(DP_TIMED)]
+        grads = [p.grad for p in state.params]
+        a0, a1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a0.record()
+        for _ in range(DP_ALLREDUCE):
+            distributed.all_reduce_mean_(grads)
+        a1.record()
+        a1.synchronize()
+        out["nets"][arch] = {
+            "grad_term_sum": worst["term_sum"], "grad_max_abs":
+            worst["max_abs"], "grad_either": worst["either"],
+            "as_run_term_sum": as_run["term_sum"],
+            "as_run_either": as_run["either"],
+            "branches_flipped": kinks["kinks"],
+            "branches": kinks["branches"],
+            "running_stats": buf, "step_ms": float(np.mean(ms)),
+            "step_ms_min": min(ms), "step_ms_max": max(ms),
+            "allreduce_ms": a0.elapsed_time(a1) / DP_ALLREDUCE,
+            "allreduce_bytes": sum(g.numel() * 4 for g in grads),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {"K1": launches[0], "K2 nhwc": launches[1],
+                         "K2 nchw": launches[2]},
+            "loss": float(m["train_loss"])}
+        want_k2 = model.num_residuals if arch == "AttentionSR" else 0
+        if launches != (8, want_k2, 0):
+            raise AssertionError(f"dp rank {rank} {arch}: one step launched "
+                                 f"(K1, K2 nhwc, K2 plane) {launches}")
+        print(f"dp rank {rank} {arch}: averaged gradients, branches "
+              f"shared, {worst['term_sum'][0]:.3g} of a term sum at "
+              f"{worst['term_sum'][1]} (tol {GRAD_TOL}); as run "
+              f"{as_run['term_sum'][0]:.3g} at {as_run['term_sum'][1]}, "
+              f"{kinks['kinks']} of {kinks['branches']} branches flipped "
+              f"on this rank; running stats "
+              f"{buf:.2g} | step of {local} crops ({DP_STEP_BATCH} global) "
+              f"{out['nets'][arch]['step_ms']:.3f} ms, all-reduce of "
+              f"{out['nets'][arch]['allreduce_bytes'] / 2**20:.1f} MiB "
+              f"{out['nets'][arch]['allreduce_ms']:.3f} ms, peak "
+              f"{out['nets'][arch]['peak_bytes'] / 2**30:.3f} GiB, launches "
+              f"{launches}", flush=True)
+    return out
+
+
+def _dp_runs(w: str) -> dict:
+    """The state files of the uninterrupted and the resumed run must be
+    equal, leaf for leaf; the checkpoints and logs written are rank 0's
+    alone. Reads what the ranks wrote under ``w`` and the run directory."""
+    from food101_sr_tpu_torch.training import load_checkpoint
+
+    full = _flat(load_checkpoint(os.path.join(w, "dpA_last.pth")))
+    resumed = _flat(load_checkpoint(os.path.join(w, "dpC_last.pth")))
+    part = load_checkpoint(os.path.join(w, "dpB_last.pth"))["host"]
+    diff = sorted(set(full) ^ set(resumed)) or [
+        k for k in full if not _same(full[k], resumed[k])]
+    if diff:
+        raise AssertionError(f"dp: the resumed state differs from the "
+                             f"uninterrupted one at {diff[:5]}")
+    if (part["epoch"], part["batch"]) != (0, DP_SYNC):
+        raise AssertionError(f"dp: the preempted run saved {part}")
+    files = sorted(os.listdir(w))
+    want = sorted(f"{n}_{k}.pth" for n in ("dpA", "dpB", "dpC")
+                  for k in ("best", "last") if (n, k) != ("dpB", "best"))
+    if files != want:
+        raise AssertionError(f"dp: checkpoint files {files}, want {want}")
+    return {"tensors": sum(isinstance(t, torch.Tensor)
+                           for t in full.values())}
+
+
+def _dp_loop_kernels(rank: int) -> dict:
+    """K1 and K2 against their plain versions at the shapes a rank's
+    train() gives them (DP_LOOP_CFG: its share of the train, val and test
+    batches)."""
+    nb = _loop_batches(cfg=DP_LOOP_CFG)
+    crop = DP_LOOP_CFG["crop_size"]
+    batches = sorted({b // DP_RANKS for b in (
+        DP_LOOP_CFG["batch_size"], nb["val_batch"], nb["test_batch"])})
+    err1, err2, rel2, _, _ = _kernels_at(crop, batches, f"dp rank {rank}'s "
+                                         "train()", seed=29 + rank)
+    sides = ",".join(str(crop >> i) for i in range(4))
+    print(f"dp rank {rank} train() kernels: K1 fwd+bwd at "
+          f"({','.join(str(2 * b) for b in batches)},3,{{{sides}}}^2) f32 "
+          f"max_abs_err {err1:.3g} (tol {K1_TOL}) | K2 nhwc at "
+          f"({','.join(map(str, batches))},96,{crop // 4},{crop // 4}) rel "
+          f"err {rel2:.2g} (tol {K2_RTOL})", flush=True)
+    return {"k1_max_abs_err": err1, "k2_max_abs_err": err2,
+            "k2_rel_err": rel2, "batches": batches}
+
+
+def _dp_train(rank: int, tmp: str) -> dict:
+    """A rank's train() runs (module docstring, dp), deterministic; the
+    uninterrupted one counted from zero."""
+    from food101_sr_tpu_torch.training import train
+
+    _deterministic()
+    w = os.path.join(tmp, "w")
+    cfg = {**DP_LOOP_CFG, "weights_dir": w}
+    # ---- main path: train() on two ranks, counts from zero ----
+    _zero_counts()
+    full = train({**cfg, "save_name": "dpA", "run_name": "dpA"})
+    launches = _counts()
+    # ---- end of main path ----
+    part = train({**cfg, "save_name": "dpB", "run_name": "dpB",
+                  **({"preempt_after_updates": DP_PREEMPT} if rank == 0
+                     else {})})
+    resumed = train({**cfg, "save_name": "dpC", "run_name": "dpC",
+                     "resume": os.path.join(w, "dpB_last.pth")})
+    if not (part.get("preempted") and resumed == full
+            and all(np.isfinite(list(full.values())))):
+        raise AssertionError(f"dp rank {rank}: runs {full}, {part}, "
+                             f"{resumed}")
+    return {"final": full, "launches": {"K1": launches[0],
+                                        "K2 nhwc": launches[1],
+                                        "K2 nchw": launches[2]}}
+
+
+def dp_rank_main(rank: int, port: str, tmp: str) -> int:
+    """Entry of a dp rank's process (``chip_smoke.py --dp RANK PORT
+    DIR``): the group from the explicit flags, the step check, train()."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from food101_sr_tpu_torch.parallel import distributed
+
+    os.environ["FOOD101_SR_RUN_DIR"] = os.path.join(tmp, "runs")
+    distributed.maybe_initialize(f"localhost:{port}", DP_RANKS, rank,
+                                 device="cuda")
+    out = {"backend": dist.get_backend(), "step": _dp_step_checks(rank, tmp)}
+    out["loop_kernels"] = _dp_loop_kernels(rank)
+    out["train"] = _dp_train(rank, tmp)
+    with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_one_main(port: str, tmp: str) -> int:
+    """Entry of the world of 1's process (``chip_smoke.py --dp-one PORT
+    DIR``): train() alone, then train() from the explicit flags of a group
+    of one (NCCL: the rank has the card to itself) and one NCCL all-reduce;
+    the two runs' checkpoints must be bit-equal."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from food101_sr_tpu_torch.training import load_checkpoint, train
+
+    _deterministic()
+    os.environ["FOOD101_SR_RUN_DIR"] = runs = os.path.join(tmp, "runs1")
+    w = os.path.join(tmp, "w1")
+    cfg = {**DP_LOOP_CFG, "weights_dir": w}
+    plain = train({**cfg, "save_name": "one", "run_name": "one"})
+    group = train({**cfg, "save_name": "one_nccl", "run_name": "one_nccl",
+                   "coordinator": f"localhost:{port}", "num_processes": 1,
+                   "process_id": 0})
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    diff = []
+    for n in ("best", "last"):
+        a, b = (_flat(load_checkpoint(os.path.join(w, f"{s}_{n}.pth")))
+                for s in ("one", "one_nccl"))
+        if a.keys() != b.keys() or not all(_same(a[k], b[k]) for k in a):
+            diff.append(n)
+    if diff or plain != group or dist.get_backend() != "nccl" or \
+            one.item() != 1.0:
+        raise AssertionError(f"dp world of 1: checkpoints {diff} differ, "
+                             f"finals {plain} {group}, backend "
+                             f"{dist.get_backend()}, all-reduce {one.item()}")
+    with open(os.path.join(runs, "one", "log.jsonl")) as f:
+        ep = [r for r in map(json.loads, f) if "epoch" in r][0]
+    with open(os.path.join(tmp, "dp_one.json"), "w") as f:
+        json.dump({"images_per_s": ep["time/images_per_s"],
+                   "step_ms": ep["time/step_ms"], "final": plain}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_children(tmp: str) -> tuple[list, dict]:
+    """The ranks' processes, then the world of 1's, each with the loop
+    phase's cuBLAS setting and its output in a file of its own (the ranks
+    advance in lockstep: an unread pipe would stall both); a child that
+    outlives its time is killed. Prints the children's "dp" lines."""
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": LOOP_CUBLAS}
+    me = os.path.abspath(__file__)
+
+    def run(argvs, tag):
+        logs = [os.path.join(tmp, f"{tag}{i}.log") for i in range(len(argvs))]
+        procs = []
+        try:
+            for argv, log in zip(argvs, logs):
+                with open(log, "w") as fh:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, me, *argv], env=env, stdout=fh,
+                        stderr=subprocess.STDOUT))
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for log in logs:
+            with open(log) as f:
+                text = f.read()
+            print("".join(ln + "\n" for ln in text.splitlines()
+                          if ln.startswith(("dp ", "torch.distributed"))),
+                  end="", flush=True)
+            if any(rcs):
+                print(text[-3000:], flush=True)
+        if any(rcs):
+            raise RuntimeError(f"dp: {tag} processes exited with {rcs}")
+
+    port = str(_free_port())
+    run([["--dp", str(r), port, tmp] for r in range(DP_RANKS)], "rank")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    run([["--dp-one", str(_free_port()), tmp]], "one")
+    with open(os.path.join(tmp, "dp_one.json")) as f:
+        return ranks, json.load(f)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_spatial(rates) -> dict:
+    """The spatial paths and the mesh server on the card (module
+    docstring, dp), with the K2 launches of the halo forward and the
+    mesh server's traffic counted from zero; K2 against its plain version
+    at every shape these paths give it (the halo windows, wide and
+    narrow, the tiled forward's chunk of windows, a mesh server device's
+    rows), timed at the wide halo window."""
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.ops import full_fp32
+    from food101_sr_tpu_torch.parallel import (halo_sharded_forward_for,
+                                               make_mesh, plan_windows,
+                                               receptive_radius,
+                                               tiled_forward_for)
+    from food101_sr_tpu_torch.parallel.spatial import MAX_WINDOWS
+    from food101_sr_tpu_torch.serving import SRServer
+
+    mesh = make_mesh([torch.device("cuda", 0)] * DP_MESH)
+    model = get_model("AttentionSR", device="cuda", phase_tail=True,
+                      generator=torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    halo_fwd = halo_sharded_forward_for(model, "AttentionSR", 4, mesh)
+    with full_fp32(), torch.no_grad():
+        for key, shape, run in (
+                ("halo", DP_HALO_SHAPE, halo_fwd),
+                ("halo_narrow", DP_HALO_NARROW, halo_fwd),
+                ("tiled", DP_TILED_SHAPE,
+                 tiled_forward_for(model, "AttentionSR", 4, tile=DP_TILE))):
+            x = torch.rand((1, 3, *shape), device="cuda", generator=gen) \
+                .contiguous(memory_format=torch.channels_last)
+            whole = _u8(model(x))
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            y = _u8(run(x))
+            torch.cuda.synchronize()
+            out[key] = {"levels": _levels(y.cpu().numpy(),
+                                          whole.cpu().numpy()),
+                        "launches": _counts(),
+                        "ms": (time.perf_counter() - t0) * 1e3}
+    radius = receptive_radius("AttentionSR", model)
+    win = DP_HALO_SHAPE[0] // DP_MESH + 2 * radius
+    starts_h, starts_w, win_h, win_w = plan_windows(*DP_TILED_SHAPE,
+                                                    DP_TILE, radius)
+    shapes = {"halo": (1, 96, win, DP_HALO_SHAPE[1]),
+              "halo_narrow": (1, 96, win, DP_HALO_NARROW[1]),
+              "tiled": (min(MAX_WINDOWS, len(starts_h) * len(starts_w)), 96,
+                        win_h, win_w),
+              "serve": (2, 96, 64, 64)}
+    k2_errs = {}
+    for key, shape in shapes.items():
+        rel, err, xk = _k2_nhwc_err(shape, gen)
+        k2_errs[key] = {"shape": shape, "rel_err": rel, "max_abs_err": err}
+        if key == "halo":
+            x = xk
+    rel = max(e["rel_err"] for e in k2_errs.values())
+    k2 = _k2_nhwc_timings(x, rates)
+    k2["max_abs_err"] = max(e["max_abs_err"] for e in k2_errs.values())
+    k2["rel_err"], k2["checked"] = rel, k2_errs
+    rng = np.random.default_rng(17)
+    imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
+            for _ in range(DP_SERVE_REQUESTS)]
+    servers = [SRServer("AttentionSR", device="cuda", use_mesh=True,
+                        mesh=mesh, max_batch=2 * DP_MESH,
+                        generator=torch.Generator().manual_seed(0)),
+               SRServer("AttentionSR", device="cuda", max_batch=2,
+                        generator=torch.Generator().manual_seed(0))]
+    try:
+        for srv in servers:
+            srv.warmup()
+        _zero_counts()
+        with cf.ThreadPoolExecutor(max_workers=8) as pool:
+            t0 = time.perf_counter()
+            meshed = list(pool.map(servers[0].upscale, imgs))
+            torch.cuda.synchronize()
+            t_mesh = time.perf_counter() - t0
+        serve_launches = _counts()
+        plain = [servers[1].upscale(i) for i in imgs]
+    finally:
+        for srv in servers:
+            srv.close()
+    same = all(np.array_equal(a, b) for a, b in zip(meshed, plain))
+    if not (same and out["halo"]["levels"] <= LEVEL_TOL
+            and out["tiled"]["levels"] <= LEVEL_TOL and rel <= K2_RTOL
+            and out["halo"]["launches"] == (0, DP_MESH * model.num_residuals,
+                                            0)):
+        raise AssertionError(f"dp spatial: {out}, K2 at these paths' shapes "
+                             f"{k2_errs}, mesh server bit-equal {same}")
+    out["serve"] = {"images_per_s": len(imgs) / t_mesh,
+                    "launches": serve_launches,
+                    "batches": servers[0].batcher.n_batches}
+    k2["at"] = (f"{tuple(x.shape)} float32 channels-last: one window of "
+                f"halo_sharded_apply over {DP_MESH} x cuda:0")
+    out["k2_halo"] = k2
+    return out
+
+
+def phase_dp(rates) -> dict:
+    """Multi-GPU paths on the card (module docstring, dp): the ranks' step
+    checks and train() runs in child processes, the world of 1 under
+    NCCL in another, the spatial paths and the mesh server here."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the children share the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        _dp_reference(tmp)
+        ranks, one = _dp_children(tmp)
+        runs = _dp_runs(os.path.join(tmp, "w"))
+        logs = [d for d in os.listdir(os.path.join(tmp, "runs"))]
+        with open(os.path.join(tmp, "runs", "dpA", "log.jsonl")) as f:
+            rows = list(map(json.loads, f))
+    if sorted(logs) != ["dpA", "dpB", "dpC"] or \
+            sum("_config" in r for r in rows) != 1:
+        raise AssertionError(f"dp: run logs {logs}, {rows[:2]}")
+    if {r["backend"] for r in ranks} != {"gloo"}:
+        raise AssertionError(f"dp: backends {[r['backend'] for r in ranks]}")
+    ep = [r for r in rows if "epoch" in r][0]
+    spatial = _dp_spatial(rates)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    local = DP_STEP_BATCH // DP_RANKS
+    x = (torch.rand((local, 96, TRAIN_CROP // 4, TRAIN_CROP // 4),
+                    device="cuda", generator=gen) * 2 - 0.5).contiguous(
+        memory_format=torch.channels_last)
+    k2_rank = _k2_nhwc_timings(x, rates)
+    k2_rank["max_abs_err"] = max(max(r["step"]["k2_max_abs_err"],
+                                     r["loop_kernels"]["k2_max_abs_err"])
+                                 for r in ranks)
+    numbers = {
+        "step": {f"rank{i}": r["step"]["nets"] for i, r in enumerate(ranks)},
+        "train": {"images_per_s_2_ranks": ep["time/images_per_s"],
+                  "step_ms_2_ranks": ep["time/step_ms"],
+                  "images_per_s_1_rank": one["images_per_s"],
+                  "step_ms_1_rank": one["step_ms"],
+                  "launches": {f"rank{i}": r["train"]["launches"]
+                               for i, r in enumerate(ranks)},
+                  "resumed_tensors_bit_equal": runs["tensors"]},
+        "spatial": {k: spatial[k] for k in ("halo", "halo_narrow", "tiled",
+                                            "serve")}}
+    print("dp numbers: " + json.dumps(numbers), flush=True)
+    print(f"dp: {DP_RANKS} ranks on one card (gloo) | step checks "
+          f"{', '.join(DP_ARCHS)} pass on each rank | train() AttentionSR "
+          f"x4 crop {DP_LOOP_CFG['crop_size']}, global batch "
+          f"{DP_LOOP_CFG['batch_size']}: {ep['time/images_per_s']:.1f} "
+          f"images/s on 2 ranks, {one['images_per_s']:.1f} on 1 (not a "
+          f"speed claim: the ranks share the card); rank 0 preempted at "
+          f"update {DP_PREEMPT}, both stopped after update {DP_SYNC}, the "
+          f"resume bit-equal ({runs['tensors']} tensors); one writer, one "
+          f"log per run | world of 1 under NCCL bit-equal to the plain run "
+          f"| halo over {DP_MESH} x cuda:0 at {DP_HALO_SHAPE} "
+          f"{spatial['halo']['levels']} level(s) from the whole image (at "
+          f"{DP_HALO_NARROW}: {spatial['halo_narrow']['levels']}), tiled "
+          f"{spatial['tiled']['levels']}, mesh server bit-equal | K2 nhwc "
+          f"at " + ", ".join(f"{k} {tuple(e['shape'])} rel err "
+                             f"{e['rel_err']:.2g}" for k, e in
+                             spatial["k2_halo"]["checked"].items())
+          + f" (tol {K2_RTOL}) | {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    k2_rank.update({
+        "name": "K2 spatial mean (SE squeeze), nhwc input, one data-"
+                "parallel rank's train step",
+        "route": "cuda", "source": "food101_sr_tpu_torch/csrc/kernels.cu",
+        "replaces": "food101_sr_tpu/ops/spatial_mean.py:45",
+        "wrapper": "food101_sr_tpu_torch/ops/spatial_mean.py:"
+                   "mean_nhwc_kernel",
+        "launches": ranks[0]["train"]["launches"]["K2 nhwc"],
+        "dp_launches": {f"rank{i}": r["train"]["launches"]["K2 nhwc"]
+                        for i, r in enumerate(ranks)},
+        "at": f"({local},96,{TRAIN_CROP // 4},{TRAIN_CROP // 4}) float32 "
+              f"channels-last: a rank's share of a global batch of "
+              f"{DP_STEP_BATCH}; timed in the parent process"})
+    k2_halo = spatial["k2_halo"]
+    k2_halo.update({
+        "name": "K2 spatial mean (SE squeeze), nhwc input, halo-sharded "
+                "windows",
+        "route": "cuda", "source": "food101_sr_tpu_torch/csrc/kernels.cu",
+        "replaces": "food101_sr_tpu/ops/spatial_mean.py:45",
+        "wrapper": "food101_sr_tpu_torch/ops/spatial_mean.py:"
+                   "mean_nhwc_kernel",
+        "launches": spatial["halo"]["launches"][1],
+        "halo_launches": spatial["halo"]["launches"][1]})
+    return {"dp_launches": {key: {f"rank{i}": r["train"]["launches"][key]
+                                  for i, r in enumerate(ranks)}
+                            for key in ("K1", "K2 nhwc", "K2 nchw")},
+            "halo_launches": dict(zip(("K1", "K2 nhwc", "K2 nchw"),
+                                      spatial["halo"]["launches"])),
+            "k1_max_abs_err": max(max(r["step"]["k1_max_abs_err"],
+                                      r["loop_kernels"]["k1_max_abs_err"])
+                                  for r in ranks),
+            "k2_rank": k2_rank, "k2_halo": k2_halo}
+
+
 def run_loop_phase() -> dict:
     """Phases 12 and 13 in a child process of its own, which alone gets the
     determinism environment; its results come back through a file in a
@@ -3928,11 +4536,17 @@ def main() -> int:
         d["tail_launches"] = tails["launches"][key]
         d["quant_serve_launches"] = quant["serve_launches"][key]
         d["qat_loop_launches"] = quant["qat_launches"][key]
+    dp = phase_dp(rates)
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
+        d["dp_launches"] = dp["dp_launches"][key]
+        d["halo_launches"] = dp["halo_launches"][key]
+    k1["dp_max_abs_err"] = dp["k1_max_abs_err"]
     keys = ("name", "route", "source", "replaces", "launches",
             "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
             "rrdb_gan_loop_launches", "food101_loop_launches",
             "tail_launches", "quant_serve_launches", "qat_loop_launches",
-            "bf16_launches", *CACHE_LAUNCH_KEYS.values(),
+            "bf16_launches", *CACHE_LAUNCH_KEYS.values(), "dp_launches",
+            "halo_launches", "dp_max_abs_err",
             "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
@@ -3942,7 +4556,8 @@ def main() -> int:
             "images_per_s", "peak_bytes", "device_split_ms")
     kernels = [{k: d[k] for k in keys if k in d}
                for d in (k1, k2_nhwc, k2_nchw, k2_tta, k1_train, k2_train,
-                         k2_gan, k1_bf16, k2_bf16)]
+                         k2_gan, k1_bf16, k2_bf16, dp["k2_rank"],
+                         dp["k2_halo"])]
     print(f"done: elapsed_s {time.perf_counter() - t_start:.1f} | {smi}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3955,4 +4570,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--loop"]:
         sys.exit(loop_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp"]:
+        sys.exit(dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--dp-one"]:
+        sys.exit(dp_one_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -17,7 +17,9 @@ flips drawn on the device, keyed by (seed, epoch, batch)):
 - ``HostCanvasLoader``: a producer thread gathers each batch's canvases
   out of the memmap into pinned memory and copies them to the device on a
   side stream, recording an event that the consumer's stream waits on
-  before it reads the batch;
+  before it reads the batch. In a process group each rank gathers its
+  interleaved share of the global batch and takes its rows of the global
+  batch's crop and flip draws;
 - ``DeviceWindowLoader``: a ring window of canvases in device memory. Each
   step draws its batch from the window (uniform with replacement) and then
   refreshes ``ceil(batch / reuse)`` ring slots from the epoch stream, so
@@ -25,7 +27,7 @@ flips drawn on the device, keyed by (seed, epoch, batch)):
   H2D copy into the window on a side stream, ordered after the step's
   draw by an event recorded on the consumer's stream, and the next draw
   waits for the refresh's own event. The window is a pure function of the
-  stream position: a resume rebuilds it there.
+  stream position: a resume rebuilds it there. Single-process, as JAX's.
 """
 from __future__ import annotations
 
@@ -42,9 +44,11 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.distributed import world_size
 from ..utils.rng import keyed_generator
 from .device_cache import (_AUGMENT_KEY, EpochLoader, build_canvas_cache,
                            default_canvas, sample_batch)
+from .pipeline import process_local_slice
 
 _FORMAT_VERSION = 1
 
@@ -212,15 +216,16 @@ class HostCanvasLoader(EpochLoader):
         """Gather each batch's canvases and start its copy to the device
         on a side stream; the queue carries (tensor, event, batch)."""
         dev, b_sz, s = self.device, self.batch_size, self.canvas
+        r, w = self._share
         try:
             side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
             for b in range(start_batch, len(self)):
                 if stop.is_set():
                     break
                 t0 = time.perf_counter()
-                host = _host_buffer((b_sz, s, s, 3), dev)
-                self.store.gather(order[b * b_sz:(b + 1) * b_sz],
-                                  host.numpy())
+                host = _host_buffer((b_sz // w, s, s, 3), dev)
+                self.store.gather(process_local_slice(
+                    order[b * b_sz:(b + 1) * b_sz], r, w), host.numpy())
                 event = None
                 if side is not None:
                     with torch.cuda.stream(side):
@@ -270,7 +275,8 @@ class HostCanvasLoader(EpochLoader):
                 pos = torch.arange(len(batch), device=self.device)
                 yield sample_batch(batch, pos, self.crop_size, True,
                                    keyed_generator(self.device, self.seed,
-                                                   epoch, b, _AUGMENT_KEY))
+                                                   epoch, b, _AUGMENT_KEY),
+                                   share=self._share)
         finally:
             _drain(t, q, stop)
 
@@ -311,6 +317,10 @@ class DeviceWindowLoader(EpochLoader):
                 "window sampling is an augmentation-time tradeoff); eval "
                 "uses HostCanvasLoader, whose batches are byte-equal to the "
                 "streaming loader's")
+        if world_size() > 1:
+            raise ValueError(
+                "--cache_host_reuse is single-process only; multi-process "
+                "runs shard the batch across per-process loaders already")
         self._setup(source, indices, crop_size, batch_size, True, True,
                     seed, device)
         self.prefetch = int(prefetch)

@@ -26,8 +26,9 @@ The contract is JAX's:
   agree in contract (windows of the canvas, flipped or not), not in
   bytes.
 
-Single-process: the JAX loader's mesh sharding belongs to the multi-GPU
-port (ROADMAP item 10), whose settings ``train`` refuses.
+Single-process, as JAX's: a process group of more than one rank refuses
+it (each rank would hold the whole cache); ``HostCanvasLoader`` slices
+each batch by rank.
 """
 from __future__ import annotations
 
@@ -39,8 +40,10 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.distributed import rank, world_size
+from ..parallel.mesh import process_local_slice
 from ..utils.rng import keyed_generator
-from .pipeline import load_hr_crop
+from .pipeline import check_divisible, load_hr_crop
 
 _DEFAULT_BUDGET_GB = 4.0
 _AUGMENT_KEY = 1  # the last word of the crop and flip draws' key
@@ -76,24 +79,29 @@ def build_canvas_cache(source, indices: np.ndarray, canvas: int,
 
 
 def sample_batch(cache: torch.Tensor, pos: torch.Tensor, crop: int,
-                 train: bool,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 train: bool, generator: torch.Generator | None = None,
+                 share: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Rows ``pos`` of the uint8 (N, S, S, 3) ``cache``, cropped to
     ``crop`` and, in training, cropped at random and flipped at random
     (top, left, then the flip, from ``generator``); else the centre crop,
     which for S = crop is the rows themselves. One gather for the whole
-    batch: (B, crop, crop, 3) uint8 on the cache's device."""
+    batch: (B, crop, crop, 3) uint8 on the cache's device. ``share`` (rank,
+    world): ``pos`` is that rank's interleaved share of a global batch of
+    B * world; the draws are the global batch's, and the rank takes its
+    rows of them."""
     b, s = pos.shape[0], cache.shape[1]
     if not train and s == crop:
         return cache.index_select(0, pos)
     dev = cache.device
     ar = torch.arange(crop, device=dev)
     if train:
-        tops = torch.randint(0, s - crop + 1, (b,), generator=generator,
-                             device=dev)
-        lefts = torch.randint(0, s - crop + 1, (b,), generator=generator,
-                              device=dev)
-        flips = torch.rand(b, generator=generator, device=dev) < 0.5
+        r, w = share
+        n = (b * w,)
+        tops, lefts = (process_local_slice(torch.randint(
+            0, s - crop + 1, n, generator=generator, device=dev), r, w)
+            for _ in range(2))
+        flips = process_local_slice(
+            torch.rand(n, generator=generator, device=dev) < 0.5, r, w)
         cols = lefts[:, None] + torch.where(flips[:, None], crop - 1 - ar, ar)
     else:
         tops = torch.full((b,), (s - crop) // 2, device=dev)
@@ -122,6 +130,8 @@ class EpochLoader:
         self._epoch = self._start_batch = 0
         self.wait_s = self.produce_s = 0.0
         self.batches = 0
+        self._share = (rank(), world_size())
+        check_divisible(self.batch_size, self._share[1])
 
     def __len__(self):
         return len(self.indices) // self.batch_size
@@ -167,6 +177,12 @@ class DeviceCacheLoader(EpochLoader):
         max_cache_gb: float = _DEFAULT_BUDGET_GB,
         num_workers: Optional[int] = None,
     ):
+        if world_size() > 1:
+            raise ValueError(
+                "--cache_device is single-process only: in a multi-process "
+                "run each process would replicate the full cache; use the "
+                "host loader there (its per-process batch slicing already "
+                "scales with process count)")
         self._setup(source, indices, crop_size, batch_size, train, shuffle,
                     seed, device)
         self.canvas = canvas = default_canvas(self.crop_size, canvas,

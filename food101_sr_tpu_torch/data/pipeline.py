@@ -32,6 +32,8 @@ import torch
 
 from ..native import decode_image, decode_jpeg_crop_rgb8, jpeg_dims
 from ..ops.resize import degrade_bicubic
+from ..parallel.distributed import rank, world_size
+from ..parallel.mesh import process_local_slice
 from .pil_bicubic import resize_bicubic_u8
 
 
@@ -138,6 +140,13 @@ def train_val_split(indices: np.ndarray, val_fraction: float = 0.1, seed: int = 
     return indices[perm[:n_train]], indices[perm[n_train:]]
 
 
+def check_divisible(batch_size: int, world: int) -> None:
+    """A global batch must split evenly over the ranks."""
+    if batch_size % world:
+        raise ValueError(f"global batch_size={batch_size} must divide "
+                         f"evenly across {world} processes")
+
+
 # ---------------------------------------------------------------------------
 # Batched loader with background prefetch
 # ---------------------------------------------------------------------------
@@ -149,7 +158,12 @@ class SRDataLoader:
 
     After each pass, ``wait_s`` is the time the consumer spent blocked on
     the queue, ``produce_s`` the producer's time spent assembling and
-    copying batches, and ``batches`` the batches delivered."""
+    copying batches, and ``batches`` the batches delivered.
+
+    In a process group, ``batch_size`` is the global batch: each rank
+    loads its interleaved share of every batch (``process_local_slice``),
+    the RNG keyed by global position, so the rows are those of the
+    single-process run."""
 
     def __init__(
         self,
@@ -182,6 +196,8 @@ class SRDataLoader:
         self._start_batch = 0
         self.wait_s = self.produce_s = 0.0
         self.batches = 0
+        self._rank, self._world = rank(), world_size()
+        check_divisible(self.batch_size, self._world)
 
     def __len__(self):
         return len(self.indices) // self.batch_size
@@ -220,8 +236,10 @@ class SRDataLoader:
                         break
                     t0 = time.perf_counter()
                     idx = order[start : start + self.batch_size]
-                    batch = np.stack(list(pool.map(
-                        one, enumerate(idx, start=start))))
+                    work = process_local_slice(
+                        list(enumerate(idx, start=start)), self._rank,
+                        self._world)
+                    batch = np.stack(list(pool.map(one, work)))
                     batch = torch.from_numpy(batch).to(self.device)
                     self.produce_s += time.perf_counter() - t0
                     out.put(batch)

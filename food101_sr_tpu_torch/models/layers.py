@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quantize import fake_quant_conv2d, int8_conv2d
+from ..parallel.distributed import global_sum, world_size
 from ..ops.spatial_mean import spatial_mean
 from ..ops.subpixel_conv import (grouped_out_map, phase_conv2d,
                                  phase_conv2d_grouped, subpixel_conv2d)
@@ -253,7 +254,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     own rule). As in JAX, the scale, the bias and the running stats stay
     in float32 whatever the net's dtype (``.to(torch.bfloat16)`` moves
     them across devices but keeps their dtype), and the normalization runs
-    in float32 before the result is cast to the input's dtype."""
+    in float32 before the result is cast to the input's dtype.
+
+    In a process group of more than one rank, train mode normalizes by the
+    global batch's statistics, as JAX's mesh does: ``E[x^2] - E[x]^2`` in
+    float32 from per-rank sums all-reduced by a differentiable collective
+    (the backward gets the other ranks' shares), the global n in the
+    Bessel factor. A world of 1 runs PyTorch's own batch norm."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -262,7 +269,24 @@ class BatchNorm2d(nn.BatchNorm2d):
         return _keep_float32(self, super()._apply, fn, recurse)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and world_size() > 1:
+            return self._global_batch(x.float()).to(x.dtype)
         return super().forward(x.float()).to(x.dtype)
+
+    def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.numel() // x.shape[1] * world_size()
+        sums = global_sum(torch.stack([x.sum((0, 2, 3)),
+                                       (x * x).sum((0, 2, 3))]))
+        mean = sums[0] / n
+        var = sums[1] / n - mean * mean
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            self.num_batches_tracked += 1
+        shape = (1, -1, 1, 1)
+        y = (x - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        return y * self.weight.view(shape) + self.bias.view(shape)
 
 
 class ResidualBlock(nn.Module):

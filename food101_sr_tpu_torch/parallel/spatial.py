@@ -1,16 +1,24 @@
-"""Window geometry for tiled whole-image SR inference (counterpart of the
-framework-free part of ``food101_sr_tpu/parallel/spatial.py``).
+"""Spatial tiling for whole-image SR inference (counterpart of
+``food101_sr_tpu/parallel/spatial.py``).
 
 A large image is cut into windows of ``tile + 2*halo`` whose starts clamp
 at the borders; each window's owned interior is cropped from the model
 output and stitched back. With ``halo`` at least the model's receptive-field
 radius this equals the whole-image forward: interior pixels see only real
 pixels of the window, and clamped border windows put the model's zero
-padding where the whole-image forward has it.
+padding where the whole-image forward has it. The windows become a plain
+batch, which a mesh shards over its devices, as JAX's data sharding does.
+
+Images are the port's models' layout, (B, C, H, W): rows on dim 2.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
+
+import torch
+
+from .mesh import Mesh, replicate, sharded_batch
 
 
 # Receptive-field radii at LR resolution by architecture (the JAX
@@ -69,3 +77,75 @@ def plan_windows(h: int, w: int, tile: int, halo: int):
     starts_h, _, win_h = window_starts(h, tile, halo_h)
     starts_w, _, win_w = window_starts(w, tile, halo_w)
     return starts_h, starts_w, win_h, win_w
+
+
+MAX_WINDOWS = 8  # tiled_apply's windows per forward call
+
+
+def tiled_apply(forward: Callable, images: torch.Tensor, scale: int,
+                tile: int, halo: int, mesh: Optional[Mesh] = None,
+                max_windows: Optional[int] = MAX_WINDOWS) -> torch.Tensor:
+    """Run ``forward`` (an LR->HR model forward, (N, C, h, w) -> (N, C,
+    h*scale, w*scale)) over overlapping windows of ``images`` (B, C, H, W),
+    H and W multiples of ``tile``, and stitch the owned interiors.
+
+    ``mesh``: the window batch is sharded over its devices
+    (``mesh.sharded_batch``; ``forward`` may then be one callable per
+    device), in one call. Otherwise ``max_windows`` caps the windows per
+    call: fixed-size chunks, the last one padded with zero windows, so the
+    forward sees one shape (cuDNN picks per shape) and bounded activation
+    memory; None runs every window in one call."""
+    b, c, h, w = images.shape
+    if h % tile or w % tile:
+        raise ValueError(f"H={h}, W={w} must be multiples of tile={tile}")
+    starts_h, starts_w, win_h, win_w = plan_windows(h, w, tile, halo)
+    nh, nw = len(starts_h), len(starts_w)
+    # (B, nh, nw, C, win_h, win_w) -> a flat window batch, window-major
+    wins = torch.stack([torch.stack([images[:, :, sh:sh + win_h,
+                                            sw:sw + win_w]
+                                     for sw in starts_w], 1)
+                        for sh in starts_h], 1)
+    flat = wins.reshape(b * nh * nw, c, win_h, win_w)
+    n_win = flat.shape[0]
+    if mesh is not None:
+        out = sharded_batch(forward, flat, mesh)
+    elif max_windows is None or n_win <= max_windows:
+        out = forward(flat)
+    else:
+        chunks = []
+        for s in range(0, n_win, max_windows):
+            part = flat[s:s + max_windows]
+            valid = part.shape[0]
+            if valid < max_windows:
+                part = torch.cat([part, part.new_zeros(
+                    (max_windows - valid, *part.shape[1:]))])
+            chunks.append(forward(part)[:valid])
+        out = torch.cat(chunks)
+    out = out.reshape(b, nh, nw, c, win_h * scale, win_w * scale)
+    ts = tile * scale
+    rows = []
+    for i, sh in enumerate(starts_h):
+        off_h = (i * tile - sh) * scale
+        rows.append(torch.cat([
+            out[:, i, j, :, off_h:off_h + ts,
+                (j * tile - sw) * scale:(j * tile - sw) * scale + ts]
+            for j, sw in enumerate(starts_w)], dim=3))
+    return torch.cat(rows, dim=2)
+
+
+def tiled_forward_for(model, arch: str | None, scale: int, tile: int = 128,
+                      halo: Optional[int] = None,
+                      mesh: Optional[Mesh] = None) -> Callable:
+    """Whole-image SR through tiling for a model: a function (B, C, H, W)
+    -> (B, C, H*scale, W*scale), the model in eval mode without gradients.
+    ``halo`` defaults to the model's receptive radius; with ``mesh``, one
+    replica of the model per device (``mesh.replicate``) takes its share
+    of the windows."""
+    halo = receptive_radius(arch, model) if halo is None else halo
+    fwds = replicate(model.eval(), mesh) if mesh is not None else model.eval()
+
+    @torch.no_grad()
+    def run(images: torch.Tensor) -> torch.Tensor:
+        return tiled_apply(fwds, images, scale, tile, halo, mesh=mesh)
+
+    return run

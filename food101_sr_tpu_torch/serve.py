@@ -273,9 +273,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="x8 geometric self-ensemble per request (quality "
                         "mode; 8x device work inside the same batch)")
     p.add_argument("--mesh", action="store_true",
-                   help="multi-GPU serving: ROADMAP item 10 (raises)")
+                   help="shard device batches over all local cards (one "
+                        "replica of the model per card)")
     p.add_argument("--max_batch", type=int, default=8,
-                   help="micro-batcher device batch size")
+                   help="micro-batcher device batch size (rounded up to a "
+                        "multiple of the card count with --mesh)")
     p.add_argument("--warmup", action="store_true",
                    help="run each shape bucket once before listening "
                         "(cuDNN otherwise picks its algorithms on the first "
@@ -321,15 +323,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """Parsed flags with every ``--model`` spec validated (as ``specs``);
-    the unported ``--mesh`` raises naming its ROADMAP item before
-    anything is built."""
+    """Parsed flags with every ``--model`` spec validated (as ``specs``)
+    before anything is built."""
     p = build_parser()
     a = p.parse_args(argv)
-    if a.mesh:
-        raise NotImplementedError("--mesh (multi-GPU serving) is not ported "
-                                  "to PyTorch yet: ROADMAP item 10 "
-                                  "(multi-GPU)")
     specs = []
     for spec in a.model:
         name, _, rest = spec.partition("=")
@@ -358,7 +355,7 @@ def build_servers(a: argparse.Namespace):
                         tile=a.tile, dtype=_DTYPES[a.dtype], device=a.device,
                         png_level=a.png_level, max_batch=a.max_batch,
                         tta=a.tta, window_ms=a.batch_window_ms,
-                        instrument=a.instrument,
+                        instrument=a.instrument, use_mesh=a.mesh,
                         adaptive_window=(a.adaptive_window
                                          and not a.no_adaptive_window),
                         quantize=quantize, phase_tail=not a.no_phase_tail)

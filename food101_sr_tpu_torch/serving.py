@@ -16,6 +16,7 @@ the offline CLI ``predict.py`` and the image codecs ``native``.
     SRServer("auto", checkpoint="w/run_best.pth")   # a torch checkpoint file
     SRServer("AttentionSR", tta=True)         # x8 self-ensemble per image
     SRServer("RESNET", quantize="int8")       # dynamic-int8 body convs
+    SRServer("AttentionSR", use_mesh=True)    # one replica per local card
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from torch import nn
 
 from .models import architecture_of, get_model, model_for_params
 from .ops.tta import self_ensemble
+from .parallel.mesh import Mesh, cpu_mesh, make_mesh, replicate, sharded_batch
 from .parallel.spatial import plan_windows, receptive_radius
 from .training.checkpoint import load_checkpoint
 
@@ -279,6 +281,13 @@ class SRServer:
     depend on a window's content, so the same pixel in two overlapping
     windows lands on slightly different int8 grids (the float paths stay
     exact).
+
+    ``use_mesh`` serves over a mesh of local devices (JAX's data-sharded
+    server): ``mesh``, by default every visible card (``make_mesh()``; on
+    the CPU one CPU device), holds one replica of the model per device,
+    ``max_batch`` is rounded up to a multiple of the device count, and
+    each device always runs ``max_batch / n`` rows of every device batch
+    (one shape per device, ROADMAP fault 3).
     """
 
     def __init__(self, architecture: str = "AttentionSR",
@@ -291,7 +300,8 @@ class SRServer:
                  window_ms: float = 3.0, adaptive_window: bool = False,
                  tta: bool = False, png_level: int = 1,
                  instrument: bool = False, quantize: str = "",
-                 phase_tail: bool = True):
+                 phase_tail: bool = True, use_mesh: bool = False,
+                 mesh: Mesh | None = None):
         if checkpoint:
             if state_dict is not None:
                 raise ValueError("SRServer: give a state_dict or a "
@@ -329,6 +339,13 @@ class SRServer:
         self.scale = self.model.scale_factor
         self.tile = tile
         self.halo = receptive_radius(self.architecture, self.model)
+        self.mesh = None
+        if use_mesh:
+            self.mesh = mesh or (make_mesh() if self.device.type == "cuda"
+                                 else cpu_mesh(1))
+            n = len(self.mesh.devices)
+            max_batch = -(-max_batch // n) * n  # a multiple of the mesh
+            self.replicas = replicate(self.model, self.mesh)
         sync = (functools.partial(torch.cuda.synchronize, self.device)
                 if self.device.type == "cuda" else _no_sync)
         self.batcher = MicroBatcher(
@@ -368,9 +385,16 @@ class SRServer:
             x8 = torch.cat([x8, x8.new_zeros((pad, *x8.shape[1:]))])
         # NHWC bytes viewed as (B, 3, H, W): already channels-last, no copy
         x = (x8.permute(0, 3, 1, 2).float() / 255.0).to(self.dtype)
-        y = self_ensemble(self.model, x) if self.tta else self.model(x)
+        if self.mesh is not None:
+            y = sharded_batch([functools.partial(self._net, m)
+                               for m in self.replicas], x, self.mesh)
+        else:
+            y = self._net(self.model, x)
         y8 = (y[:n].float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
         return y8.permute(0, 2, 3, 1)
+
+    def _net(self, model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return self_ensemble(model, x) if self.tta else model(x)
 
     def warmup(self, sizes=None) -> None:
         """Run one ``max_batch``-row forward per LR bucket before taking

@@ -32,8 +32,13 @@ through a device window of canvases with ``--cache_host_reuse N``.
     python -m food101_sr_tpu_torch.train --dataset synthetic \
         --architecture RRDB --dtype bfloat16 --cache_device
 
-The multi-process flags are accepted by the parser and refused by
-``train`` with a NotImplementedError that names ROADMAP item 10.
+Data-parallel training runs one process per card; ``--batch_size`` is
+the global batch. With torchrun, or one command per card::
+
+    torchrun --nproc_per_node 2 -m food101_sr_tpu_torch.train \
+        --distributed auto --dataset synthetic --architecture AttentionSR
+    python -m food101_sr_tpu_torch.train --coordinator localhost:8476 \
+        --num_processes 2 --process_id 0 ...    # and --process_id 1
 """
 from __future__ import annotations
 
@@ -141,14 +146,19 @@ def build_parser() -> argparse.ArgumentParser:
                    default=DEFAULTS["use_wandb"], nargs="?", const=True,
                    help="force W&B on/off (default: auto, on iff wandb is "
                         "importable; JSONL fallback otherwise)")
-    # Multi-process launch: ROADMAP item 10.
+    # Multi-process launch (parallel/distributed.py): one process per card.
     p.add_argument("--coordinator", type=str, default=DEFAULTS["coordinator"],
-                   help="ROADMAP item 10 (multi-GPU)")
+                   help="host:port of process 0 for torch.distributed "
+                        "(with --num_processes/--process_id; or set "
+                        "MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK)")
     p.add_argument("--num_processes", type=int,
                    default=DEFAULTS["num_processes"])
     p.add_argument("--process_id", type=int, default=DEFAULTS["process_id"])
     p.add_argument("--distributed", type=str, default=DEFAULTS["distributed"],
-                   choices=["", "auto"])
+                   choices=["", "auto"],
+                   help="'auto': init_method env:// from torchrun's "
+                        "environment, so a torchrun launch needs no "
+                        "per-process flags")
     return p
 
 

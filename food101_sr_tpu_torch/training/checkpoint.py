@@ -16,7 +16,10 @@ Two kinds, as in the JAX package:
   preemption save, where ``--resume`` re-enters the epoch.
 
 Files are written to a temporary name and renamed, so a crash mid-write
-leaves the previous checkpoint whole. Loading uses
+leaves the previous checkpoint whole. In a multi-process run the state is
+the same on every rank, so the loop saves from rank 0 alone (no two
+writers of one file), holds the other ranks at a barrier before they read
+the best checkpoint, and every rank resumes from the same file. Loading uses
 ``torch.load(weights_only=True)``: tensors, numbers, strings and
 containers only.
 """

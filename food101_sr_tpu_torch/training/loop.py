@@ -20,6 +20,14 @@ step, the producer's time per batch and a cache's one-time build.
 parameters: Adam, the EMA, the diagnostics, the guard and the checkpoints
 stay float32. ``cache_device`` and ``cache_host`` pick the input path
 (``data/device_cache.py``, ``data/canvas_cache.py``), as in JAX.
+
+``coordinator``, ``num_processes``, ``process_id`` and ``distributed``
+launch a data-parallel run of one process per card
+(``parallel/distributed.py``): ``batch_size`` is the global batch, each
+rank loads and steps on its interleaved share, the steps average their
+gradients and loss over the ranks, the state is broadcast from rank 0 at
+the start, rank 0 alone writes the checkpoints and the run log, and a
+preemption request on any rank stops every rank at the same update.
 """
 from __future__ import annotations
 
@@ -42,6 +50,8 @@ from ..data import (DeviceCacheLoader, DeviceWindowLoader, Food101Source,
 from ..losses import get_loss_function
 from ..metrics import MetricsCalculator
 from ..models import Discriminator, build_model, get_model
+from ..parallel import distributed, make_mesh, replicate
+from ..parallel.mesh import data_sharding
 from ..utils import RunLogger, keyed_generator
 from .checkpoint import (load_checkpoint, load_train_checkpoint,
                          save_checkpoint, save_train_checkpoint,
@@ -55,7 +65,6 @@ from .steps import (make_accum_apply, make_eval_step, make_forward,
                     make_train_step, snapshot_buffers)
 
 # The JAX package's keys and defaults (``food101_sr_tpu/training/loop.py``).
-# Values the port does not run yet raise in ``check_ported``.
 DEFAULTS: dict[str, Any] = {
     "architecture": "SRCNN",
     "batch_size": 16,
@@ -108,23 +117,7 @@ DEFAULTS: dict[str, Any] = {
     "distributed": "",
 }
 
-# key -> (the values the port does not run, or None for "any value but
-# the default"; the ROADMAP item that brings it)
-_NOT_PORTED = {k: (None, "ROADMAP item 10 (multi-GPU)")
-               for k in ("coordinator", "num_processes", "process_id",
-                         "distributed")}
-
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def check_ported(cfg: Mapping[str, Any]) -> None:
-    """Raise NotImplementedError for a setting the port does not run yet,
-    naming the ROADMAP item that brings it: nothing is silently ignored."""
-    for key, (values, item) in _NOT_PORTED.items():
-        v = cfg.get(key, DEFAULTS[key])
-        if (v in values) if values is not None else v != DEFAULTS[key]:
-            raise NotImplementedError(
-                f"{key}={v!r} is not ported to PyTorch yet: {item}")
 
 
 def _build_sources(cfg):
@@ -181,11 +174,15 @@ def train(config: Mapping[str, Any] | None = None,
     """Train with ``config`` (``DEFAULTS`` fills the rest) on ``device``.
     Returns the final test ``{psnr, ssim, lpips, nlpd}`` of the best
     checkpoint and the best ``val_psnr``; a preempted run returns
-    ``{"preempted": True, "val_psnr"}``."""
+    ``{"preempted": True, "val_psnr"}``. A multi-process launch brings
+    the process group up first; a rank then trains on its own card
+    (``distributed.rank_device``)."""
     cfg = {**DEFAULTS, **(config or {})}
-    check_ported(cfg)
-    device = torch.device(device)
+    distributed.maybe_initialize_from_config(cfg, device)
+    device = distributed.rank_device(device)
     torch.empty(0, device=device)  # raises without the device; no fallback
+    if device.index is not None and device.type == "cuda":
+        torch.cuda.set_device(device)  # NCCL's collectives use this card
     with RunLogger(cfg, name=cfg.get("run_name"),
                    use_wandb=cfg.get("use_wandb")) as logger:
         cfg = {**DEFAULTS, **logger.config}  # sweep agents may override keys
@@ -197,7 +194,13 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
     scale = int(cfg["scale_factor"])
     crop = int(cfg["crop_size"])
     is_gan = cfg["loss_function"] == "gan"
-    print(f"Running on {device} "
+    # one device per process: this rank's mesh is its own card, and only
+    # rank 0 touches the filesystem (checkpoints, the run log)
+    mesh = make_mesh([device])
+    n_dev, is_main = mesh.size, distributed.rank() == 0
+    print(f"Running on {n_dev} device(s) {device.type} | "
+          f"{distributed.world_size()} process(es) | rank "
+          f"{distributed.rank()} on {device} "
           f"({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'host'})"
           f" | Arch: {cfg['architecture']} | compute dtype {cfg['dtype']}")
 
@@ -222,6 +225,10 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
     if batch % accum:
         raise ValueError(
             f"batch_size={batch} must be divisible by grad_accum={accum}")
+    if accum > 1 and (batch // accum) % n_dev:
+        raise ValueError(
+            f"microbatch {batch}/{accum}={batch // accum} must stay a "
+            f"multiple of the {n_dev} processes for an even shard")
     micro = batch // accum
 
     if cfg.get("cache_device") and cfg.get("cache_host"):
@@ -231,10 +238,13 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
 
     def _loader(source, indices, train):
         # drop-remainder loaders; the eval batch is clamped so that a tiny
-        # subset still fills one batch. The train loader yields
-        # microbatches (batch / grad_accum), position-keyed, so k of them
-        # hold exactly the samples of the unsplit batch.
-        b = micro if train else min(batch, max(len(indices), 1))
+        # subset still fills one batch, kept a multiple of the process
+        # count for an even shard. The train loader yields microbatches
+        # (batch / grad_accum), position-keyed, so k of them hold exactly
+        # the samples of the unsplit batch. Every size is global: each
+        # rank loads its share.
+        b = micro if train else min(batch, max(len(indices) // n_dev * n_dev,
+                                               n_dev))
         kw = dict(crop_size=crop, batch_size=b, seed=cfg["seed"],
                   device=device)
         if cfg.get("cache_device"):
@@ -263,7 +273,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
         if len(loader) == 0:
             raise ValueError(
                 f"{name} loader yields zero batches: {len(loader.indices)} "
-                f"samples can't fill a batch of {loader.batch_size}. "
+                f"samples can't fill a batch of {loader.batch_size} "
+                f"({n_dev} processes need a multiple of {n_dev}). "
                 f"Increase the dataset/subset or shrink batch_size.")
     if accum > 1 and len(train_loader) < accum:
         # without this, every microbatch hits the mid-group `continue` and
@@ -345,12 +356,17 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
         print(f"Resumed from {cfg['resume']} at epoch {start_epoch}"
               + (f" batch {start_batch}" if start_batch else "")
               + f" (step {int(state.step)}, lr {scheduler.lr})")
+    # every rank starts from rank 0's state (each built or read the same
+    # one; the broadcast is JAX's replicate)
+    for st in (state, d_state):
+        if st is not None:
+            replicate(st.tensors(), mesh)
     state.set_learning_rate(scheduler.lr)
 
     # --- epoch loop --------------------------------------------------------
     # SIGTERM -> flag -> full-state save at the next update boundary and a
     # clean exit; --resume re-enters the epoch at that exact batch
-    guard = PreemptionGuard()
+    guard = PreemptionGuard(device=device)
     preempted = False
     updates_done = 0
     preempt_after = int(cfg.get("preempt_after_updates") or 0)
@@ -384,12 +400,14 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                 clock.start()
                 if is_gan:
                     if batch_idx % d_every == 0:
+                        # keyed by (seed, epoch, batch): a resumed run
+                        # replays the same noise
+                        gen = keyed_generator(device, cfg["seed"] + 3,
+                                              epoch, batch_idx)
                         d_state, d_metrics = d_step(
                             state, d_state, hr_u8,
-                            # keyed by (seed, epoch, batch): a resumed
-                            # run replays the same noise
-                            keyed_generator(device, cfg["seed"] + 3, epoch,
-                                            batch_idx))
+                            gen if distributed.world_size() == 1 else
+                            _noise_rows(gen, hr_u8, dtype))
                     state, d_state, metrics = g_gan_step(state, d_state,
                                                          hr_u8)
                     logical_idx = batch_idx
@@ -428,11 +446,12 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                         print(f"WARNING: non-finite loss/grads at epoch "
                               f"{epoch} update {logical_idx}; update skipped "
                               f"(state kept)")
-                # graceful preemption, only at update boundaries
+                # graceful preemption, only at update boundaries; the
+                # cumulative count keys the ranks' agreement
                 updates_done += 1
                 if preempt_after and updates_done >= preempt_after:
                     guard.request()
-                if guard.poll():
+                if guard.poll(updates_done - 1):
                     preempted = True
                     break
             if device.type == "cuda":
@@ -441,9 +460,10 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
             if profiler is not None:  # epoch shorter than the trace window
                 _stop_profiler(profiler, cfg["profile_dir"], device)
             if preempted:
-                save_train_checkpoint(state, epoch, scheduler, stopper,
-                                      last_path, d_state=d_state,
-                                      batch=batch_idx + 1)
+                if is_main:
+                    save_train_checkpoint(state, epoch, scheduler, stopper,
+                                          last_path, d_state=d_state,
+                                          batch=batch_idx + 1)
                 print(f"Preemption: full state saved mid-epoch {epoch} after "
                       f"batch {batch_idx} -> {last_path}; continue with "
                       f"--resume {last_path}")
@@ -484,26 +504,32 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
                         "val_loss": avg_val_loss, "lr": new_lr,
                         "nonfinite_total": n_skipped, **timing})
 
-            if stopper.update(avg_psnr):
+            if stopper.update(avg_psnr) and is_main:
                 save_checkpoint({**model.state_dict(), **(eval_params or {})},
                                 ckpt_path)
                 logger.save(ckpt_path)
             # rolling full-state checkpoint for preemption resume (--resume)
-            save_train_checkpoint(state, epoch, scheduler, stopper, last_path,
-                                  d_state=d_state)
+            if is_main:
+                save_train_checkpoint(state, epoch, scheduler, stopper,
+                                      last_path, d_state=d_state)
             if stopper.should_stop:
                 print("Early stopping triggered")
                 break
 
     if preempted:
         # the grace window is for saving, not for a full test sweep; the
-        # resumed run finishes the epoch and evaluates as usual
+        # resumed run finishes the epoch and evaluates as usual. No rank
+        # leaves before rank 0's state file is whole (a resume may start
+        # at once and reads it on every rank)
+        distributed.barrier()
         logger.log({"preempted": 1})
         return {"preempted": True,
                 "val_psnr": stopper.best if np.isfinite(stopper.best) else 0.0}
 
     # --- final test eval -----------------------------------------------------
     print("\nRunning Final Test Set Evaluation...")
+    # every rank waits for rank 0's best checkpoint before looking for it
+    distributed.barrier()
     best = (load_checkpoint(ckpt_path, device) if os.path.exists(ckpt_path)
             else None)  # None: zero-epoch runs evaluate the live weights
     test_metrics = {"psnr": [], "ssim": [], "lpips": [], "nlpd": []}
@@ -512,8 +538,8 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
         lr_img, hr = prepare_batch(hr_u8, scale)
         sr = forward(lr_img, best)
         # the calculator takes NHWC, as the JAX package's does
-        batch_res = metrics_calc.compute(sr.permute(0, 2, 3, 1),
-                                         hr.permute(0, 2, 3, 1))
+        batch_res = _global_metrics(metrics_calc.compute(
+            sr.permute(0, 2, 3, 1), hr.permute(0, 2, 3, 1)), device)
         for k in test_metrics:
             test_metrics[k].append(batch_res[k])
     final = {k: _mean(v) for k, v in test_metrics.items()}
@@ -523,6 +549,35 @@ def _train_impl(cfg: dict, logger: RunLogger, device: torch.device) -> dict:
     # selection never touches the test metrics; 0 for zero-epoch runs
     final["val_psnr"] = stopper.best if np.isfinite(stopper.best) else 0.0
     return final
+
+
+def _noise_rows(gen: torch.Generator, hr_u8: torch.Tensor,
+                dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The D step's instance noise for this rank: the real and the fake
+    draws of the global batch from ``gen``, in the order and dtypes a
+    single process draws them (float32 for the real, the compute dtype for
+    G's fake), and this rank's rows of each, so the run does not depend
+    on the process count."""
+    b, h, w, c = hr_u8.shape
+    shape = (b * distributed.world_size(), c, h, w)
+    return tuple(data_sharding(torch.randn(shape, generator=gen,
+                                           device=hr_u8.device, dtype=dt))
+                 for dt in (torch.float32, dtype))
+
+
+def _global_metrics(res: dict, device: torch.device) -> dict:
+    """One test batch's metrics over the global batch: each rank scored
+    its share, so the means (SSIM, LPIPS, NLPD) and the squared error
+    behind PSNR are averaged over the ranks, PSNR then taken of it."""
+    if distributed.world_size() == 1:
+        return res
+    keys = ("ssim", "lpips", "nlpd")
+    t = torch.tensor([10.0 ** (-res["psnr"] / 10.0), *(res[k] for k in keys)],
+                     dtype=torch.float64, device=device)
+    distributed.all_reduce_mean_([t])
+    out = dict(zip(keys, t[1:].tolist()))
+    out["psnr"] = float(-10.0 * np.log10(t[0].item()))
+    return out
 
 
 def _start_profiler(device: torch.device):

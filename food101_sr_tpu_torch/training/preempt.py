@@ -1,5 +1,5 @@
 """Graceful-preemption guard for the training loop (counterpart of
-``food101_sr_tpu/training/preempt.py``, single process).
+``food101_sr_tpu/training/preempt.py``).
 
 A SIGTERM (spot reclaim, maintenance) mid-epoch becomes a flag; the loop
 polls it at each update boundary, where the train state is consistent,
@@ -7,11 +7,20 @@ saves the full state with the number of batches consumed, and exits.
 ``--resume`` fast-forwards the epoch-seeded loader to that batch, so the
 resumed run replays the rest of the epoch exactly
 (``tests/test_torch_loop.py``: resumed == uninterrupted, bit for bit).
+
+Multi-process runs: every rank polls its own flag, and every
+``sync_every`` updates the flags are agreed across the ranks (a MAX
+all-reduce), so one rank's signal stops all of them at the same update
+and no rank is left waiting in a collective.
 """
 from __future__ import annotations
 
 import signal
 import threading
+
+import torch
+
+from ..parallel.distributed import agree, world_size
 
 
 class PreemptionGuard:
@@ -23,8 +32,10 @@ class PreemptionGuard:
     sets the flag.
     """
 
-    def __init__(self, signals=(signal.SIGTERM,)):
+    def __init__(self, signals=(signal.SIGTERM,),
+                 device: str | torch.device = "cpu"):
         self._signals = tuple(signals)
+        self.device = device  # where the agreement's flag lives (NCCL: a card)
         self._old = {}
         self._installed = False
         self.requested = False
@@ -50,8 +61,18 @@ class PreemptionGuard:
         """Programmatic trigger (tests, drills, --preempt_after_updates)."""
         self.requested = True
 
-    def poll(self) -> bool:
-        """True when training should stop at this update boundary (one
-        process: the local flag; the JAX package's agreement across
-        processes comes with multi-GPU training, ROADMAP item 10)."""
-        return self.requested
+    def poll(self, update_idx: int = 0, sync_every: int = 16) -> bool:
+        """True when training should stop at this update boundary.
+
+        One process: the local flag, at every update. Several: the flags
+        agreed across ranks every ``sync_every`` updates, so every rank
+        gets the same answer at the same update. ``update_idx`` is a
+        0-based count that is the same on every rank and grows over the
+        whole run (the loop passes the cumulative update count: an epoch
+        shorter than ``sync_every`` would never reach an agreement if
+        the count restarted each epoch)."""
+        if world_size() == 1:
+            return self.requested
+        if (update_idx + 1) % max(int(sync_every), 1):
+            return False
+        return agree(self.requested, self.device)

@@ -106,6 +106,16 @@ class SRTrainState:
             sd["ema_params"] = self.ema_params()
         return sd
 
+    def tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the state, in a fixed order (the model's
+        parameters and buffers, the optimizer's state, ``step``,
+        ``skipped``, the EMA): what a broadcast from rank 0 fills."""
+        opt = [v for p in self.params
+               for v in self.optimizer.state.get(p, {}).values()
+               if isinstance(v, torch.Tensor)]
+        return [*self.model.state_dict().values(), *opt, self.step,
+                self.skipped, *(self.ema or [])]
+
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> "SRTrainState":
         """Copy ``sd`` (a ``state_dict`` with the same keys) into this

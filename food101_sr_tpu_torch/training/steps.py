@@ -13,6 +13,15 @@ train-mode forwards change in place under the same guard: the
 generator's (ResNetSR's BatchNorm running stats) and, in the GAN steps
 (``make_gan_d_step``, ``make_gan_g_step``), the discriminator's
 (spectral-norm vectors, BatchNorm running stats).
+
+In a process group of more than one rank each rank steps on its share of
+the global batch and the steps agree by explicit collectives, where JAX's
+mesh lets XLA insert them: the gradients and the loss are averaged over
+the ranks (one all-reduce of a flat buffer per dtype) before the
+diagnostics, the guard and the update, which then see the same values on
+every rank; batch means that the losses take inside (the relativistic
+GAN's logit means) and BatchNorm's statistics are global-batch ones; the
+eval metrics are averaged. A world of 1 runs none of it.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from ..data.pipeline import prepare_batch
 from ..losses import mae_loss, tv_loss
 from ..metrics.metrics import psnr
 from ..models.layers import chained_power_iterations
+from ..parallel.distributed import all_reduce_mean_, global_mean, world_size
 from .diagnostics import grad_norm, layer_grad_ratio, update_ratio
 from .state import SRTrainState
 
@@ -70,10 +80,12 @@ def _finite_guard(loss: torch.Tensor, gnorm: torch.Tensor) -> torch.Tensor:
 def _finalize_update(state: SRTrainState, grads: list, loss: torch.Tensor,
                      first: str, last: str, ema_decay: float | None,
                      snapshot: tuple[list, list] | None = None):
-    """Diagnostics on the raw gradients, the non-finite guard, and the
-    guarded update (``SRTrainState.apply_updates``); a skipped update also
-    puts back the model's buffers from ``snapshot``, taken before the
-    step's forwards."""
+    """The gradients and loss averaged over the ranks, then diagnostics on
+    the raw gradients, the non-finite guard, and the guarded update
+    (``SRTrainState.apply_updates``); a skipped update also puts back the
+    model's buffers from ``snapshot``, taken before the step's
+    forwards."""
+    all_reduce_mean_([*grads, loss])
     gnorm = grad_norm(grads)
     ok = _finite_guard(loss, gnorm)
     metrics = {
@@ -172,8 +184,14 @@ def make_eval_step(model: nn.Module, loss_fn: Callable, scale: int):
                   ) -> dict[str, torch.Tensor]:
         lr_img, hr = prepare_batch(hr_u8, scale)
         sr = _apply(model.eval(), lr_img, params)
-        return {"psnr": psnr(sr.clamp(0.0, 1.0), hr.clamp(0.0, 1.0)),
-                "val_loss": loss_fn(sr, hr)}
+        loss = loss_fn(sr, hr)
+        sr_c, hr_c = sr.clamp(0.0, 1.0), hr.clamp(0.0, 1.0)
+        if world_size() == 1:
+            return {"psnr": psnr(sr_c, hr_c), "val_loss": loss}
+        # the global batch's PSNR: of the mean squared error over ranks
+        mse = torch.mean((sr_c - hr_c) ** 2)
+        all_reduce_mean_([mse, loss])
+        return {"psnr": 10.0 * torch.log10(1.0 / mse), "val_loss": loss}
 
     return eval_step
 
@@ -248,19 +266,22 @@ def make_gan_d_step(g_model: nn.Module, d_model: nn.Module, scale: int,
         with chained_power_iterations(d_model):
             real_logits = d_model(noisy_real)
             fake_logits = d_model(noisy_fake)
-            loss = (_bce(real_logits - fake_logits.mean(), 0.9)
-                    + _bce(fake_logits - real_logits.mean(), 0.1)) / 2.0
+            loss = (_bce(real_logits - global_mean(fake_logits), 0.9)
+                    + _bce(fake_logits - global_mean(real_logits), 0.1)) / 2.0
             grads = list(torch.autograd.grad(loss, d_state.params,
                                              materialize_grads=True))
         loss = loss.detach()
         with torch.no_grad():
+            probs = [torch.sigmoid(real_logits).mean(),
+                     torch.sigmoid(fake_logits).mean()]
+            all_reduce_mean_([*grads, loss, *probs])
             ok = _finite_guard(loss, grad_norm(grads))
             d_state.apply_updates(grads, ok)
             _keep_if(ok, snap)
             metrics = {
                 "train_loss_D": loss,
-                "gan_dynamics/prob_real": torch.sigmoid(real_logits).mean(),
-                "gan_dynamics/prob_fake": torch.sigmoid(fake_logits).mean(),
+                "gan_dynamics/prob_real": probs[0],
+                "gan_dynamics/prob_fake": probs[1],
                 "nonfinite_steps_D": 1.0 - ok.float(),
                 "nonfinite_total_D": d_state.skipped.clone(),
             }
@@ -297,7 +318,7 @@ def make_gan_g_step(g_model: nn.Module, d_model: nn.Module,
         with torch.no_grad():
             real_logits = d_model(hr)
         loss = (w_pixel * mae_loss(sr, hr) + w_percep * perceptual_fn(sr, hr)
-                + w_adv * _bce(fake_logits - real_logits.mean(), 1.0)
+                + w_adv * _bce(fake_logits - global_mean(real_logits), 1.0)
                 + w_tv * tv_loss(sr))
         grads = list(torch.autograd.grad(loss, g_state.params,
                                          materialize_grads=True))

@@ -4,8 +4,10 @@ of ``food101_sr_tpu/utils/logging.py``).
 The key names are the reference's (per-step train_loss + dynamics/*,
 per-epoch val_psnr/val_loss/lr, final test_* keys, checkpoint uploads),
 so dashboards carry over; without wandb the run is a local JSONL file,
-``<FOOD101_SR_RUN_DIR or runs>/<name>/log.jsonl``. The port trains in
-one process, so this process always owns the run record.
+``<FOOD101_SR_RUN_DIR or runs>/<name>/log.jsonl``. In a multi-process
+run only rank 0 owns the run record (every rank runs the same loop on the
+same state, so rank 0's log is the run; each rank appending would double
+every row).
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import json
 import os
 import time
 from typing import Any, Mapping, Optional
+
+from ..parallel.distributed import rank
 
 try:  # wandb is an optional dependency
     import wandb as _wandb
@@ -27,14 +31,16 @@ class RunLogger:
         if run_dir is None:  # FOOD101_SR_RUN_DIR reroutes logs (tests -> tmp)
             run_dir = os.environ.get("FOOD101_SR_RUN_DIR", "runs")
         self.config = dict(config)
+        self.primary = rank() == 0
         use_wandb = (_wandb is not None) if use_wandb is None else use_wandb
+        use_wandb = use_wandb and self.primary
         self._wandb_run = None
         if use_wandb and _wandb is not None:
             self._wandb_run = _wandb.init(config=self.config, name=name)
             # sweep agents override config keys through wandb.init
             self.config = dict(self._wandb_run.config)
         self._fh = None
-        if self._wandb_run is None:
+        if self._wandb_run is None and self.primary:
             name = name or f"run_{int(time.time())}"
             path = os.path.join(run_dir, name)
             os.makedirs(path, exist_ok=True)

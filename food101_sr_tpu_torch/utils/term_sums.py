@@ -17,6 +17,23 @@ from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.quantize import fake_quant_act
 from ..ops.subpixel_conv import phase_major_shuffle
 
+# The bounds of a bf16 step's raw gradients against the float32 step's, per
+# leaf over its term sum, shared by ``chip_smoke.py`` (the card, registry
+# sizes) and ``tests/test_torch_bf16.py``, which calibrates them on the CPU
+# from the bf16-vs-float32 distances of the JAX package's narrow nets and
+# of the port's, twice over, rounded up to a power of two. BF16_GRAD_TOL,
+# float rounding alone: per leaf the smaller of the two packages' distances
+# (they differ most at the leaves JAX sums in bf16: SRCNN's conv biases,
+# 0.53), at worst 0.050 (ResNetSR; the GAN steps 0.038 D, 0.039 G). It
+# holds the supervised steps, and the bf16 GAN steps with the float32
+# steps' activation branches applied. BF16_GAN_TOL holds the GAN steps as
+# they run, calibrated by the larger of the two distances, 0.066 (JAX's G
+# step at an SE block's first weight): an activation input near 0 takes
+# the other branch in bf16, and where its layer is small (an SE block's 6
+# hidden units, D's 100) one such element moves a leaf by a fair share of
+# its term sum at 2 crops.
+BF16_GRAD_TOL, BF16_GAN_TOL = 2.0 ** -3, 2.0 ** -2
+
 
 @contextlib.contextmanager
 def term_sums(model, sums: dict):

@@ -46,7 +46,8 @@ from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
                                            loss_and_grads, make_adam,
                                            make_gan_d_step, make_gan_g_step,
                                            make_train_step, train)
-from food101_sr_tpu_torch.utils.term_sums import term_sums
+from food101_sr_tpu_torch.utils.term_sums import (BF16_GAN_TOL,
+                                                  BF16_GRAD_TOL, term_sums)
 from test_torch_gan import extra_of, write_vgg_npz
 from test_torch_gan_steps import _d_params
 
@@ -183,14 +184,13 @@ def test_discriminator_forward_matches_jax_bf16():
 # times the largest distance measured on these nets (0.040, the D step's
 # net.6.weight, a BatchNorm scale), rounded up to a power of two
 LEAF_TOL = 2.0 ** -4
-# chip_smoke.py's bounds of the card's bf16-vs-float32 gradients at
-# registry size, which twice the calibrations below must not exceed:
-# BF16_GRAD_TOL (float rounding alone: the supervised steps, and the GAN
-# steps with the float32 pass's activation branches), twice the smaller
-# of the two packages' own distances; BF16_GAN_TOL (the GAN steps as they
-# run, where an activation near 0 may take the other branch), twice the
-# larger
-CARD_TOL, CARD_GAN_TOL = 2.0 ** -3, 2.0 ** -2
+# the card's bounds of bf16-vs-float32 gradients at registry size
+# (utils/term_sums.py, read by chip_smoke.py), which twice the
+# calibrations below must not exceed: BF16_GRAD_TOL (float rounding
+# alone: the supervised steps, and the GAN steps with the float32 pass's
+# activation branches), twice the smaller of the two packages' own
+# distances; BF16_GAN_TOL (the GAN steps as they run, where an activation
+# near 0 may take the other branch), twice the larger
 
 
 def _reduced(model) -> set:
@@ -259,6 +259,24 @@ def _assert_leaves(model, got: dict, want_bf16: dict, f32: dict,
     return calib, widest
 
 
+def _assert_bf16_backward(model, got: dict) -> None:
+    """Every leaf outside BatchNorm (which runs in float32) holds bf16
+    values: the last op of its backward, the cotangent of the parameter's
+    cast to the compute dtype, ran in bf16. A float32 backward leaves
+    nearly every entry between two bf16 values (measured: at most 12% of a
+    leaf's entries on bf16 values, SRCNN; 0.003% AttentionSR). JAX's own
+    conv weight gradients on the CPU are float32 sums (XLA folds the cast
+    into the conv), so this holds the port's path, and the leaves' bounds
+    against JAX's bf16 gradient hold its values."""
+    from torch import nn
+
+    bn = {f"{n}.{p}" for n, m in model.named_modules()
+          if isinstance(m, nn.BatchNorm2d) for p in ("weight", "bias")}
+    off = [k for k, g in got.items()
+           if k not in bn and not torch.equal(g, g.to(BF16).float())]
+    assert off == [], off
+
+
 def _jax_grads(arch: str, dtype, hr_u8: np.ndarray):
     net, v = JAX_NETS[arch](dtype), _variables(arch)
     lr_img, hr = jax_prepare_batch(jnp.asarray(hr_u8), SCALE)
@@ -281,8 +299,9 @@ def _jax_grads(arch: str, dtype, hr_u8: np.ndarray):
 # bf16): SRCNN 0.0061 (0.014), RESNET 0.011 (0.021), AttentionSR 0.023
 # (0.014), RRDB 0.0094 (0.017); the summed distances over JAX's own 0.32,
 # 0.089, 0.89 and 0.30 (PINS: AttentionSR's SE blocks send the two bf16
-# gradients as far apart as each sits from float32, so there the
-# per-leaf bound and the forward pin the bf16 path)
+# gradients as far apart as each sits from float32, leaf by leaf too:
+# 0.54-3.2 of JAX's own distance, output_conv's 0.75; there
+# _assert_bf16_backward, which every arch runs, pins the bf16 backward)
 PINS = {"SRCNN": 0.5, "RESNET": 0.5, "AttentionSR": None, "RRDB": 0.5}
 
 
@@ -299,12 +318,19 @@ def test_raw_gradients_match_jax_bf16(arch):
     loss, grads = loss_of(model)
     assert float(loss) == pytest.approx(want_loss, rel=STEP)
     got = dict(zip((k for k, _ in model.named_parameters()), grads))
-    calib, _ = _assert_leaves(model, got, want,
-                              *_f32_pass(_port(arch, None), loss_of),
-                              pin=PINS[arch])
+    f32, sums = _f32_pass(_port(arch, None), loss_of)
+    calib, _ = _assert_leaves(model, got, want, f32, sums, pin=PINS[arch])
+    _assert_bf16_backward(model, got)
+    # a backward left in float32 holds values between bf16's, and fails
+    with pytest.raises(AssertionError):
+        _assert_bf16_backward(model, f32)
+    if PINS[arch] is not None:
+        # it also reads 1 on the pin, and fails there
+        with pytest.raises(AssertionError):
+            _assert_leaves(model, f32, want, f32, sums, pin=PINS[arch])
     # the card's bf16-vs-float32 bound is twice this at least (measured:
     # 0.016 SRCNN, 0.050 RESNET, 0.020 AttentionSR, 0.019 RRDB)
-    assert 2 * calib <= CARD_TOL
+    assert 2 * calib <= BF16_GRAD_TOL
 
 
 # the GAN steps: the narrow AttentionSR (phase tail) and the D at nf=8 in
@@ -379,7 +405,7 @@ def test_discriminator_step_gradients_match_jax_bf16():
     f32 = {k: p.grad.clone() for k, p in d32.named_parameters()}
     calib, widest = _assert_leaves(d, got, jax_grads(jnp.bfloat16), f32,
                                    sums)
-    assert 2 * calib <= CARD_TOL and 2 * widest <= CARD_GAN_TOL
+    assert 2 * calib <= BF16_GRAD_TOL and 2 * widest <= BF16_GAN_TOL
 
 
 def test_generator_gan_step_gradients_match_jax_bf16(tmp_path):
@@ -434,7 +460,12 @@ def test_generator_gan_step_gradients_match_jax_bf16(tmp_path):
     f32 = {k: p.grad.clone() for k, p in g32.named_parameters()}
     want = {k: t.numpy() for k, t in params_from_jax(jg).items()}
     calib, widest = _assert_leaves(g, got, want, f32, sums, pin=0.75)
-    assert 2 * calib <= CARD_TOL and 2 * widest <= CARD_GAN_TOL
+    assert 2 * calib <= BF16_GRAD_TOL and 2 * widest <= BF16_GAN_TOL
+    with pytest.raises(AssertionError):  # a float32 backward fails
+        _assert_leaves(g, f32, want, f32, sums, pin=0.75)
+    _assert_bf16_backward(g, got)
+    with pytest.raises(AssertionError):
+        _assert_bf16_backward(g, f32)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,8 @@ from food101_sr_tpu_torch.models import (build_model, get_model,
                                          model_for_params)
 from food101_sr_tpu_torch.ops import (blur_kernel, mean_kernel,
                                       mean_nhwc_kernel, mean_plane_kernel)
+from food101_sr_tpu_torch.parallel import make_mesh
+from food101_sr_tpu_torch.parallel.distributed import rank_device
 from food101_sr_tpu_torch.serving import SRServer
 from food101_sr_tpu_torch.training import train
 
@@ -57,7 +59,10 @@ NEW_MODULES = ("food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.ops.quantize",
                "food101_sr_tpu_torch.ops.subpixel_conv",
                "food101_sr_tpu_torch.ops.tta",
+               "food101_sr_tpu_torch.parallel.distributed",
+               "food101_sr_tpu_torch.parallel.mesh",
                "food101_sr_tpu_torch.parallel.spatial",
+               "food101_sr_tpu_torch.parallel.spatial_mesh",
                "food101_sr_tpu_torch.predict",
                "food101_sr_tpu_torch.serve",
                "food101_sr_tpu_torch.train",
@@ -203,6 +208,11 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
                      cache_dir=str(tmp_path / "store")))),
                  lambda: serve.main(["--architecture", "SRCNN", "--port",
                                      "0"]),
+                 make_mesh, lambda: SRServer("SRCNN", use_mesh=True),
+                 lambda: rank_device("cuda"),
+                 lambda: train({"dataset": "synthetic",
+                                "coordinator": "localhost:1",
+                                "num_processes": 1, "process_id": 0}),
                  lambda: predict.main([str(tmp_path), "--out_dir",
                                        str(tmp_path / "out")])):
         with pytest.raises((RuntimeError, AssertionError)):

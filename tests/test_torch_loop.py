@@ -610,16 +610,6 @@ def test_cli_dests_and_defaults_equal_the_root_cli(monkeypatch, argv):
         monkeypatch, argv)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--coordinator", "localhost:1234"], ["--num_processes", "2"],
-    ["--process_id", "0"], ["--distributed", "auto"],
-])
-def test_cli_unported_flags_raise_naming_the_roadmap_item(flags):
-    argv = ["--architecture", "AttentionSR", "--dataset", "synthetic", *flags]
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        main(argv)
-
-
 # the bf16 and cache flags, each reaching train() and running an epoch:
 # SRCNN on 24 synthetic images (2 steps of 8), crop 32; the cache flags
 # after the one that turns their cache on

@@ -383,12 +383,6 @@ def test_warmup_runs_each_bucket_without_traffic(pair):
     assert np.array_equal(psrv.upscale(img), before)
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh"], "item 10")])
-def test_unported_flags_raise_naming_their_items(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.parse_args(argv)
-
-
 def test_quantize_flag_quantizes_what_can_be():
     """``--quantize int8`` (ROADMAP item 8) on the CPU: a zoo quantizes
     RESNET and serves SRCNN, by name or as an "auto" checkpoint, in float
