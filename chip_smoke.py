@@ -213,7 +213,26 @@ Phases, one short line each; any failure raises and the exit code is 1:
           cuda:0 four times, float32 with TF32 off, within 1 level of the
           whole image, K2 at the halo windows' shape, and
           SRServer(use_mesh=True) bit-equal to the plain server
-17. done  the kernels' JSON line and the elapsed time
+17. bench the port's bench: ``python -m food101_sr_tpu_torch.bench`` in a
+          child at its defaults (AttentionSR x4 bf16 inference, batch 256
+          of 50^2, the standard tail's provisional line, then the phase
+          tail's result line, which must name
+          attentionsr_x4_inference_throughput with a positive value and
+          vs_baseline null); K1 at the bf16 train step's pyramids
+          (128,3,{200,100,50,25}^2) and K2 NHWC at the bench's SE inputs,
+          (256,96,50,50), (128,96,50,50) and (32,96,48,48) bf16
+          channels-last, against their plain versions, with times; then,
+          in this process and counted from zero, the bench's legs at its
+          full batches and shapes with fewer calls: inference, --train,
+          --gan and --input of AttentionSR, and --train of RRDB in the
+          split and concat dense layouts in turns (ms per step, peak
+          memory); every leg's launches per call against BENCH_PER_CALL;
+          how many host syncs one bench train step makes; and the remat
+          leg in a child of its own (``chip_smoke.py --remat DIR``, the
+          loop phase's determinism): AttentionSR's float32 step with
+          remat on and off, gradients, step ms, peak memory and launches
+          (K2 64 a step with remat: each block's forward runs again)
+18. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
@@ -234,8 +253,9 @@ each generator (``bf16_launches``) and the loop child's bf16 and cache
 runs (``bf16_loop_launches``, ``cache_device_loop_launches``,
 ``cache_host_loop_launches``, ``cache_host_reopened_loop_launches``,
 ``cache_host_reuse_loop_launches``, ``bf16_cache_device_loop_launches``),
-each dp rank's uninterrupted train() (``dp_launches``) and the halo-sharded
-forward (K2 NHWC 32 per window: ``halo_launches``).
+each dp rank's uninterrupted train() (``dp_launches``), the halo-sharded
+forward (K2 NHWC 32 per window: ``halo_launches``) and the bench phase's
+legs in this process (``bench_launches``; per shape on its own rows).
 The last line is the JSON device record;
 the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -462,6 +482,24 @@ DP_PREEMPT, DP_SYNC = 10, 16
 DP_MESH, DP_TILED_SHAPE, DP_TILE = 4, (200, 152), 8
 DP_HALO_SHAPE, DP_HALO_NARROW = (640, 160), (640, 32)
 DP_SERVE_REQUESTS = 16
+# the bench phase: ``python -m food101_sr_tpu_torch.bench`` once at its
+# defaults in a child (BENCH_CLI_TIMEOUT s), then the bench's legs in this
+# process at its full batches and shapes with BENCH_N calls (short, long)
+# and BENCH_REPEATS run each; RRDB's train leg in both dense layouts, in
+# the turns of RRDB_TURNS, at each batch of RRDB_AB_BATCHES (the bench's
+# and the loop's); BENCH_PER_CALL the launches (K1, K2 nhwc, K2 nchw) of
+# one call of each leg. The remat leg (a child of its own, under
+# the loop phase's determinism): the registry AttentionSR's float32 step
+# at TRAIN_BATCH crops of TRAIN_CROP with remat on and off on the same
+# weights and crops, its gradients bit-equal or within GRAD_TOL of each
+# leaf's term sum, REMAT_WARMUP + REMAT_TIMED steps each under CUDA events
+BENCH_N, BENCH_REPEATS, BENCH_CLI_TIMEOUT = (2, 6), 1, 420
+RRDB_TURNS = ("split", "concat", "concat", "split", "split", "concat")
+RRDB_AB_BATCHES = (128, TRAIN_BATCH)
+BENCH_PER_CALL = {"infer": (0, 32, 0), "train": (12, 32, 0),
+                  "gan G": (0, 32, 0), "gan D": (0, 32, 0),
+                  "input": (0, 0, 0), "rrdb": (12, 0, 0)}
+REMAT_WARMUP, REMAT_TIMED = 2, 5
 
 
 def jpeg_test_image(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
@@ -4351,6 +4389,301 @@ def phase_dp(rates) -> dict:
             "k2_rank": k2_rank, "k2_halo": k2_halo}
 
 
+def _bench_cli() -> dict:
+    """``python -m food101_sr_tpu_torch.bench`` at its defaults, in a child
+    from the repository's root: its stderr goes to this output, prefixed;
+    its stdout must be the standard tail's provisional line and the result
+    line, which names AttentionSR's inference metric with a positive value
+    and the phase tail."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "food101_sr_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_CLI_TIMEOUT)
+    for line in proc.stderr.splitlines():
+        print(f"bench cli: {line}", flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the bench exited with {proc.returncode}: "
+                           f"{proc.stdout[-2000:]}")
+    std, last = [json.loads(ln) for ln in proc.stdout.splitlines()]
+    metric = "attentionsr_x4_inference_throughput"
+    if not (last == {"metric": metric, "value": last["value"],
+                     "unit": "images/sec/chip", "vs_baseline": None,
+                     "tail": "phase"}
+            and last["value"] > 0 and std["metric"] == metric
+            and std["tail"] == "standard" and std["value"] > 0):
+        raise AssertionError(f"the bench printed {std} then {last}")
+    return {"standard_images_per_s": std["value"],
+            "phase_images_per_s": last["value"],
+            "wall_s": time.perf_counter() - t0}
+
+
+def _bench_kernels(rates, k1: dict, k2: dict) -> dict:
+    """K1 at the bf16 train step's pyramids (one launch per level, pred's
+    and the target's alike) and K2 NHWC at the bench's SE inputs (bf16
+    channels-last: inference, the train step, the GAN's G) against their
+    plain versions (K1 within K1_TOL forward and backward, K2 within one
+    bf16 ulp), with times and bounds; rows for the kernels line."""
+    from food101_sr_tpu_torch import bench
+    from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
+                                                       spatial_mean_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    side = bench.LR_SIZE * bench.SCALE
+    pyr = [torch.rand((bench.TRAIN_BATCH, 3, side >> i, side >> i),
+                      device="cuda", generator=gen) for i in range(4)]
+    err1 = _k1_err(pyr, gen)
+    if not err1 <= K1_TOL:
+        raise AssertionError(f"K1 at the bench's pyramid: {err1}")
+    rows = {"K1 train": {**{k: k1[k] for k in ("name", "route", "source",
+                                               "replaces", "wrapper")},
+                         "at": f"4 launches: ({bench.TRAIN_BATCH},3,"
+                               f"{{{side},{side // 2},{side // 4},"
+                               f"{side // 8}}}^2) float32, a pyramid of the "
+                               "bench's bf16 train step; host_us per launch",
+                         "max_abs_err": err1, **_k1_timings(pyr, rates)}}
+    lr = bench.LR_SIZE
+    gan = bench.GAN_CROP // bench.SCALE
+    for key, shape in (("K2 infer", (bench.BATCH, 96, lr, lr)),
+                       ("K2 train", (bench.TRAIN_BATCH, 96, lr, lr)),
+                       ("K2 gan", (bench.GAN_BATCH, 96, gan, gan))):
+        x = (torch.rand(shape, device="cuda", generator=gen) * 2 - 0.5).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        got, want = mean_nhwc_kernel(x).float(), spatial_mean_plain(x).float()
+        ulp = ((got - want).abs() / _ulp_bf16(want)).max().item()
+        if not ulp <= 1.0:
+            raise AssertionError(f"K2 NHWC at {shape} bf16: {ulp} ulp")
+        t = _timings(lambda: mean_nhwc_kernel(x),
+                     lambda: spatial_mean_plain(x), lambda: x.mean((2, 3)),
+                     launches=1)
+        t["bound_ms"], t["bound_by"] = bound(
+            2 * x.numel() + 2 * shape[0] * shape[1], x.numel(), rates)
+        rows[key] = {**{k: k2[k] for k in ("name", "route", "source",
+                                           "replaces", "wrapper")},
+                     "at": f"{shape} bfloat16 channels-last, the bench's "
+                           f"{key.split()[1]} SE input",
+                     "max_abs_err": (got - want).abs().max().item(),
+                     "ulp": ulp, **t}
+    for key, row in rows.items():
+        print(f"bench kernels: {key} {row['at'].split(',')[0]}... "
+              f"err {row['max_abs_err']:.3g} | kernel {row['ms']:.4f} ms, "
+              f"device {row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, "
+              f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']})", flush=True)
+    return rows
+
+
+def _host_syncs_per_step() -> dict:
+    """Host syncs of one bench train step (bf16 AttentionSR, the bench's
+    batch), counted by CUDA's sync debug mode: each of its warnings is
+    one call that made the host wait for the device, but the mode's own
+    notice that it is a prototype."""
+    from food101_sr_tpu_torch import bench
+
+    state, step = bench.build_train("AttentionSR", "cuda")
+    hr = bench.hr_batch(bench.TRAIN_BATCH, bench.LR_SIZE * bench.SCALE,
+                        "cuda")
+    step(state, hr)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, hr)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    msgs = [str(w.message).splitlines()[0] for w in caught
+            if "synchroniz" in str(w.message)
+            and "prototype" not in str(w.message)]
+    torch.cuda.synchronize()
+    return {"syncs": len(msgs), "first": msgs[0] if msgs else None}
+
+
+def run_remat_leg() -> dict:
+    """The remat leg in a child process of its own, which alone gets the
+    determinism environment (as run_loop_phase does)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remat_") as tmp:
+        env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": LOOP_CUBLAS}
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--remat", tmp], env=env, timeout=600).returncode
+        if rc != 0:
+            raise RuntimeError(f"the remat leg exited with {rc}")
+        with open(os.path.join(tmp, "remat.json")) as f:
+            return json.load(f)
+
+
+def remat_main(tmp: str) -> int:
+    """Entry of the remat leg's child process: the registry AttentionSR x4
+    float32 step (phase tail, NLPD, Adam) at TRAIN_BATCH crops of
+    TRAIN_CROP with remat off and on, on the same seeded weights and
+    crops, under the loop phase's determinism. The gradients bit-equal
+    or, failing that, within GRAD_TOL of each leaf's term sum; then
+    REMAT_WARMUP + REMAT_TIMED steps of each under CUDA events, peak
+    memory and launches per step (K1 8 both; K2 32 off, 64 on)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    from food101_sr_tpu_torch.losses import nlpd_loss
+    from food101_sr_tpu_torch.models import get_model
+    from food101_sr_tpu_torch.training import (FIRST_LAST, SRTrainState,
+                                               loss_and_grads, make_adam,
+                                               make_train_step)
+    from food101_sr_tpu_torch.utils.term_sums import term_sums
+
+    _deterministic()
+    hr = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 256, (TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 3), np.uint8)).cuda()
+    nets = {remat: get_model("AttentionSR", phase_tail=True, remat=remat,
+                             generator=torch.Generator().manual_seed(0))
+            for remat in (False, True)}
+    with term_sums(nets[False], {}) as sums:
+        loss0, g0 = loss_and_grads(nets[False], nlpd_loss, 4, hr)
+    loss1, g1 = loss_and_grads(nets[True], nlpd_loss, 4, hr)
+    bit_equal = torch.equal(loss0, loss1) and _bit_equal(g0, g1)
+    names = [k for k, _ in nets[False].named_parameters()]
+    worst = _worst(names, g1, [g.cpu() for g in g0], sums)
+    if not (bit_equal or worst["term_sum"][0] <= GRAD_TOL):
+        raise AssertionError(f"remat gradients: {worst['term_sum']}")
+    del g0, g1
+    out = {"bit_equal": bit_equal, "term_sum": worst["term_sum"]}
+    for remat, model in nets.items():
+        state = SRTrainState.create(model, make_adam(TRAIN_LR))
+        step = make_train_step(model, nlpd_loss, 4,
+                               *FIRST_LAST["AttentionSR"])
+        for _ in range(REMAT_WARMUP):
+            step(state, hr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        ms = []
+        for _ in range(REMAT_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, hr)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        per_step = [n // REMAT_TIMED for n in _counts()]
+        want = [8, model.num_residuals * (2 if remat else 1), 0]
+        if per_step != want:
+            raise AssertionError(f"remat={remat}: launches a step "
+                                 f"{per_step}, expected {want}")
+        out["on" if remat else "off"] = {
+            "step_ms": float(np.median(ms)), "step_ms_min": min(ms),
+            "step_ms_max": max(ms), "launches": per_step,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del state, step
+    with open(os.path.join(tmp, "remat.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_bench(rates, k1: dict, k2: dict) -> dict:
+    """The port's bench on the card (module docstring, phase 17). Returns
+    the kernels' rows at the bench's shapes (with their launches in the
+    counted legs) and the legs' launch totals."""
+    from food101_sr_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    cli = _bench_cli()
+    rows = _bench_kernels(rates, k1, k2)
+    small = dict(zip(("n_short", "n_long"), BENCH_N),
+                 repeats=BENCH_REPEATS)
+    calls = 2 + BENCH_REPEATS * sum(BENCH_N)  # the first call, the timed
+    #                                           runs, launches_of's call
+    legs, counted = {}, {}
+
+    def leg(key, fn):
+        before = _counts()
+        legs[key] = fn()
+        torch.cuda.synchronize()
+        counted[key] = [a - b for a, b in zip(_counts(), before)]
+        torch.cuda.empty_cache()
+
+    # ---- main path: counts from zero -----------------------------------
+    _zero_counts()
+    leg("infer", lambda: bench.bench_infer(**small))
+    leg("train", lambda: bench.bench_train(**small))
+    leg("gan", lambda: bench.bench_gan(**small))
+    leg("input", bench.bench_input)
+    rrdb_keys = [(b, lay, f"rrdb {b} {lay} {i}") for b in RRDB_AB_BATCHES
+                 for i, lay in enumerate(RRDB_TURNS)]
+    for batch, layout, key in rrdb_keys:
+        leg(key, lambda: bench.bench_train(
+            "RRDB", batch=batch, dense_layout=layout, **small))
+    launches = _counts()
+    # ---- end of main path ----------------------------------------------
+
+    per_call = {key: tuple(legs[key]["launches"].values())
+                for key in ("infer", "train")}
+    per_call["gan G"] = tuple(legs["gan"]["launches"]["G"].values())
+    per_call["gan D"] = tuple(legs["gan"]["launches"]["D"].values())
+    per_call["input"] = tuple(counted["input"])
+    for _, _, key in rrdb_keys:
+        per_call[key] = tuple(legs[key]["launches"].values())
+    for key, got in per_call.items():
+        want = BENCH_PER_CALL[key.split()[0] if key.startswith("rrdb")
+                              else key]
+        if got != want:
+            raise AssertionError(f"bench {key}: launches a call {got}, "
+                                 f"expected {want}")
+    # each leg makes ``calls`` calls (the GAN's of G and of D alike)
+    want_total = [calls * sum(BENCH_PER_CALL[k][j] for k in (
+        "infer", "train", "gan G", "gan D", *["rrdb"] * len(rrdb_keys)))
+        for j in range(3)]
+    if list(launches) != want_total:
+        raise AssertionError(f"bench legs launched {launches}, expected "
+                             f"{want_total}")
+    for key, leg_out in legs.items():
+        if not leg_out["ips"] > 0:
+            raise AssertionError(f"bench {key}: {leg_out}")
+    syncs = _host_syncs_per_step()
+    remat = run_remat_leg()
+    rrdb = {b: {lay: {k: [legs[key][k] for bb, ll, key in rrdb_keys
+                          if (bb, ll) == (b, lay)]
+                      for k in ("ms", "device_ms", "ips", "peak_gib")}
+                for lay in ("split", "concat")} for b in RRDB_AB_BATCHES}
+    ab_line = ", ".join(
+        f"batch {b}: split {np.median(r['split']['ms']):.1f} concat "
+        f"{np.median(r['concat']['ms']):.1f} ms, "
+        f"{max(r['split']['peak_gib']):.2f} / "
+        f"{max(r['concat']['peak_gib']):.2f} GiB" for b, r in rrdb.items())
+    numbers = {"cli": cli, "calls_per_leg": calls,
+               "legs": {k: {kk: vv for kk, vv in v.items()
+                            if kk != "launches"} for k, v in legs.items()},
+               "rrdb_ab": rrdb, "train_step_host_syncs": syncs,
+               "remat": remat, "launches": list(launches),
+               "phase_s": time.perf_counter() - t0}
+    print(f"bench: cli {cli['standard_images_per_s']} -> "
+          f"{cli['phase_images_per_s']} images/s (standard -> phase tail, "
+          f"{cli['wall_s']:.1f} s) | at n {BENCH_N}, {BENCH_REPEATS} repeat: "
+          f"infer {legs['infer']['ips']:.1f}, train "
+          f"{legs['train']['ips']:.1f} ({legs['train']['ms']:.1f} ms, "
+          f"{legs['train']['peak_gib']:.2f} GiB), gan "
+          f"{legs['gan']['ips']:.1f}, input {legs['input']['ips']:.1f} "
+          f"images/s | RRDB train (medians of the turns) {ab_line}"
+          f" | host syncs a train step {syncs['syncs']} | remat bit-equal "
+          f"{remat['bit_equal']}, step ms {remat['off']['step_ms']:.1f} -> "
+          f"{remat['on']['step_ms']:.1f}, GiB {remat['off']['peak_gib']:.3f}"
+          f" -> {remat['on']['peak_gib']:.3f}, K2 a step "
+          f"{remat['off']['launches'][1]} -> {remat['on']['launches'][1]} | "
+          f"launches {list(launches)} | {numbers['phase_s']:.1f} s",
+          flush=True)
+    print("bench numbers: " + json.dumps(numbers), flush=True)
+    rows["K1 train"]["launches"] = counted["train"][0] + sum(
+        counted[key][0] for b, _, key in rrdb_keys
+        if b == bench.TRAIN_BATCH)
+    rows["K2 infer"]["launches"] = counted["infer"][1]
+    rows["K2 train"]["launches"] = counted["train"][1]
+    rows["K2 gan"]["launches"] = counted["gan"][1]
+    rows["K1 train"]["step_ms"] = legs["train"]["ms"]
+    rows["K2 infer"]["images_per_s"] = legs["infer"]["ips"]
+    return {"rows": list(rows.values()),
+            "launches": dict(zip(("K1", "K2 nhwc", "K2 nchw"), launches))}
+
+
 def run_loop_phase() -> dict:
     """Phases 12 and 13 in a child process of its own, which alone gets the
     determinism environment; its results come back through a file in a
@@ -4541,12 +4874,15 @@ def main() -> int:
         d["dp_launches"] = dp["dp_launches"][key]
         d["halo_launches"] = dp["halo_launches"][key]
     k1["dp_max_abs_err"] = dp["k1_max_abs_err"]
+    bench = phase_bench(rates, k1, k2_nhwc)
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
+        d["bench_launches"] = bench["launches"][key]
     keys = ("name", "route", "source", "replaces", "launches",
             "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
             "rrdb_gan_loop_launches", "food101_loop_launches",
             "tail_launches", "quant_serve_launches", "qat_loop_launches",
             "bf16_launches", *CACHE_LAUNCH_KEYS.values(), "dp_launches",
-            "halo_launches", "dp_max_abs_err",
+            "halo_launches", "bench_launches", "dp_max_abs_err",
             "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
@@ -4557,7 +4893,7 @@ def main() -> int:
     kernels = [{k: d[k] for k in keys if k in d}
                for d in (k1, k2_nhwc, k2_nchw, k2_tta, k1_train, k2_train,
                          k2_gan, k1_bf16, k2_bf16, dp["k2_rank"],
-                         dp["k2_halo"])]
+                         dp["k2_halo"], *bench["rows"])]
     print(f"done: elapsed_s {time.perf_counter() - t_start:.1f} | {smi}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4574,4 +4910,6 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--dp-one"]:
         sys.exit(dp_one_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--remat"]:
+        sys.exit(remat_main(sys.argv[2]))
     sys.exit(main())

@@ -7,15 +7,17 @@ weights; ``quantize`` runs the body convs (the residual blocks' and the
 mid conv) in dynamic int8 for inference ("int8", "int8_dot") or
 fake-quantized for QAT ("qat"), as in the JAX net; ``compute_dtype``
 runs the convs and the SE linears in that dtype on float32 weights (JAX's
-``dtype=``, bf16 training with float32 master weights).
+``dtype=``, bf16 training with float32 master weights); ``remat``
+recomputes each attention block in the backward
+(``layers.run_blocks``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .layers import (AttentionResidualBlock, Conv, prelu, set_compute_dtype,
-                     upsample_tail)
+from .layers import (AttentionResidualBlock, Conv, prelu, run_blocks,
+                     set_compute_dtype, upsample_tail)
 
 
 class AttentionSR(nn.Module):
@@ -35,10 +37,12 @@ class AttentionSR(nn.Module):
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
                  num_residuals: int = 32, quantize: str = "",
                  phase_tail: bool = False,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         self.scale_factor = scale_factor
         self.num_residuals = num_residuals
+        self.remat = remat
         self.quantize = quantize
         self.phase_tail = phase_tail
         self.input_conv = Conv(3, num_channels, 9)
@@ -54,8 +58,6 @@ class AttentionSR(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.prelu(self.input_conv(
             x.contiguous(memory_format=self.memory_format)))
-        r = initial
-        for block in self.res_blocks:
-            r = block(r)
+        r = run_blocks(self.res_blocks, initial, self.remat)
         x = initial + self.mid_conv(r)
         return self.output_conv(self.upsample(x))

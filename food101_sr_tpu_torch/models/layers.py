@@ -24,6 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.quantize import fake_quant_conv2d, int8_conv2d
 from ..parallel.distributed import global_sum, world_size
@@ -260,7 +261,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     global batch's statistics, as JAX's mesh does: ``E[x^2] - E[x]^2`` in
     float32 from per-rank sums all-reduced by a differentiable collective
     (the backward gets the other ranks' shares), the global n in the
-    Bessel factor. A world of 1 runs PyTorch's own batch norm."""
+    Bessel factor. A world of 1 runs PyTorch's own batch norm.
+
+    While ``recomputing`` (a block's forward run again in the backward,
+    :func:`run_blocks`) train mode normalizes as before and leaves the
+    running stats alone: the step's first forward advanced them."""
+
+    recomputing = False
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -271,6 +278,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and world_size() > 1:
             return self._global_batch(x.float()).to(x.dtype)
+        if self.training and self.recomputing:
+            # the call nn.BatchNorm2d makes, on copies of the running stats
+            return F.batch_norm(x.float(), self.running_mean.clone(),
+                                self.running_var.clone(), self.weight,
+                                self.bias, True, self.momentum,
+                                self.eps).to(x.dtype)
         return super().forward(x.float()).to(x.dtype)
 
     def _global_batch(self, x: torch.Tensor) -> torch.Tensor:
@@ -280,10 +293,12 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = sums[0] / n
         var = sums[1] / n - mean * mean
         with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-            self.num_batches_tracked += 1
+            if not self.recomputing:
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / max(n - 1, 1)))
+                self.num_batches_tracked += 1
         shape = (1, -1, 1, 1)
         y = (x - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
         return y * self.weight.view(shape) + self.bias.view(shape)
@@ -304,6 +319,43 @@ class ResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r = self.prelu(self.bn1(self.conv1(x)))
         return x + self.bn2(self.conv2(r))
+
+
+@contextlib.contextmanager
+def _recomputing(block: nn.Module):
+    """Within the block, ``block``'s BatchNorms are ``recomputing``."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
+def run_blocks(blocks: nn.ModuleList, x: torch.Tensor, remat: bool,
+               *args) -> torch.Tensor:
+    """``x`` through each of ``blocks`` in turn (``block(x, *args)``).
+
+    With ``remat``, in a differentiated pass each block keeps only its
+    input and runs its forward again in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as JAX's ``nn.remat`` per
+    block does: the step's activation memory falls by about a block stack
+    for one more forward of it. The blocks draw no random numbers, so no
+    RNG state is kept; the recompute leaves BatchNorm's running stats
+    alone, and a collective inside a block (global-batch BatchNorm) runs
+    once more on every rank alike. Without a gradient it is the plain
+    loop."""
+    for block in blocks:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, *args, use_reentrant=False,
+                           preserve_rng_state=False,
+                           context_fn=lambda b=block: (
+                               contextlib.nullcontext(), _recomputing(b)))
+        else:
+            x = block(x, *args)
+    return x
 
 
 def upsample_block(in_channels: int, out_channels: int = 64,

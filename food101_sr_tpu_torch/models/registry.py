@@ -5,9 +5,10 @@ x 64 channels, growth 32), and the architecture of a state_dict read from
 its keys and tensor shapes.
 
 Each entry takes the scale and the JAX registry's ``quantize``,
-``phase_tail`` and dtype (``compute_dtype`` here) flags as keywords;
-SRCNN has neither a body stack nor a tail, so it ignores ``phase_tail``
-and ``get_model`` refuses it a ``quantize`` mode.
+``phase_tail``, ``remat`` and dtype (``compute_dtype`` here) flags as
+keywords; SRCNN has neither a body stack nor a tail, so it ignores
+``phase_tail`` and ``remat`` and ``get_model`` refuses it a ``quantize``
+mode.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ from .rrdb import RRDBNet
 from .srcnn import SRCNN
 
 _REGISTRY = {
-    "SRCNN": lambda scale, quantize="", phase_tail=False, compute_dtype=None:
-    SRCNN(scale_factor=scale, hidden_dim=64, compute_dtype=compute_dtype),
+    "SRCNN": lambda scale, quantize="", phase_tail=False, compute_dtype=None,
+    remat=False: SRCNN(scale_factor=scale, hidden_dim=64,
+                       compute_dtype=compute_dtype),
     "RESNET": lambda scale, **flags: ResNetSR(
         scale_factor=scale, num_residuals=16, num_channels=64, **flags),
     "AttentionSR": lambda scale, **flags: AttentionSR(
@@ -46,16 +48,23 @@ def _check_quantize(arch: str, quantize: str) -> None:
 
 def build_model(module_fn, dtype: torch.dtype = torch.float32,
                 device: str | torch.device = "cuda",
-                generator: torch.Generator | None = None) -> nn.Module:
+                generator: torch.Generator | None = None,
+                remat: bool = False) -> nn.Module:
     """Construct ``module_fn()`` without touching the global RNG, draw its
     weights from ``generator`` (seed 0 when None), and move it to
     ``device``/``dtype`` in eval mode, 4-D weights in channels-last memory
-    (the format the nets run in)."""
+    (the format the nets run in). ``remat=True`` turns on the block
+    recomputation (``layers.run_blocks``) of every net in it that has a
+    block stack; False leaves the nets as ``module_fn`` made them."""
     with torch.device("meta"):
         model = module_fn()
     model = model.to_empty(device="cpu")
     init_weights(model, generator if generator is not None
                  else torch.Generator().manual_seed(0))
+    if remat:
+        for m in model.modules():
+            if hasattr(m, "remat"):
+                m.remat = True
     return model.to(device=device, dtype=dtype,
                     memory_format=torch.channels_last).eval()
 
@@ -65,7 +74,8 @@ def get_model(name: str, scale_factor: int = 4,
               device: str | torch.device = "cuda",
               generator: torch.Generator | None = None,
               quantize: str = "", phase_tail: bool = False,
-              compute_dtype: torch.dtype | None = None) -> nn.Module:
+              compute_dtype: torch.dtype | None = None,
+              remat: bool = False) -> nn.Module:
     """Registry model ``name`` with seeded random weights, on ``device``.
 
     ``dtype`` is the parameters' dtype (a served bf16 net casts the whole
@@ -79,14 +89,17 @@ def get_model(name: str, scale_factor: int = 4,
     for inference; ``"qat"`` is the trainable twin on fake-quantized
     weights and activations (``ops.quantize``). The weights are the float
     ones either way. ``phase_tail`` runs the upsample tail in phase space
-    (``ops.subpixel_conv``), the same function and weights. JAX's defaults:
-    both off."""
+    (``ops.subpixel_conv``), the same function and weights. ``remat``
+    recomputes each block of the body stack in the backward of a
+    differentiated pass (``layers.run_blocks``, JAX's ``nn.remat`` per
+    block): the same gradients for less activation memory; SRCNN has no
+    block stack and ignores it. JAX's defaults: all three off."""
     if name not in _REGISTRY:
         raise ValueError(f"Unknown architecture: {name}")
     _check_quantize(name, quantize)
     return build_model(lambda: _REGISTRY[name](
         scale_factor, quantize=quantize, phase_tail=phase_tail,
-        compute_dtype=compute_dtype), dtype, device, generator)
+        compute_dtype=compute_dtype, remat=remat), dtype, device, generator)
 
 
 def model_names() -> list[str]:
@@ -137,14 +150,15 @@ def model_for_params(state_dict: dict, scale_factor: int = 4,
                      dtype: torch.dtype = torch.float32,
                      device: str | torch.device = "cuda",
                      quantize: str = "", phase_tail: bool = False,
-                     compute_dtype: torch.dtype | None = None
-                     ) -> nn.Module:
+                     compute_dtype: torch.dtype | None = None,
+                     remat: bool = False) -> nn.Module:
     """The generator matching ``state_dict``, with its widths and depths
     read from the tensor shapes (so non-registry variants load without
     flags) and the weights loaded strictly, on ``device`` in eval mode;
-    ``quantize``, ``phase_tail`` and ``compute_dtype`` as in
+    ``quantize``, ``phase_tail``, ``compute_dtype`` and ``remat`` as in
     :func:`get_model` (a QAT checkpoint holds the float weights, so it
-    loads unchanged).
+    loads unchanged; the RRDB dense layout does not show in the weights,
+    so it is "auto").
 
     For the post-upsampling nets the checkpoint's upsample stages set the
     scale and override ``scale_factor``: each stage's factor comes from
@@ -182,13 +196,15 @@ def model_for_params(state_dict: dict, scale_factor: int = 4,
         return _loaded(lambda: RRDBNet(scale, nf, growth, blocks,
                                        quantize=quantize,
                                        phase_tail=phase_tail,
-                                       compute_dtype=compute_dtype),
+                                       compute_dtype=compute_dtype,
+                                       remat=remat),
                        sd, dtype, device)
     cls = AttentionSR if arch == "AttentionSR" else ResNetSR
     n_res = _count(sd, "res_blocks")
     return _loaded(lambda: cls(scale, nf, n_res, quantize=quantize,
                                phase_tail=phase_tail,
-                               compute_dtype=compute_dtype), sd, dtype, device)
+                               compute_dtype=compute_dtype, remat=remat),
+                   sd, dtype, device)
 
 
 def _loaded(module_fn, state_dict: dict, dtype: torch.dtype,

@@ -8,7 +8,9 @@ conv9x9(64->3), or with ``phase_tail`` the same tail in phase space;
 BatchNorms, head and tail stay full precision). The BatchNorms keep their parameters and running stats in
 float32 in any dtype (``layers.BatchNorm2d``), as the JAX package's do;
 ``compute_dtype`` runs the convs in that dtype on float32 weights (JAX's
-``dtype=``), the BatchNorms normalizing in float32.
+``dtype=``), the BatchNorms normalizing in float32. ``remat`` recomputes
+each residual block in the backward (``layers.run_blocks``), its
+BatchNorms' running stats advancing once a step.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 from torch import nn
 
 from .layers import (BatchNorm2d, Conv, ResidualBlock, prelu,
-                     set_compute_dtype, upsample_tail)
+                     run_blocks, set_compute_dtype, upsample_tail)
 
 
 class ResNetSR(nn.Module):
@@ -32,10 +34,12 @@ class ResNetSR(nn.Module):
     def __init__(self, scale_factor: int = 4, num_channels: int = 64,
                  num_residuals: int = 16, quantize: str = "",
                  phase_tail: bool = False,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         self.scale_factor = scale_factor
         self.num_residuals = num_residuals
+        self.remat = remat
         self.quantize = quantize
         self.phase_tail = phase_tail
         self.input_conv = Conv(3, num_channels, 9)
@@ -52,8 +56,6 @@ class ResNetSR(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         initial = self.prelu(self.input_conv(
             x.contiguous(memory_format=self.memory_format)))
-        r = initial
-        for block in self.res_blocks:
-            r = block(r)
+        r = run_blocks(self.res_blocks, initial, self.remat)
         x = initial + self.bn_mid(self.mid_conv(r))
         return self.output_conv(self.upsample(x))

@@ -12,7 +12,7 @@ import contextlib
 import torch
 from torch import nn
 
-from ..models import SNConv2d, SNLinear
+from ..models import RRDBNet, SNConv2d, SNLinear
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..ops.quantize import fake_quant_act
 from ..ops.subpixel_conv import phase_major_shuffle
@@ -50,8 +50,16 @@ def term_sums(model, sums: dict):
     left out). A float32 sum's rounding error is bounded relative to that
     sum, not to the gradient's own size, which cancellation can make
     hundreds of times smaller (a PReLU slope sums g*x over every negative
-    activation of its layer)."""
+    activation of its layer).
+
+    RRDB's split dense layout convolves with wide kernels assembled from
+    the dense convs' weights, past the conv modules the hooks watch; the
+    terms of each weight's gradient are the same products in either
+    layout, so within the block every ``RRDBNet`` of ``model`` runs the
+    concat layout."""
     seen: dict = {}
+    dense = [m for m in model.modules() if isinstance(m, RRDBNet)]
+    layouts = [m.dense_layout for m in dense]
 
     def keep(mod, inp, out, name):
         pair = [inp[0].detach()]
@@ -65,11 +73,15 @@ def term_sums(model, sums: dict):
     hooks = [m.register_forward_hook(
         lambda mod, inp, out, n=n: keep(mod, inp, out, n))
         for n, m in layers.items()]
+    for m in dense:
+        m.dense_layout = "concat"
     try:
         yield sums
     finally:
         for h in hooks:
             h.remove()
+        for m, layout in zip(dense, layouts):
+            m.dense_layout = layout
     for n, m in layers.items():
         pairs = [(x.abs(), g.abs(), x) for x, g in
                  (weight_terms(m, *p) for p in seen.get(n, [])

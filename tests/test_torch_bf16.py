@@ -56,9 +56,9 @@ BF16 = torch.bfloat16
 STEP = 2.0 ** -8  # bf16's relative step (8 significant bits)
 
 # narrow nets (RRDB one block deep: its compile dominates the JAX side),
-# the training defaults (phase tail on); JAX's RRDB in the concat layout,
-# the port's only one (split re-associates the dense sums, which bf16
-# rounds differently)
+# the training defaults (phase tail on); RRDB in the concat layout on both
+# sides (split re-associates the dense sums, which bf16 rounds
+# differently)
 JAX_NETS = {
     "SRCNN": lambda dt: JaxSRCNN(scale_factor=SCALE, hidden_dim=16, dtype=dt),
     "RESNET": lambda dt: JaxResNetSR(scale_factor=SCALE, num_channels=16,
@@ -78,8 +78,8 @@ PORT_NETS = {
                                   compute_dtype=cd),
     "AttentionSR": lambda cd: AttentionSR(SCALE, 16, 2, phase_tail=True,
                                           compute_dtype=cd),
-    "RRDB": lambda cd: RRDBNet(SCALE, 16, 8, 1, phase_tail=True,
-                               compute_dtype=cd),
+    "RRDB": lambda cd: RRDBNet(SCALE, 16, 8, 1, dense_layout="concat",
+                               phase_tail=True, compute_dtype=cd),
 }
 ARCHS = list(JAX_NETS)
 NF, CROP = 8, 32

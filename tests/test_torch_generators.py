@@ -425,12 +425,11 @@ def test_params_from_jax_equals_export_state_dict(arch):
 
 
 def test_rrdb_layouts():
-    """"auto" and "concat" build the same net; "split" names its ROADMAP
-    item instead of running another layout."""
-    for layout in ("auto", "concat"):
+    """"auto", "concat" and "split" build the same net (the layouts'
+    parity is in tests/test_torch_registry_options.py); another layout is
+    refused."""
+    for layout in ("auto", "concat", "split"):
         assert RRDBNet(SCALE, 16, 8, 1, dense_layout=layout).growth == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7a"):
-        RRDBNet(SCALE, 16, 8, 1, dense_layout="split")
     with pytest.raises(ValueError):
         RRDBNet(SCALE, 16, 8, 1, dense_layout="other")
 

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import food101_sr_tpu_torch
-from food101_sr_tpu_torch import _build, native, predict, serve
+from food101_sr_tpu_torch import _build, bench, native, predict, serve
 from food101_sr_tpu_torch.data import (DeviceCacheLoader, DeviceWindowLoader,
                                        HostCanvasLoader, SRDataLoader,
                                        SyntheticSource)
@@ -38,7 +38,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
 
 # the modules of the training, GAN, generator, serving, phase-tail and
 # quantization, and cache slices, named so the check cannot miss them
-NEW_MODULES = ("food101_sr_tpu_torch.convert",
+NEW_MODULES = ("food101_sr_tpu_torch.bench",
+               "food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.data.canvas_cache",
                "food101_sr_tpu_torch.data.device_cache",
                "food101_sr_tpu_torch.data.pil_bicubic",
@@ -159,11 +160,15 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
                                    HostCanvasLoader, DeviceWindowLoader,
                                    PerceptualLoss,
                                    get_loss_function, serve.build_parser,
-                                   predict.build_parser])
+                                   predict.build_parser, bench.bench_infer,
+                                   bench.bench_train, bench.bench_gan,
+                                   bench.parse_device])
 def test_entry_points_default_to_cuda(entry):
     """A function's ``device`` parameter; a CLI's ``--device`` flag."""
     if entry in (serve.build_parser, predict.build_parser):
         assert entry().get_default("device") == "cuda"
+    elif entry is bench.parse_device:
+        assert entry(["--train"]) == "cuda"
     else:
         assert inspect.signature(entry).parameters["device"].default == \
             "cuda"
@@ -214,7 +219,9 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
                                 "coordinator": "localhost:1",
                                 "num_processes": 1, "process_id": 0}),
                  lambda: predict.main([str(tmp_path), "--out_dir",
-                                       str(tmp_path / "out")])):
+                                       str(tmp_path / "out")]),
+                 lambda: bench.main([]), lambda: bench.main(["--input"]),
+                 lambda: bench.bench_train("SRCNN", batch=1, crop=8)):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
 
