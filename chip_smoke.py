@@ -232,7 +232,29 @@ Phases, one short line each; any failure raises and the exit code is 1:
           loop phase's determinism): AttentionSR's float32 step with
           remat on and off, gradients, step ms, peak memory and launches
           (K2 64 a step with remat: each block's forward runs again)
-18. done  the kernels' JSON line and the elapsed time
+18. aot   the AOT serving artifact and the offline tools:
+          ``export_serving.main`` (``--check``) writes the registry
+          AttentionSR x4 (seeded, bf16, phase tail) as torch.export
+          programs at the server's two buckets (64^2 and the tiled path's
+          224^2 window) with 8 rows, and at 64^2 under --tta; the manifest
+          has JAX's keys (torch_version, ops_module); a child
+          (``chip_smoke.py --aot DIR``) loads each program through
+          ``load_bucket`` without any model, server or training module,
+          holds it byte-equal to this process's live forward_u8 on seeded
+          inputs, with the K2 op 32 times in its graph (64 under --tta)
+          and K2 NHWC launched as often by one call; exported and eager
+          forward ms per bucket in turns; K2 through its registered op at
+          the three programs' SE shapes against its plain version, with
+          times; nlpd_loss_train on 16 pairs of 200^2 against its CPU run
+          (value, input gradient), K1 8 launches (forward and backward),
+          K1 at its pyramid (32,3,{200..25}^2) with times; visualize on 8
+          synthetic images (the SRCNN asset, a seeded AttentionSR .pth):
+          the report's PNGs, the latency table, K2 32 per AttentionSR
+          forward; sweep of 2 trials of 1 epoch of AttentionSR on
+          synthetic data with loss_function "nlpd" (launches against the
+          closed form); generate_model_vis of AttentionSR (32 K2 op nodes
+          in its graph, its FLOPs, K2 32 launches) and analyze_models
+19. done  the kernels' JSON line and the elapsed time
 
 Kernel launch counts (one per entry point) are zeroed just before each
 main path and read just after it: serving (the serve and score phases:
@@ -255,7 +277,11 @@ runs (``bf16_loop_launches``, ``cache_device_loop_launches``,
 ``cache_host_reuse_loop_launches``, ``bf16_cache_device_loop_launches``),
 each dp rank's uninterrupted train() (``dp_launches``), the halo-sharded
 forward (K2 NHWC 32 per window: ``halo_launches``) and the bench phase's
-legs in this process (``bench_launches``; per shape on its own rows).
+legs in this process (``bench_launches``; per shape on its own rows) and
+the aot phase's runs (``aot_launches``: each exported program's one call
+in the child, nlpd_loss_train with its backward, visualize, the sweep's
+trials, generate_model_vis; the programs' K2 and K1 under
+nlpd_loss_train on rows of their own).
 The last line is the JSON device record;
 the line before it is the kernels' JSON.
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -500,6 +526,28 @@ BENCH_PER_CALL = {"infer": (0, 32, 0), "train": (12, 32, 0),
                   "gan G": (0, 32, 0), "gan D": (0, 32, 0),
                   "input": (0, 0, 0), "rrdb": (12, 0, 0)}
 REMAT_WARMUP, REMAT_TIMED = 2, 5
+# the aot phase: export_serving of the registry AttentionSR x4 (seeded,
+# bf16, phase tail) at the server's two buckets (its tile and the tiled
+# path's window) with AOT_BATCH rows, and at the tile under --tta, each
+# checked by the CLI's --check; a child (``chip_smoke.py --aot DIR``)
+# loads every program without the model code and holds it byte-equal to
+# this process's live forward_u8 on seeded inputs; exported and eager
+# forwards timed per bucket over AOT_ITERS calls, in turns. Then
+# nlpd_loss_train on TRAIN_BATCH pairs of TRAIN_CROP against its CPU run,
+# within tests/test_torch_tools.py's bounds against JAX (NLPD_TRAIN_*: the
+# value relative, the input gradient's cosine and norm ratio; bf16 levels
+# whose pred-target difference sits near 0 take the other sign when a
+# blur rounds one ulp the other way); visualize on VIS_IMAGES synthetic
+# images with the SRCNN asset and a seeded AttentionSR; SWEEP_TRIALS
+# sweep trials of SWEEP_CFG (the YAML's space, the overrides of its
+# --set); generate_model_vis and analyze_models
+AOT_BATCH, AOT_ITERS, AOT_CHILD_TIMEOUT = 8, 10, 300
+NLPD_TRAIN_RTOL, NLPD_TRAIN_COS, NLPD_TRAIN_NORM = 2.0**-10, 0.995, 0.01
+VIS_IMAGES, SWEEP_TRIALS = 8, 2
+SWEEP_CFG = dict(dataset="synthetic", epochs=1, loss_function="nlpd",
+                 subset=1.0, synthetic_size=40, crop_size=96, batch_size=8,
+                 seed=0, log_every=1, use_wandb=False)
+K2_OP_NODE = "f101.spatial_mean"
 
 
 def jpeg_test_image(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
@@ -4684,6 +4732,417 @@ def phase_bench(rates, k1: dict, k2: dict) -> dict:
             "launches": dict(zip(("K1", "K2 nhwc", "K2 nchw"), launches))}
 
 
+def _k2_op_row(shape, rates, k2: dict, what: str) -> dict:
+    """K2 through its registered op (the route an exported program takes)
+    at an SE input of ``shape`` bf16 channels-last: within one bf16 ulp of
+    the plain version, with the wrapper's times (the op's dispatch in
+    host_us) and the bound."""
+    from food101_sr_tpu_torch.ops.spatial_mean import (spatial_mean_op,
+                                                       spatial_mean_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = (torch.rand(shape, device="cuda", generator=gen) * 2 - 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    got, want = spatial_mean_op(x).float(), spatial_mean_plain(x).float()
+    ulp = ((got - want).abs() / _ulp_bf16(want)).max().item()
+    if not ulp <= 1.0:
+        raise AssertionError(f"K2 op at {shape} bf16: {ulp} ulp")
+    t = _timings(lambda: spatial_mean_op(x), lambda: spatial_mean_plain(x),
+                 lambda: x.mean((2, 3)), launches=1)
+    t["bound_ms"], t["bound_by"] = bound(
+        2 * x.numel() + 2 * shape[0] * shape[1], x.numel(), rates)
+    return {**{k: k2[k] for k in ("route", "source", "replaces")},
+            "name": "K2 spatial mean via f101::spatial_mean, in the "
+                    "exported serving program",
+            "wrapper": "food101_sr_tpu_torch/ops/spatial_mean.py:"
+                       "spatial_mean_op",
+            "at": f"{shape} bfloat16 channels-last, the SE input of the "
+                  f"{what} program",
+            "max_abs_err": (got - want).abs().max().item(), "ulp": ulp, **t}
+
+
+def _aot_programs(tmp: str, rates, k2: dict) -> dict:
+    """Export, check in a child without the model code, and time (module
+    docstring, phase 18, a to c)."""
+    from food101_sr_tpu_torch import export_serving
+    from food101_sr_tpu_torch.serving import SRServer
+
+    live = {tta: SRServer("AttentionSR", device="cuda", dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0),
+                          tta=tta, max_batch=AOT_BATCH)
+            for tta in (False, True)}
+    try:
+        n_blocks = live[False].model.num_residuals
+        tile = live[False].tile
+        win = tile + 2 * live[False].halo
+        runs = {"plain": (f"{tile}x{tile},{win}x{win}", []),
+                "tta": (f"{tile}x{tile}", ["--tta"])}
+        entries, summaries, export_s = [], {}, {}
+        rng = np.random.default_rng(17)
+        for key, (shapes, extra) in runs.items():
+            out = os.path.join(tmp, key)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                summaries[key] = export_serving.main([
+                    "--architecture", "AttentionSR", "--out", out,
+                    "--shapes", shapes, "--batch", str(AOT_BATCH), "--check",
+                    *extra])
+            export_s[key] = time.perf_counter() - t0
+            with open(os.path.join(out, "manifest.json")) as f:
+                man = json.load(f)
+            keys = {"kind", "architecture", "scale", "dtype", "quantize",
+                    "tta", "phase_tail", "checkpoint", "n_params",
+                    "torch_version", "ops_module", "io", "buckets"}
+            if not (set(man) == keys and summaries[key]["checked"]
+                    == len(man["buckets"]) and man["tta"] == bool(extra)
+                    and all(b["platforms"] == ["cuda"]
+                            for b in man["buckets"])):
+                raise AssertionError(f"aot: {key} manifest {man}")
+            tta = bool(extra)
+            for b in man["buckets"]:
+                x = rng.integers(0, 256, b["lr_shape"], dtype=np.uint8)
+                y = live[tta].forward_u8(torch.from_numpy(x).cuda()) \
+                    .cpu().numpy()
+                name = f"{key}_{b['lr_shape'][1]}"
+                np.save(os.path.join(tmp, f"{name}_x.npy"), x)
+                np.save(os.path.join(tmp, f"{name}_y.npy"), y)
+                entries.append({"key": name, "tta": tta,
+                                "path": os.path.join(out, b["file"]),
+                                "x": os.path.join(tmp, f"{name}_x.npy"),
+                                "y": os.path.join(tmp, f"{name}_y.npy"),
+                                "mb": b["bytes"] / 1e6,
+                                "k2_per_call": n_blocks * (2 if tta else 1)})
+        with open(os.path.join(tmp, "buckets.json"), "w") as f:
+            json.dump(entries, f)
+        # ---- main path (in the child): each program once, counts from 0
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--aot", tmp],
+                            timeout=AOT_CHILD_TIMEOUT).returncode
+        if rc != 0:
+            raise RuntimeError(f"the aot child exited with {rc}")
+        with open(os.path.join(tmp, "aot.json")) as f:
+            child = json.load(f)
+        if child["imported"]:
+            raise AssertionError(f"aot: the loader imported {child['imported']}")
+        for e in entries:
+            c = child[e["key"]]
+            want = [0, e["k2_per_call"], 0]
+            if not (c["equal"] and c["launches"] == want
+                    and c["op_nodes"] == e["k2_per_call"]
+                    and c["aten_means"] == 0):
+                raise AssertionError(f"aot: {e['key']} in the child: {c}, "
+                                     f"launches expected {want}")
+        # exported against eager forward, in turns, on the same input
+        timing = {}
+        for e in entries:
+            prog = export_serving.load_bucket(e["path"], "cuda")
+            x = torch.from_numpy(np.load(e["x"])).cuda()
+            eager = live[e["tta"]].forward_u8
+            if not torch.equal(prog(x), eager(x)):
+                raise AssertionError(f"aot: {e['key']} differs in-process")
+            turns = [("eager", eager), ("aot", prog), ("aot", prog),
+                     ("eager", eager)]
+            ms = {"eager": [], "aot": []}
+            for which, fn in turns:
+                ms[which].append(cuda_ms(lambda: fn(x), AOT_ITERS, 2))
+            timing[e["key"]] = {"eager_ms": ms["eager"], "aot_ms": ms["aot"],
+                                "child_aot_ms": child[e["key"]]["ms"],
+                                "mb": e["mb"]}
+            del prog
+        rows = [_k2_op_row((AOT_BATCH, 96, tile, tile), rates, k2,
+                           f"{tile}x{tile}"),
+                _k2_op_row((AOT_BATCH, 96, win, win), rates, k2,
+                           f"{win}x{win}"),
+                _k2_op_row((4 * AOT_BATCH, 96, tile, tile), rates, k2,
+                           f"--tta {tile}x{tile}")]
+        for row, e in zip(rows, entries):
+            row["launches"] = child[e["key"]]["launches"][1]
+    finally:
+        for srv in live.values():
+            srv.close()
+    return {"rows": rows, "timing": timing, "export_s": export_s,
+            "summaries": summaries,
+            "launches": [sum(child[e["key"]]["launches"][j] for e in entries)
+                         for j in range(3)]}
+
+
+def aot_main(tmp: str) -> int:
+    """Entry of the aot phase's child: load each exported program with
+    ``export_serving.load_bucket`` (which imports the ops module alone),
+    run it once on its saved input with the counts from zero, hold it
+    byte-equal to the parent's live forward, time it; then list any
+    module of the models, the server or training that was imported."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    from food101_sr_tpu_torch.export_serving import load_bucket
+
+    with open(os.path.join(tmp, "buckets.json")) as f:
+        entries = json.load(f)
+    out = {}
+    for e in entries:
+        prog = load_bucket(e["path"], "cuda")
+        targets = [str(n.target) for n in prog.program.graph.nodes
+                   if n.op == "call_function"]
+        x, want = np.load(e["x"]), np.load(e["y"])
+        _zero_counts()
+        got = prog(x)
+        torch.cuda.synchronize()
+        launches = list(_counts())
+        xd = torch.from_numpy(x).cuda()
+        out[e["key"]] = {
+            "equal": bool(np.array_equal(got, want)),
+            "max_levels": _levels(got, want), "launches": launches,
+            "op_nodes": sum(t.startswith(K2_OP_NODE) for t in targets),
+            "aten_means": sum("aten.mean" in t for t in targets),
+            "ms": cuda_ms(lambda: prog(xd), AOT_ITERS, 2)}
+        print(f"aot child: {e['key']} byte-equal {out[e['key']]['equal']} "
+              f"({out[e['key']]['max_levels']} levels), launches {launches}, "
+              f"{out[e['key']]['op_nodes']} K2 op nodes, "
+              f"{out[e['key']]['ms']:.3f} ms", flush=True)
+    out["imported"] = sorted(m for m in sys.modules if m.startswith((
+        "food101_sr_tpu_torch.models", "food101_sr_tpu_torch.serving",
+        "food101_sr_tpu_torch.training")))
+    with open(os.path.join(tmp, "aot.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _nlpd_train(rates, k1: dict) -> dict:
+    """nlpd_loss_train on the card (module docstring, phase 18, d): value
+    and input gradient against its CPU run, K1 launches, and K1 at the
+    loss's pyramid against its plain version, with times."""
+    from food101_sr_tpu_torch.losses import nlpd_loss_train
+
+    gen = torch.Generator().manual_seed(31)
+    shape = (TRAIN_BATCH, 3, TRAIN_CROP, TRAIN_CROP)
+    pred, target = torch.rand(shape, generator=gen), torch.rand(shape,
+                                                                 generator=gen)
+
+    def run(dev):
+        p = pred.to(dev).requires_grad_(True)
+        v = nlpd_loss_train(p, target.to(dev))
+        v.backward()
+        return v.item(), p.grad.cpu()
+
+    run("cuda")
+    torch.cuda.synchronize()
+    # ---- main path: one loss and its backward, counts from zero --------
+    _zero_counts()
+    v_card, g_card = run("cuda")
+    torch.cuda.synchronize()
+    launches = list(_counts())
+    # ---- end of main path ----------------------------------------------
+    v_cpu, g_cpu = run("cpu")
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    cos = float((g_card * g_cpu).sum() / g_card.norm() / g_cpu.norm())
+    norm = float(g_card.norm() / g_cpu.norm())
+    if not (launches == [8, 0, 0] and rel <= NLPD_TRAIN_RTOL
+            and cos > NLPD_TRAIN_COS and abs(norm - 1) < NLPD_TRAIN_NORM):
+        raise AssertionError(f"nlpd_loss_train: launches {launches}, value "
+                             f"{v_card} vs CPU {v_cpu} (rel {rel}), gradient "
+                             f"cosine {cos}, norm ratio {norm}")
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    pyr = [torch.rand((2 * TRAIN_BATCH, 3, TRAIN_CROP >> i, TRAIN_CROP >> i),
+                      device="cuda", generator=gen) for i in range(4)]
+    err = _k1_err(pyr, gen)
+    if not err <= K1_TOL:
+        raise AssertionError(f"K1 at nlpd_loss_train's pyramid: {err}")
+    p = pred.cuda().requires_grad_(True)
+    t = target.cuda()
+    loss_ms = cuda_ms(lambda: nlpd_loss_train(p, t).backward(), 10, 2)
+    row = {**{k: k1[k] for k in ("route", "source", "replaces", "wrapper")},
+           "name": "K1 depthwise Gaussian blur 5x5, under nlpd_loss_train",
+           "at": f"4 launches: ({2 * TRAIN_BATCH},3,{{{TRAIN_CROP},"
+                 f"{TRAIN_CROP // 2},{TRAIN_CROP // 4},{TRAIN_CROP // 8}}}^2)"
+                 " float32 (the bf16 pyramid of pred and target cast around "
+                 "the kernel); host_us per launch",
+           "launches": launches[0], "max_abs_err": err,
+           "value_rel_err": rel, "grad_cos": cos, "loss_fwd_bwd_ms": loss_ms,
+           **_k1_timings(pyr, rates)}
+    print(f"nlpd_train: {TRAIN_BATCH}x3x{TRAIN_CROP}^2 value {v_card:.6f} "
+          f"(CPU {v_cpu:.6f}, rel {rel:.2g}), gradient cosine {cos:.6f}, "
+          f"norm ratio {norm:.6f} | K1 {launches[0]} launches (fwd+bwd), "
+          f"err {err:.3g} | loss+backward {loss_ms:.3f} ms | K1 pyramid "
+          f"{row['ms']:.4f} ms, device {row['device_ms']:.4f}, bound "
+          f"{row['bound_ms']:.4f}", flush=True)
+    return row
+
+
+def _vis_forwards() -> int:
+    """AttentionSR forwards of the visualize run: one per image and one
+    warm-up per distinct padded LR shape (its images and sizes, as
+    run_comparison draws them)."""
+    from food101_sr_tpu_torch import visualize
+    from food101_sr_tpu_torch.data import SyntheticSource
+
+    src = SyntheticSource(n=max(VIS_IMAGES, 16), seed=0)
+    idx = np.random.default_rng(0).choice(len(src), size=VIS_IMAGES,
+                                          replace=False)
+    b, s = visualize.BUCKET, visualize.SCALE_FACTOR
+    shapes = {tuple(-(-(d // s) // b) * b for d in src.sizes[i % len(src.sizes)])
+              for i in idx}
+    return VIS_IMAGES + len(shapes)
+
+
+def _tools(tmp: str) -> dict:
+    """visualize, sweep, generate_model_vis and analyze_models on the card
+    (module docstring, phase 18, e to g), each counted from zero."""
+    from food101_sr_tpu_torch import (analyze_models, generate_model_vis,
+                                      sweep, visualize)
+    from food101_sr_tpu_torch.models import get_model, param_count
+    from food101_sr_tpu_torch.training import save_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    attn = get_model("AttentionSR", device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    n_blocks = attn.num_residuals
+    weights = {"SRCNN": visualize.WEIGHTS["SRCNN"],
+               "AttentionSR": save_checkpoint(attn.state_dict(),
+                                              os.path.join(tmp, "attn.pth"))}
+    out, launches = {}, {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    # ---- main path: visualize, counts from zero -------------------------
+    _zero_counts()
+    with contextlib.redirect_stdout(buf):
+        times = visualize.run_comparison(
+            dataset="synthetic", num_examples=VIS_IMAGES, seed=0,
+            out_dir=os.path.join(tmp, "report"), weights=weights)
+    torch.cuda.synchronize()
+    launches["visualize"] = list(_counts())
+    # ---- end of main path -----------------------------------------------
+    want = [0, n_blocks * _vis_forwards(), 0]
+    dirs = sorted(d for d in os.listdir(os.path.join(tmp, "report")))
+    pngs = {"ground_truth.png", "input_lr_resized.png", "bicubic.png",
+            "srcnn.png", "attentionsr.png"}
+    if not (launches["visualize"] == want and set(times) == set(weights)
+            and len(dirs) == VIS_IMAGES and all(
+                set(os.listdir(os.path.join(tmp, "report", d))) == pngs
+                for d in dirs)):
+        raise AssertionError(f"visualize: launches {launches['visualize']} "
+                             f"(expected {want}), models {set(times)}, "
+                             f"{len(dirs)} image directories")
+    out["visualize"] = {
+        name: {"avg_ms": float(np.mean(t) * 1e3),
+               "std_ms": float(np.std(t) * 1e3),
+               "min_ms": float(np.min(t) * 1e3),
+               "max_ms": float(np.max(t) * 1e3)} for name, t in times.items()}
+    out["visualize_s"] = time.perf_counter() - t0
+    table = [ln for ln in buf.getvalue().splitlines() if "| Avg:" in ln]
+    for ln in table:
+        print(f"visualize: {ln}", flush=True)
+
+    runs = os.path.join(tmp, "runs")
+    old = os.environ.get("FOOD101_SR_RUN_DIR")
+    os.environ["FOOD101_SR_RUN_DIR"] = runs
+    results = os.path.join(tmp, "sweep.jsonl")
+    t0 = time.perf_counter()
+    try:
+        # ---- main path: the sweep's trials, counts from zero ------------
+        _zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            best_cfg, best = sweep.run_sweep(
+                os.path.join(root, "configs", "sweep_attentionSR.yaml"),
+                SWEEP_TRIALS, seed=0, out=results,
+                overrides={**SWEEP_CFG,
+                           "weights_dir": os.path.join(tmp, "sweep_w")})
+        launches["sweep"] = list(_counts())
+        # ---- end of main path -------------------------------------------
+    finally:
+        if old is None:
+            os.environ.pop("FOOD101_SR_RUN_DIR", None)
+        else:
+            os.environ["FOOD101_SR_RUN_DIR"] = old
+    nb = _loop_batches(cfg=SWEEP_CFG)
+    evals = nb["steps"] + nb["val"] + nb["test"]
+    want = [SWEEP_TRIALS * (8 * nb["steps"] + 4 * nb["val"] + 4 * nb["test"]),
+            SWEEP_TRIALS * n_blocks * evals, 0]
+    with open(results) as f:
+        rows = [json.loads(line) for line in f]
+    if not (launches["sweep"] == want and len(rows) == SWEEP_TRIALS
+            and all(np.isfinite(r["val_psnr"]) and r["val_psnr"] > 0
+                    and r["config"]["loss_function"] == "nlpd"
+                    and r["config"]["architecture"] == "AttentionSR"
+                    for r in rows)):
+        raise AssertionError(f"sweep: launches {launches['sweep']} (expected "
+                             f"{want}), rows {rows}")
+    out["sweep"] = {"val_psnr": [r["val_psnr"] for r in rows],
+                    "lr": [r["config"]["lr"] for r in rows],
+                    "best_val_psnr": best["val_psnr"],
+                    "s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    # ---- main path: the graph and FLOP count, counts from zero ----------
+    _zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        written = generate_model_vis.main(["--out", os.path.join(tmp, "vis"),
+                                           "--models", "AttentionSR"])
+    torch.cuda.synchronize()
+    launches["model_vis"] = list(_counts())
+    # ---- end of main path -----------------------------------------------
+    with open(os.path.join(written["AttentionSR"], "export_graph.txt")) as f:
+        graph = f.read()
+    with open(os.path.join(written["AttentionSR"], "flops.json")) as f:
+        flops = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = dict(analyze_models.analyze_models())
+    n_ops = graph.count(f"torch.ops.{K2_OP_NODE}.default(")
+    if not (launches["model_vis"] == [0, n_blocks, 0] and n_ops == n_blocks
+            and flops["flops"] > 0 and rows["AttentionSR (96ch, trained)"]
+            == param_count(attn)):
+        raise AssertionError(f"model_vis: launches {launches['model_vis']}, "
+                             f"{n_ops} K2 op nodes, flops {flops}, "
+                             f"analyze {rows}")
+    out["model_vis"] = {"gflop": flops["flops"] / 1e9, "k2_op_nodes": n_ops,
+                        "s": time.perf_counter() - t0, "params": rows}
+    out["launches"] = launches
+    return out
+
+
+def phase_aot(rates, k1: dict, k2: dict) -> dict:
+    """The AOT serving artifact, nlpd_loss_train and the offline tools on
+    the card (module docstring, phase 18). Returns the kernels line's new
+    rows and the launches of each counted run."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_aot_") as tmp:
+        aot = _aot_programs(tmp, rates, k2)
+        nlpd = _nlpd_train(rates, k1)
+        tools = _tools(tmp)
+    timing = aot["timing"]
+    print("aot: AttentionSR x4 bf16 exported "
+          + ", ".join(f"{k} in {v:.1f} s" for k, v in aot["export_s"].items())
+          + " (--check byte-equal) | the child loads without the model "
+          "code; byte-equal | forward ms eager -> exported: "
+          + ", ".join(f"{k} {np.mean(t['eager_ms']):.3f} -> "
+                      f"{np.mean(t['aot_ms']):.3f} ({t['mb']:.1f} MB)"
+                      for k, t in timing.items())
+          + f" | K2 launches {aot['launches'][1]}", flush=True)
+    print(f"tools: visualize {VIS_IMAGES} images in "
+          f"{tools['visualize_s']:.1f} s, launches "
+          f"{tools['launches']['visualize']} | sweep {SWEEP_TRIALS} trials "
+          f"val_psnr {tools['sweep']['val_psnr']} in "
+          f"{tools['sweep']['s']:.1f} s, launches {tools['launches']['sweep']}"
+          f" | generate_model_vis AttentionSR {tools['model_vis']['gflop']:.2f}"
+          f" GFLOP, {tools['model_vis']['k2_op_nodes']} K2 op nodes, "
+          f"launches {tools['launches']['model_vis']} | "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    numbers = {"timing": timing, "export_s": aot["export_s"],
+               "summaries": aot["summaries"],
+               "nlpd_train": {k: nlpd[k] for k in (
+                   "value_rel_err", "grad_cos", "loss_fwd_bwd_ms")},
+               **{k: tools[k] for k in ("visualize", "sweep", "model_vis")},
+               "phase_s": time.perf_counter() - t0}
+    print("aot numbers: " + json.dumps(numbers), flush=True)
+    runs = {"aot": aot["launches"], "nlpd_train": [nlpd["launches"], 0, 0],
+            **tools["launches"]}
+    return {"rows": [*aot["rows"], nlpd],
+            "launches": {key: {run: counts[j] for run, counts in runs.items()}
+                         for j, key in enumerate(("K1", "K2 nhwc",
+                                                  "K2 nchw"))}}
+
+
 def run_loop_phase() -> dict:
     """Phases 12 and 13 in a child process of its own, which alone gets the
     determinism environment; its results come back through a file in a
@@ -4877,23 +5336,28 @@ def main() -> int:
     bench = phase_bench(rates, k1, k2_nhwc)
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
         d["bench_launches"] = bench["launches"][key]
+    aot = phase_aot(rates, k1, k2_nhwc)
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
+        d["aot_launches"] = aot["launches"][key]
     keys = ("name", "route", "source", "replaces", "launches",
             "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
             "rrdb_gan_loop_launches", "food101_loop_launches",
             "tail_launches", "quant_serve_launches", "qat_loop_launches",
             "bf16_launches", *CACHE_LAUNCH_KEYS.values(), "dp_launches",
-            "halo_launches", "bench_launches", "dp_max_abs_err",
+            "halo_launches", "bench_launches", "aot_launches",
+            "dp_max_abs_err",
             "max_abs_err",
             "loop_max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "wrapper", "at", "at_64",
             "at_loop_val", "half_device_ms", "nchw_copy_ms",
             "nchw_copy_device_ms", "fwd_bwd_ms", "plain_fwd_bwd_ms", "ulp",
             "backward_ulp", "step_ms", "g_step_ms", "d_step_ms",
-            "images_per_s", "peak_bytes", "device_split_ms")
+            "images_per_s", "peak_bytes", "device_split_ms",
+            "value_rel_err", "grad_cos", "loss_fwd_bwd_ms")
     kernels = [{k: d[k] for k in keys if k in d}
                for d in (k1, k2_nhwc, k2_nchw, k2_tta, k1_train, k2_train,
                          k2_gan, k1_bf16, k2_bf16, dp["k2_rank"],
-                         dp["k2_halo"], *bench["rows"])]
+                         dp["k2_halo"], *bench["rows"], *aot["rows"])]
     print(f"done: elapsed_s {time.perf_counter() - t_start:.1f} | {smi}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4912,4 +5376,6 @@ if __name__ == "__main__":
         sys.exit(dp_one_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--remat"]:
         sys.exit(remat_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--aot"]:
+        sys.exit(aot_main(sys.argv[2]))
     sys.exit(main())

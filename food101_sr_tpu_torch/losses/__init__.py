@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .nlpd import laplacian_pyramid, nlpd_loss
+from .nlpd import laplacian_pyramid, nlpd_loss, nlpd_loss_train
 from .perceptual import PerceptualLoss
 from .tv import tv_loss
 
@@ -37,4 +37,4 @@ def get_loss_function(name: str, weights_dir: str | None = None,
 
 
 __all__ = ["PerceptualLoss", "get_loss_function", "laplacian_pyramid",
-           "mae_loss", "mse_loss", "nlpd_loss", "tv_loss"]
+           "mae_loss", "mse_loss", "nlpd_loss", "nlpd_loss_train", "tv_loss"]

@@ -31,6 +31,7 @@ from ..parallel.distributed import global_sum, world_size
 from ..ops.spatial_mean import spatial_mean
 from ..ops.subpixel_conv import (grouped_out_map, phase_conv2d,
                                  phase_conv2d_grouped, subpixel_conv2d)
+from ..ops.tracing import outside_trace
 
 
 def scale_stages(scale: int) -> tuple:
@@ -55,8 +56,10 @@ def scalar_in(value: float, dtype: torch.dtype) -> float:
     ``jnp.asarray(value, x.dtype)`` (or a weakly typed scalar, which it
     rounds alike), PyTorch by the unrounded scalar in float32 arithmetic.
     The same float32 for float32 tensors; for bf16 ones the JAX rounding
-    (0.1 -> 0.10009765625)."""
-    return float(torch.tensor(value, dtype=dtype))
+    (0.1 -> 0.10009765625). Computed outside any trace: a first call
+    under ``torch.export`` would otherwise read a fake tensor."""
+    with outside_trace():
+        return float(torch.tensor(value, dtype=dtype))
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:

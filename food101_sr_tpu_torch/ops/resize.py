@@ -8,7 +8,8 @@ matmuls. Weights match PyTorch/PIL exactly: half-pixel centres
 antialiasing a minification, edge taps dropped and renormalized (antialias)
 or clamped (plain), and rows summing to 1. ``a=-0.5`` is PIL's and
 torchvision's antialiased bicubic, ``a=-0.75`` torch's plain bicubic.
-Images are NCHW (or CHW); computation is full float32 (a measurement op).
+Images are NCHW (or CHW); computation is full float32 (a measurement op)
+unless a training-grade loss asks for another dtype.
 """
 from __future__ import annotations
 
@@ -69,18 +70,24 @@ def resample_matrix(in_size: int, out_size: int, kernel: str = "cubic",
 
 
 def resize2d(x: torch.Tensor, out_h: int, out_w: int, kernel: str = "cubic",
-             a: float = -0.75, antialias: bool = True) -> torch.Tensor:
-    """Resize NCHW (or CHW) ``x`` in float32; returns ``x.dtype``."""
+             a: float = -0.75, antialias: bool = True,
+             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Resize NCHW (or CHW) ``x``; returns ``x.dtype``. The products run
+    in ``compute_dtype``: float32 by default (every measurement path), a
+    lower one only inside a training-grade loss
+    (``losses.nlpd_loss_train``), as in the JAX package."""
     h, w = x.shape[-2], x.shape[-1]
-    xf = x.float()
+    xf = x.to(compute_dtype)
     with full_fp32():
         if h != out_h:
             mh = torch.from_numpy(
-                resample_matrix(h, out_h, kernel, a, antialias)).to(x.device)
+                resample_matrix(h, out_h, kernel, a, antialias)).to(
+                    x.device, compute_dtype)
             xf = mh @ xf                   # [OH,H] @ [...,H,W]
         if w != out_w:
             mw = torch.from_numpy(
-                resample_matrix(w, out_w, kernel, a, antialias)).to(x.device)
+                resample_matrix(w, out_w, kernel, a, antialias)).to(
+                    x.device, compute_dtype)
             xf = xf @ mw.T                 # [...,H,W] @ [W,OW]
     return xf.to(x.dtype)
 
@@ -94,10 +101,13 @@ def resize_bicubic_torch(x: torch.Tensor, out_h: int, out_w: int,
 
 
 def resize_bilinear_torch(x: torch.Tensor, out_h: int, out_w: int,
-                          antialias: bool = False) -> torch.Tensor:
+                          antialias: bool = False,
+                          compute_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """torch ``F.interpolate(mode='bilinear', align_corners=False)``; the
     NLPD pyramid's upsample."""
-    return resize2d(x, out_h, out_w, kernel="linear", antialias=antialias)
+    return resize2d(x, out_h, out_w, kernel="linear", antialias=antialias,
+                    compute_dtype=compute_dtype)
 
 
 def degrade_bicubic(hr: torch.Tensor, scale: int) -> torch.Tensor:

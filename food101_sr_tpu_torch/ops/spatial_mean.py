@@ -13,7 +13,9 @@ kernel lost on the TPU; the port's ``SEBlock`` calls this kernel, and
 whether it stays there is for H100 measurements to decide (``PERF.md``).
 
 The op is linear; its backward broadcasts ``g / (H*W)`` in plain PyTorch,
-as the JAX VJP leaves it to XLA.
+as the JAX VJP leaves it to XLA. ``spatial_mean`` also exists as the
+registered operator ``f101::spatial_mean`` (:func:`spatial_mean_op`), which
+an exported serving program (``export_serving``) calls.
 """
 from __future__ import annotations
 
@@ -114,6 +116,13 @@ def mean_kernel(x: torch.Tensor) -> torch.Tensor:
     return mean_plane_kernel(x)
 
 
+def _mean_backward(g: torch.Tensor, shape) -> torch.Tensor:
+    """The mean's backward: ``g / (H*W)`` broadcast over H, W."""
+    n, c, h, w = shape
+    gx = (g.float() * (1.0 / (h * w))).to(g.dtype)
+    return gx[:, :, None, None].expand(n, c, h, w)
+
+
 class _SpatialMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
@@ -122,13 +131,44 @@ class _SpatialMean(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n, c, h, w = ctx.shape
-        gx = (g.float() * (1.0 / (h * w))).to(g.dtype)
-        return gx[:, :, None, None].expand(n, c, h, w)
+        return _mean_backward(g, ctx.shape)
+
+
+# K2 as a registered operator, for programs that ``torch.export`` writes:
+# a trace sees ``f101::spatial_mean`` (the fake below gives its shape and
+# dtype) where it could not follow the ctypes launch, and the exported
+# program calls the kernel through it. A loader needs only this module
+# imported, which registers the op.
+@torch.library.custom_op("f101::spatial_mean", mutates_args=())
+def spatial_mean_op(x: torch.Tensor) -> torch.Tensor:
+    """``f101::spatial_mean``: :func:`mean_kernel`, the kernel on CUDA
+    (counted in its entry's ``launches``) and the plain version on the
+    CPU."""
+    return mean_kernel(x)
+
+
+@spatial_mean_op.register_fake
+def _spatial_mean_fake(x: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], x.shape[1]))
+
+
+def _op_setup(ctx, inputs, output) -> None:
+    ctx.shape = inputs[0].shape
+
+
+def _op_backward(ctx, g):
+    return _mean_backward(g, ctx.shape)
+
+
+spatial_mean_op.register_autograd(_op_backward, setup_context=_op_setup)
 
 
 def spatial_mean(x: torch.Tensor) -> torch.Tensor:
     """Differentiable ``x.mean((2, 3))`` of an (N, C, H, W) tensor in
     channels-last or NCHW memory, with float32 accumulation, in
-    ``x.dtype``."""
+    ``x.dtype``. Under ``torch.export`` it is the registered op
+    (:func:`spatial_mean_op`); eager calls take the
+    ``autograd.Function``, which costs the host less per call."""
+    if torch.compiler.is_exporting():
+        return spatial_mean_op(x)
     return _SpatialMean.apply(x)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .pixel_shuffle import pixel_shuffle
+from .tracing import outside_trace
 
 
 @functools.lru_cache(maxsize=32)
@@ -153,10 +154,11 @@ def _device_index(source_fn, args: tuple, device: torch.device
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``source_fn(*args)`` and its inverse (:func:`_inverse`) as int64
     tensors on ``device``, made once (outside inference mode, so that a
-    later differentiated forward may use them)."""
+    later differentiated forward may use them, and outside any trace, so
+    that a first call under ``torch.export`` caches real tensors)."""
     src = source_fn(*args)
     n = args[0] * args[0] * args[2] * args[3]
-    with torch.inference_mode(False):
+    with outside_trace(), torch.inference_mode(False):
         return (torch.from_numpy(src).to(device),
                 torch.from_numpy(_inverse(src, n)).to(device))
 

@@ -16,7 +16,9 @@ import pytest
 import torch
 
 import food101_sr_tpu_torch
-from food101_sr_tpu_torch import _build, bench, native, predict, serve
+from food101_sr_tpu_torch import (_build, bench, export_serving,
+                                  generate_model_vis, native, predict, serve,
+                                  sweep, visualize)
 from food101_sr_tpu_torch.data import (DeviceCacheLoader, DeviceWindowLoader,
                                        HostCanvasLoader, SRDataLoader,
                                        SyntheticSource)
@@ -37,14 +39,18 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "yaml",
 
 
 # the modules of the training, GAN, generator, serving, phase-tail and
-# quantization, and cache slices, named so the check cannot miss them
-NEW_MODULES = ("food101_sr_tpu_torch.bench",
+# quantization, cache, export and offline-tool slices, named so the check
+# cannot miss them
+NEW_MODULES = ("food101_sr_tpu_torch.analyze_models",
+               "food101_sr_tpu_torch.bench",
                "food101_sr_tpu_torch.convert",
                "food101_sr_tpu_torch.data.canvas_cache",
                "food101_sr_tpu_torch.data.device_cache",
                "food101_sr_tpu_torch.data.pil_bicubic",
                "food101_sr_tpu_torch.data.pipeline",
                "food101_sr_tpu_torch.data.sources",
+               "food101_sr_tpu_torch.export_serving",
+               "food101_sr_tpu_torch.generate_model_vis",
                "food101_sr_tpu_torch.losses",
                "food101_sr_tpu_torch.losses.perceptual",
                "food101_sr_tpu_torch.losses.tv",
@@ -59,6 +65,7 @@ NEW_MODULES = ("food101_sr_tpu_torch.bench",
                "food101_sr_tpu_torch.ops.pixel_shuffle",
                "food101_sr_tpu_torch.ops.quantize",
                "food101_sr_tpu_torch.ops.subpixel_conv",
+               "food101_sr_tpu_torch.ops.tracing",
                "food101_sr_tpu_torch.ops.tta",
                "food101_sr_tpu_torch.parallel.distributed",
                "food101_sr_tpu_torch.parallel.mesh",
@@ -66,6 +73,7 @@ NEW_MODULES = ("food101_sr_tpu_torch.bench",
                "food101_sr_tpu_torch.parallel.spatial_mesh",
                "food101_sr_tpu_torch.predict",
                "food101_sr_tpu_torch.serve",
+               "food101_sr_tpu_torch.sweep",
                "food101_sr_tpu_torch.train",
                "food101_sr_tpu_torch.training.checkpoint",
                "food101_sr_tpu_torch.training.diagnostics",
@@ -76,7 +84,8 @@ NEW_MODULES = ("food101_sr_tpu_torch.bench",
                "food101_sr_tpu_torch.training.steps",
                "food101_sr_tpu_torch.utils.logging",
                "food101_sr_tpu_torch.utils.rng",
-               "food101_sr_tpu_torch.utils.term_sums")
+               "food101_sr_tpu_torch.utils.term_sums",
+               "food101_sr_tpu_torch.visualize")
 
 
 def _all_modules():
@@ -162,11 +171,20 @@ def test_wrappers_raise_on_a_device_without_a_kernel(wrapper, counted):
                                    get_loss_function, serve.build_parser,
                                    predict.build_parser, bench.bench_infer,
                                    bench.bench_train, bench.bench_gan,
-                                   bench.parse_device])
+                                   bench.parse_device,
+                                   export_serving.load_bucket,
+                                   export_serving.build_parser,
+                                   visualize.run_comparison,
+                                   visualize.ModelRunner,
+                                   generate_model_vis.visualize_all_models,
+                                   sweep.run_sweep, sweep.run_asha])
 def test_entry_points_default_to_cuda(entry):
-    """A function's ``device`` parameter; a CLI's ``--device`` flag."""
+    """A function's ``device`` parameter; a CLI's ``--device`` flag (the
+    export CLI's ``--cpu``, off by default)."""
     if entry in (serve.build_parser, predict.build_parser):
         assert entry().get_default("device") == "cuda"
+    elif entry is export_serving.build_parser:
+        assert entry().get_default("cpu") is False
     elif entry is bench.parse_device:
         assert entry(["--train"]) == "cuda"
     else:
@@ -221,7 +239,20 @@ def test_cuda_entry_points_raise_without_a_card(tmp_path):
                  lambda: predict.main([str(tmp_path), "--out_dir",
                                        str(tmp_path / "out")]),
                  lambda: bench.main([]), lambda: bench.main(["--input"]),
-                 lambda: bench.bench_train("SRCNN", batch=1, crop=8)):
+                 lambda: bench.bench_train("SRCNN", batch=1, crop=8),
+                 lambda: export_serving.main(["--architecture", "SRCNN",
+                                              "--out", str(tmp_path / "aot")]),
+                 lambda: visualize.main(["--dataset", "synthetic",
+                                         "--num_examples", "1", "--out_dir",
+                                         str(tmp_path / "rep")]),
+                 lambda: visualize.ModelRunner("SRCNN", "missing.pth"),
+                 lambda: generate_model_vis.main(["--out",
+                                                  str(tmp_path / "vis"),
+                                                  "--models", "SRCNN"]),
+                 lambda: sweep.run_sweep(
+                     str(ROOT / "configs" / "sweep_srcnn.yaml"), 1,
+                     overrides={"dataset": "synthetic"},
+                     out=str(tmp_path / "sweep.jsonl"))):
         with pytest.raises((RuntimeError, AssertionError)):
             make()
 

@@ -14,6 +14,9 @@ be run in turns on one card and compared. It reports:
   bfloat16, in NCHW and in channels-last memory (``"refused"`` where the
   tree's wrapper does not take that layout);
 * ``ms``: CUDA-event milliseconds per call of the same, back to back;
+* ``spatial_mean``: the same two for the differentiable K2 op an SE block
+  calls (``ops.spatial_mean.spatial_mean``), channels-last, at the K2
+  shapes;
 * ``nlpd``: one ``losses.nlpd_loss`` call on (8, 3, 200, 200) float32 as
   ``MetricsCalculator`` makes it: event ms, host enqueue ms, and K1
   launches per call.
@@ -80,6 +83,7 @@ def main() -> int:
     sys.path.insert(0, root)
     ops = importlib.import_module("food101_sr_tpu_torch.ops")
     nlpd = importlib.import_module("food101_sr_tpu_torch.losses.nlpd")
+    sm = importlib.import_module("food101_sr_tpu_torch.ops.spatial_mean")
     if not ops.__file__.startswith(root):
         raise RuntimeError(f"imported {ops.__file__}, not from {root}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -87,7 +91,7 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"card": smi, "root": root, "torch": torch.__version__,
-              "k1": {}, "k2": {}}
+              "k1": {}, "k2": {}, "spatial_mean": {}}
     for shape in K1_SHAPES:
         x = torch.rand(shape, device="cuda", generator=gen)
         result["k1"]["x".join(map(str, shape))] = _both(
@@ -106,6 +110,9 @@ def main() -> int:
                 continue
             row[name] = _both(lambda: ops.mean_kernel(x), args.iters)
         result["k2"]["x".join(map(str, shape))] = row
+        x = base.contiguous(memory_format=torch.channels_last)
+        result["spatial_mean"]["x".join(map(str, shape))] = _both(
+            lambda: sm.spatial_mean(x), args.iters)
     sr, hr = (torch.rand((8, 3, 200, 200), device="cuda", generator=gen)
               for _ in range(2))
     fn = lambda: nlpd.nlpd_loss(sr, hr)  # noqa: E731
