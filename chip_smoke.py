@@ -42,14 +42,21 @@ Phases, one short line each; any failure raises and the exit code is 1:
           round of 32 64x64 JPEG uploads answered ?format=jpeg, each
           response byte-equal to encode_jpeg_rgb8(SRServer.upscale) at
           quality 90, with its images/s, p50/p95 and encode ms; a JPEG
-          request and response; a CMYK upload 415 naming CMYK; /healthz
+          request and response; one upload of each decoder the JAX
+          server has and the port once answered 415 (arithmetic-coded
+          baseline and progressive, CMYK, YCCK and lossless JPEG, 16-bit
+          and Adam7-interlaced PNG, GIF, BMP: assets/jpeg/streams/), each
+          200, decoded to the JAX server's digest and answered with the
+          PNG of SRServer.upscale byte for byte, with each class's decode
+          ms on the host ("codec numbers:" line); /healthz
           "jpeg": true; the SRCNN asset's responses (TF32 off) within 1 level of the
           JAX package's goldens, and its bf16 distance; a --tta server's
           responses within 1 level of the eight dihedral forwards averaged
           by hand; predict.main on 16 64x64 PNGs and a tiled one, every
           output equal to upscale's; a shutdown with 4 requests inside
-          their handlers answers each; 404, 413, 400 (truncated) and 415
-          (16-bit PNG); then K2 NHWC at the --tta forwards' shape
+          their handlers answers each; 404, 413, 400 (truncated body),
+          400 (truncated JPEG, which PIL refuses) and 415 (WebP, naming
+          it); then K2 NHWC at the --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
 9. train  the supervised step on the registry AttentionSR x4 (float32,
           channels-last, the phase-space tail as train() runs it, train
@@ -141,11 +148,16 @@ Phases, one short line each; any failure raises and the exit code is 1:
 13. food101  in the loop phase's process, after it: the port's JPEG codec
           and the Food-101 data path. The committed fixtures
           (food101_sr_tpu_torch/assets/jpeg/, tools/export_port_assets.py)
-          decode to the JAX package's digests, the CMYK one is refused
-          naming CMYK, two encodes hash to JAX's bytes, random region
-          decodes equal full-decode-then-crop, and SRDataLoader's first
-          two train and eval batches over the committed mini Food-101
-          tree hash to JAX's; then a Food-101-layout tree of 96 + 24
+          decode to the JAX package's digests (decode_jpeg_rgb8 to its
+          binding's, arithmetic-coded, CMYK/YCCK, block-smoothed,
+          truncated and lossless JPEG included; decode_image to its
+          server's, PNG, GIF and BMP included), the WebP and truncated
+          uploads are refused as it refuses them, committed regions equal
+          its region decodes, two encodes hash to JAX's bytes, random
+          region decodes equal full-decode-then-crop, and SRDataLoader's
+          first two train and eval batches over the committed mini
+          Food-101 tree (an arithmetic-coded and a CMYK image among its
+          train images) hash to JAX's; then a Food-101-layout tree of 96 + 24
           seeded 512x384 and 384x512 images, encoded by the port at q92,
           is written to a temporary directory and train() runs on it with
           the loop phase's settings (K1 8 per step and 4 per val or test
@@ -295,7 +307,6 @@ import itertools
 import json
 import os
 import socket
-import struct
 import subprocess
 import sys
 import tempfile
@@ -304,7 +315,6 @@ import time
 import urllib.error
 import urllib.request
 import warnings
-import zlib
 
 import numpy as np
 import torch
@@ -2437,14 +2447,26 @@ def _k2_tta(rates, launches: int) -> dict:
             "launches": launches, "max_abs_err": abs_err, **t}
 
 
-def _png_16bit() -> bytes:
-    """An 8x8 16-bit RGB PNG (which the port refuses by name)."""
-    from food101_sr_tpu_torch import native
+# the upload classes the port once answered 415 and the JAX server
+# decodes (PIL): name -> committed stream (assets/jpeg/streams/)
+CODEC_UPLOADS = {"arithmetic JPEG": "arith.jpg",
+                 "arithmetic progressive JPEG": "arith_progressive.jpg",
+                 "CMYK JPEG": "cmyk.jpg", "YCCK JPEG": "ycck.jpg",
+                 "lossless JPEG": "lossless.jpg", "16-bit PNG": "rgb16.png",
+                 "interlaced PNG": "interlaced.png", "GIF": "gif.gif",
+                 "BMP": "bmp24.bmp"}
 
-    ihdr = struct.pack(">IIBBBBB", 8, 8, 16, 2, 0, 0, 0)
-    return (native.PNG_SIGNATURE + native._chunk(b"IHDR", ihdr)
-            + native._chunk(b"IDAT", zlib.compress(bytes(8 * 49)))
-            + native._chunk(b"IEND", b""))
+
+def _codec_uploads() -> dict:
+    """name -> (bytes, the JAX server's decode digest) of CODEC_UPLOADS."""
+    with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
+        streams = json.load(f)["streams"]
+    out = {}
+    for name, fname in CODEC_UPLOADS.items():
+        g = streams[os.path.splitext(fname)[0]]
+        with open(os.path.join(JPEG_ASSETS, g["file"]), "rb") as f:
+            out[name] = (f.read(), g["served_sha256"])
+    return out
 
 
 def phase_http(rates) -> tuple[dict, dict]:
@@ -2517,12 +2539,16 @@ def phase_http(rates) -> tuple[dict, dict]:
         if not native.jpeg_available():
             raise AssertionError("the JPEG codec did not build: "
                                  f"{native.build_error('fast_jpeg')}")
+        native._gifbmp_lib()  # raises, naming the compiler's error
         jpeg_body = native.encode_jpeg_rgb8(small[0], 95)
         jpeg_imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
                      for _ in range(JPEG_ROUND)]
         jpeg_b = [native.encode_jpeg_rgb8(x, 90) for x in jpeg_imgs]
-        with open(os.path.join(JPEG_ASSETS, "streams", "cmyk.jpg"), "rb") as f:
-            cmyk_body = f.read()
+        uploads = _codec_uploads()
+        with open(os.path.join(JPEG_ASSETS, "streams", "webp.webp"),
+                  "rb") as f:
+            webp_body = f.read()
+        truncated_body = jpeg_body[:len(jpeg_body) * 2 // 3]
         torch.cuda.synchronize()
 
         # ---- main path: counts from zero -------------------------------
@@ -2541,7 +2567,9 @@ def phase_http(rates) -> tuple[dict, dict]:
         health = json.loads(_http(port, "/healthz")[2])
         r_jpeg_in = _http(port, "/sr?model=attn", jpeg_body)
         r_jpeg_out = _http(port, "/sr?model=attn&format=jpeg", small_b[0])
-        r_cmyk = _http(port, "/sr?model=attn", cmyk_body)
+        # each decoder the JAX server has and the port once lacked
+        r_codec = {name: _http(port, "/sr?model=attn", body)
+                   for name, (body, _) in uploads.items()}
         with full_fp32():  # float32 as the goldens' CPU run, TF32 off
             r_gold = [_http(port, "/sr?model=srcnn", b) for b in gold_b]
         k2_before = mean_nhwc_kernel.launches
@@ -2600,13 +2628,31 @@ def phase_http(rates) -> tuple[dict, dict]:
                         attn.upscale(native.decode_image(body)), 90)):
                 raise AssertionError(f"JPEG round response ({code}) is not "
                                      "encode_jpeg_rgb8(SRServer.upscale)")
-        if not (r_cmyk[0] == 415 and b"CMYK" in r_cmyk[2]):
-            raise AssertionError(f"CMYK upload: {r_cmyk[0]} {r_cmyk[2][:80]}")
         jpeg_note = (f"a JPEG request, a ?format=jpeg response and "
                      f"{JPEG_ROUND} 64x64 JPEG uploads answered as JPEG, "
-                     "byte-equal to encode_jpeg_rgb8(SRServer.upscale); a "
-                     "CMYK upload 415 naming it")
+                     "byte-equal to encode_jpeg_rgb8(SRServer.upscale)")
         print(f"http: jpeg: {jpeg_note}", flush=True)
+        # the new decoders: 200, the JAX server's pixels, and the PNG of
+        # SRServer.upscale of them byte for byte
+        codec_ms = {}
+        for name, (body, digest) in uploads.items():
+            code, hdrs, data, _ = r_codec[name]
+            px = native.decode_image(body)
+            if code != 200 or sha256(px) != digest:
+                raise AssertionError(f"{name} upload: {code}, decode "
+                                     "differs from the JAX server's")
+            if data != native.encode_png_rgb8(attn.upscale(px),
+                                              attn.png_level):
+                raise AssertionError(f"{name} upload: the response is not "
+                                     "the PNG of SRServer.upscale")
+            codec_ms[name] = host_us(lambda b=body: native.decode_image(b),
+                                     1, 20) / 1e3
+        shapes = {n: list(native.decode_image(b).shape[:2])
+                  for n, (b, _) in uploads.items()}
+        print("codec numbers: " + json.dumps(
+            {"decode_ms": codec_ms, "shape": shapes,
+             "bytes": {n: len(b) for n, (b, _) in uploads.items()}}),
+              flush=True)
 
         # the SRCNN asset in f32 against the JAX package's goldens
         lv_gold = []
@@ -2652,16 +2698,20 @@ def phase_http(rates) -> tuple[dict, dict]:
             "400 truncated": _raw_http(port, b"POST /sr HTTP/1.1\r\nHost: x"
                                        b"\r\nContent-Length: 5000\r\n\r\n"
                                        b"0123456789"),
-            "415 16-bit PNG": _http(port, "/sr?model=attn", _png_16bit()),
+            "400 truncated JPEG": _http(port, "/sr?model=attn",
+                                        truncated_body),
+            "415 WebP": _http(port, "/sr?model=attn", webp_body),
         }
         codes = {"404 unknown model": errors["404 unknown model"][0],
                  "413": int(errors["413"][9:12] or 0),
                  "400 truncated": int(errors["400 truncated"][9:12] or 0),
-                 "415 16-bit PNG": errors["415 16-bit PNG"][0]}
+                 "400 truncated JPEG": errors["400 truncated JPEG"][0],
+                 "415 WebP": errors["415 WebP"][0]}
         if (codes != {"404 unknown model": 404, "413": 413,
-                      "400 truncated": 400, "415 16-bit PNG": 415}
+                      "400 truncated": 400, "400 truncated JPEG": 400,
+                      "415 WebP": 415}
                 or b"truncated" not in errors["400 truncated"]
-                or b"16-bit" not in errors["415 16-bit PNG"][2]):
+                or b"WebP" not in errors["415 WebP"][2]):
             raise AssertionError(f"error statuses {codes}")
     finally:
         for httpd, thread in httpds:
@@ -2685,6 +2735,7 @@ def phase_http(rates) -> tuple[dict, dict]:
         "levels_srcnn_f32": lv_gold, "levels_srcnn_bf16": lv_gold_bf16,
         "levels_tta_vs_hand": lv_tta, "jpeg": True,
         "drain_s": drain_s, "warmup_s": warm_s, "launches": launches,
+        "codec_decode_ms": codec_ms,
         "tta_launches": tta_launches, "error_codes": codes,
     }
     for b in numbers["buckets"] + [numbers["tta"]]:
@@ -2704,7 +2755,9 @@ def phase_http(rates) -> tuple[dict, dict]:
         print(line, flush=True)
     print(f"http: every PNG response bit-equal to SRServer.upscale "
           f"({2 * HTTP_REQUESTS} 64x64, {HTTP_TILED} tiled, {DRAIN_REQUESTS} "
-          f"drained) | --tta vs hand ensemble {lv_tta} level(s) | SRCNN "
+          f"drained; {len(CODEC_UPLOADS)} uploads of the new decoders, "
+          f"decoded to the JAX server's digests: "
+          f"{', '.join(CODEC_UPLOADS)}) | --tta vs hand ensemble {lv_tta} level(s) | SRCNN "
           f"asset f32 vs JAX goldens {lv_gold} level(s), bf16 "
           f"{lv_gold_bf16} | errors {codes} | drain {drain_s:.2f} s | "
           f"predict: {pred_line} | launches {launches}, --tta "
@@ -3034,16 +3087,21 @@ def _write_food_tree(root: str) -> None:
 
 def _jpeg_fixtures() -> dict:
     """Part 1 of the food101 phase: the committed streams against the JAX
-    package's decode digests, the CMYK refusal, both encode digests, and
-    random region decodes against full-decode-then-crop."""
+    package's digests (each JPEG's decode_jpeg_rgb8 against its
+    binding's, every stream's decode_image against its server's PIL
+    decode; the WebP and the truncated JPEGs refused as it refuses them),
+    its region digests at the committed regions, both encode digests,
+    and random region decodes of the mini tree (an arithmetic-coded and a
+    CMYK image among them) against full-decode-then-crop."""
     from food101_sr_tpu_torch import native
 
     with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
         goldens = json.load(f)
     checked = 0
+    streams = {}
     for name, g in goldens["streams"].items():
         with open(os.path.join(JPEG_ASSETS, g["file"]), "rb") as f:
-            data = f.read()
+            data = streams[name] = f.read()
         if "refused" in g:
             try:
                 native.decode_image(data)
@@ -3053,11 +3111,31 @@ def _jpeg_fixtures() -> dict:
                 continue
             raise AssertionError(f"{name} decoded; expected a refusal "
                                  f"naming {g['refused']}")
-        px = native.decode_image(data)
+        if g.get("served_refused"):
+            try:
+                native.decode_image(data)
+            except native.UnsupportedImage:
+                raise AssertionError(f"{name}: 415, the JAX server 400s")
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{name} served; the JAX server "
+                                     "refuses it")
+        elif sha256(native.decode_image(data)) != g["served_sha256"]:
+            raise AssertionError(f"stream {name}: decode_image differs from "
+                                 "the JAX server's")
+        px = (native.decode_jpeg_rgb8(data) if g["file"].endswith(".jpg")
+              else native.decode_image(data))
         if list(px.shape) != g["shape"] or sha256(px) != g["sha256"]:
             raise AssertionError(f"stream {name}: {px.shape} decode differs "
                                  "from the JAX package's")
         checked += 1
+    for c in goldens["crops"]:
+        got = native.decode_jpeg_crop_rgb8(streams[c["stream"]], c["x0"],
+                                           c["y0"], c["cw"], c["ch"])
+        if sha256(got) != c["sha256"]:
+            raise AssertionError(f"{c['stream']}: region {c} differs from "
+                                 "the JAX package's")
     for g in goldens["encode"]:
         img = jpeg_test_image(g["h"], g["w"], g["seed"])
         if sha256(native.encode_jpeg_rgb8(img, g["quality"])) != g["sha256"]:
@@ -3067,8 +3145,6 @@ def _jpeg_fixtures() -> dict:
     tree = os.path.join(JPEG_ASSETS, "food-101", "images")
     files = sorted(os.path.join(d, f) for d, _, fs in os.walk(tree)
                    for f in fs)
-    files += [os.path.join(JPEG_ASSETS, g["file"])
-              for g in goldens["streams"].values() if "refused" not in g]
     crops = 0
     for path in files:
         with open(path, "rb") as f:
@@ -3085,6 +3161,9 @@ def _jpeg_fixtures() -> dict:
                                      "differs from full-decode-then-crop")
             crops += 1
     return {"goldens": goldens, "streams": checked,
+            "refused": sum("refused" in g or "served_refused" in g
+                           for g in goldens["streams"].values()),
+            "region_goldens": len(goldens["crops"]),
             "encodes": len(goldens["encode"]), "crops": crops}
 
 
@@ -3198,11 +3277,13 @@ def phase_food101(tmp: str, loop: dict) -> dict:
         loader_wait_ms=[r["time/loader_wait_ms"] for r in epochs],
         loader_produce_ms=[r["time/loader_produce_ms"] for r in epochs],
         final=final, cli=cli_out, launches=list(total))
-    print(f"food101: {fx['streams']} streams decode to the JAX package's "
-          f"digests, CMYK refused by name, {fx['encodes']} encodes byte-equal, "
-          f"{fx['crops']} region decodes equal full-then-crop | loader over "
-          f"the mini tree: {lg['batches']} train and {lg['batches']} eval "
-          f"batches equal JAX's | train() AttentionSR x4 on {FOOD_TRAIN} + "
+    print(f"food101: {fx['streams']} streams (JPEG, PNG, GIF, BMP) decode "
+          f"to the JAX package's digests, {fx['refused']} refused as it "
+          f"refuses them, {fx['region_goldens']} regions equal its region "
+          f"decodes, {fx['encodes']} encodes byte-equal, {fx['crops']} region "
+          f"decodes equal full-then-crop | loader over the mini tree (one "
+          f"arithmetic-coded and one CMYK image): {lg['batches']} train and "
+          f"{lg['batches']} eval batches equal JAX's | train() AttentionSR x4 on {FOOD_TRAIN} + "
           f"{FOOD_TEST} JPEGs ({nb['steps']} steps of "
           f"{LOOP_CFG['batch_size']}, crop {crop}, {n_ep} epochs): launches "
           f"(K1, K2 nhwc, K2 plane) {total}, final psnr {final['psnr']:.4f} "

@@ -80,9 +80,12 @@ def load_sample(source, i: int, crop_size: int, train: bool,
     batch is the same either way. Otherwise the bytes are decoded in full
     and go through ``load_hr_crop`` (Pillow-exact resize if small).
 
-    Where the JAX package falls back to PIL for a stream its libjpeg
-    refuses, this raises, naming the file and the feature; the loader
-    then fails the epoch."""
+    The decoders give the JAX package's pixels on each of its paths: its
+    libjpeg's region decode (arithmetic-coded and truncated streams
+    included) and, where it falls back to PIL (CMYK, YCCK, lossless;
+    small images), PIL's. A stream the JAX package's loader fails on too
+    (a 12-bit JPEG, a broken file) raises, naming the file and the
+    feature; the loader then fails the epoch."""
     if not hasattr(source, "bytes_at"):
         return load_hr_crop(source[i], crop_size, train, rng)
     data = source.bytes_at(i)

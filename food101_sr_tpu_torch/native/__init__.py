@@ -1,30 +1,38 @@
-"""Image codecs of the serving path, without PIL (counterpart of
-``food101_sr_tpu/native/``, whose functions keep their names here).
+"""Image codecs of the serving and data paths, without PIL (counterpart
+of ``food101_sr_tpu/native/``, whose functions keep their names here).
 
-The JAX package decodes requests with PIL and encodes responses with C++
-over libpng and libjpeg, falling back to PIL where a library is missing.
-A GPU host need not have PIL, libpng or libjpeg, so this module owns its
-codecs and never substitutes one codec for another:
+The JAX package decodes requests with PIL, decodes its dataset with
+libjpeg-turbo (falling back to PIL where libjpeg refuses a stream), and
+encodes responses with C++ over libpng and libjpeg. A GPU host need not
+have PIL, libpng or libjpeg, so this module owns its codecs, gives on
+each path what the JAX package's function gives, and never substitutes
+one codec for another:
 
 - PNG, both ways, on any host with a C++ compiler: the container and the
   deflate stream in Python (``struct``, the stdlib ``zlib``), the row
   filters in ``fast_png.cpp``, which needs no library. The encoder writes
   the JAX package's fixed SUB filter at a caller-chosen zlib level. The
-  decoder reads 1/2/4/8-bit gray, 8-bit gray+alpha, RGB and RGBA, and
-  1/2/4/8-bit palette images, to RGB as PIL's ``convert("RGB")`` does:
-  gray replicated, alpha dropped without compositing, the palette
-  expanded. 16-bit and Adam7-interlaced PNGs raise :class:`UnsupportedImage`
-  naming them.
+  decoder reads every color type at every depth (1 to 16 bits),
+  Adam7-interlaced or not, to RGB as PIL's ``convert("RGB")`` does.
 - JPEG, both ways, with the port's own codec (``fast_jpeg.cpp``), which
-  needs no library: libjpeg-turbo's integer pipeline (ISLOW IDCT, fancy
-  upsampling, fixed-point color) written out, so decodes are pixel-equal
-  and encodes byte-equal to the JAX package's libjpeg binding. Baseline
-  and progressive Huffman streams with 1 or 3 components decode; a region
-  decode returns full-decode-then-crop's pixels while decoding only the
-  rows and blocks the region needs. Arithmetic coding, lossless and
-  hierarchical streams, 12-bit samples and CMYK/YCCK raise
-  :class:`UnsupportedImage` naming the feature; broken or truncated
-  streams raise ValueError.
+  needs no library: libjpeg-turbo's pipeline written out, so decodes are
+  pixel-equal and encodes byte-equal to the JAX package's. Baseline,
+  extended and progressive streams, Huffman- or arithmetic-coded, with
+  1, 3 or 4 components (gray, YCbCr, RGB, CMYK, YCCK), and lossless
+  (SOF3) ones decode. :func:`decode_jpeg_rgb8` and the region decode
+  :func:`decode_jpeg_crop_rgb8` give the JAX package's libjpeg-turbo 2.1
+  binding's pixels, a truncated stream included (what was read, the rest
+  as libjpeg fills it), or its PIL fallback's where the binding refuses
+  (CMYK, YCCK, lossless); the request decoder :func:`decode_image` gives
+  PIL's (libjpeg-turbo 3.1), which refuses a truncated stream. 12-bit,
+  hierarchical and arithmetic lossless streams raise
+  :class:`UnsupportedImage` naming the feature, as the JAX package
+  refuses them too; broken streams raise ValueError.
+- GIF (the first frame) and BMP (every header, depth and compression PIL
+  reads), decoded as PIL's ``convert("RGB")``: containers in Python,
+  LZW, rows and RLE in ``fast_gifbmp.cpp``.
+- WebP, TIFF and the other formats PIL opens raise
+  :class:`UnsupportedImage` naming the format.
 
 Each C++ unit is compiled with ``g++`` on first use into the package's
 git-ignored ``_build/`` directory, under a name carrying a hash of its
@@ -180,8 +188,10 @@ def _png_chunks(data: bytes):
 
 
 def _unpack_bits(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
-    """(h, stride) bytes of ``depth``-bit samples -> (h, n) uint8 values,
-    most significant bits first."""
+    """(h, stride) bytes of ``depth``-bit samples -> (h, n) values, most
+    significant bits first (uint16 at depth 16, else uint8)."""
+    if depth == 16:
+        return rows[:, :2 * n].view(">u2").astype(np.uint16)
     if depth == 8:
         return rows[:, :n]
     per = 8 // depth
@@ -190,10 +200,55 @@ def _unpack_bits(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
     return vals.reshape(rows.shape[0], rows.shape[1] * per)[:, :n]
 
 
+# Adam7: (x0, y0, dx, dy) of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_passes(w: int, h: int, channels: int, depth: int,
+                interlace: int) -> list:
+    """(x0, y0, dx, dy, width, height, stride) of each pass that has rows:
+    the image itself, or Adam7's seven sub-images (an empty one has no
+    rows, not even filter bytes)."""
+    out = []
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph,
+                        (pw * channels * depth + 7) // 8))
+    return out
+
+
+def _png_samples(raw: bytes, passes: list, h: int, w: int, channels: int,
+                 depth: int) -> np.ndarray:
+    """The inflated IDAT stream -> (h, w, channels) sample values, each
+    pass unfiltered on its own and scattered to its pixels."""
+    out = None
+    pos = 0
+    for x0, y0, dx, dy, pw, ph, stride in passes:
+        rows = np.empty((ph, stride), np.uint8)
+        err = _png_lib().f101png_unfilter(raw[pos:pos + ph * (stride + 1)],
+                                          ph, stride,
+                                          max(1, channels * depth // 8),
+                                          rows.ctypes.data)
+        if err:
+            raise ValueError(f"PNG: bad filter type in row {-err - 1}")
+        pos += ph * (stride + 1)
+        vals = _unpack_bits(rows, depth, pw * channels).reshape(ph, pw,
+                                                                channels)
+        if out is None:
+            out = np.empty((h, w, channels), vals.dtype)
+        out[y0::dy, x0::dx] = vals
+    return out
+
+
 def decode_png_rgb8(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 HxWx3, with PIL's ``convert("RGB")`` semantics.
-    Raises :class:`UnsupportedImage` for 16-bit and Adam7-interlaced
-    images, ValueError for anything that is not a whole, valid PNG."""
+    """PNG bytes -> uint8 HxWx3, with PIL's ``convert("RGB")`` semantics:
+    every color type at every depth, Adam7-interlaced or not. Gray is
+    replicated, alpha dropped without compositing, the palette expanded,
+    tRNS ignored; 16-bit RGB, RGBA and gray+alpha keep the high byte
+    (PIL's ``;16B`` raw modes), 16-bit gray is PIL's ``I;16`` clipped at
+    255. Raises ValueError for anything that is not a whole, valid PNG."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG")
     ihdr, plte, idat = None, None, []
@@ -211,34 +266,27 @@ def decode_png_rgb8(data: bytes) -> np.ndarray:
     w, h, depth, color, comp, filt, interlace = ihdr
     if color not in _PNG_TYPES or depth not in _PNG_TYPES[color][1]:
         raise ValueError(f"PNG: invalid color type {color} at depth {depth}")
-    if depth == 16:
-        raise UnsupportedImage("16-bit PNG is not supported (8-bit and "
-                               "lower depths only)")
-    if interlace:
-        raise UnsupportedImage("Adam7-interlaced PNG is not supported")
-    if comp or filt or w == 0 or h == 0:
+    if comp or filt or interlace > 1 or w == 0 or h == 0:
         raise ValueError("PNG: bad IHDR")
     if w * h > MAX_PIXELS:
         raise ValueError(f"PNG: {w}x{h} exceeds {MAX_PIXELS} pixels")
     channels = _PNG_TYPES[color][0]
-    stride = (w * channels * depth + 7) // 8
-    need = h * (stride + 1)
+    passes = _png_passes(w, h, channels, depth, interlace)
+    need = sum(ph * (stride + 1) for *_, ph, stride in passes)
     raw = zlib.decompressobj().decompress(b"".join(idat), need)
     if len(raw) < need:
         raise ValueError("PNG: image data truncated")
-    rows = np.empty((h, stride), np.uint8)
-    err = _png_lib().f101png_unfilter(raw, h, stride,
-                                      max(1, channels * depth // 8),
-                                      rows.ctypes.data)
-    if err:
-        raise ValueError(f"PNG: bad filter type in row {-err - 1}")
-    vals = _unpack_bits(rows, depth, w * channels).reshape(h, w, channels)
+    vals = _png_samples(raw, passes, h, w, channels, depth)
     if color == 3:
         if plte is None or len(plte) % 3:
             raise ValueError("PNG: palette image without a valid PLTE")
         pal = np.zeros((256, 3), np.uint8)
         pal[:len(plte) // 3] = plte.reshape(-1, 3)[:256]
         return pal[vals[..., 0]]
+    if depth == 16:
+        g = (np.minimum(vals[..., :1], 255) if color == 0
+             else vals[..., :1 if color == 4 else 3] >> 8).astype(np.uint8)
+        return np.ascontiguousarray(np.broadcast_to(g, (h, w, 3)))
     if color in (0, 4):
         g = vals[..., 0] * np.uint8(255 // ((1 << depth) - 1))
         return np.repeat(g[..., None], 3, axis=2)
@@ -257,7 +305,8 @@ def _register_jpeg(lib):
     lib.fastjpeg_dims.restype = i
     lib.fastjpeg_dims.argtypes = [p, ll, ip, ip]
     lib.fastjpeg_decode_rgb8.restype = i
-    lib.fastjpeg_decode_rgb8.argtypes = [p, ll, ctypes.c_void_p, ll, ip, ip]
+    lib.fastjpeg_decode_rgb8.argtypes = [p, ll, ctypes.c_void_p, ll, ip, ip,
+                                         i]
     lib.fastjpeg_decode_crop_rgb8.restype = i
     lib.fastjpeg_decode_crop_rgb8.argtypes = [p, ll, i, i, i, i,
                                               ctypes.c_void_p, ll]
@@ -300,10 +349,15 @@ def jpeg_dims(data: bytes) -> Optional[tuple]:
     return w.value, h.value
 
 
-def decode_jpeg_rgb8(data: bytes) -> np.ndarray:
-    """JPEG bytes -> uint8 HxWx3, pixel-equal to libjpeg-turbo's RGB
-    output (gray replicated). Raises :class:`UnsupportedImage` for a
-    stream the codec refuses by name, ValueError for a broken one."""
+def decode_jpeg_rgb8(data: bytes, *, strict: bool = False) -> np.ndarray:
+    """JPEG bytes -> uint8 HxWx3, as the JAX package's
+    ``decode_jpeg_rgb8`` gives them: libjpeg-turbo's RGB output (gray
+    replicated), a truncated stream included (what was read, the rest
+    as libjpeg fills it); for CMYK, YCCK and lossless streams, which its
+    binding refuses, what its PIL fallback gives. ``strict`` decodes as PIL's ``Image.open(...).convert(
+    "RGB")`` does, which raises ValueError for a stream that ends before
+    its EOI marker. Raises :class:`UnsupportedImage` for a stream the codec
+    refuses by name, ValueError for a broken one."""
     lib = _jpeg_lib()
     dims = jpeg_dims(data)
     if dims is None:
@@ -316,7 +370,7 @@ def decode_jpeg_rgb8(data: bytes) -> np.ndarray:
     w2, h2 = ctypes.c_int(), ctypes.c_int()
     rc = lib.fastjpeg_decode_rgb8(data, len(data), out.ctypes.data,
                                   out.nbytes, ctypes.byref(w2),
-                                  ctypes.byref(h2))
+                                  ctypes.byref(h2), int(strict))
     if rc != 0:
         _jpeg_raise(lib, rc)
     return out
@@ -343,9 +397,14 @@ def encode_jpeg_rgb8(arr: np.ndarray, quality: int = 90) -> bytes:
 
 def decode_jpeg_crop_rgb8(data: bytes, x0: int, y0: int, cw: int,
                           ch: int) -> Optional[np.ndarray]:
-    """Exactly the [y0:y0+ch, x0:x0+cw] region of a full decode, paying
-    only for the iMCU rows up to the region's last (every scan's) and the
-    blocks it touches. None when the region is not inside the image;
+    """The [y0:y0+ch, x0:x0+cw] region the JAX package's
+    ``decode_jpeg_crop_rgb8`` gives (or, for CMYK/YCCK, its loader's PIL
+    fallback: full decode, then crop), paying only for the iMCU rows up to
+    the region's last (every scan's) and the blocks it touches. That is
+    full-decode-then-crop's pixels, except where libjpeg block-smooths a
+    progressive stream whose low coefficients are not fully refined: its
+    region decode starts the smoothing at the region's first iMCU column,
+    and so does this. None when the region is not inside the image;
     raises as :func:`decode_jpeg_rgb8` for the stream."""
     lib = _jpeg_lib()
     out = np.empty((max(ch, 0), max(cw, 0), 3), np.uint8)
@@ -360,29 +419,291 @@ def decode_jpeg_crop_rgb8(data: bytes, x0: int, y0: int, cw: int,
 
 
 # ---------------------------------------------------------------------------
+# GIF and BMP: containers in Python, pixels in fast_gifbmp.cpp
+# ---------------------------------------------------------------------------
+
+def _register_gifbmp(lib):
+    p, ll, i = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+    lib.f101gif_lzw.argtypes = [ctypes.c_char_p, ll, i, i, p, i, i]
+    lib.f101gif_lzw.restype = i
+    lib.f101bmp_rows.argtypes = [ctypes.c_char_p, ll, i, i, ll, i, i,
+                                 ctypes.c_char_p, i, i, i, p]
+    lib.f101bmp_rows.restype = i
+    lib.f101bmp_rle.argtypes = [ctypes.c_char_p, ll, ll, i, i, i, p]
+    lib.f101bmp_rle.restype = ll
+
+
+def _gifbmp_lib() -> ctypes.CDLL:
+    lib = _load("fast_gifbmp", (), _register_gifbmp)
+    if lib is None:
+        raise UnsupportedImage("the GIF/BMP unit (native/fast_gifbmp.cpp, no "
+                               "library needed) did not build here: "
+                               f"{build_error('fast_gifbmp')}")
+    return lib
+
+
+def _gray_ramp(p: bytes) -> bool:
+    """PIL's GIF ``_is_palette_needed`` negated: entry i is (i, i, i)."""
+    return all(p[i] == p[i + 1] == p[i + 2] == i // 3
+               for i in range(0, len(p) - 2, 3))
+
+
+# index -> RGB of an "L" image (gray) and of a "P" one (the entries
+# given, then black, as PIL's ``convert("RGB")`` looks them up)
+_GRAY = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+
+
+def _palette(entries: bytes) -> np.ndarray:
+    pal = np.zeros((256, 3), np.uint8)
+    n = min(len(entries) // 3, 256)
+    pal[:n] = np.frombuffer(entries[:n * 3], np.uint8).reshape(n, 3)
+    return pal
+
+
+def decode_gif_rgb8(data: bytes) -> np.ndarray:
+    """GIF bytes -> uint8 HxWx3: the first frame as PIL's
+    ``Image.open(...).convert("RGB")`` gives it. The canvas is the logical
+    screen (grown to hold the frame), filled with the frame's transparent
+    index, else index 0; the frame's local color table, else the global
+    one, maps the indices (none, or a gray ramp: the index is the gray);
+    transparency is dropped. Raises ValueError where PIL raises: no image,
+    a code the LZW decoder refuses, or data that ends before the frame is
+    whole."""
+    if data[:6] not in (b"GIF87a", b"GIF89a") or len(data) < 13:
+        raise ValueError("not a GIF")
+    sw, sh, flags = struct.unpack_from("<HHB", data, 6)
+    pos, gpal = 13, None
+    if flags & 0x80:
+        size = 3 << ((flags & 7) + 1)
+        gpal = data[pos:pos + size]
+        pos += size
+        if _gray_ramp(gpal):
+            gpal = None
+
+    def sub_blocks(pos):
+        """The first sub-block at pos (None if empty) and the position
+        after all of them."""
+        first = None
+        while pos < len(data):
+            n = data[pos]
+            pos += 1
+            if n == 0:
+                break
+            if first is None:
+                first = data[pos:pos + n]
+            pos += n
+        return first, pos
+
+    transparency = None
+    while True:
+        if pos >= len(data) or data[pos] == 0x3B:
+            raise ValueError("GIF: no image in the file")
+        b = data[pos]
+        pos += 1
+        if b == 0x21:  # extension: the graphic control one has transparency
+            label = data[pos] if pos < len(data) else 0
+            block, pos = sub_blocks(pos + 1)
+            if label == 0xF9 and block is not None:
+                if len(block) < 4:
+                    raise ValueError("GIF: bad graphic control extension")
+                if block[0] & 1:
+                    transparency = block[3]
+        elif b == 0x2C:
+            break
+    if pos + 9 > len(data):
+        raise ValueError("GIF: truncated image descriptor")
+    x0, y0, fw, fh, fflags = struct.unpack_from("<HHHHB", data, pos)
+    pos += 9
+    pal = gpal
+    if fflags & 0x80:
+        size = 3 << ((fflags & 7) + 1)
+        pal = data[pos:pos + size]
+        pos += size
+        if _gray_ramp(pal):
+            pal = None
+    if pos >= len(data):
+        raise ValueError("GIF: truncated before the image data")
+    bits = data[pos]
+    pos += 1
+    w, h = max(sw, x0 + fw), max(sh, y0 + fh)
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"GIF: {w}x{h} exceeds {MAX_PIXELS} pixels")
+    if w == 0 or h == 0 or fw == 0 or fh == 0:
+        raise ValueError("GIF: empty image")
+    canvas = np.full((h, w), transparency or 0, np.uint8)
+    frame = np.zeros((fh, fw), np.uint8)
+    rc = _gifbmp_lib().f101gif_lzw(data[pos:], len(data) - pos, bits,
+                                   int(bool(fflags & 0x40)),
+                                   frame.ctypes.data, fw, fh)
+    if rc:
+        raise ValueError("GIF: broken LZW data" if rc < 0 else
+                         "GIF: image data ends before the frame is whole")
+    canvas[y0:y0 + fh, x0:x0 + fw] = frame
+    return (_palette(pal) if pal is not None else _GRAY)[canvas]
+
+
+# BI_BITFIELDS layouts PIL reads: (bits, masks) -> byte shifts of R, G, B
+# (32-bit), or the 16-bit kind
+_BMP_MASKS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): (16, 8, 0),
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): (24, 16, 8),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): (24, 8, 0),
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): (24, 16, 8),
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): (0, 8, 16),
+    (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): (16, 8, 0),
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): (24, 8, 0),
+    (32, (0x0, 0x0, 0x0, 0x0)): (16, 8, 0),
+    (24, (0xFF0000, 0xFF00, 0xFF)): 24,
+    (16, (0xF800, 0x7E0, 0x1F)): 16,
+    (16, (0x7C00, 0x3E0, 0x1F)): 15,
+}
+
+
+def decode_bmp_rgb8(data: bytes) -> np.ndarray:
+    """BMP bytes -> uint8 HxWx3, as PIL's BmpImagePlugin reads it and
+    ``convert("RGB")`` maps it: the core, info and V2-V5 headers; 1/4/8-bit
+    palette images (a palette that is all gray read as PIL's "L" or "1"
+    raw mode, one byte or one bit per pixel whatever the depth), 16-bit
+    5-5-5, 24-bit, 32-bit, the BI_BITFIELDS layouts PIL lists, RLE8 and
+    RLE4 through PIL's own RLE decoder; bottom-up or top-down. Raises
+    ValueError where PIL raises."""
+    if not data.startswith(b"BM") or len(data) < 18:
+        raise ValueError("not a BMP")
+    offset, hsize = struct.unpack_from("<II", data, 10)
+    header = data[18:14 + hsize]
+    if len(header) < hsize - 4:
+        raise ValueError("BMP: truncated header")
+    pos = 14 + hsize
+    direction = -1
+    compression, colors, pad = 0, 0, 3
+    if hsize == 12:
+        w, h, _, bits = struct.unpack_from("<HHHH", header)
+    elif hsize in (40, 52, 56, 64, 108, 124):
+        pad = 4
+        if header[7] == 0xFF:
+            direction = 1
+        w, h = struct.unpack_from("<II", header)
+        if direction == 1:
+            h = 2**32 - h
+        bits, compression = struct.unpack_from("<HI", header, 10)
+        colors = struct.unpack_from("<I", header, 28)[0]
+        if compression == 3:
+            if len(header) >= 48:
+                masks = struct.unpack_from("<III", header, 36)
+                masks += (struct.unpack_from("<I", header, 48)[0]
+                          if len(header) >= 52 else 0,)
+            else:
+                masks = struct.unpack_from("<III", data, pos) + (0,)
+                pos += 12
+    else:
+        raise ValueError(f"BMP: unsupported header size {hsize}")
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"BMP: {w}x{h} exceeds {MAX_PIXELS} pixels")
+    colors = colors or (1 << bits)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits not in (1, 4, 8, 16, 24, 32):
+        raise ValueError(f"BMP: unsupported pixel depth {bits}")
+    kind, shifts, rle = (bits if bits != 16 else 15), (16, 8, 0), False
+    if compression == 3:
+        key = (bits, masks if bits == 32 else masks[:3])
+        if key not in _BMP_MASKS:
+            raise ValueError("BMP: unsupported bitfields layout")
+        layout = _BMP_MASKS[key]
+        if bits == 32:
+            shifts = layout
+        else:
+            kind = layout
+    elif compression in (1, 2):
+        rle = True
+    elif compression != 0:
+        raise ValueError(f"BMP: unsupported compression {compression}")
+    pal = _GRAY
+    if bits <= 8:
+        if not 0 < colors <= 65536:
+            raise ValueError(f"BMP: unsupported palette size {colors}")
+        entries = data[pos:pos + pad * colors]
+        vals = (0, 255) if colors == 2 else range(colors)
+        gray = all(entries[i * pad:i * pad + 3] == bytes([v]) * 3
+                   for i, v in enumerate(vals))
+        if gray:  # PIL's "1" or "L": raw bits or bytes, whatever the depth
+            kind = 1 if colors == 2 else 8
+            if not rle and (w * kind + 7) // 8 > ((w * bits + 31) >> 3) & ~3:
+                raise ValueError("BMP: rows shorter than PIL's gray raw mode")
+            pal = _GRAY if colors != 2 else np.where(
+                _GRAY > 0, np.uint8(255), np.uint8(0))
+        else:
+            b, g, r = (np.frombuffer(entries[:len(entries) // pad * pad],
+                                     np.uint8).reshape(-1, pad)[:, k]
+                       for k in range(3))
+            pal = _palette(np.stack([r, g, b], 1).tobytes())
+    lib = _gifbmp_lib()
+    out = np.empty((h, w, 3), np.uint8)
+    src = data[offset:]
+    if rle:
+        if bits > 8:
+            raise ValueError("BMP: run-length coding of a non-palette image")
+        idx = np.zeros(w * h + 256, np.uint8)
+        n = lib.f101bmp_rle(src, len(src), offset, w, h, int(compression == 2),
+                            idx.ctypes.data)
+        if n < w * h:
+            raise ValueError("BMP: not enough image data")
+        rows = idx[:w * h].reshape(h, w)
+        if direction == -1:
+            rows = rows[::-1]
+        return pal[rows]
+    stride = ((w * bits + 31) >> 3) & ~3
+    if lib.f101bmp_rows(src, len(src), w, h, stride, int(direction == 1),
+                        kind, pal.tobytes(), *shifts, out.ctypes.data):
+        raise ValueError("BMP: image data truncated")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the request decoder
 # ---------------------------------------------------------------------------
 
-# formats recognised by their first bytes but not decoded here
-_OTHER_FORMATS = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"),
-                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+# formats PIL opens that are recognised by their first bytes but not
+# decoded here
+_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                  (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"),
+                  (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "CUR"),
+                  (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"),
+                  (b"\xffO\xffQ", "JPEG 2000"),
+                  (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+                  (b"icns", "ICNS"), (b"\x97JB2", "JBIG2"))
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Image bytes -> (H, W, 3) uint8 RGB, by the format's signature: PNG
-    (:func:`decode_png_rgb8`) or JPEG (:func:`decode_jpeg_rgb8`). Raises
-    :class:`UnsupportedImage` for a recognised format or variant the port
-    does not decode (BMP, GIF, TIFF, WebP; 16-bit or interlaced PNG;
-    arithmetic, lossless, 12-bit or CMYK JPEG), ValueError for bytes that
-    are no image or a broken one."""
+    """Image bytes -> (H, W, 3) uint8 RGB, as PIL's ``Image.open(...)
+    .convert("RGB")`` gives them (how the JAX package's server decodes an
+    upload), by the format's signature: PNG (:func:`decode_png_rgb8`),
+    JPEG (:func:`decode_jpeg_rgb8` with ``strict``: a truncated stream
+    raises, as PIL's ``load()`` does), GIF (:func:`decode_gif_rgb8`) or
+    BMP (:func:`decode_bmp_rgb8`). Raises :class:`UnsupportedImage` naming
+    a recognised format the port does not decode (WebP, TIFF, ICO, PPM and
+    the others PIL opens) or a JPEG variant it refuses (lossless,
+    hierarchical, 12-bit), ValueError for bytes that are no image or a
+    broken one."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png_rgb8(data)
     if data.startswith(b"\xff\xd8\xff"):
-        return decode_jpeg_rgb8(data)
+        return decode_jpeg_rgb8(data, strict=True)
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return decode_gif_rgb8(data)
+    if data.startswith(b"BM"):
+        return decode_bmp_rgb8(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise UnsupportedImage("WebP is not supported (PNG and JPEG only)")
-    for magic, name in _OTHER_FORMATS:
-        if data.startswith(magic):
-            raise UnsupportedImage(f"{name} is not supported (PNG and JPEG "
-                                   "only)")
-    raise ValueError("not a PNG or JPEG image")
+        raise UnsupportedImage("WebP is not supported (PNG, JPEG, GIF and "
+                               "BMP only)")
+    name = next((n for m, n in _OTHER_FORMATS if data.startswith(m)), None)
+    if name is None and data[:1] == b"P" and data[1:2] in b"1234567" \
+            and data[2:3] in b" \t\r\n#":
+        name = "PPM"
+    if name is None and data[4:8] == b"ftyp" and data[8:12] in (
+            b"avif", b"avis", b"heic", b"heix", b"mif1"):
+        name = "AVIF/HEIF"
+    if name is not None:
+        raise UnsupportedImage(f"{name} is not supported (PNG, JPEG, GIF "
+                               "and BMP only)")
+    raise ValueError("not a PNG, JPEG, GIF or BMP image")

@@ -3,40 +3,56 @@
 // 1, no DCT-scaled upsampling as in IJG libjpeg 9).
 //
 // Decoder: what jpeg_read_header + out_color_space = JCS_RGB +
-// jpeg_start_decompress + jpeg_read_scanlines produce.
-//   - markers: SOI, SOF0/SOF1/SOF2 (8-bit), DHT, DQT (8- and 16-bit
-//     entries), SOS, DRI with RST0-7, COM, EOI; APPn skipped, except that
-//     JFIF APP0 and Adobe APP14 (its transform flag) are read. As in
-//     libjpeg-turbo, the Annex K Huffman tables stand in for tables a
-//     stream does not define (motion-JPEG frames).
-//   - 1 or 3 components, sampling factors 1-4 with integral ratios,
+// jpeg_start_decompress + jpeg_read_scanlines produce, in two modes (Mode
+// below): the JAX package's libjpeg-turbo 2.1 binding, and PIL's
+// libjpeg-turbo 3.1 (its server's decode, and its binding's fallback).
+//   - markers: SOI, SOF0/1/2 (Huffman), SOF9/10 (arithmetic), SOF3
+//     (lossless), DHT, DAC, DQT (8- and 16-bit entries), SOS, DRI with
+//     RST0-7, COM, DNL, EOI; APPn skipped, except that JFIF APP0 and Adobe
+//     APP14 (its transform flag) are read; other markers are an error, as
+//     in libjpeg. As in libjpeg-turbo, the Annex K Huffman tables stand in
+//     for tables a stream does not define (motion-JPEG frames).
+//   - 1, 3 or 4 components, sampling factors 1-4 with integral ratios,
 //     interleaved and non-interleaved scans, any size down to 1x1.
-//   - baseline Huffman (jdhuff.c) and progressive Huffman (jdphuff.c): DC
-//     first and refine, AC first and refine, EOB runs.
-//   - libjpeg-turbo's jpeg_idct_islow (jidctint.c) with its range-limit
-//     table, then upsampling as jdsample.c picks it with
-//     do_fancy_upsampling TRUE (the triangle filters h2v1, h2v2 and h1v2,
-//     replication for the other integral ratios and for components at most
-//     2 samples wide), then jdcolor.c's fixed-point YCbCr -> RGB. RGB
-//     against YCbCr is decided as jdapimin.c's default_decompress_parms
+//   - baseline Huffman (jdhuff.c), progressive Huffman (jdphuff.c),
+//     arithmetic coding sequential and progressive (jdarith.c: the
+//     QM-decoder, its statistics bins, DAC conditioning, restart resets),
+//     lossless Huffman (libjpeg-turbo 3's jdlhuff.c, jddiffct.c, jdpred.c:
+//     predictors 1-7, point transform, restarts; PIL's only).
+//   - the ISLOW IDCT as libjpeg-turbo's x86-64 SIMD runs it (16-bit lanes:
+//     jidctint.c's values on valid data, libjpeg-turbo's on the garbage a
+//     truncated stream decodes to), then upsampling as jdsample.c picks it
+//     with do_fancy_upsampling TRUE (the triangle filters h2v1, h2v2 and
+//     h1v2, replication for the other integral ratios, for components at
+//     most 2 samples wide and for lossless), then jdcolor.c's fixed-point
+//     YCbCr -> RGB, or YCCK -> CMYK and PIL's inverted CMYK -> RGB. The
+//     color space is decided as jdapimin.c's default_decompress_parms
 //     decides it: JFIF, else the Adobe transform, else the component IDs.
-//   - Block smoothing: in the non-buffered mode, libjpeg reads every scan
-//     of a progressive file before output, and smooths only when some of
-//     the first AC coefficients are still not fully refined then. A
-//     complete file from a progression script refines them all, so no
-//     smoothing applies; a file whose scans leave them unrefined is
-//     refused by name, and a truncated file (no EOI) is refused as
-//     corrupt, instead of being decoded differently.
-//   - Refused by name (return -2, message from fastjpeg_error): arithmetic
-//     coding, lossless and hierarchical streams, precisions other than 8,
-//     CMYK/YCCK and other component counts. A broken or truncated stream
-//     returns -1. Nothing is decoded another way.
+//   - Block smoothing (jdcoefct.c decompress_smooth_data) where a
+//     progressive stream leaves one of the first AC coefficients
+//     unrefined: libjpeg-turbo 2.1's in the binding's mode, 3.1's (the
+//     neighbours' DC values clamped at the component's edges) in PIL's.
+//   - Truncated and corrupt data as libjpeg meets it: the binding's input
+//     ends in fake EOI markers (jpeg_mem_src), a marker inside the
+//     entropy-coded data feeds zero bits and leaves the following MCUs
+//     alone until a restart marker is found (jpeg_resync_to_restart), a
+//     bad Huffman code decodes as 0. PIL's mode refuses a stream that
+//     ends before its EOI (its load() does).
+//   - Refused by name (return -2, message from fastjpeg_error):
+//     hierarchical and arithmetic lossless streams, precisions other than
+//     8, component counts other than 1, 3 and 4; the JAX package refuses
+//     them too. A broken stream returns -1. Nothing is decoded another
+//     way.
 //
 // Region decode: entropy-decodes every scan up to the crop's last iMCU row
-// (the context row for fancy upsampling included), then runs the IDCT,
-// upsampling and color conversion only for the blocks the crop and its
-// one-sample context touch. Its pixels are full-decode-then-crop's by
-// construction: the same functions, the same edge rules.
+// (the context rows of fancy upsampling and block smoothing included),
+// then runs the IDCT, upsampling and color conversion only for the blocks
+// the crop and its context touch: the same functions and edge rules as the
+// full decode, so its pixels are full-decode-then-crop's, except that
+// block smoothing starts at jpeg_crop_scanline's first iMCU column, as in
+// libjpeg's region decode, and a single-scan image's markers after the
+// scan are not read. 4-component and lossless streams, which the JAX
+// package's loader hands to PIL, decode as PIL's full decode cropped.
 //
 // Encoder: the bytes jpeg_set_defaults + jpeg_set_quality(q, TRUE) write
 // for an RGB image: JFIF 1.01 APP0, Annex K quantization tables scaled by
@@ -184,16 +200,10 @@ constexpr long kOneHalf = 1L << (kScaleBits - 1);
 inline long fix16(double x) { return static_cast<long>(x * (1L << kScaleBits) + 0.5); }
 
 struct Tables {
-  uint8_t idct_limit[1024];  // jdmaster.c's post-IDCT range limit, masked
   int cr_r[256], cb_b[256];
   long cr_g[256], cb_g[256];
   long rgb_ycc[8 * 256];  // jccolor.c's rgb_ycc_tab
   Tables() {
-    for (int i = 0; i < 1024; ++i) {
-      // x = i as a signed 10-bit value, before the +128 offset
-      int v = i < 128 ? 128 + i : i < 512 ? 255 : i < 896 ? 0 : i - 896;
-      idct_limit[i] = static_cast<uint8_t>(v);
-    }
     for (int i = 0, x = -128; i < 256; ++i, ++x) {
       cr_r[i] = static_cast<int>((fix16(1.40200) * x + kOneHalf) >> kScaleBits);
       cb_b[i] = static_cast<int>((fix16(1.77200) * x + kOneHalf) >> kScaleBits);
@@ -225,108 +235,72 @@ inline uint8_t clamp255(int v) {
 }
 
 // ---------------------------------------------------------------------------
-// ISLOW inverse DCT (jidctint.c jpeg_idct_islow); the DC-only column and
-// row shortcuts of the original give the same values as the full path
+// ISLOW inverse DCT as libjpeg-turbo's x86-64 builds run it
+// (jidctint-sse2.asm / -avx2.asm, which give the same bytes): jidctint.c's
+// arithmetic on 16-bit lanes. The dequantized coefficients, the sums
+// in0 + in4, in0 - in4, in1 + in5 and in3 + in7, and the first pass's
+// outputs are 16-bit (wrapping, the outputs saturating); the rotations are
+// 32-bit multiply-adds; the result saturates to 0..255. On the values of a
+// valid stream this is jidctint.c exactly; on the garbage that a truncated
+// or corrupt stream decodes to, it is what libjpeg-turbo gives there.
 // ---------------------------------------------------------------------------
+
+inline int16_t w16(long v) { return static_cast<int16_t>(static_cast<uint16_t>(v)); }
+inline int16_t sat16(long v) {
+  return static_cast<int16_t>(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+
+// one 8-point pass over x[0..7] (16-bit lanes); o[k] = (out_k + round) >> shift
+inline void idct_1d(const int16_t* x, int shift, long* o) {
+  const long z2 = x[2], z3 = x[6];
+  const long tmp3 = z2 * (F_0_541 + F_0_765) + z3 * F_0_541;
+  const long tmp2 = z2 * F_0_541 + z3 * (F_0_541 - F_1_847);
+  const long tmp0 = static_cast<long>(w16(x[0] + x[4])) * (1L << kConstBits);
+  const long tmp1 = static_cast<long>(w16(x[0] - x[4])) * (1L << kConstBits);
+  const long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+  const long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const long t0 = x[7], t1 = x[5], t2 = x[3], t3 = x[1];
+  const long z3o = w16(t0 + t2), z4o = w16(t1 + t3);
+  const long z3r = z3o * (F_1_175 - F_1_961) + z4o * F_1_175;
+  const long z4r = z3o * F_1_175 + z4o * (F_1_175 - F_0_390);
+  const long o0 = t0 * (F_0_298 - F_0_899) + t3 * -F_0_899 + z3r;
+  const long o3 = t0 * -F_0_899 + t3 * (F_1_501 - F_0_899) + z4r;
+  const long o1 = t1 * (F_2_053 - F_2_562) + t2 * -F_2_562 + z4r;
+  const long o2 = t1 * -F_2_562 + t2 * (F_3_072 - F_2_562) + z3r;
+  o[0] = descale(tmp10 + o3, shift);
+  o[7] = descale(tmp10 - o3, shift);
+  o[1] = descale(tmp11 + o2, shift);
+  o[6] = descale(tmp11 - o2, shift);
+  o[2] = descale(tmp12 + o1, shift);
+  o[5] = descale(tmp12 - o1, shift);
+  o[3] = descale(tmp13 + o0, shift);
+  o[4] = descale(tmp13 - o0, shift);
+}
 
 void idct_islow(const int16_t* in, const int* quant, uint8_t* out,
                 int stride) {
-  const uint8_t* limit = tables().idct_limit;
-  int ws[64];
+  int16_t ws[64];  // transposed: ws[c * 8 + r] holds row r of column c
+  bool ac = false;
+  for (int k = 8; k < 64 && !ac; ++k) ac = in[k] != 0;
   for (int c = 0; c < 8; ++c) {
-    const int16_t* p = in + c;
-    const int* q = quant + c;
-    if (!p[8] && !p[16] && !p[24] && !p[32] && !p[40] && !p[48] && !p[56]) {
-      int dc = (p[0] * q[0]) * (1 << kPass1Bits);
-      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+    int16_t x[8];
+    for (int r = 0; r < 8; ++r) x[r] = w16(static_cast<long>(in[r * 8 + c]) * quant[r * 8 + c]);
+    if (!ac) {  // rows 1-7 all zero: the DC, shifted in 16 bits
+      const int16_t dc = w16(static_cast<long>(static_cast<uint16_t>(x[0])) << kPass1Bits);
+      for (int r = 0; r < 8; ++r) ws[c * 8 + r] = dc;
       continue;
     }
-    long z2 = p[16] * q[16], z3 = p[48] * q[48];
-    long z1 = (z2 + z3) * F_0_541;
-    long tmp2 = z1 + z3 * -F_1_847;
-    long tmp3 = z1 + z2 * F_0_765;
-    z2 = p[0] * q[0];
-    z3 = p[32] * q[32];
-    long tmp0 = (z2 + z3) * (1L << kConstBits);
-    long tmp1 = (z2 - z3) * (1L << kConstBits);
-    long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = p[56] * q[56];
-    tmp1 = p[40] * q[40];
-    tmp2 = p[24] * q[24];
-    tmp3 = p[8] * q[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    long z4 = tmp1 + tmp3;
-    long z5 = (z3 + z4) * F_1_175;
-    tmp0 *= F_0_298;
-    tmp1 *= F_2_053;
-    tmp2 *= F_3_072;
-    tmp3 *= F_1_501;
-    z1 *= -F_0_899;
-    z2 *= -F_2_562;
-    z3 *= -F_1_961;
-    z4 *= -F_0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    constexpr int s = kConstBits - kPass1Bits;
-    ws[0 * 8 + c] = static_cast<int>(descale(tmp10 + tmp3, s));
-    ws[7 * 8 + c] = static_cast<int>(descale(tmp10 - tmp3, s));
-    ws[1 * 8 + c] = static_cast<int>(descale(tmp11 + tmp2, s));
-    ws[6 * 8 + c] = static_cast<int>(descale(tmp11 - tmp2, s));
-    ws[2 * 8 + c] = static_cast<int>(descale(tmp12 + tmp1, s));
-    ws[5 * 8 + c] = static_cast<int>(descale(tmp12 - tmp1, s));
-    ws[3 * 8 + c] = static_cast<int>(descale(tmp13 + tmp0, s));
-    ws[4 * 8 + c] = static_cast<int>(descale(tmp13 - tmp0, s));
+    long o[8];
+    idct_1d(x, kConstBits - kPass1Bits, o);
+    for (int r = 0; r < 8; ++r) ws[c * 8 + r] = sat16(o[r]);
   }
-  constexpr int s2 = kConstBits + kPass1Bits + 3;
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + r * 8;
-    uint8_t* o = out + r * stride;
-    long z2 = w[2], z3 = w[6];
-    long z1 = (z2 + z3) * F_0_541;
-    long tmp2 = z1 + z3 * -F_1_847;
-    long tmp3 = z1 + z2 * F_0_765;
-    long tmp0 = (static_cast<long>(w[0]) + w[4]) * (1L << kConstBits);
-    long tmp1 = (static_cast<long>(w[0]) - w[4]) * (1L << kConstBits);
-    long tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-    long tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    long z4 = tmp1 + tmp3;
-    long z5 = (z3 + z4) * F_1_175;
-    tmp0 *= F_0_298;
-    tmp1 *= F_2_053;
-    tmp2 *= F_3_072;
-    tmp3 *= F_1_501;
-    z1 *= -F_0_899;
-    z2 *= -F_2_562;
-    z3 *= -F_1_961;
-    z4 *= -F_0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = limit[static_cast<int>(descale(tmp10 + tmp3, s2)) & 1023];
-    o[7] = limit[static_cast<int>(descale(tmp10 - tmp3, s2)) & 1023];
-    o[1] = limit[static_cast<int>(descale(tmp11 + tmp2, s2)) & 1023];
-    o[6] = limit[static_cast<int>(descale(tmp11 - tmp2, s2)) & 1023];
-    o[2] = limit[static_cast<int>(descale(tmp12 + tmp1, s2)) & 1023];
-    o[5] = limit[static_cast<int>(descale(tmp12 - tmp1, s2)) & 1023];
-    o[3] = limit[static_cast<int>(descale(tmp13 + tmp0, s2)) & 1023];
-    o[4] = limit[static_cast<int>(descale(tmp13 - tmp0, s2)) & 1023];
+    int16_t x[8];
+    for (int c = 0; c < 8; ++c) x[c] = ws[c * 8 + r];
+    long o[8];
+    idct_1d(x, kConstBits + kPass1Bits + 3, o);
+    uint8_t* row = out + r * stride;
+    for (int c = 0; c < 8; ++c) row[c] = clamp255(static_cast<int>(std::max(-1024L, std::min(1024L, o[c]))) + 128);
   }
 }
 
@@ -338,6 +312,7 @@ constexpr int kLook = 9;  // lookahead bits of the fast table
 
 struct Huff {
   bool defined = false;
+  int maxsym = 0;  // the largest symbol (DC: a category; 16 only lossless)
   uint8_t bits[17] = {};
   uint8_t vals[256] = {};
   int maxcode[18];
@@ -384,22 +359,26 @@ struct Huff {
           look[k] = static_cast<uint16_t>((l << 8) | vals[p]);
       }
     }
-    if (dc)
-      for (int i = 0; i < n; ++i)
-        if (vals[i] > 15) CORRUPT("JPEG: bad Huffman table");
+    maxsym = 0;
+    for (int i = 0; i < n; ++i) maxsym = std::max(maxsym, static_cast<int>(vals[i]));
+    if (dc && maxsym > 16) CORRUPT("JPEG: bad Huffman table");
     defined = true;
   }
 };
 
-// Entropy-coded bytes, with 0xFF00 unstuffed. Reaching a marker (or the
-// end of the data) feeds zero bits, as libjpeg does; consuming any of them
-// is a truncated or corrupt segment.
+// Entropy-coded bytes, with 0xFF00 unstuffed (jdhuff.c jpeg_fill_bit_buffer).
+// Reaching a marker feeds zero bits; consuming one of them marks the data
+// insufficient, after which libjpeg leaves the following MCUs zero (gray)
+// until a restart marker is found. Data ending without a marker is a
+// truncated stream: the lenient decodes never see it (their input is
+// followed by the fake EOI markers of libjpeg's memory source).
 struct Bits {
   const uint8_t* d;
   size_t n, pos;
   uint64_t acc = 0;
   int nbits = 0, pad = 0;
-  bool marker = false;  // pos is at the 0xFF of the marker that ended it
+  bool marker = false;  // an unread marker: pos is at an 0xFF before it
+  bool insufficient = false;
 
   Bits(const uint8_t* data, size_t len, size_t start) : d(data), n(len), pos(start) {}
 
@@ -407,14 +386,14 @@ struct Bits {
     while (nbits <= 56) {
       uint32_t b = 0;
       if (!marker) {
-        if (pos >= n) {
-          marker = true;
-        } else if (d[pos] != 0xFF) {
+        if (pos >= n) CORRUPT("JPEG: truncated (the data ends inside a scan)");
+        if (d[pos] != 0xFF) {
           b = d[pos++];
         } else {
           size_t q = pos + 1;
           while (q < n && d[q] == 0xFF) ++q;  // fill bytes
-          if (q < n && d[q] == 0x00) {
+          if (q >= n) CORRUPT("JPEG: truncated (the data ends inside a scan)");
+          if (d[q] == 0x00) {
             b = 0xFF;
             pos = q + 1;
           } else {
@@ -428,7 +407,7 @@ struct Bits {
     }
   }
   void check() {
-    if (nbits < pad) CORRUPT("JPEG: entropy-coded data truncated or corrupt");
+    if (nbits < pad) insufficient = true;
   }
   int get(int k) {
     if (k == 0) return 0;
@@ -438,8 +417,10 @@ struct Bits {
     return static_cast<int>((acc >> nbits) & ((1u << k) - 1));
   }
   int bit() { return get(1); }
+  // jdhuff.c jpeg_huff_decode: a code longer than 16 bits is garbage,
+  // decoded (after 17 bits) as the symbol 0
   int decode(const Huff& h) {
-    if (nbits < 16) fill();
+    if (nbits < 17) fill();
     uint16_t e = h.look[(acc >> (nbits - kLook)) & ((1 << kLook) - 1)];
     if (e) {
       nbits -= e >> 8;
@@ -455,19 +436,150 @@ struct Bits {
         return h.vals[(code + h.valoffset[l]) & 0xFF];
       }
     }
-    CORRUPT("JPEG: bad Huffman code");
+    nbits -= 17;
+    check();
+    return 0;
   }
-  void reset(size_t start) {
+  // after a restart: at `start` with no marker pending, or still held at
+  // the unread marker (libjpeg's resync leaving it for the next reader)
+  void reset(size_t start, bool at_marker) {
     pos = start;
     acc = 0;
     nbits = pad = 0;
-    marker = false;
+    marker = at_marker;
   }
 };
 
 inline int extend(int v, int s) {
   return s == 0 ? 0 : v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
+
+// ---------------------------------------------------------------------------
+// arithmetic decoding (jdarith.c, the QM-coder of ITU-T T.81 Annex D)
+// ---------------------------------------------------------------------------
+
+// Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+#define V(qe, nlps, nmps, sw) \
+  ((static_cast<int64_t>(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const int64_t kAritab[114] = {
+    V(0x5a1d, 1, 1, 1),       V(0x2586, 14, 2, 0),     V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),      V(0x03d8, 20, 5, 0),     V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),      V(0x006f, 28, 8, 0),     V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),     V(0x000d, 35, 11, 0),    V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),     V(0x0001, 12, 13, 0),    V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),     V(0x2cf2, 38, 17, 0),    V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),     V(0x1182, 42, 20, 0),    V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),     V(0x072f, 46, 23, 0),    V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),     V(0x0303, 51, 26, 0),    V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),     V(0x0144, 56, 29, 0),    V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),     V(0x008a, 60, 32, 0),    V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),     V(0x003b, 32, 35, 0),    V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),     V(0x484c, 64, 38, 0),    V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),     V(0x261f, 68, 41, 0),    V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),     V(0x1518, 72, 44, 0),    V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),     V(0x0bfb, 75, 47, 0),    V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),     V(0x0706, 79, 50, 0),    V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),     V(0x040f, 50, 53, 0),    V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),     V(0x025c, 53, 56, 0),    V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),     V(0x0160, 56, 59, 0),    V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),     V(0x00cb, 59, 62, 0),    V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),     V(0x5b12, 65, 65, 1),    V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),     V(0x37d8, 82, 68, 0),    V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),     V(0x2379, 86, 71, 0),    V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),     V(0x174e, 72, 74, 0),    V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),     V(0x0f6b, 74, 77, 0),    V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),     V(0x0a40, 77, 48, 0),    V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),     V(0x438e, 89, 83, 0),    V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),     V(0x2eae, 92, 86, 0),    V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),     V(0x5570, 88, 89, 1),    V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),     V(0x3e22, 97, 92, 0),    V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),     V(0x2e17, 93, 86, 0),    V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),    V(0x47e5, 102, 98, 0),   V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0),   V(0x375e, 99, 93, 0),    V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0),   V(0x4639, 107, 104, 0),  V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1),   V(0x50e7, 108, 107, 0),  V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0),   V(0x504f, 111, 107, 0),  V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0),   V(0x59eb, 112, 111, 1),  V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// The QM-decoder's registers over the scan's bytes (jdarith.c). A marker
+// inside the data is legal here: zeros are fed from it on, and decoding
+// goes on; ct == -1 marks a code error, after which the MCUs up to the
+// next restart are left alone.
+struct Arith {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool marker = false;  // an unread marker: pos is at the 0xFF before it
+
+  Arith(const uint8_t* data, size_t len, size_t start) : d(data), n(len), pos(start) {}
+
+  int byte() {
+    if (pos >= n) CORRUPT("JPEG: truncated (the data ends inside a scan)");
+    return d[pos++];
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalization and data input, D.2.6
+      if (--ct < 0) {
+        int data = 0;
+        if (!marker) {
+          const size_t at = pos;
+          data = byte();
+          if (data == 0xFF) {
+            do data = byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              marker = true;
+              pos = at;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;  // decode and estimation, D.2.4 and D.2.5
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void reset(size_t start, bool at_marker) {
+    pos = start;
+    marker = at_marker;
+    c = a = 0;
+    ct = -16;
+  }
+};
 
 // Position of the next marker at or after p that ends an entropy-coded
 // segment (RSTn and stuffed bytes are part of the segment); n if none.
@@ -495,19 +607,27 @@ size_t skip_entropy(const uint8_t* d, size_t n, size_t p) {
 // the decoder
 // ---------------------------------------------------------------------------
 
+constexpr int kSaved = 10;  // coefficients block smoothing estimates (0-9)
+
 struct Comp {
   int id = 0, h = 1, v = 1, tq = 0;
   int dw = 0, dh = 0;  // downsampled size (jdinput.c)
   int bw = 0, bh = 0;  // blocks holding samples
   int bw_alloc = 0, bh_alloc = 0;  // blocks of the interleaved MCU grid
   std::vector<int16_t> coef;
-  int quant[64];
+  std::vector<int> diff;          // lossless: the decoded differences
+  std::vector<uint8_t> first_row; // lossless: rows the first-row predictor starts
+  int quant[64];      // the IDCT's multipliers (16-bit)
+  int quantval[64];   // the table's values, as block smoothing reads them
   bool latched = false;
-  int dc_pred = 0;
-  int coef_bits[64];
+  int dc_pred = 0, dc_ctx = 0;
+  int pred = 1, pt = 0;  // lossless: predictor and point transform
+  bool scanned = false;
+  int coef_bits[64], prev_bits[64];  // libjpeg's coef_bits, both halves
+  int latch[kSaved], prev_latch[kSaved];  // smoothing_ok's latches
 };
 
-enum Color { kGray, kYCbCr, kRGB };
+enum Color { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
 enum Up { kFull, kH2V1, kH2V2, kH1V2, kRepl };
 
 struct Scan {
@@ -516,18 +636,52 @@ struct Scan {
   int ss = 0, se = 63, ah = 0, al = 0;
 };
 
+// How a decode treats what libjpeg itself does not decide:
+//   kLibjpeg: the JAX package's libjpeg binding. A truncated stream
+//     decodes (libjpeg's memory source ends it with fake EOI markers); a
+//     region decode smooths blocks as jpeg_crop_scanline's column offset
+//     makes libjpeg smooth them.
+//   kPil: PIL's Image.open(...).convert("RGB"), which the JAX package's
+//     server and loader use and its binding falls back to for CMYK/YCCK. A
+//     stream that ends before its EOI raises, as PIL's load() does; 4
+//     components go to RGB through PIL's inverted-CMYK convert.
+enum Mode { kLibjpeg = 0, kPil = 1 };
+
 class Decoder {
  public:
-  Decoder(const uint8_t* d, size_t n) : d_(d), n_(n) {
+  Decoder(const uint8_t* d, size_t n, int mode = kPil, bool region = false)
+      : mode_(mode), region_(region) {
+    if (mode_ == kLibjpeg) {
+      // jpeg_mem_src's fill_input_buffer: past the end, EOI markers
+      // without end (enough of them for any one marker segment)
+      padded_.reserve(n + kPad);
+      padded_.assign(d, d + n);
+      for (size_t i = 0; i < kPad; i += 2) {
+        padded_.push_back(0xFF);
+        padded_.push_back(0xD9);
+      }
+      d_ = padded_.data();
+      n_ = padded_.size();
+    } else {
+      d_ = d;
+      n_ = n;
+    }
     dc_[0].build(kBitsDcLum, kValDc, true);
     dc_[1].build(kBitsDcChr, kValDc, true);
     ac_[0].build(kBitsAcLum, kValAcLum, false);
     ac_[1].build(kBitsAcChr, kValAcChr, false);
     std::memset(qdef_, 0, sizeof qdef_);
+    for (int i = 0; i < 16; ++i) {
+      arith_dc_l_[i] = 0;  // jdmarker.c get_soi defaults
+      arith_dc_u_[i] = 1;
+      arith_ac_k_[i] = 5;
+    }
   }
 
-  // Header only: width and height from the first SOF of any kind.
-  void dims(int* w, int* h) {
+  // Header only: width and height from the first SOF of any kind, and
+  // whether the JAX package's binding hands the stream to PIL (4
+  // components, lossless).
+  void dims(int* w, int* h, bool* to_pil = nullptr) {
     size_t pos = start();
     for (;;) {
       int m = next_marker(&pos);
@@ -537,6 +691,7 @@ class Decoder {
         if (len < 8) CORRUPT("JPEG: bad frame header");
         *h = (d_[pos + 3] << 8) | d_[pos + 4];
         *w = (d_[pos + 5] << 8) | d_[pos + 6];
+        if (to_pil) *to_pil = d_[pos + 7] == 4 || m == 0xC3;
         return;
       }
       pos += standalone(m) ? 0 : seg_len(pos);
@@ -544,6 +699,8 @@ class Decoder {
   }
 
   // Decode (all, or the rows the region needs) and write the region's RGB.
+  // A stream with 4 components always decodes as PIL does (the JAX
+  // package's binding refuses it and falls back to PIL).
   void decode(int x0, int y0, int cw, int ch, uint8_t* out) {
     x0_ = x0;
     y0_ = y0;
@@ -559,30 +716,30 @@ class Decoder {
       size_t len = seg_len(pos);
       const uint8_t* s = d_ + pos + 2;
       const size_t sl = len - 2;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA) {
         read_sof(m, s, sl);
-      } else if (m == 0xC3) {
-        UNSUPPORTED("lossless JPEG (SOF3) is not supported");
       } else if (m >= 0xC5 && m <= 0xC7) {
         UNSUPPORTED("hierarchical JPEG (SOF%d) is not supported", m - 0xC0);
-      } else if ((m >= 0xC9 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF) ||
-                 m == 0xCC) {
-        UNSUPPORTED("arithmetic-coded JPEG (%s) is not supported",
-                    m == 0xCC ? "DAC" : m == 0xC9 ? "SOF9"
-                                : m == 0xCA       ? "SOF10"
-                                : m == 0xCB       ? "SOF11"
-                                : m == 0xCD       ? "SOF13"
-                                : m == 0xCE       ? "SOF14"
-                                                  : "SOF15");
+      } else if (m == 0xCB) {
+        UNSUPPORTED("lossless arithmetic-coded JPEG (SOF11) is not supported");
+      } else if (m >= 0xCD && m <= 0xCF) {
+        UNSUPPORTED("hierarchical arithmetic-coded JPEG (SOF%d) is not "
+                    "supported", m - 0xC0);
       } else if (m == 0xC4) {
         read_dht(s, sl);
+      } else if (m == 0xCC) {
+        read_dac(s, sl);
       } else if (m == 0xDB) {
         read_dqt(s, sl);
       } else if (m == 0xDD) {
-        if (sl < 2) CORRUPT("JPEG: bad DRI");
+        if (sl != 2) CORRUPT("JPEG: bad DRI");
         restart_ = (s[0] << 8) | s[1];
       } else if (m == 0xDA) {
         pos = scan(s, sl, pos + len);
+        // libjpeg's region decode of a single-scan image stops reading
+        // there (jpeg_abort_decompress): what follows is never parsed
+        if (region_ && single_scan_ && !pil()) break;
         continue;
       } else if (m == 0xE0) {
         if (sl >= 14 && !std::memcmp(s, "JFIF", 5)) jfif_ = true;
@@ -591,31 +748,41 @@ class Decoder {
           adobe_ = true;
           adobe_transform_ = s[11];
         }
+      } else if (!(m > 0xE0 && m <= 0xEF) && m != 0xFE && m != 0xDC) {
+        // APPn, COM and DNL are skipped; libjpeg refuses the rest
+        CORRUPT("JPEG: unknown marker 0x%02X", m);
       }
       pos += len;
     }
     if (!scans_) CORRUPT("JPEG: no image data");
-    if (progressive_) check_refined();
     output(out);
   }
 
  private:
+  static constexpr size_t kPad = 65536 + 16;
+  int mode_;
+  bool region_;  // a region decode (fastjpeg_decode_crop_rgb8)
+  std::vector<uint8_t> padded_;
   const uint8_t* d_;
   size_t n_;
   int qtab_[4][64];
   bool qdef_[4];
   Huff dc_[4], ac_[4];
+  // the arithmetic coder's 16 conditioning tables and statistics bins
+  int arith_dc_l_[16], arith_dc_u_[16], arith_ac_k_[16];
+  uint8_t dc_stats_[16][64], ac_stats_[16][256];
   int restart_ = 0;
-  bool sof_ = false, progressive_ = false;
+  bool sof_ = false, progressive_ = false, arith_ = false, lossless_ = false;
   int W_ = 0, H_ = 0, ncomp_ = 0;
   Comp comp_[4];
   int hmax_ = 1, vmax_ = 1, mcux_ = 0, mcuy_ = 0;
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = 0;
   Color color_ = kYCbCr;
-  bool allocated_ = false;
+  bool allocated_ = false, single_scan_ = false;
   int scans_ = 0;
   int limit_imcu_ = 0;  // iMCU rows to entropy-decode
+  int last_good_ = 0;   // jdmaster's last_good_iMCU_row
   int x0_ = 0, y0_ = 0, cw_ = 0, ch_ = 0;
 
   static bool is_sof(int m) {
@@ -624,6 +791,9 @@ class Decoder {
   static bool standalone(int m) {
     return m == 0x01 || (m >= 0xD0 && m <= 0xD7);
   }
+  // PIL's semantics: for its streams, and for those the JAX package's
+  // binding refuses and hands to PIL (4 components, lossless)
+  bool pil() const { return mode_ == kPil || ncomp_ == 4 || lossless_; }
 
   size_t start() {
     if (n_ < 4 || d_[0] != 0xFF || d_[1] != 0xD8)
@@ -662,8 +832,7 @@ class Decoder {
       if (p + (pq ? 128 : 64) > sl) CORRUPT("JPEG: bad DQT");
       for (int k = 0; k < 64; ++k) {
         int v = pq ? (s[p + 2 * k] << 8) | s[p + 2 * k + 1] : s[p + k];
-        // libjpeg-turbo's multiplier tables hold these as 16-bit values
-        qtab_[tq][kNatural[k]] = static_cast<int16_t>(v);
+        qtab_[tq][kNatural[k]] = v;
       }
       p += pq ? 128 : 64;
       qdef_[tq] = true;
@@ -686,6 +855,23 @@ class Decoder {
     }
   }
 
+  // jdmarker.c get_dac: conditioning values of the arithmetic coder
+  void read_dac(const uint8_t* s, size_t sl) {
+    if (sl % 2) CORRUPT("JPEG: bad DAC");
+    for (size_t p = 0; p < sl; p += 2) {
+      int index = s[p], val = s[p + 1];
+      if (index >= 32) CORRUPT("JPEG: bad DAC table index");
+      if (index >= 16) {
+        arith_ac_k_[index - 16] = val;
+      } else {
+        arith_dc_l_[index] = val & 15;
+        arith_dc_u_[index] = val >> 4;
+        if (arith_dc_l_[index] > arith_dc_u_[index])
+          CORRUPT("JPEG: bad DAC value");
+      }
+    }
+  }
+
   void read_sof(int m, const uint8_t* s, size_t sl) {
     if (sof_) CORRUPT("JPEG: more than one frame header");
     if (sl < 6) CORRUPT("JPEG: bad frame header");
@@ -699,15 +885,11 @@ class Decoder {
       CORRUPT("JPEG: empty image or a DNL-defined height");
     if (static_cast<long>(W_) * H_ > kMaxPixels)
       CORRUPT("JPEG: %dx%d exceeds %ld pixels", W_, H_, kMaxPixels);
-    if (ncomp_ == 0 || sl < 6 + 3 * static_cast<size_t>(ncomp_))
+    if (ncomp_ == 0 || sl != 6 + 3 * static_cast<size_t>(ncomp_))
       CORRUPT("JPEG: bad frame header");
-    if (ncomp_ == 4) {
-      // named now; libjpeg reads the Adobe transform before the first scan
-      UNSUPPORTED("CMYK or YCCK JPEG (4 components) is not supported");
-    }
-    if (ncomp_ != 1 && ncomp_ != 3)
-      UNSUPPORTED("JPEG with %d components is not supported (1 or 3 only)",
-                  ncomp_);
+    if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4)
+      UNSUPPORTED("JPEG with %d components is not supported (1, 3 or 4 "
+                  "only)", ncomp_);
     for (int i = 0; i < ncomp_; ++i) {
       Comp& c = comp_[i];
       c.id = s[6 + 3 * i];
@@ -719,21 +901,27 @@ class Decoder {
       for (int j = 0; j < i; ++j)
         if (comp_[j].id == c.id) CORRUPT("JPEG: duplicate component ID");
     }
-    progressive_ = m == 0xC2;
+    progressive_ = m == 0xC2 || m == 0xCA;
+    arith_ = m == 0xC9 || m == 0xCA;
+    lossless_ = m == 0xC3;
     sof_ = true;
   }
 
   // Geometry, color space and buffers, at the first scan (libjpeg decides
-  // the color space once the header up to the first SOS is read).
+  // the color space once the header up to the first SOS is read:
+  // jdapimin.c default_decompress_parms).
   void setup() {
     if (ncomp_ == 1) {
       color_ = kGray;
+    } else if (ncomp_ == 4) {
+      color_ = adobe_ && adobe_transform_ == 0 ? kCMYK : adobe_ ? kYCCK : kCMYK;
     } else if (jfif_) {
       color_ = kYCbCr;
     } else if (adobe_) {
       color_ = adobe_transform_ == 0 ? kRGB : kYCbCr;
-    } else if (comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B') {
-      color_ = kRGB;
+    } else if (lossless_ ||
+               (comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B')) {
+      color_ = kRGB;  // libjpeg-turbo 3 guesses RGB for lossless
     } else {
       color_ = kYCbCr;
     }
@@ -746,20 +934,22 @@ class Decoder {
       if (hmax_ % comp_[i].h || vmax_ % comp_[i].v)
         UNSUPPORTED("JPEG with a non-integral sampling ratio is not "
                     "supported");
-    mcux_ = (W_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcuy_ = (H_ + 8 * vmax_ - 1) / (8 * vmax_);
+    const int unit = lossless_ ? 1 : 8;  // samples per data unit side
+    mcux_ = (W_ + unit * hmax_ - 1) / (unit * hmax_);
+    mcuy_ = (H_ + unit * vmax_ - 1) / (unit * vmax_);
     for (int i = 0; i < ncomp_; ++i) {
       Comp& c = comp_[i];
       c.dw = static_cast<int>((static_cast<long>(W_) * c.h + hmax_ - 1) / hmax_);
       c.dh = static_cast<int>((static_cast<long>(H_) * c.v + vmax_ - 1) / vmax_);
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + unit - 1) / unit;
+      c.bh = (c.dh + unit - 1) / unit;
       c.bw_alloc = mcux_ * c.h;
       c.bh_alloc = mcuy_ * c.v;
-      for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
+      for (int k = 0; k < 64; ++k) c.coef_bits[k] = c.prev_bits[k] = -1;
     }
-    // iMCU rows the region needs: its last row, and the row below it that
-    // fancy upsampling reads
+    // iMCU rows the region needs: its last row, the row below it that
+    // fancy upsampling reads, and for a progressive stream the two block
+    // rows below those that block smoothing reads
     limit_imcu_ = 0;
     for (int i = 0; i < ncomp_; ++i) {
       const Comp& c = comp_[i];
@@ -767,7 +957,16 @@ class Decoder {
       int r = std::min((y0_ + ch_ - 1) / vexp + 1, c.dh - 1);
       limit_imcu_ = std::max(limit_imcu_, r / 8 / c.v + 1);
     }
+    if (progressive_) limit_imcu_ += 2;
     limit_imcu_ = std::min(limit_imcu_, mcuy_);
+    if (lossless_) {  // PIL decodes it whole: every sample, undifferenced
+      limit_imcu_ = mcuy_;
+      for (int i = 0; i < ncomp_; ++i)
+        comp_[i].diff.assign(static_cast<size_t>(comp_[i].bw_alloc) *
+                                 comp_[i].bh_alloc, 0);
+      allocated_ = true;
+      return;
+    }
     for (int i = 0; i < ncomp_; ++i) {
       Comp& c = comp_[i];
       c.coef.assign(static_cast<size_t>(c.bw_alloc) *
@@ -785,11 +984,12 @@ class Decoder {
   // marker that ends the scan
   size_t scan(const uint8_t* s, size_t sl, size_t data) {
     if (!sof_) CORRUPT("JPEG: scan before frame header");
+    if (single_scan_) CORRUPT("JPEG: a second scan after a single-scan image");
     if (!allocated_) setup();
     Scan sc;
     if (sl < 1) CORRUPT("JPEG: bad scan header");
     sc.n = s[0];
-    if (sc.n < 1 || sc.n > 4 || sl < 4 + 2 * static_cast<size_t>(sc.n))
+    if (sc.n < 1 || sc.n > 4 || sl != 4 + 2 * static_cast<size_t>(sc.n))
       CORRUPT("JPEG: bad scan header");
     for (int i = 0; i < sc.n; ++i) {
       int id = s[1 + 2 * i], ci = -1;
@@ -801,7 +1001,8 @@ class Decoder {
       sc.ci[i] = ci;
       sc.td[i] = s[2 + 2 * i] >> 4;
       sc.ta[i] = s[2 + 2 * i] & 15;
-      if (sc.td[i] > 3 || sc.ta[i] > 3) CORRUPT("JPEG: bad table number");
+      if (!arith_ && (sc.td[i] > 3 || sc.ta[i] > 3))
+        CORRUPT("JPEG: bad table number");
     }
     size_t p = 1 + 2 * sc.n;
     sc.ss = s[p];
@@ -814,94 +1015,240 @@ class Decoder {
         blocks += comp_[sc.ci[i]].h * comp_[sc.ci[i]].v;
       if (blocks > 10) CORRUPT("JPEG: MCU larger than 10 blocks");
     }
+    if (lossless_) return lossless_scan(sc, data);
     if (progressive_) {
       bool bad = sc.ss == 0 ? sc.se != 0 : (sc.ss > sc.se || sc.se > 63 || sc.n != 1);
       if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
       if (sc.al > 13) bad = true;
       if (bad) CORRUPT("JPEG: bad progressive scan parameters");
     }
+    ++scans_;  // libjpeg's input_scan_number
+    if (!progressive_ && scans_ == 1 && sc.n == ncomp_) single_scan_ = true;
     for (int i = 0; i < sc.n; ++i) {
       Comp& c = comp_[sc.ci[i]];
       if (!c.latched) {  // jdinput.c latch_quant_tables
         if (!qdef_[c.tq]) CORRUPT("JPEG: quantization table not defined");
-        std::memcpy(c.quant, qtab_[c.tq], sizeof c.quant);
+        for (int k = 0; k < 64; ++k) {
+          c.quantval[k] = qtab_[c.tq][k];
+          // libjpeg-turbo's multiplier tables hold these as 16-bit values
+          c.quant[k] = static_cast<int16_t>(qtab_[c.tq][k]);
+        }
         c.latched = true;
       }
       bool need_dc = !progressive_ || (sc.ss == 0 && sc.ah == 0);
       bool need_ac = !progressive_ || sc.ss != 0;
-      if ((need_dc && !dc_[sc.td[i]].defined) ||
-          (need_ac && !ac_[sc.ta[i]].defined))
+      if (!arith_ && ((need_dc && !dc_[sc.td[i]].defined) ||
+                      (need_ac && !ac_[sc.ta[i]].defined)))
         CORRUPT("JPEG: Huffman table not defined");
-      if (progressive_)
+      if (!arith_ && need_dc && dc_[sc.td[i]].maxsym > 15)
+        CORRUPT("JPEG: bad Huffman table");
+      if (progressive_) {  // jdphuff.c / jdarith.c start_pass
+        const int hi = std::max(sc.se, kSaved - 1);
+        for (int k = std::min(sc.ss, 1); k <= hi; ++k)
+          c.prev_bits[k] = scans_ > 1 ? c.coef_bits[k] : 0;
         for (int k = sc.ss; k <= sc.se; ++k) c.coef_bits[k] = sc.al;
-      c.dc_pred = 0;
-    }
-    ++scans_;
-    Bits br(d_, n_, data);
-    decode_scan(sc, br);
-    return br.marker ? br.pos : skip_entropy(d_, n_, br.pos);
-  }
-
-  // jdhuff.c process_restart: drop the bits left, read RSTn (bytes before
-  // it are skipped, as libjpeg does with a warning); a missing or
-  // out-of-sequence marker is corrupt data
-  void restart(Bits& br, int* next) {
-    size_t p = br.pos;
-    if (!br.marker)
-      while (p + 1 < n_ && !(d_[p] == 0xFF && d_[p + 1] != 0x00 &&
-                             d_[p + 1] != 0xFF))
-        ++p;
-    while (p < n_ && d_[p] == 0xFF) ++p;
-    if (p >= n_ || d_[p] != 0xD0 + *next)
-      CORRUPT("JPEG: restart marker missing or out of sequence");
-    br.reset(p + 1);
-    *next = (*next + 1) & 7;
-  }
-
-  void decode_scan(const Scan& sc, Bits& br) {
-    int togo = restart_, next_rst = 0, eobrun = 0;
-    auto mcu_start = [&]() {
-      if (!restart_) return;
-      if (togo == 0) {
-        restart(br, &next_rst);
-        for (int i = 0; i < sc.n; ++i) comp_[sc.ci[i]].dc_pred = 0;
-        eobrun = 0;
-        togo = restart_;
       }
-      --togo;
-    };
-    auto one = [&](int i, int16_t* blk) {
-      Comp& c = comp_[sc.ci[i]];
-      if (!progressive_)
-        seq_block(br, c, dc_[sc.td[i]], ac_[sc.ta[i]], blk);
-      else if (sc.ss == 0)
-        dc_block(br, c, dc_[sc.td[i]], sc, blk);
-      else if (sc.ah == 0)
-        ac_first(br, ac_[sc.ta[i]], sc, blk, &eobrun);
-      else
-        ac_refine(br, ac_[sc.ta[i]], sc, blk, &eobrun);
-    };
+      if (arith_) {
+        if (need_dc) std::memset(dc_stats_[sc.td[i]], 0, 64);
+        if (need_ac) std::memset(ac_stats_[sc.ta[i]], 0, 256);
+      }
+      c.dc_pred = 0;
+      c.dc_ctx = 0;
+    }
+    return arith_ ? arith_scan(sc, data) : huff_scan(sc, data);
+  }
+
+  // The MCUs of a scan, each as its blocks: fn(iMCU row, blocks, the
+  // scan index of each block's component, count).
+  template <class F>
+  void for_mcus(const Scan& sc, F&& fn) {
+    int16_t* blk[10];
+    int si[10];
     if (sc.n == 1) {
       Comp& c = comp_[sc.ci[0]];
       int rows = std::min(c.bh, limit_imcu_ * c.v);
+      si[0] = 0;
       for (int by = 0; by < rows; ++by)
         for (int bx = 0; bx < c.bw; ++bx) {
-          mcu_start();
-          one(0, block(c, by, bx));
+          blk[0] = block(c, by, bx);
+          fn(by / c.v, blk, si, 1);
         }
     } else {
       int rows = std::min(mcuy_, limit_imcu_);
       for (int my = 0; my < rows; ++my)
         for (int mx = 0; mx < mcux_; ++mx) {
-          mcu_start();
+          int nb = 0;
           for (int i = 0; i < sc.n; ++i) {
             Comp& c = comp_[sc.ci[i]];
             for (int y = 0; y < c.v; ++y)
-              for (int x = 0; x < c.h; ++x)
-                one(i, block(c, my * c.v + y, mx * c.h + x));
+              for (int x = 0; x < c.h; ++x) {
+                si[nb] = i;
+                blk[nb++] = block(c, my * c.v + y, mx * c.h + x);
+              }
           }
+          fn(my, blk, si, nb);
         }
     }
+  }
+
+  // jdmarker.c read_restart_marker and jpeg_resync_to_restart, from a
+  // reader at `pos` (at or before the marker it may already have met).
+  // Returns where the reader resumes; *held is true when the marker found
+  // is left unread (the reader then feeds zeros until the scan ends).
+  size_t restart_marker(size_t pos, int* next, bool* held) {
+    size_t p = pos;
+    int m = next_marker(&p);
+    const int want = *next;
+    *next = (*next + 1) & 7;
+    *held = false;
+    for (;;) {
+      if (m == 0xD0 + want) return p;
+      int action;
+      if (m < 0xC0) {
+        action = 2;  // not a valid marker
+      } else if (m < 0xD0 || m > 0xD7) {
+        action = 3;  // a marker that is not a restart
+      } else if (m == 0xD0 + ((want + 1) & 7) || m == 0xD0 + ((want + 2) & 7)) {
+        action = 3;  // one of the next two restarts
+      } else if (m == 0xD0 + ((want - 1) & 7) || m == 0xD0 + ((want - 2) & 7)) {
+        action = 2;  // a restart before the wanted one: scan on
+      } else {
+        action = 1;  // too far away: take it for the wanted one
+      }
+      if (action == 1) return p;
+      if (action == 3) {
+        *held = true;
+        return p - 2;  // the 0xFF before the marker code
+      }
+      m = next_marker(&p);
+    }
+  }
+
+  // --- lossless: libjpeg-turbo 3's jdlhuff.c, jddiffct.c and jdpred.c, as
+  // PIL decodes it (the JAX package's libjpeg refuses SOF3) ---
+
+  size_t lossless_scan(const Scan& sc, size_t data) {
+    if (sc.ss < 1 || sc.ss > 7 || sc.ah != 0 || sc.al > 7)
+      CORRUPT("JPEG: bad lossless scan parameters");
+    ++scans_;
+    for (int i = 0; i < sc.n; ++i) {
+      if (!dc_[sc.td[i]].defined) CORRUPT("JPEG: Huffman table not defined");
+      comp_[sc.ci[i]].pred = sc.ss;
+      comp_[sc.ci[i]].pt = sc.al;
+      comp_[sc.ci[i]].scanned = true;
+      comp_[sc.ci[i]].first_row.assign(comp_[sc.ci[i]].bh_alloc, 0);
+      comp_[sc.ci[i]].first_row[0] = 1;
+    }
+    Bits br(d_, n_, data);
+    int next_rst = 0;
+    // restarts fall on MCU rows (jddiffct.c counts them in rows)
+    const int per_row = sc.n == 1 ? comp_[sc.ci[0]].bw : mcux_;
+    const int rows = sc.n == 1 ? comp_[sc.ci[0]].bh : mcuy_;
+    const int rst_rows = restart_ ? std::max(restart_ / per_row, 1) : 0;
+    int rows_togo = rst_rows;
+    for (int my = 0; my < rows; ++my) {
+      if (restart_ && rows_togo == 0) {
+        bool held;
+        size_t p = restart_marker(br.pos, &next_rst, &held);
+        br.reset(p, held);
+        if (!held) br.insufficient = false;
+        for (int i = 0; i < sc.n; ++i) {
+          Comp& c = comp_[sc.ci[i]];
+          c.first_row[sc.n == 1 ? my : my * c.v] = 1;
+        }
+        rows_togo = rst_rows;
+      }
+      for (int mx = 0; mx < per_row; ++mx)
+        for (int i = 0; i < sc.n; ++i) {
+          Comp& c = comp_[sc.ci[i]];
+          const int vv = sc.n == 1 ? 1 : c.v, hh = sc.n == 1 ? 1 : c.h;
+          for (int y = 0; y < vv; ++y)
+            for (int x = 0; x < hh; ++x) {
+              int d = 0;
+              if (!br.insufficient) {
+                const int s = br.decode(dc_[sc.td[i]]);
+                d = s == 16 ? 32768 : extend(br.get(s), s);
+              }
+              c.diff[static_cast<size_t>(my * vv + y) * c.bw_alloc + mx * hh + x] = d;
+            }
+        }
+      if (restart_) --rows_togo;
+    }
+    return br.marker ? br.pos : skip_entropy(d_, n_, br.pos);
+  }
+
+  // jdpred.c: the samples from the differences, row by row; a row that
+  // starts the scan or follows a restart uses the first-row predictor
+  void lossless_samples(Comp& c, std::vector<uint8_t>& px, int stride) {
+    const int w = c.bw, h = c.bh;
+    std::vector<int> prev(w), cur(w);
+    for (int r = 0; r < h; ++r) {
+      const int* d = c.diff.data() + static_cast<size_t>(r) * c.bw_alloc;
+      if (c.first_row[r]) {
+        int ra = (d[0] + (1 << (8 - c.pt - 1))) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < w; ++x) cur[x] = ra = (d[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0];
+        int ra = (d[0] + rb) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < w; ++x) {
+          const int rc = rb;
+          rb = prev[x];
+          int p;
+          switch (c.pred) {
+            case 1: p = ra; break;
+            case 2: p = rb; break;
+            case 3: p = rc; break;
+            case 4: p = ra + rb - rc; break;
+            case 5: p = ra + ((rb - rc) >> 1); break;
+            case 6: p = rb + ((ra - rc) >> 1); break;
+            default: p = (ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (d[x] + p) & 0xFFFF;
+        }
+      }
+      uint8_t* o = px.data() + static_cast<size_t>(r) * stride;
+      for (int x = 0; x < w; ++x) o[x] = static_cast<uint8_t>(cur[x] << c.pt);
+      prev.swap(cur);
+    }
+  }
+
+  // --- Huffman: jdhuff.c (sequential), jdphuff.c (progressive) ---
+
+  size_t huff_scan(const Scan& sc, size_t data) {
+    Bits br(d_, n_, data);
+    int togo = restart_, next_rst = 0, eobrun = 0;
+    for_mcus(sc, [&](int row, int16_t** blk, const int* si, int nb) {
+      if (restart_) {
+        if (togo == 0) {  // process_restart
+          bool held;
+          size_t p = restart_marker(br.pos, &next_rst, &held);
+          br.reset(p, held);
+          if (!held) br.insufficient = false;
+          for (int i = 0; i < sc.n; ++i) comp_[sc.ci[i]].dc_pred = 0;
+          eobrun = 0;
+          togo = restart_;
+        }
+        --togo;
+      }
+      // out of data: the MCU stays as it is (zero, or the earlier scans')
+      if (br.insufficient) return;
+      last_good_ = row;
+      for (int b = 0; b < nb; ++b) {
+        const int i = si[b];
+        Comp& c = comp_[sc.ci[i]];
+        if (!progressive_)
+          seq_block(br, c, dc_[sc.td[i]], ac_[sc.ta[i]], blk[b]);
+        else if (sc.ss == 0)
+          dc_block(br, c, dc_[sc.td[i]], sc, blk[b]);
+        else if (sc.ah == 0)
+          ac_first(br, ac_[sc.ta[i]], sc, blk[b], &eobrun);
+        else
+          ac_refine(br, ac_[sc.ta[i]], sc, blk[b], &eobrun);
+      }
+    });
+    return br.marker ? br.pos : skip_entropy(d_, n_, br.pos);
   }
 
   // repeated extreme differences would overflow the predictor; libjpeg-turbo
@@ -939,7 +1286,7 @@ class Decoder {
     if (sc.ah == 0) {
       int s = br.decode(dct);
       add_dc(c, extend(br.get(s), s));
-      blk[0] = static_cast<int16_t>(c.dc_pred * (1 << sc.al));
+      blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << sc.al);
     } else if (br.bit()) {
       blk[0] = static_cast<int16_t>(blk[0] | (1 << sc.al));
     }
@@ -958,7 +1305,7 @@ class Decoder {
       if (s) {
         k += r;
         blk[kNatural[k]] =
-            static_cast<int16_t>(extend(br.get(s), s) * (1 << sc.al));
+            static_cast<int16_t>(static_cast<unsigned>(extend(br.get(s), s)) << sc.al);
       } else if (r == 15) {
         k += 15;
       } else {
@@ -1012,17 +1359,337 @@ class Decoder {
     }
   }
 
-  // libjpeg smooths (jdcoefct.c smoothing_ok) when a component's DC is
-  // known and one of its first AC coefficients is not fully refined
-  void check_refined() {
+  // --- arithmetic: jdarith.c ---
+
+  size_t arith_scan(const Scan& sc, size_t data) {
+    Arith ar(d_, n_, data);
+    int togo = restart_, next_rst = 0;
+    for_mcus(sc, [&](int row, int16_t** blk, const int* si, int nb) {
+      if (restart_) {
+        if (togo == 0) {  // process_restart: statistics and registers reset
+          bool held;
+          size_t p = restart_marker(ar.pos, &next_rst, &held);
+          ar.reset(p, held);
+          for (int i = 0; i < sc.n; ++i) {
+            Comp& c = comp_[sc.ci[i]];
+            if (!progressive_ || (sc.ss == 0 && sc.ah == 0)) {
+              std::memset(dc_stats_[sc.td[i]], 0, 64);
+              c.dc_pred = 0;
+              c.dc_ctx = 0;
+            }
+            if (!progressive_ || sc.ss) std::memset(ac_stats_[sc.ta[i]], 0, 256);
+          }
+          togo = restart_;
+        }
+        --togo;
+      }
+      last_good_ = row;
+      if (progressive_ && sc.ss == 0 && sc.ah != 0) {  // decode_mcu_DC_refine
+        uint8_t fixed = 113;
+        for (int b = 0; b < nb; ++b)
+          if (ar.decode(&fixed)) blk[b][0] = static_cast<int16_t>(blk[b][0] | (1 << sc.al));
+        return;
+      }
+      if (ar.ct == -1) return;  // after a code error: nothing until a restart
+      for (int b = 0; b < nb; ++b) {
+        const int i = si[b];
+        Comp& c = comp_[sc.ci[i]];
+        if (!progressive_) {
+          std::memset(blk[b], 0, 64 * sizeof(int16_t));
+          if (!arith_dc(ar, c, sc.td[i], blk[b], 0)) return;
+          if (!arith_ac(ar, sc.ta[i], 1, 63, 0, blk[b])) return;
+        } else if (sc.ss == 0) {
+          if (!arith_dc(ar, c, sc.td[i], blk[b], sc.al)) return;
+        } else if (sc.ah == 0) {
+          if (!arith_ac(ar, sc.ta[i], sc.ss, sc.se, sc.al, blk[b])) return;
+        } else {
+          if (!arith_ac_refine(ar, sc.ta[i], sc, blk[b])) return;
+        }
+      }
+    });
+    return ar.marker ? ar.pos : skip_entropy(d_, n_, ar.pos);
+  }
+
+  // the magnitude category and bits of a nonzero value, F.1.4.4.1.3 and
+  // Figures F.23 and F.24 (st at the first magnitude bin); false on a
+  // magnitude overflow
+  static bool arith_magnitude(Arith& ar, uint8_t* st, uint8_t* x1, int* m_out) {
+    int m = ar.decode(st);
+    if (m) {
+      st = x1;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ar.ct = -1;
+          return false;
+        }
+        ++st;
+      }
+    }
+    *m_out = m;
+    return true;
+  }
+
+  // decode_mcu / decode_mcu_DC_first, the DC part of one block
+  bool arith_dc(Arith& ar, Comp& c, int tbl, int16_t* blk, int al) {
+    uint8_t* st = dc_stats_[tbl] + c.dc_ctx;
+    if (ar.decode(st) == 0) {
+      c.dc_ctx = 0;
+    } else {
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m != 0) {
+        st = dc_stats_[tbl] + 20;  // Table F.4: X1 = 20
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      // F.1.4.4.1.2: the conditioning category of the next difference
+      if (m < static_cast<int>((1L << arith_dc_l_[tbl]) >> 1))
+        c.dc_ctx = 0;
+      else if (m > static_cast<int>((1L << arith_dc_u_[tbl]) >> 1))
+        c.dc_ctx = 12 + sign * 4;
+      else
+        c.dc_ctx = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+    }
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al);
+    return true;
+  }
+
+  // decode_mcu / decode_mcu_AC_first, the AC coefficients ss..se of one
+  // block
+  bool arith_ac(Arith& ar, int tbl, int ss, int se, int al, int16_t* blk) {
+    uint8_t* stats = ac_stats_[tbl];
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;  // spectral overflow
+          return false;
+        }
+      }
+      uint8_t fixed = 113;
+      const int sign = ar.decode(&fixed);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= arith_ac_k_[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          ++st;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    }
+    return true;
+  }
+
+  // decode_mcu_AC_refine, one block
+  bool arith_ac_refine(Arith& ar, int tbl, const Scan& sc, int16_t* blk) {
+    uint8_t* stats = ac_stats_[tbl];
+    const int p1 = 1 << sc.al, m1 = -1 * (1 << sc.al);
+    int kex = sc.se;  // the previous stage's end of block
+    for (; kex > 0; --kex)
+      if (blk[kNatural[kex]]) break;
+    for (int k = sc.ss; k <= sc.se; ++k) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {  // previously nonzero: a correction bit
+          if (ar.decode(st + 2))
+            *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {  // newly nonzero
+          uint8_t fixed = 113;
+          *coef = static_cast<int16_t>(ar.decode(&fixed) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > sc.se) {
+          ar.ct = -1;
+          return false;
+        }
+      }
+    }
+    return true;
+  }
+
+  // --- block smoothing: jdcoefct.c smoothing_ok and decompress_smooth_data
+  // of libjpeg-turbo 2.1 ---
+
+  bool smoothing_ok() {
+    if (!progressive_) return false;
+    bool useful = false;
     for (int i = 0; i < ncomp_; ++i) {
-      const Comp& c = comp_[i];
-      if (c.coef_bits[0] < 0) continue;
-      for (int k = 1; k < 10; ++k)
-        if (c.coef_bits[k] != 0)
-          UNSUPPORTED("progressive JPEG whose scans leave coefficient %d "
-                      "of component %d unrefined is not supported (libjpeg "
-                      "would block-smooth it)", k, c.id);
+      Comp& c = comp_[i];
+      if (!c.latched) return false;
+      for (int k = 0; k < kSaved; ++k)
+        if (c.quantval[kNatural[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      c.latch[0] = c.coef_bits[0];
+      for (int k = 1; k < kSaved; ++k) {
+        c.prev_latch[k] = scans_ > 1 ? c.prev_bits[k] : -1;
+        c.latch[k] = c.coef_bits[k];
+        if (c.coef_bits[k] != 0) useful = true;
+      }
+    }
+    return useful;
+  }
+
+  // Block row `by` of component c, with the estimated coefficients, for
+  // block columns first..b1; emit(bx, block) for those from b0 on. The
+  // DC values of the 5x5 neighbourhood slide through registers from the
+  // column `first` (jpeg_crop_scanline's first_MCU_col), as in libjpeg:
+  // left of it, and at the right edge, the registers keep earlier values.
+  template <class F>
+  void smooth_row(Comp& c, int by, int first, int b0, int b1, F&& emit) {
+    const int last_row = mcuy_ - 1;
+    const int R = by / c.v, br = by % c.v;
+    int block_rows = c.v;
+    if (R == last_row) {
+      block_rows = c.bh % c.v;
+      if (block_rows == 0) block_rows = c.v;
+    }
+    const int prev = (br > 0 || R > 0) ? by - 1 : by;
+    int pprev = (br > 1 || R > 1) ? by - 2 : prev;
+    const int next = (br < block_rows - 1 || R < last_row) ? by + 1 : by;
+    int nnext = (br < block_rows - 2 || R + 1 < last_row) ? by + 2 : next;
+    if (pil()) {
+      // PIL's libjpeg-turbo 3.1 takes the rows two away wherever they
+      // exist (below, a dummy row of the MCU grid counts), except for the
+      // single block row of a last iMCU row that is the second
+      pprev = R == 1 && block_rows == 1 ? prev : std::max(by - 2, 0);
+      if (br < block_rows - 2 || R < last_row)
+        nnext = std::min(by + 2, c.bh_alloc - 1);
+    }
+    const int rows[5] = {pprev, prev, by, next, nnext};
+    const int* bits = R > last_good_ ? c.prev_latch : c.latch;
+    bool change_dc = true;
+    for (int k = 1; k < kSaved; ++k) change_dc = change_dc && bits[k] == -1;
+    const long Q00 = c.quantval[0], Q01 = c.quantval[1], Q10 = c.quantval[8],
+               Q20 = c.quantval[16], Q11 = c.quantval[9], Q02 = c.quantval[2],
+               Q03 = c.quantval[3], Q12 = c.quantval[10], Q21 = c.quantval[17],
+               Q30 = c.quantval[24];
+    auto D = [&](int r, int col) -> int { return block(c, rows[r], col)[0]; };
+    int dc[5][5];
+    for (int r = 0; r < 5; ++r)
+      for (int k = 0; k < 5; ++k) dc[r][k] = D(r, first);
+    const int last_col = c.bw - 1;
+    int16_t ws[64];
+    for (int b = first; b <= b1; ++b) {
+      if (pil()) {  // 3.1: the neighbours' columns clamped to the component
+        for (int r = 0; r < 5; ++r)
+          for (int k = 0; k < 5; ++k)
+            dc[r][k] = D(r, std::min(std::max(b + k - 2, first), last_col));
+      } else {
+        if (b == first && b < last_col)
+          for (int r = 0; r < 5; ++r) dc[r][3] = D(r, b + 1);
+        if (b + 1 < last_col)
+          for (int r = 0; r < 5; ++r) dc[r][4] = D(r, b + 2);
+      }
+      if (b >= b0) {
+        std::memcpy(ws, block(c, by, b), sizeof ws);
+        const int DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2],
+                  DC04 = dc[0][3], DC05 = dc[0][4], DC06 = dc[1][0],
+                  DC07 = dc[1][1], DC08 = dc[1][2], DC09 = dc[1][3],
+                  DC10 = dc[1][4], DC11 = dc[2][0], DC12 = dc[2][1],
+                  DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4],
+                  DC16 = dc[3][0], DC17 = dc[3][1], DC18 = dc[3][2],
+                  DC19 = dc[3][3], DC20 = dc[3][4], DC21 = dc[4][0],
+                  DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3],
+                  DC25 = dc[4][4];
+        // an estimate goes only where the coefficient is still zero and
+        // not known to full precision, capped below the next known bit
+        auto est = [&](int k, int pos, long q, long num) {
+          const int al = bits[k];
+          if (al == 0 || ws[pos] != 0) return;
+          num *= Q00;
+          int pred;
+          if (num >= 0) {
+            pred = static_cast<int>(((q << 7) + num) / (q << 8));
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+          } else {
+            pred = static_cast<int>(((q << 7) - num) / (q << 8));
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+            pred = -pred;
+          }
+          ws[pos] = static_cast<int16_t>(pred);
+        };
+        if (change_dc) {
+          est(1, 1, Q01, -DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                              13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 -
+                              38 * DC14 + 3 * DC15 - 3 * DC16 + 13 * DC17 -
+                              13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25);
+          est(2, 8, Q10, -DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                              13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                              13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                              3 * DC22 + 3 * DC23 + 3 * DC24 + DC25);
+          est(3, 16, Q20, DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                               14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 +
+                               2 * DC19 + DC23);
+          est(4, 9, Q11, -DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 +
+                              9 * DC19 + DC21 - DC25);
+          est(5, 2, Q02, 2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                              14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 -
+                              5 * DC18 + 2 * DC19);
+          est(6, 3, Q03, DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+          est(7, 10, Q12, DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+          est(8, 17, Q21, DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+          est(9, 24, Q30, DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+          // the DC itself, interpolated with its average kept
+          long num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 -
+                            2 * DC05 - 6 * DC06 + 6 * DC07 + 42 * DC08 +
+                            6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                            152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                            6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                            2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                            2 * DC25);
+          int pred = num >= 0
+                         ? static_cast<int>(((Q00 << 7) + num) / (Q00 << 8))
+                         : -static_cast<int>(((Q00 << 7) - num) / (Q00 << 8));
+          ws[0] = static_cast<int16_t>(pred);
+        } else {
+          est(1, 1, Q01, -7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15);
+          est(2, 8, Q10, -7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23);
+          est(3, 16, Q20, -DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23);
+          est(4, 9, Q11, DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 +
+                              DC22 - DC24 + DC04 - DC06 + 10 * DC07 -
+                              10 * DC09);
+          est(5, 2, Q02, -DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15);
+        }
+        emit(b, ws);
+      }
+      for (int r = 0; r < 5; ++r) {
+        dc[r][0] = dc[r][1];
+        dc[r][1] = dc[r][2];
+        dc[r][2] = dc[r][3];
+        dc[r][3] = dc[r][4];
+      }
     }
   }
 
@@ -1039,10 +1706,19 @@ class Decoder {
     }
   };
 
-  void make_plane(Comp& c, Plane& pl) {
+  // `first`: the block column block smoothing starts its registers at
+  void make_plane(Comp& c, Plane& pl, bool smooth, int first) {
     pl.hexp = hmax_ / c.h;
     pl.vexp = vmax_ / c.v;
     const int he = pl.hexp, ve = pl.vexp;
+    if (lossless_) {  // no fancy upsampling without a DCT (jdsample.c)
+      pl.up = he == 1 && ve == 1 ? kFull : kRepl;
+      pl.r0 = pl.c0 = 0;
+      pl.stride = c.bw_alloc;
+      pl.px.assign(static_cast<size_t>(c.bh_alloc) * pl.stride, 0);
+      if (c.scanned) lossless_samples(c, pl.px, pl.stride);
+      return;
+    }
     if (he == 1 && ve == 1)
       pl.up = kFull;
     else if (he == 2 && ve == 1)
@@ -1064,12 +1740,21 @@ class Decoder {
     pl.c0 = bc0 * 8;
     pl.stride = (bc1 - bc0 + 1) * 8;
     pl.px.resize(static_cast<size_t>(br1 - br0 + 1) * 8 * pl.stride);
-    for (int by = br0; by <= br1; ++by)
-      for (int bx = bc0; bx <= bc1; ++bx)
-        idct_islow(block(c, by, bx), c.quant,
-                   pl.px.data() + static_cast<size_t>(by - br0) * 8 * pl.stride +
-                       (bx - bc0) * 8,
-                   pl.stride);
+    auto dst = [&](int by, int bx) {
+      return pl.px.data() + static_cast<size_t>(by - br0) * 8 * pl.stride +
+             (bx - bc0) * 8;
+    };
+    for (int by = br0; by <= br1; ++by) {
+      if (smooth) {
+        smooth_row(c, by, std::min(first, bc0), bc0, bc1,
+                   [&](int bx, const int16_t* ws) {
+                     idct_islow(ws, c.quant, dst(by, bx), pl.stride);
+                   });
+      } else {
+        for (int bx = bc0; bx <= bc1; ++bx)
+          idct_islow(block(c, by, bx), c.quant, dst(by, bx), pl.stride);
+      }
+    }
   }
 
   // one output row of one component over the region's columns
@@ -1121,14 +1806,28 @@ class Decoder {
     }
   }
 
+  // The block column a region decode's smoothing starts at in component c:
+  // jpeg_crop_scanline's first_MCU_col, from the column the JAX package's
+  // binding asks for (8 pixels left of the region) aligned down to an iMCU.
+  int first_col(const Comp& c) const {
+    if (pil()) return 0;  // PIL decodes the whole image
+    const int mx0 = x0_ > 8 ? x0_ - 8 : 0;
+    const int align = ncomp_ == 1 ? 8 : 8 * hmax_;
+    const int hsf = ncomp_ == 1 ? 1 : c.h;
+    return (mx0 / align) * align * hsf / align;
+  }
+
   void output(uint8_t* out) {
-    Plane pl[3];
-    for (int i = 0; i < ncomp_; ++i) make_plane(comp_[i], pl[i]);
+    const bool smooth = !lossless_ && smoothing_ok();
+    Plane pl[4];
+    for (int i = 0; i < ncomp_; ++i)
+      make_plane(comp_[i], pl[i], smooth, first_col(comp_[i]));
     const Tables& t = tables();
-    std::vector<uint8_t> rows(static_cast<size_t>(3) * cw_);
+    std::vector<uint8_t> rows(static_cast<size_t>(4) * cw_);
     uint8_t* r0 = rows.data();
     uint8_t* r1 = r0 + cw_;
     uint8_t* r2 = r1 + cw_;
+    uint8_t* r3 = r2 + cw_;
     for (int yy = 0; yy < ch_; ++yy) {
       const int y = y0_ + yy;
       uint8_t* o = out + static_cast<size_t>(yy) * cw_ * 3;
@@ -1147,12 +1846,34 @@ class Decoder {
         }
         continue;
       }
+      if (color_ == kYCbCr) {
+        for (int i = 0; i < cw_; ++i) {
+          int yv = r0[i], cb = r1[i], cr = r2[i];
+          o[3 * i] = clamp255(yv + t.cr_r[cr]);
+          o[3 * i + 1] = clamp255(
+              yv + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> kScaleBits));
+          o[3 * i + 2] = clamp255(yv + t.cb_b[cb]);
+        }
+        continue;
+      }
+      upsample_row(comp_[3], pl[3], y, r3);
       for (int i = 0; i < cw_; ++i) {
-        int yv = r0[i], cb = r1[i], cr = r2[i];
-        o[3 * i] = clamp255(yv + t.cr_r[cr]);
-        o[3 * i + 1] = clamp255(
-            yv + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> kScaleBits));
-        o[3 * i + 2] = clamp255(yv + t.cb_b[cb]);
+        int cmy[3] = {r0[i], r1[i], r2[i]};
+        if (color_ == kYCCK) {  // jdcolor.c ycck_cmyk_convert
+          int yv = r0[i], cb = r1[i], cr = r2[i];
+          cmy[0] = clamp255(255 - (yv + t.cr_r[cr]));
+          cmy[1] = clamp255(255 - (yv + static_cast<int>(
+                                           (t.cb_g[cb] + t.cr_g[cr]) >> kScaleBits)));
+          cmy[2] = clamp255(255 - (yv + t.cb_b[cb]));
+        }
+        // PIL reads 4-component JPEG as inverted CMYK ("CMYK;I"), then
+        // Convert.c cmyk2rgb: nk - nk * c / 255 with its rounding
+        const int nk = r3[i];  // 255 - (255 - K)
+        for (int k = 0; k < 3; ++k) {
+          const int ci = 255 - cmy[k];
+          const int tmp = ci * nk + 128;
+          o[3 * i + k] = clamp255(nk - (((tmp >> 8) + tmp) >> 8));
+        }
       }
     }
   }
@@ -1567,29 +2288,39 @@ int fastjpeg_dims(const unsigned char* buf, long len, int* w, int* h) {
 }
 
 // Full decode to tightly packed RGB8; out must hold w*h*3 bytes (probe
-// with fastjpeg_dims first). 0 on success (w, h filled), -1 for a broken
-// or truncated stream, -2 for one this codec refuses by name.
+// with fastjpeg_dims first). `mode` 0 decodes as the JAX package's libjpeg
+// binding, 1 as PIL (Mode above; 4 components always as PIL). 0 on success
+// (w, h filled), -1 for a broken or truncated stream, -2 for one this
+// codec refuses by name.
 int fastjpeg_decode_rgb8(const unsigned char* buf, long len,
-                         unsigned char* out, long out_cap, int* w, int* h) {
+                         unsigned char* out, long out_cap, int* w, int* h,
+                         int mode) {
   return guarded([&] {
     int W = 0, H = 0;
-    Decoder(buf, static_cast<size_t>(len)).dims(&W, &H);
+    bool to_pil = false;
+    Decoder(buf, static_cast<size_t>(len)).dims(&W, &H, &to_pil);
     if (static_cast<long>(W) * H * 3 > out_cap)
       CORRUPT("JPEG: output buffer too small");
-    Decoder(buf, static_cast<size_t>(len)).decode(0, 0, W, H, out);
+    Decoder(buf, static_cast<size_t>(len), to_pil ? kPil : mode)
+        .decode(0, 0, W, H, out);
     *w = W;
     *h = H;
   });
 }
 
-// Region decode: exactly the pixels [y0, y0+ch) x [x0, x0+cw) of the full
-// decode, decoding only the iMCU rows and blocks the region needs. 0 on
-// success, -1 or -2 as above, -3 when the region is not inside the image.
+// Region decode: the pixels [y0, y0+ch) x [x0, x0+cw) that the JAX
+// package's loader gets (libjpeg's region decode, or for 4 components
+// PIL's full decode cropped), decoding only the iMCU rows and blocks the
+// region needs. 0 on success, -1 or -2 as above, -3 when the region is not
+// inside the image.
 int fastjpeg_decode_crop_rgb8(const unsigned char* buf, long len, int x0,
                               int y0, int cw, int ch, unsigned char* out,
                               long out_cap) {
   int W = 0, H = 0;
-  int rc = guarded([&] { Decoder(buf, static_cast<size_t>(len)).dims(&W, &H); });
+  bool to_pil = false;
+  int rc = guarded([&] {
+    Decoder(buf, static_cast<size_t>(len)).dims(&W, &H, &to_pil);
+  });
   if (rc) return rc;
   if (x0 < 0 || y0 < 0 || cw <= 0 || ch <= 0 || x0 + cw > W || y0 + ch > H ||
       static_cast<long>(cw) * ch * 3 > out_cap) {
@@ -1597,7 +2328,8 @@ int fastjpeg_decode_crop_rgb8(const unsigned char* buf, long len, int x0,
     return -3;
   }
   return guarded([&] {
-    Decoder(buf, static_cast<size_t>(len)).decode(x0, y0, cw, ch, out);
+    Decoder(buf, static_cast<size_t>(len), to_pil ? kPil : kLibjpeg, true)
+        .decode(x0, y0, cw, ch, out);
   });
 }
 

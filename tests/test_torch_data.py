@@ -265,13 +265,24 @@ def test_food101_loader_batches_equal_jax(food_tree):
 
 
 def test_load_sample_names_a_refused_file(food_tree, tmp_path):
-    """JAX's loader falls back to PIL for a stream its libjpeg refuses; the
-    port's raises naming the file and the feature, and the loader fails
-    the epoch."""
+    """JAX's loader falls back to PIL for a stream its libjpeg refuses: a
+    CMYK file is decoded as that fallback decodes it (full decode, then
+    the crop), the same crop as the JAX package's. A file PIL refuses too
+    (a 12-bit JPEG) makes the port's raise naming the file and the
+    feature, and the loader fails the epoch."""
     root = _food_tree(tmp_path, {"train": FOOD_TRAIN[:2]})
     src = Food101Source(str(root), "train")
     Image.open(src.paths[1]).convert("CMYK").save(src.paths[1])
-    with pytest.raises(UnsupportedImage, match="CMYK") as e:
+    for train in (True, False):
+        got = load_sample(src, 1, FOOD_CROP, train, np.random.default_rng(0))
+        want = jax_load_sample(JaxFood101(str(root), "train"), 1, FOOD_CROP,
+                               train, np.random.default_rng(0))
+        np.testing.assert_array_equal(got, want)
+    data = bytearray(open(src.paths[1], "rb").read())
+    sof = data.index(b"\xff\xc0")
+    data[sof + 4] = 12  # the sample precision
+    open(src.paths[1], "wb").write(bytes(data))
+    with pytest.raises(UnsupportedImage, match="12-bit") as e:
         load_sample(src, 1, FOOD_CROP, True, np.random.default_rng(0))
     assert src.paths[1] in str(e.value)
     loader = SRDataLoader(src, crop_size=FOOD_CROP, batch_size=2,

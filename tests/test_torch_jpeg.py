@@ -3,9 +3,12 @@ library) on the CPU, against the JAX package's libjpeg binding and PIL:
 decodes pixel-equal (0 levels) over sampling, progressive, optimized
 Huffman, restart markers, grayscale, EXIF, 16-bit DQT and sizes from 1x1
 to 97x131; region decodes equal to JAX's and to full-decode-then-crop;
-encodes byte-equal at every tested quality and size; the refused features
-named; broken streams a ValueError. PIL and libjpeg are the references
-here only; the port links neither."""
+encodes byte-equal at every tested quality and size; the features the JAX
+package decodes too (CMYK, arithmetic coding, lossless) decoded as it
+decodes them, those it refuses named; truncated streams decoded as libjpeg
+decodes them and refused as PIL refuses them. PIL and libjpeg are the
+references here only; the port links neither. tests/test_torch_codecs.py
+holds the newer stream kinds at length."""
 import ctypes
 import io
 import itertools
@@ -265,8 +268,8 @@ def _sof_offset(data: bytes) -> int:
 
 
 def _refused():
-    """Each refused feature's stream: CMYK from PIL; arithmetic, 12-bit,
-    lossless and hierarchical by patching one SOF byte of a valid
+    """Each once-refused feature's stream: CMYK from PIL; arithmetic,
+    12-bit, lossless and hierarchical by patching one SOF byte of a valid
     stream."""
     base = _pil_jpeg(Image.fromarray(_photo(24, 32, 1)), quality=80)
     i = _sof_offset(base)
@@ -282,19 +285,53 @@ def _refused():
     }
 
 
+def _outcome(fn, *args):
+    try:
+        out = fn(*args)
+    except (ValueError, OSError, SyntaxError):
+        return "raises"
+    return "raises" if out is None else np.asarray(out)
+
+
 @pytest.mark.parametrize("feature", list(_refused()))
-def test_refused_features_are_named(feature):
+def test_refused_features_are_named(libjpeg, feature):
+    """What the JAX package refuses too (12-bit, hierarchical: its libjpeg
+    and PIL both) is refused by name; the rest decodes as it decodes: CMYK
+    through its PIL fallback, the arithmetic-patched stream (Huffman data
+    read by the QM decoder: garbage, but libjpeg's garbage) through its
+    libjpeg, the lossless-patched one as PIL takes it."""
     data = _refused()[feature]
     assert native.jpeg_dims(data) == (32, 24)
-    for call in (lambda: native.decode_image(data),
-                 lambda: native.decode_jpeg_rgb8(data),
-                 lambda: native.decode_jpeg_crop_rgb8(data, 0, 0, 8, 8)):
-        with pytest.raises(native.UnsupportedImage, match=feature):
-            call()
+    if feature in ("12-bit", "hierarchical"):
+        assert _outcome(jax_native.decode_jpeg_rgb8, data) == "raises"
+        for call in (lambda: native.decode_image(data),
+                     lambda: native.decode_jpeg_rgb8(data),
+                     lambda: native.decode_jpeg_crop_rgb8(data, 0, 0, 8, 8)):
+            with pytest.raises(native.UnsupportedImage, match=feature):
+                call()
+        return
+    want = _outcome(jax_native.decode_jpeg_rgb8, data)
+    got = _outcome(native.decode_jpeg_rgb8, data)
+    assert isinstance(want, str) == isinstance(got, str)
+    if not isinstance(want, str):
+        assert np.array_equal(got, want)
+        assert np.array_equal(native.decode_jpeg_crop_rgb8(data, 0, 0, 8, 8),
+                              _outcome(jax_native.decode_jpeg_crop_rgb8, data,
+                                       0, 0, 8, 8) if feature == "arithmetic"
+                              else want[:8, :8])
+    served = _outcome(native.decode_image, data)
+    pil = _outcome(_pil_rgb, data)
+    assert isinstance(served, str) == isinstance(pil, str)
+    if not isinstance(pil, str):
+        assert np.array_equal(served, pil)
 
 
 @pytest.mark.parametrize("progressive", [False, True])
-def test_truncated_and_garbage_streams_are_value_errors(progressive):
+def test_truncated_and_garbage_streams_are_value_errors(libjpeg, progressive):
+    """The request decoder (PIL's semantics, the JAX server's) refuses a
+    truncated or garbage stream with ValueError (400); the dataset decoders
+    give what the JAX package's libjpeg binding gives for it: pixels where
+    libjpeg decodes what was read, an error where it fails."""
     data = _pil_jpeg(Image.fromarray(_photo(40, 56, 2)), quality=80,
                      progressive=progressive)
     broken = [data[:cut] for cut in range(2, len(data) - 1, 23)]
@@ -309,10 +346,17 @@ def test_truncated_and_garbage_streams_are_value_errors(progressive):
         with pytest.raises(ValueError) as e:
             native.decode_image(bad)
         assert not isinstance(e.value, native.UnsupportedImage), e.value
+        want = _outcome(jax_native.decode_jpeg_rgb8, bad)
+        got = _outcome(native.decode_jpeg_rgb8, bad)
+        assert isinstance(got, str) == isinstance(want, str), len(bad)
+        if not isinstance(want, str):
+            assert np.array_equal(got, want), len(bad)
         if native.jpeg_dims(bad):
-            with pytest.raises(ValueError) as e:
-                native.decode_jpeg_crop_rgb8(bad, 0, 0, 8, 8)
-            assert not isinstance(e.value, native.UnsupportedImage)
+            want = _outcome(jax_native.decode_jpeg_crop_rgb8, bad, 0, 0, 8, 8)
+            got = _outcome(native.decode_jpeg_crop_rgb8, bad, 0, 0, 8, 8)
+            assert isinstance(got, str) == isinstance(want, str), len(bad)
+            if not isinstance(want, str):
+                assert np.array_equal(got, want), len(bad)
 
 
 def test_parallel_calls_equal_serial():
@@ -365,11 +409,15 @@ def test_a_codec_that_does_not_build_is_refused_by_name(monkeypatch):
 
 
 def test_committed_fixtures_match_their_goldens():
-    """The fixtures and goldens that chip_smoke.py's food101 phase holds
-    on the card (tools/export_port_assets.py --what jpeg): every stream
-    decodes to the JAX package's digest, the CMYK one is refused naming
-    it, both encodes hash to JAX's, and the loader's first two batches
-    over the mini Food-101 tree, train and eval, hash to JAX's."""
+    """The fixtures and goldens that chip_smoke.py's food101 and http
+    phases hold on the card (tools/export_port_assets.py --what jpeg):
+    every JPEG stream's decode_jpeg_rgb8 has the JAX package's digest and
+    every stream's decode_image PIL's (the JAX server's), the WebP is
+    refused naming it and the truncated ones as PIL refuses them, the
+    seeded regions have the JAX package's region digests, both encodes
+    hash to JAX's, and the loader's first two batches over the mini
+    Food-101 tree (an arithmetic-coded and a CMYK image among them), train
+    and eval, hash to JAX's."""
     goldens = json.loads((JPEG_ASSETS / "goldens.json").read_text())
     for name, g in goldens["streams"].items():
         data = (JPEG_ASSETS / g["file"]).read_bytes()
@@ -377,8 +425,19 @@ def test_committed_fixtures_match_their_goldens():
             with pytest.raises(native.UnsupportedImage, match=g["refused"]):
                 native.decode_image(data)
             continue
-        px = native.decode_image(data)
+        if g.get("served_refused"):
+            with pytest.raises(ValueError):
+                native.decode_image(data)
+        else:
+            assert sha256(native.decode_image(data)) == g["served_sha256"]
+        px = native.decode_jpeg_rgb8(data) if g["file"].endswith(".jpg") \
+            else native.decode_image(data)
         assert list(px.shape) == g["shape"] and sha256(px) == g["sha256"], name
+    for c in goldens["crops"]:
+        data = (JPEG_ASSETS / goldens["streams"][c["stream"]]["file"]) \
+            .read_bytes()
+        assert sha256(native.decode_jpeg_crop_rgb8(
+            data, c["x0"], c["y0"], c["cw"], c["ch"])) == c["sha256"], c
     for g in goldens["encode"]:
         img = jpeg_test_image(g["h"], g["w"], g["seed"])
         assert sha256(native.encode_jpeg_rgb8(img, g["quality"])) == \

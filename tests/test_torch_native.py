@@ -1,14 +1,16 @@
 """The port's image codecs (food101_sr_tpu_torch.native) on the CPU: PNG
 encode is lossless under PIL's decoder; PNGs of every color type, depth
-and filter type decode exactly as PIL's ``convert("RGB")``; 16-bit and
-interlaced PNGs and the formats the port does not read are refused by
-name; JPEG decode, region decode and header probe are byte-equal to the
+and filter type decode exactly as PIL's ``convert("RGB")``, 16-bit and
+Adam7-interlaced ones too; the formats the port does not read are refused
+by name; JPEG decode, region decode and header probe are byte-equal to the
 JAX package's libjpeg binding (the port's own codec links no library;
 tests/test_torch_jpeg.py holds it in full). PIL is used here only, as the
 reference decoder."""
 import io
 import struct
+import sys
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -16,6 +18,9 @@ from PIL import Image
 
 from food101_sr_tpu import native as jax_native
 from food101_sr_tpu_torch import _build, native
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from tools.export_port_assets import _png  # noqa: E402
 
 
 def _rgb(h, w, seed):
@@ -156,16 +161,26 @@ def test_every_filter_type_decodes_as_pil(color, depth):
 
 @pytest.mark.parametrize("what", ["16-bit", "Adam7"])
 def test_16bit_and_interlaced_pngs_are_refused_by_name(what):
+    """Once refused, now decoded as PIL's convert("RGB") decodes them (the
+    JAX server's decode): 16-bit gray is PIL's I;16 clipped at 255, Adam7
+    de-interlaced; tests/test_torch_codecs.py covers every depth."""
     if what == "16-bit":
         img = Image.fromarray(
             np.random.default_rng(2).integers(0, 65535, (8, 8), np.uint16))
         data = _pil_png(img)
         assert data[24] == 16
     else:
-        data = _hand_png(_rgb(8, 8, 3).reshape(8, 24), 8, 2, 8, (0,),
-                         interlace=1)
-    with pytest.raises(native.UnsupportedImage, match=what):
-        native.decode_image(data)
+        # rows written in order but flagged Adam7: too short for the
+        # passes, which PIL refuses too
+        bad = _hand_png(_rgb(8, 8, 3).reshape(8, 24), 8, 2, 8, (0,),
+                        interlace=1)
+        with pytest.raises(OSError):
+            _pil_rgb(bad)
+        with pytest.raises(ValueError, match="truncated"):
+            native.decode_image(bad)
+        data = _png(_rgb(9, 13, 3), 8, 2, True)
+        assert data[28] == 1
+    assert np.array_equal(native.decode_image(data), _pil_rgb(data))
 
 
 @pytest.mark.parametrize("damage", ["crc", "truncated", "filter", "no IEND"])
@@ -191,6 +206,17 @@ def test_broken_pngs_raise_value_error_not_unsupported(damage):
     (b"BM" + bytes(60), "BMP"), (b"GIF89a" + bytes(20), "GIF"),
     (b"RIFF\x00\x00\x00\x00WEBPVP8 ", "WebP"), (b"II*\x00" + bytes(8), "TIFF")])
 def test_other_formats_are_refused_by_name(data, name):
+    """WebP and TIFF, which PIL opens and the port does not, are refused
+    naming the format (415); BMP and GIF are decoded now, so these broken
+    ones are refused as PIL refuses them, with ValueError naming the
+    format (400)."""
+    if name in ("BMP", "GIF"):
+        with pytest.raises(ValueError, match=name) as e:
+            native.decode_image(data)
+        assert not isinstance(e.value, native.UnsupportedImage)
+        with pytest.raises(OSError):
+            _pil_rgb(data)
+        return
     with pytest.raises(native.UnsupportedImage, match=name):
         native.decode_image(data)
 

@@ -235,7 +235,9 @@ def test_jpeg_upload_and_response_match_jax_server(pair):
     """A JPEG upload decodes as the JAX server decodes it (PIL): the PNG
     responses agree within 1 level; a ?format=jpeg response is the port's
     encode of SRServer.upscale at quality 90, and equals the JAX server's
-    bytes wherever their pixels agree; a CMYK upload is 415 naming it."""
+    bytes wherever their pixels agree; a CMYK upload, which the JAX server
+    decodes with PIL, is answered 200 with the port's upscale of PIL's
+    pixels, and a truncated JPEG 400, as PIL refuses it."""
     jsrv, psrv, jport, pport = pair
     img = _img(16, 12, seed=70)
     buf = io.BytesIO()
@@ -258,7 +260,12 @@ def test_jpeg_upload_and_response_match_jax_server(pair):
     cmyk = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(cmyk, format="JPEG")
     code, _, data = _request(pport, "/sr", cmyk.getvalue())
-    assert code == 415 and b"CMYK" in data
+    px = np.asarray(Image.open(io.BytesIO(cmyk.getvalue())).convert("RGB"))
+    assert code == 200 and np.array_equal(native.decode_image(data),
+                                          psrv.upscale(px))
+    for port in (jport, pport):
+        code, _, data = _request(port, "/sr", body[:len(body) * 2 // 3])
+        assert code == 400 and b"could not decode" in data
 
 
 def _raw_request(port, payload: bytes, recv_timeout=10.0) -> bytes:
@@ -293,7 +300,7 @@ def _post(body: bytes, length=None) -> bytes:
     (b"\x00\xff GARBAGE\r\n\r\n", None, b""),
     (_post(b"this is not an image at all, not even close"), b"400",
      b"could not decode"),
-    (_post(b"BM" + bytes(64)), b"415", b"BMP"),
+    (_post(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(64)), b"415", b"WebP"),
     (b"GET /nowhere HTTP/1.1\r\nHost: x\r\n\r\n", b"404", b""),
     (_post(b"x", b"1").replace(b"/sr", b"/upscale"), b"404", b"/sr"),
 ], ids=["413", "negative-length", "non-numeric-length", "truncated-body",
@@ -313,12 +320,24 @@ def test_error_statuses_and_the_server_survives(pair, payload, status, text):
 
 
 def test_sixteen_bit_png_is_415_naming_it(pair):
+    """Once 415, now decoded as the JAX server decodes it (PIL: a 16-bit
+    RGB PNG keeps each sample's high byte) and answered 200 by both
+    servers alike; a BMP, once 415 too, is served the same way."""
+    jsrv, psrv, jport, pport = pair
+    rgb16 = np.random.default_rng(9).integers(0, 65536, (8, 8, 3))
+    rows = b"".join(b"\x00" + r.astype(">u2").tobytes() for r in rgb16)
     ihdr = struct.pack(">IIBBBBB", 8, 8, 16, 2, 0, 0, 0)
     png = (native.PNG_SIGNATURE + native._chunk(b"IHDR", ihdr)
-           + native._chunk(b"IDAT", zlib.compress(bytes(8 * 49)))
+           + native._chunk(b"IDAT", zlib.compress(rows))
            + native._chunk(b"IEND", b""))
-    code, _, data = _request(pair[3], "/sr", png)
-    assert code == 415 and b"16-bit" in data
+    bmp = io.BytesIO()
+    Image.fromarray(_img(9, 11, 5)).save(bmp, format="BMP")
+    for body in (png, bmp.getvalue()):
+        px = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+        code, _, data = _request(pport, "/sr", body)
+        assert code == 200
+        assert np.array_equal(native.decode_image(data), psrv.upscale(px))
+        assert _request(jport, "/sr", body)[0] == 200
 
 
 def test_shutdown_drains_in_flight_requests(pair):

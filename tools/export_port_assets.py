@@ -21,14 +21,28 @@ under 500 KB:
 - ``food-101/``: a mini Food-101 tree (``images/<class>/<id>.jpg``,
   ``meta/train.txt`` and ``meta/test.txt``) of 16 train and 4 test images
   made by ``tools/make_fake_food101.py``'s ``make_image`` and saved by PIL
-  at that tool's quality 92; most have both sides at 200-280 px (the
-  loader's region path at crop 200), two are smaller (its resize path);
-- ``streams/``: one stream per decoder feature, written by PIL: 4:4:4,
+  at that tool's quality 92, except two train images: one arithmetic-
+  coded by libjpeg (the loader's libjpeg region path) and one CMYK (its
+  PIL fallback); most have both sides at 200-280 px (the region path at
+  crop 200), two are smaller (the resize path);
+- ``streams/``: one stream per decoder feature. Written by PIL: 4:4:4,
   4:2:2, 4:2:0, grayscale, progressive, optimized Huffman, restart
-  markers, EXIF, 16-bit DQT, odd sizes, and a CMYK stream the codec
-  refuses;
-- ``goldens.json``: sha256 digests (not pixels, to stay small) of the JAX
-  package's ``decode_jpeg_rgb8`` of each stream; of its
+  markers, EXIF, 16-bit DQT, odd sizes, CMYK, 16-bit gray PNG, GIF
+  (interlaced and not), BMP (1-, 8-, 24- and 32-bit) and a WebP the
+  port refuses. Written by libjpeg through a small C helper built here
+  with ``gcc -ljpeg``: arithmetic coding (sequential, progressive, with
+  restarts), YCCK, and progressive scripts that leave coefficients
+  unrefined (block smoothing). Assembled with ``struct`` and ``zlib``:
+  16-bit RGB, RGBA and gray+alpha PNG, Adam7-interlaced PNG, a lossless
+  (SOF3) JPEG, RLE8, 16-bit and top-down BMP; truncated JPEGs are other
+  streams cut short;
+- ``goldens.json``: sha256 digests (not pixels, to stay small) of, for
+  each stream, the JAX package's ``decode_jpeg_rgb8`` (``sha256``; for
+  PNG, GIF and BMP PIL's decode) and of what its server decodes, PIL's
+  ``Image.open(...).convert("RGB")`` (``served_sha256``, or
+  ``served_refused`` where PIL raises); of its region decodes at seeded
+  regions (``crops``: ``decode_jpeg_crop_rgb8``, or its loader's PIL
+  fallback, full decode then crop, where that returns None); of its
   ``encode_jpeg_rgb8`` at q90 on a seeded 256x256 image and at q92 on a
   seeded 800x608 one (``chip_smoke.jpeg_test_image``); and of the first
   two batches of its ``SRDataLoader`` over the mini tree's train split
@@ -43,11 +57,16 @@ directory are kept out of the copy sent to the GPU host.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import io
 import json
 import os
 import shutil
+import struct
+import subprocess
 import sys
+import tempfile
+import zlib
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -94,6 +113,7 @@ FOOD_SHAPES = [(212, 236), (240, 204), (200, 200), (226, 251), (150, 260),
                (244, 219), (209, 203), (218, 265), (257, 228), (203, 241),
                (236, 207), (224, 214), (210, 245), (248, 202), (216, 233)]
 N_FOOD_TRAIN = 16
+FOOD_ARITH, FOOD_CMYK = 3, 9  # train images written arithmetic-coded, CMYK
 LOADER = dict(seed=0, crop_size=200, batch_size=8, batches=2)
 ENCODE = [(256, 256, 90, 1), (608, 800, 92, 2)]  # h, w, quality, seed
 
@@ -102,6 +122,295 @@ def _pil_jpeg(img: Image.Image, **kw) -> bytes:
     buf = io.BytesIO()
     img.save(buf, format="JPEG", **kw)
     return buf.getvalue()
+
+
+def _pil_rgb(data: bytes) -> np.ndarray:
+    """What the JAX package's server decodes: PIL's convert("RGB")."""
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+# libjpeg's encoder with the options PIL does not expose: arithmetic
+# coding, YCCK, and progression scripts that stop before refinement
+_LIBJPEG_ENC = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+long enc(const unsigned char* in, int w, int h, int nc, int quality,
+         int ycck, int prog, int arith, int restart_rows, const int* hv,
+         unsigned char* out, long cap) {
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  unsigned char* buf = NULL;
+  unsigned long sz = 0;
+  static jpeg_scan_info script[8];
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  jpeg_mem_dest(&c, &buf, &sz);
+  c.image_width = w;
+  c.image_height = h;
+  c.input_components = nc;
+  c.in_color_space = nc == 4 ? JCS_CMYK : JCS_RGB;
+  jpeg_set_defaults(&c);
+  if (ycck) jpeg_set_colorspace(&c, JCS_YCCK);
+  jpeg_set_quality(&c, quality, TRUE);
+  if (hv)  /* sampling factors (h, v) of each of 3 components */
+    for (int i = 0; i < 3; i++) {
+      c.comp_info[i].h_samp_factor = hv[2 * i];
+      c.comp_info[i].v_samp_factor = hv[2 * i + 1];
+    }
+  if (prog == 1) jpeg_simple_progression(&c);
+  if (prog >= 2) {  /* 2: AC scans with Al 1-2 and no refinement; 3: DC only */
+    int n = 0, i;
+    script[n].comps_in_scan = c.num_components;
+    for (i = 0; i < c.num_components; i++) script[n].component_index[i] = i;
+    script[n].Ss = script[n].Se = script[n].Ah = script[n].Al = 0;
+    n++;
+    if (prog == 2)
+      for (i = 0; i < c.num_components; i++, n++) {
+        script[n].comps_in_scan = 1;
+        script[n].component_index[0] = i;
+        script[n].Ss = 1; script[n].Se = 63; script[n].Ah = 0;
+        script[n].Al = i ? 2 : 1;
+      }
+    c.scan_info = script;
+    c.num_scans = n;
+  }
+  c.arith_code = arith ? TRUE : FALSE;
+  c.restart_in_rows = restart_rows;
+  jpeg_start_compress(&c, TRUE);
+  while (c.next_scanline < c.image_height) {
+    JSAMPROW r = (JSAMPROW)(in + (long)c.next_scanline * w * nc);
+    jpeg_write_scanlines(&c, &r, 1);
+  }
+  jpeg_finish_compress(&c);
+  jpeg_destroy_compress(&c);
+  long n = (long)sz <= cap ? (long)sz : -1;
+  if (n > 0) memcpy(out, buf, sz);
+  free(buf);
+  return n;
+}
+"""
+
+
+def libjpeg_encoder():
+    """``encode(img, quality, ycck=0, prog=0, arith=0, restart_rows=0,
+    hv=None)`` through the system libjpeg (built here with gcc; the helper's library
+    lives in a temporary directory)."""
+    d = tempfile.mkdtemp(prefix="libjpeg_enc")
+    src, lib = os.path.join(d, "enc.c"), os.path.join(d, "libenc.so")
+    with open(src, "w") as f:
+        f.write(_LIBJPEG_ENC)
+    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", src, "-ljpeg", "-o",
+                    lib], check=True, capture_output=True)
+    enc = ctypes.CDLL(lib).enc
+    enc.restype = ctypes.c_long
+    enc.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_long]
+
+    def encode(img, quality, ycck=0, prog=0, arith=0, restart_rows=0,
+               hv=None):
+        img = np.ascontiguousarray(img)
+        h, w, nc = img.shape
+        out = ctypes.create_string_buffer(8 * img.nbytes + 65536)
+        factors = (ctypes.c_int * 6)(*hv) if hv else None
+        n = enc(img.ctypes.data, w, h, nc, quality, ycck, prog, arith,
+                restart_rows, factors, out, len(out))
+        if n <= 0:
+            raise RuntimeError("libjpeg encode failed")
+        return out.raw[:n]
+    return encode
+
+
+def lossless_jpeg(img: np.ndarray, predictor: int, pt: int = 0,
+                  restart_rows: int = 0) -> bytes:
+    """A lossless (SOF3) JPEG of an 8-bit (h, w, n) image: one interleaved
+    scan with ``predictor`` (1-7) and point transform ``pt``, restarts
+    every ``restart_rows`` rows, the Annex K luminance DC table extended to
+    category 16. PIL's libjpeg-turbo decodes it; the JAX package's libjpeg
+    refuses SOF3 and falls back to PIL."""
+    bits = [0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0]
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length]):
+            codes[k] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    x = img.astype(np.int64) >> pt
+    h, w, n = x.shape
+    data, acc = bytearray(), []
+
+    def flush():
+        stream = "".join(acc)
+        stream += "1" * (-len(stream) % 8)
+        for i in range(0, len(stream), 8):
+            data.append(int(stream[i:i + 8], 2))
+            if data[-1] == 0xFF:
+                data.append(0)
+        acc.clear()
+    first, rst = 0, 0
+    for r in range(h):
+        if restart_rows and r and r % restart_rows == 0:
+            flush()
+            data.extend((0xFF, 0xD0 + rst))
+            first, rst = r, (rst + 1) & 7
+        for c in range(w):
+            for ci in range(n):
+                if r == first:
+                    p = (1 << (7 - pt)) if c == 0 else x[r, c - 1, ci]
+                elif c == 0:
+                    p = x[r - 1, c, ci]
+                else:
+                    a, b, d = x[r, c - 1, ci], x[r - 1, c, ci], x[r - 1, c - 1, ci]
+                    p = (a, b, d, a + b - d, a + ((b - d) >> 1),
+                         b + ((a - d) >> 1), (a + b) >> 1)[predictor - 1]
+                diff = int((x[r, c, ci] - p + 32768) % 65536) - 32768
+                s = 16 if diff == -32768 else abs(diff).bit_length()
+                cd, ln = codes[s]
+                acc.append(format(cd, f"0{ln}b"))
+                if 0 < s < 16:
+                    acc.append(format(diff if diff > 0 else diff + (1 << s) - 1,
+                                      f"0{s}b"))
+    flush()
+
+    def seg(m, body):
+        return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
+    return (b"\xff\xd8" + seg(0xC4, bytes([0]) + bytes(bits[1:]) + bytes(range(17)))
+            + (seg(0xDD, struct.pack(">H", restart_rows * w))
+               if restart_rows else b"")
+            + seg(0xC3, bytes([8]) + struct.pack(">HHB", h, w, n)
+                  + b"".join(bytes([i + 1, 0x11, 0]) for i in range(n)))
+            + seg(0xDA, bytes([n]) + b"".join(bytes([i + 1, 0]) for i in range(n))
+                  + bytes([predictor, 0, pt]))
+            + bytes(data) + b"\xff\xd9")
+
+
+def _png(vals: np.ndarray, depth: int, color: int, interlace: bool,
+         plte: bytes = b"") -> bytes:
+    """A PNG of ``vals`` (h, w, channels) sample values, every row of every
+    pass with filter type (row % 5), Adam7 if ``interlace``."""
+    h, w, ch = vals.shape
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+              (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)) if interlace \
+        else ((0, 0, 1, 1),)
+    bpp = max(1, ch * depth // 8)
+    raw = bytearray()
+    for x0, y0, dx, dy in passes:
+        sub = vals[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        flat = sub.reshape(sub.shape[0], -1)
+        if depth == 16:
+            rows = flat.astype(">u2").view(np.uint8).reshape(len(flat), -1)
+        elif depth == 8:
+            rows = flat.astype(np.uint8)
+        else:
+            per = 8 // depth
+            pad = np.zeros((len(flat), -flat.shape[1] % per), flat.dtype)
+            v = np.concatenate([flat, pad], 1).reshape(len(flat), -1, per)
+            rows = (v << np.arange(8 - depth, -1, -depth)).sum(-1).astype(
+                np.uint8)
+        prev = np.zeros(rows.shape[1], np.int64)
+        for r, row in enumerate(rows.astype(np.int64)):
+            ft = r % 5
+            left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+            upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+            if ft == 4:
+                p = left + prev - upleft
+                pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+                pred = np.where((pa <= pb) & (pa <= pc), left,
+                                np.where(pb <= pc, prev, upleft))
+            else:
+                pred = [0 * row, left, prev, (left + prev) // 2][ft]
+            raw += bytes([ft]) + ((row - pred) % 256).astype(np.uint8).tobytes()
+            prev = row
+
+    def chunk(t, b):
+        return struct.pack(">I", len(b)) + t + b + struct.pack(
+            ">I", zlib.crc32(t + b))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0,
+                                         int(interlace)))
+            + (chunk(b"PLTE", plte) if plte else b"")
+            + chunk(b"IDAT", zlib.compress(bytes(raw), 9))
+            + chunk(b"IEND", b""))
+
+
+def _bmp(rows: list, w: int, h: int, bits: int, compression: int = 0,
+         masks: tuple = (), palette: bytes = b"", top_down: bool = False,
+         ) -> bytes:
+    """A BMP with a 40-byte info header: ``rows`` are the stored rows in
+    file order (padded here for raw data), masks after the header for
+    BI_BITFIELDS, ``palette`` as BGRX quads."""
+    if compression in (0, 3):
+        stride = ((w * bits + 31) >> 3) & ~3
+        pix = b"".join(r + bytes(stride - len(r)) for r in rows)
+    else:
+        pix = b"".join(rows)
+    hdr = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bits,
+                      compression, len(pix), 2835, 2835,
+                      len(palette) // 4, 0)
+    hdr += b"".join(struct.pack("<I", m) for m in masks) + palette
+    off = 14 + len(hdr)
+    return b"BM" + struct.pack("<IHHI", off + len(pix), 0, 0, off) + hdr + pix
+
+
+def _other_streams(rng) -> dict:
+    """name -> bytes of the PNG, GIF, BMP and WebP streams."""
+    img = make_image(rng, 40, 48)
+    out = {}
+    gray16 = Image.fromarray((img[..., 0].astype(np.uint16) * 3 + 100))
+    buf = io.BytesIO()
+    gray16.save(buf, format="PNG")
+    out["gray16.png"] = buf.getvalue()
+    wide = img.astype(np.uint16) * 257 + rng.integers(0, 256, img.shape)
+    out["rgb16.png"] = _png(wide, 16, 2, False)
+    out["rgba16.png"] = _png(np.concatenate([wide, wide[..., :1]], 2), 16, 6,
+                             False)
+    out["graya16.png"] = _png(wide[..., :2], 16, 4, False)
+    out["interlaced.png"] = _png(img, 8, 2, True)
+    out["interlaced_gray16.png"] = _png(wide[..., :1], 16, 0, True)
+    out["interlaced_palette.png"] = _png(
+        (img[..., :1] >> 4), 4, 3, True,
+        rng.integers(0, 256, 48, np.uint8).tobytes())
+    pil = Image.fromarray(img)
+    for name, kw in (("gif.gif", {}), ("gif_noninterlaced.gif",
+                                       {"interlace": False})):
+        buf = io.BytesIO()
+        pil.convert("P").save(buf, format="GIF", **kw)
+        out[name] = buf.getvalue()
+    for mode, name in (("1", "bmp1.bmp"), ("P", "bmp8.bmp"),
+                       ("RGB", "bmp24.bmp"), ("RGBA", "bmp32.bmp")):
+        buf = io.BytesIO()
+        pil.convert(mode).save(buf, format="BMP")
+        out[name] = buf.getvalue()
+    h, w = img.shape[:2]
+    idx = (img[..., 1] >> 5).astype(np.uint8)
+    pal = b"".join(bytes([b, g, r, 0]) for r, g, b in
+                   rng.integers(0, 256, (8, 3)).tolist())
+    rle = b""
+    for row in idx[::-1]:  # bottom-up: runs, and an absolute run of 5
+        row = row.tolist()
+        rle += bytes([0, 5]) + bytes(row[:5]) + b"\x00"
+        x = 5
+        while x < w:
+            n = 1
+            while x + n < w and row[x + n] == row[x] and n < 255:
+                n += 1
+            rle += bytes([n, row[x]])
+            x += n
+        rle += b"\x00\x00"
+    out["bmp_rle8.bmp"] = _bmp([rle + b"\x00\x01"], w, h, 8, 1, palette=pal)
+    p565 = ((img[..., 0].astype(np.uint16) >> 3) << 11
+            | (img[..., 1].astype(np.uint16) >> 2) << 5 | img[..., 2] >> 3)
+    out["bmp16_565.bmp"] = _bmp([r.astype("<u2").tobytes() for r in p565[::-1]],
+                                w, h, 16, 3, (0xF800, 0x7E0, 0x1F))
+    out["bmp24_topdown.bmp"] = _bmp([r[:, ::-1].tobytes() for r in img], w,
+                                    h, 24, top_down=True)
+    buf = io.BytesIO()
+    pil.save(buf, format="WEBP", quality=80)
+    out["webp.webp"] = buf.getvalue()
+    return out
 
 
 def _streams() -> dict:
@@ -128,7 +437,23 @@ def _streams() -> dict:
     for h, w in ((1, 1), (13, 7), (97, 131)):
         out[f"odd_{h}x{w}"] = _pil_jpeg(
             Image.fromarray(make_image(rng, h, w)), quality=88)
-    return out
+    enc = libjpeg_encoder()
+    rgb = np.asarray(photo)
+    cmyk = 255 - np.asarray(photo.convert("CMYK"))  # inverted, as Adobe's
+    out.update({
+        "arith": enc(rgb, 85, arith=1),
+        "arith_progressive": enc(rgb, 85, prog=1, arith=1),
+        "arith_restart": enc(rgb, 85, arith=1, restart_rows=1),
+        "ycck": enc(cmyk, 85, ycck=1),
+        "progressive_unrefined": enc(rgb, 85, prog=2),
+        "progressive_dc_only": enc(rgb, 85, prog=3),
+        "lossless": lossless_jpeg(make_image(rng, 24, 32), 7),
+    })
+    for name, src in (("truncated", "444"), ("truncated_progressive",
+                                             "progressive"),
+                      ("truncated_arith", "arith_progressive")):
+        out[name] = out[src][:len(out[src]) * 2 // 3]
+    return {f"{k}.jpg": v for k, v in out.items()} | _other_streams(rng)
 
 
 def export_jpeg(out_dir: str) -> dict:
@@ -140,29 +465,56 @@ def export_jpeg(out_dir: str) -> dict:
     os.makedirs(os.path.join(root, "streams"))
     rng = np.random.default_rng(0)
     rel = {"train": [], "test": []}
+    enc = libjpeg_encoder()
     for n, (h, w) in enumerate(FOOD_SHAPES):
         cls = CLASSES[n % len(CLASSES)]
         os.makedirs(os.path.join(base, "images", cls), exist_ok=True)
         name = f"{cls}/{1000000 + n}"
-        Image.fromarray(make_image(rng, h, w)).save(
-            os.path.join(base, "images", name + ".jpg"), quality=92)
+        img = make_image(rng, h, w)
+        path = os.path.join(base, "images", name + ".jpg")
+        if n == FOOD_ARITH:
+            with open(path, "wb") as f:
+                f.write(enc(img, 92, arith=1))
+        elif n == FOOD_CMYK:
+            Image.fromarray(img).convert("CMYK").save(path, quality=92)
+        else:
+            Image.fromarray(img).save(path, quality=92)
         rel["train" if n < N_FOOD_TRAIN else "test"].append(name)
     for split, names in rel.items():
         with open(os.path.join(base, "meta", f"{split}.txt"), "w") as f:
             f.write("\n".join(names) + "\n")
 
-    goldens = {"streams": {}, "encode": [], "loader": {}}
-    for name, data in _streams().items():
-        path = os.path.join(root, "streams", name + ".jpg")
+    goldens = {"streams": {}, "crops": [], "encode": [], "loader": {}}
+    crop_rng = np.random.default_rng(5)
+    for fname, data in _streams().items():
+        path = os.path.join(root, "streams", fname)
         with open(path, "wb") as f:
             f.write(data)
-        entry = {"file": f"streams/{name}.jpg"}
-        if name == "cmyk":
-            entry["refused"] = "CMYK"
-        else:
-            px = jax_native.decode_jpeg_rgb8(data)
-            entry.update(shape=list(px.shape), sha256=sha256(px))
+        name, ext = os.path.splitext(fname)
+        entry = {"file": f"streams/{fname}"}
+        if ext == ".webp":
+            entry["refused"] = "WebP"
+            goldens["streams"][name] = entry
+            continue
+        try:
+            served = _pil_rgb(data)
+            entry["served_sha256"] = sha256(served)
+        except OSError:
+            served, entry["served_refused"] = None, True
+        px = jax_native.decode_jpeg_rgb8(data) if ext == ".jpg" else served
+        entry.update(shape=list(px.shape), sha256=sha256(px))
         goldens["streams"][name] = entry
+        if ext != ".jpg":
+            continue
+        h, w = px.shape[:2]
+        for _ in range(3):
+            ch, cw = int(crop_rng.integers(1, h + 1)), int(crop_rng.integers(1, w + 1))
+            y0, x0 = int(crop_rng.integers(0, h - ch + 1)), int(crop_rng.integers(0, w - cw + 1))
+            got = jax_native.decode_jpeg_crop_rgb8(data, x0, y0, cw, ch)
+            if got is None:  # the loader's PIL fallback
+                got = px[y0:y0 + ch, x0:x0 + cw]
+            goldens["crops"].append({"stream": name, "x0": x0, "y0": y0,
+                                     "cw": cw, "ch": ch, "sha256": sha256(got)})
     for h, w, q, seed in ENCODE:
         data = jax_native.encode_jpeg_rgb8(jpeg_test_image(h, w, seed), q)
         goldens["encode"].append({"h": h, "w": w, "quality": q, "seed": seed,
