@@ -45,18 +45,23 @@ Phases, one short line each; any failure raises and the exit code is 1:
           request and response; one upload of each decoder the JAX
           server has and the port once answered 415 (arithmetic-coded
           baseline and progressive, CMYK, YCCK and lossless JPEG, 16-bit
-          and Adam7-interlaced PNG, GIF, BMP: assets/jpeg/streams/), each
-          200, decoded to the JAX server's digest and answered with the
-          PNG of SRServer.upscale byte for byte, with each class's decode
-          ms on the host ("codec numbers:" line); /healthz
+          and Adam7-interlaced PNG, GIF, BMP, and WebP: lossy with the
+          simple filter, 8 partitions, 4 segments, lossless with and
+          without a palette, alpha raw and coded, ICC and EXIF, an
+          animation: assets/jpeg/streams/), each 200, one device batch
+          (K2 NHWC launched once per block), decoded to the JAX server's
+          digest and answered with the PNG of SRServer.upscale byte for
+          byte, with each class's decode ms on the host ("codec
+          numbers:" line); /healthz
           "jpeg": true; the SRCNN asset's responses (TF32 off) within 1 level of the
           JAX package's goldens, and its bf16 distance; a --tta server's
           responses within 1 level of the eight dihedral forwards averaged
-          by hand; predict.main on 16 64x64 PNGs and a tiled one, every
-          output equal to upscale's; a shutdown with 4 requests inside
-          their handlers answers each; 404, 413, 400 (truncated body),
-          400 (truncated JPEG, which PIL refuses) and 415 (WebP, naming
-          it); then K2 NHWC at the --tta forwards' shape
+          by hand; predict.main on 16 64x64 PNGs, a tiled one and a
+          WebP, every output equal to upscale's; a shutdown with 4
+          requests inside their handlers answers each; 404, 413, 400
+          (truncated body), 400 (truncated JPEG and broken WebP, which
+          PIL refuses) and 415 (TIFF, naming it); then K2 NHWC at the
+          --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
 9. train  the supervised step on the registry AttentionSR x4 (float32,
           channels-last, the phase-space tail as train() runs it, train
@@ -151,8 +156,11 @@ Phases, one short line each; any failure raises and the exit code is 1:
           decode to the JAX package's digests (decode_jpeg_rgb8 to its
           binding's, arithmetic-coded, CMYK/YCCK, block-smoothed,
           truncated and lossless JPEG included; decode_image to its
-          server's, PNG, GIF and BMP included), the WebP and truncated
-          uploads are refused as it refuses them, committed regions equal
+          server's, PNG, GIF, BMP and every WebP included, each lossy
+          WebP's Y/U/V planes to libwebp's), the truncated, 12-bit,
+          hierarchical and past-64-KiB arithmetic uploads are refused as
+          it refuses them (a JPEG cut before its EOI decodes where PIL's
+          does), committed regions equal
           its region decodes, two encodes hash to JAX's bytes, random
           region decodes equal full-decode-then-crop, and SRDataLoader's
           first two train and eval batches over the committed mini
@@ -164,7 +172,8 @@ Phases, one short line each; any failure raises and the exit code is 1:
           batch, K2 NHWC 32 per step and batch: the main path, counts
           from zero around it); the train CLI runs once with no --dataset
           (SRCNN, --subset 0.25). Prints decode ms (full 512x384, 200^2
-          crop), encode ms (256^2, 800x608), the loader's batches/s alone
+          crop, a 512x384 lossy WebP), encode ms (256^2, 800x608), the
+          loader's batches/s alone
           (8 threads) and train()'s images/s beside the synthetic run's
 13b. caches in the loop phase's process after phase 13: train(dtype=
           "bfloat16") for one epoch of the loop's settings (K1 12 a step, 8
@@ -2454,7 +2463,19 @@ CODEC_UPLOADS = {"arithmetic JPEG": "arith.jpg",
                  "CMYK JPEG": "cmyk.jpg", "YCCK JPEG": "ycck.jpg",
                  "lossless JPEG": "lossless.jpg", "16-bit PNG": "rgb16.png",
                  "interlaced PNG": "interlaced.png", "GIF": "gif.gif",
-                 "BMP": "bmp24.bmp"}
+                 "BMP": "bmp24.bmp", "lossy WebP": "webp_q50.webp",
+                 "lossy WebP, simple filter": "webp_simple_filter.webp",
+                 "lossy WebP, 8 partitions": "webp_partitions8.webp",
+                 "lossy WebP, 4 segments": "webp_segments4.webp",
+                 "lossless WebP": "webp_lossless.webp",
+                 "lossless WebP, palette": "webp_lossless_palette.webp",
+                 "WebP with alpha": "webp_rgba.webp",
+                 "WebP, raw gradient-filtered alpha":
+                     "webp_alpha_raw_f3.webp",
+                 "WebP, coded vertical-filtered alpha":
+                     "webp_alpha_vp8l_f2.webp",
+                 "WebP with ICC and EXIF": "webp_icc_exif.webp",
+                 "animated WebP": "webp_animation.webp"}
 
 
 def _codec_uploads() -> dict:
@@ -2525,12 +2546,18 @@ def phase_http(rates) -> tuple[dict, dict]:
                      for i in range(PREDICT_IMAGES)}
         pred_imgs["tiled.png"] = rng.integers(0, 256, (*HTTP_TILED_SHAPE, 3),
                                               np.uint8)
+        # and a WebP (its decode is held to the JAX server's below)
+        with open(os.path.join(JPEG_ASSETS, "streams", "webp_q50.webp"),
+                  "rb") as f:
+            pred_webp = f.read()
+        pred_imgs["photo.webp"] = native.decode_image(pred_webp)
         pred_in = os.path.join(tmp.name, "in")
         pred_out = os.path.join(tmp.name, "out")
         os.makedirs(pred_in)
         for name, img in pred_imgs.items():
             with open(os.path.join(pred_in, name), "wb") as f:
-                f.write(native.encode_png_rgb8(img))
+                f.write(pred_webp if name.endswith(".webp")
+                        else native.encode_png_rgb8(img))
         cold_b = [native.encode_png_rgb8(x) for x in cold]
         small_b = [native.encode_png_rgb8(x) for x in small]
         tiled_b = [native.encode_png_rgb8(x) for x in tiled]
@@ -2540,6 +2567,7 @@ def phase_http(rates) -> tuple[dict, dict]:
             raise AssertionError("the JPEG codec did not build: "
                                  f"{native.build_error('fast_jpeg')}")
         native._gifbmp_lib()  # raises, naming the compiler's error
+        native._webp_lib()
         jpeg_body = native.encode_jpeg_rgb8(small[0], 95)
         jpeg_imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
                      for _ in range(JPEG_ROUND)]
@@ -2567,9 +2595,14 @@ def phase_http(rates) -> tuple[dict, dict]:
         health = json.loads(_http(port, "/healthz")[2])
         r_jpeg_in = _http(port, "/sr?model=attn", jpeg_body)
         r_jpeg_out = _http(port, "/sr?model=attn&format=jpeg", small_b[0])
-        # each decoder the JAX server has and the port once lacked
-        r_codec = {name: _http(port, "/sr?model=attn", body)
-                   for name, (body, _) in uploads.items()}
+        # each decoder the JAX server has and the port once lacked, one
+        # upload at a time: each is one device batch of the zoo's net
+        r_codec, k2_codec = {}, {}
+        for name, (body, _) in uploads.items():
+            k2, nb = mean_nhwc_kernel.launches, attn.batcher.n_batches
+            r_codec[name] = _http(port, "/sr?model=attn", body)
+            k2_codec[name] = (mean_nhwc_kernel.launches - k2,
+                              attn.batcher.n_batches - nb)
         with full_fp32():  # float32 as the goldens' CPU run, TF32 off
             r_gold = [_http(port, "/sr?model=srcnn", b) for b in gold_b]
         k2_before = mean_nhwc_kernel.launches
@@ -2641,6 +2674,10 @@ def phase_http(rates) -> tuple[dict, dict]:
             if code != 200 or sha256(px) != digest:
                 raise AssertionError(f"{name} upload: {code}, decode "
                                      "differs from the JAX server's")
+            if k2_codec[name] != (n_blocks, 1):
+                raise AssertionError(f"{name} upload: (K2 nhwc launches, "
+                                     f"device batches) {k2_codec[name]}, "
+                                     f"expected ({n_blocks}, 1)")
             if data != native.encode_png_rgb8(attn.upscale(px),
                                               attn.png_level):
                 raise AssertionError(f"{name} upload: the response is not "
@@ -2683,7 +2720,8 @@ def phase_http(rates) -> tuple[dict, dict]:
         if not (pred["n_images"] == len(pred_imgs) and pred["failed"] == 0):
             raise AssertionError(f"predict: {pred_line}")
         for name, img in pred_imgs.items():
-            path = os.path.join(pred_out, name[:-4] + "_x4.png")
+            path = os.path.join(pred_out, os.path.splitext(name)[0]
+                                + "_x4.png")
             with open(path, "rb") as f:
                 if not np.array_equal(native.decode_image(f.read()),
                                       attn.upscale(img)):
@@ -2700,18 +2738,22 @@ def phase_http(rates) -> tuple[dict, dict]:
                                        b"0123456789"),
             "400 truncated JPEG": _http(port, "/sr?model=attn",
                                         truncated_body),
-            "415 WebP": _http(port, "/sr?model=attn", webp_body),
+            "400 broken WebP": _http(port, "/sr?model=attn",
+                                     webp_body[:len(webp_body) // 2]),
+            "415 TIFF": _http(port, "/sr?model=attn",
+                              b"II*\x00" + bytes(64)),
         }
         codes = {"404 unknown model": errors["404 unknown model"][0],
                  "413": int(errors["413"][9:12] or 0),
                  "400 truncated": int(errors["400 truncated"][9:12] or 0),
                  "400 truncated JPEG": errors["400 truncated JPEG"][0],
-                 "415 WebP": errors["415 WebP"][0]}
+                 "400 broken WebP": errors["400 broken WebP"][0],
+                 "415 TIFF": errors["415 TIFF"][0]}
         if (codes != {"404 unknown model": 404, "413": 413,
                       "400 truncated": 400, "400 truncated JPEG": 400,
-                      "415 WebP": 415}
+                      "400 broken WebP": 400, "415 TIFF": 415}
                 or b"truncated" not in errors["400 truncated"]
-                or b"WebP" not in errors["415 WebP"][2]):
+                or b"TIFF" not in errors["415 TIFF"][2]):
             raise AssertionError(f"error statuses {codes}")
     finally:
         for httpd, thread in httpds:
@@ -3088,8 +3130,9 @@ def _write_food_tree(root: str) -> None:
 def _jpeg_fixtures() -> dict:
     """Part 1 of the food101 phase: the committed streams against the JAX
     package's digests (each JPEG's decode_jpeg_rgb8 against its
-    binding's, every stream's decode_image against its server's PIL
-    decode; the WebP and the truncated JPEGs refused as it refuses them),
+    binding's, or refused where it refuses; every stream's decode_image
+    against its server's PIL decode, or refused as it refuses; each lossy
+    WebP's Y/U/V planes against libwebp's),
     its region digests at the committed regions, both encode digests,
     and random region decodes of the mini tree (an arithmetic-coded and a
     CMYK image among them) against full-decode-then-crop."""
@@ -3102,15 +3145,6 @@ def _jpeg_fixtures() -> dict:
     for name, g in goldens["streams"].items():
         with open(os.path.join(JPEG_ASSETS, g["file"]), "rb") as f:
             data = streams[name] = f.read()
-        if "refused" in g:
-            try:
-                native.decode_image(data)
-            except native.UnsupportedImage as e:
-                if g["refused"] not in str(e):
-                    raise AssertionError(f"{name}: refused as {e}")
-                continue
-            raise AssertionError(f"{name} decoded; expected a refusal "
-                                 f"naming {g['refused']}")
         if g.get("served_refused"):
             try:
                 native.decode_image(data)
@@ -3124,6 +3158,19 @@ def _jpeg_fixtures() -> dict:
         elif sha256(native.decode_image(data)) != g["served_sha256"]:
             raise AssertionError(f"stream {name}: decode_image differs from "
                                  "the JAX server's")
+        if "yuv_sha256" in g and sha256(np.concatenate(
+                [p.ravel() for p in native.decode_webp_yuv(data)])) != \
+                g["yuv_sha256"]:
+            raise AssertionError(f"stream {name}: Y/U/V planes differ from "
+                                 "libwebp's")
+        if g.get("binding_refused"):
+            try:
+                native.decode_jpeg_rgb8(data)
+            except native.UnsupportedImage:
+                checked += 1
+                continue
+            raise AssertionError(f"{name} decoded; the JAX package's "
+                                 "binding refuses it")
         px = (native.decode_jpeg_rgb8(data) if g["file"].endswith(".jpg")
               else native.decode_image(data))
         if list(px.shape) != g["shape"] or sha256(px) != g["sha256"]:
@@ -3161,7 +3208,8 @@ def _jpeg_fixtures() -> dict:
                                      "differs from full-decode-then-crop")
             crops += 1
     return {"goldens": goldens, "streams": checked,
-            "refused": sum("refused" in g or "served_refused" in g
+            "webp_512x384": streams["webp_512x384"],
+            "refused": sum(bool(g.get("served_refused"))
                            for g in goldens["streams"].values()),
             "region_goldens": len(goldens["crops"]),
             "encodes": len(goldens["encode"]), "crops": crops}
@@ -3215,6 +3263,9 @@ def phase_food101(tmp: str, loop: dict) -> dict:
                                   1, 50) / 1e3,
         "decode_crop_ms": host_us(lambda: native.decode_jpeg_crop_rgb8(
             sample, *next(offs), crop, crop), 1, 50) / 1e3,
+        # the same size as a lossy WebP upload (q60, 7.8 KB)
+        "decode_webp_512x384_ms": host_us(
+            lambda: native.decode_image(fx["webp_512x384"]), 1, 50) / 1e3,
         "encode_ms": {k: host_us(lambda img=img: native.encode_jpeg_rgb8(
             img, 90), 1, 20) / 1e3 for k, img in enc.items()},
         "jpeg_bytes": os.path.getsize(src.paths[0]),
@@ -3277,9 +3328,9 @@ def phase_food101(tmp: str, loop: dict) -> dict:
         loader_wait_ms=[r["time/loader_wait_ms"] for r in epochs],
         loader_produce_ms=[r["time/loader_produce_ms"] for r in epochs],
         final=final, cli=cli_out, launches=list(total))
-    print(f"food101: {fx['streams']} streams (JPEG, PNG, GIF, BMP) decode "
-          f"to the JAX package's digests, {fx['refused']} refused as it "
-          f"refuses them, {fx['region_goldens']} regions equal its region "
+    print(f"food101: {fx['streams']} streams (JPEG, PNG, GIF, BMP, WebP) "
+          f"decode to the JAX package's digests, {fx['refused']} refused "
+          f"as it refuses them, {fx['region_goldens']} regions equal its region "
           f"decodes, {fx['encodes']} encodes byte-equal, {fx['crops']} region "
           f"decodes equal full-then-crop | loader over the mini tree (one "
           f"arithmetic-coded and one CMYK image): {lg['batches']} train and "
@@ -3290,7 +3341,8 @@ def phase_food101(tmp: str, loop: dict) -> dict:
           f"| images/s with the loader {numbers['train_images_per_s']} "
           f"(synthetic, same process: {loop['images_per_s']}) | decode "
           f"{w}x{h} 4:2:0 {numbers['decode_full_ms']:.3f} ms, 200^2 crop "
-          f"{numbers['decode_crop_ms']:.3f} ms | encode q90 "
+          f"{numbers['decode_crop_ms']:.3f} ms, {w}x{h} lossy WebP "
+          f"{numbers['decode_webp_512x384_ms']:.3f} ms | encode q90 "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in
                       numbers["encode_ms"].items())
           + f" | loader alone {numbers['loader_batches_per_s']:.2f} batches/s "

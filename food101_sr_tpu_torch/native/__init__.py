@@ -24,15 +24,23 @@ one codec for another:
   binding's pixels, a truncated stream included (what was read, the rest
   as libjpeg fills it), or its PIL fallback's where the binding refuses
   (CMYK, YCCK, lossless); the request decoder :func:`decode_image` gives
-  PIL's (libjpeg-turbo 3.1), which refuses a truncated stream. 12-bit,
+  PIL's (libjpeg-turbo 3.1 fed in PIL's 64 KiB blocks), which refuses a
+  stream cut short unless libjpeg never needed the missing bytes, and an
+  arithmetic-coded one whose scan runs past a block. 12-bit,
   hierarchical and arithmetic lossless streams raise
-  :class:`UnsupportedImage` naming the feature, as the JAX package
-  refuses them too; broken streams raise ValueError.
+  :class:`UnsupportedImage` naming the feature from the dataset decoders,
+  as the JAX package refuses them too; the request decoder raises
+  ValueError for the first two (PIL refuses them: the JAX server answers
+  400). Broken streams raise ValueError.
 - GIF (the first frame) and BMP (every header, depth and compression PIL
   reads), decoded as PIL's ``convert("RGB")``: containers in Python,
   LZW, rows and RLE in ``fast_gifbmp.cpp``.
-- WebP, TIFF and the other formats PIL opens raise
-  :class:`UnsupportedImage` naming the format.
+- WebP, decoded as PIL's ``convert("RGB")`` (libwebp 1.6 behind it): the
+  RIFF container as libwebp's demuxer reads it in Python; lossy (VP8),
+  lossless (VP8L) and alpha (ALPH) bitstreams in ``fast_webp.cpp``, which
+  needs no library; animations give their first frame.
+- TIFF and the other formats PIL opens raise :class:`UnsupportedImage`
+  naming the format.
 
 Each C++ unit is compiled with ``g++`` on first use into the package's
 git-ignored ``_build/`` directory, under a name carrying a hash of its
@@ -660,6 +668,364 @@ def decode_bmp_rgb8(data: bytes) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# WebP: the RIFF container as libwebp's demuxer reads it, in Python; VP8,
+# VP8L and ALPH in fast_webp.cpp
+# ---------------------------------------------------------------------------
+
+def _register_webp(lib):
+    p, ll, i = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+    lib.f101webp_vp8_yuv.argtypes = [ctypes.c_char_p, ll, i, i, p, p, p]
+    lib.f101webp_vp8_yuv.restype = i
+    lib.f101webp_yuv_rgb.argtypes = [p, p, p, i, i, p, ll]
+    lib.f101webp_yuv_rgb.restype = None
+    lib.f101webp_vp8l_argb.argtypes = [ctypes.c_char_p, ll, i, i, p]
+    lib.f101webp_vp8l_argb.restype = i
+    lib.f101webp_alpha.argtypes = [ctypes.c_char_p, ll, i, i, p]
+    lib.f101webp_alpha.restype = i
+
+
+def _webp_lib() -> ctypes.CDLL:
+    lib = _load("fast_webp", (), _register_webp)
+    if lib is None:
+        raise UnsupportedImage("the WebP unit (native/fast_webp.cpp, no "
+                               "library needed) did not build here: "
+                               f"{build_error('fast_webp')}")
+    return lib
+
+
+_WEBP_MAX_PAYLOAD = 0xFFFFFFFF - 8 - 1
+_WEBP_ALPHA, _WEBP_ANIMATION = 0x10, 0x02
+_WEBP_VALID_FLAGS = 0x3E  # alpha, animation, ICC, EXIF, XMP
+
+
+class _WebPFrame:
+    """A frame as libwebp's demuxer records it: its image and alpha
+    chunks as (offset, size with header and padding), its bitstream's
+    size, its offset on the canvas."""
+
+    def __init__(self):
+        self.x = self.y = self.width = self.height = 0
+        self.frame_num = 0
+        self.has_alpha = False
+        self.img = (0, 0)
+        self.alpha = (0, 0)
+
+
+def _webp_features(chunk: bytes):
+    """(width, height, has_alpha) of a VP8 or VP8L chunk (header
+    included) as libwebp's WebPGetFeatures reads it; None where it
+    refuses the chunk."""
+    size = struct.unpack_from("<I", chunk, 4)[0]
+    data = chunk[8:]
+    if chunk[:4] == b"VP8L":
+        if (len(data) < 5 or data[0] != 0x2F or data[4] >> 5):
+            return None
+        bits = int.from_bytes(data[1:5], "little")
+        return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1, \
+            bool((bits >> 28) & 1)
+    if len(data) < 10 or data[3:6] != b"\x9d\x01\x2a":
+        return None
+    bits = data[0] | (data[1] << 8) | (data[2] << 16)
+    w, h = (struct.unpack_from("<HH", data, 6)[i] & 0x3FFF for i in (0, 1))
+    if (bits & 1) or ((bits >> 1) & 7) > 3 or not (bits >> 4) & 1 \
+            or (bits >> 5) >= size or w == 0 or h == 0:
+        return None
+    return w, h, False
+
+
+class _WebPDemux:
+    """libwebp's WebPDemux over a whole file (libwebpdemux, which PIL's
+    WebP plugin opens every file with): the RIFF header, the simple
+    (VP8/VP8L) and extended (VP8X) layouts, ALPH, ANIM and ANMF, ICCP,
+    EXIF, XMP and unknown chunks skipped, and the checks that make it
+    refuse a file, each raising ValueError. (For a whole file, the data
+    libwebp would wait for is data that is not there: an error too.)"""
+
+    def __init__(self, data: bytes):
+        self.d = data
+        self.frames: list = []
+        self.canvas = (0, 0)
+        self.flags = 0
+        self.is_ext = False
+        riff_size = struct.unpack_from("<I", data, 4)[0]
+        if riff_size < 8 or riff_size > _WEBP_MAX_PAYLOAD:
+            raise ValueError("WebP: bad RIFF size")
+        self.riff_end = riff_size + 8  # nothing past it is read
+        if len(data) < self.riff_end:
+            raise ValueError("WebP: file shorter than its RIFF size")
+        self.pos = 12
+
+    def need(self, n: int):
+        if n > self.riff_end - self.pos:
+            raise ValueError("WebP: a chunk runs past the RIFF size")
+
+    def u(self, n: int) -> int:
+        v = int.from_bytes(self.d[self.pos:self.pos + n], "little")
+        self.pos += n
+        return v
+
+    def chunk_header(self) -> tuple:
+        """The next chunk's fourcc and padded size, checked to fit."""
+        fourcc = self.d[self.pos:self.pos + 4]
+        self.pos += 4
+        size = self.u(4)
+        if size > _WEBP_MAX_PAYLOAD:
+            raise ValueError("WebP: bad chunk size")
+        padded = size + (size & 1)
+        self.need(padded)
+        return fourcc, padded
+
+    def parse(self):
+        if self.d[12:16] in (b"VP8 ", b"VP8L"):
+            self.single_image()
+            f = self.frames[0]
+            ok = min(self.canvas) > 0 and f.width > 0 and f.height > 0
+        else:
+            self.vp8x()
+            ok = self.valid_extended()
+        if not ok:
+            raise ValueError("WebP: the container does not hold a valid "
+                             "image")
+
+    def store_frame(self, frame_num: int, min_size: int, f: _WebPFrame):
+        """A frame's ALPH and image chunks, up to the first other chunk."""
+        self.need(max(8, min_size))
+        alpha_chunks = image_chunks = 0
+        while True:
+            start = self.pos
+            fourcc, padded = self.chunk_header()
+            if fourcc == b"ALPH" and not alpha_chunks:
+                alpha_chunks = 1
+                f.alpha = (start, 8 + padded)
+                f.has_alpha = True
+                f.frame_num = frame_num
+            elif fourcc == b"VP8L" and alpha_chunks:
+                raise ValueError("WebP: ALPH before VP8L")
+            elif fourcc in (b"VP8 ", b"VP8L") and not image_chunks:
+                feats = _webp_features(self.d[start:start + 8 + padded])
+                if feats is None:
+                    raise ValueError("WebP: bad image header")
+                image_chunks = 1
+                f.img = (start, 8 + padded)
+                f.width, f.height = feats[0], feats[1]
+                f.has_alpha |= feats[2]
+                f.frame_num = frame_num
+            else:
+                self.pos = start
+                return
+            self.pos += padded
+            if self.pos == self.riff_end:
+                return
+            self.need(8)
+
+    def single_image(self):
+        if self.frames:
+            raise ValueError("WebP: a second image")
+        self.need(8)
+        f = _WebPFrame()
+        self.store_frame(1, 0, f)
+        if not self.flags & _WEBP_ALPHA and f.alpha[1] > 0:
+            f.alpha, f.has_alpha = (0, 0), False  # ignored without the flag
+        if not self.is_ext and f.width > 0 and f.height > 0:
+            self.canvas = (f.width, f.height)
+            self.flags |= _WEBP_ALPHA if f.has_alpha else 0
+        self.frames.append(f)
+
+    def vp8x(self):
+        self.need(8)
+        self.is_ext = True
+        self.pos += 4
+        size = self.u(4)
+        if size > _WEBP_MAX_PAYLOAD or size < 10:
+            raise ValueError("WebP: bad VP8X chunk")
+        size += size & 1
+        self.need(size)
+        self.flags = self.u(1)
+        self.pos += 3
+        self.canvas = (1 + self.u(3), 1 + self.u(3))
+        if self.canvas[0] * self.canvas[1] >= 1 << 32:
+            raise ValueError("WebP: canvas too large")
+        self.pos += size - 10
+        self.need(8)
+        is_animation = bool(self.flags & _WEBP_ANIMATION)
+        anim_chunks = 0
+        while True:
+            fourcc, padded = self.chunk_header()
+            if fourcc == b"VP8X":
+                raise ValueError("WebP: a second VP8X chunk")
+            if fourcc in (b"ALPH", b"VP8 ", b"VP8L"):
+                if anim_chunks or is_animation:
+                    raise ValueError("WebP: an image outside ANMF in an "
+                                     "animation")
+                self.pos -= 8
+                self.single_image()
+            elif fourcc == b"ANIM" and not anim_chunks:
+                if padded < 6:
+                    raise ValueError("WebP: bad ANIM chunk")
+                anim_chunks = 1
+                self.pos += padded  # background color, loop count
+            elif fourcc == b"ANIM" and padded < 6:
+                raise ValueError("WebP: bad ANIM chunk")
+            elif fourcc == b"ANMF":
+                if not anim_chunks:
+                    raise ValueError("WebP: ANMF before ANIM")
+                self.animation_frame(padded)
+            else:  # ICCP, EXIF, XMP, a second ANIM and unknown chunks
+                self.pos += padded
+            if self.pos == self.riff_end:
+                return
+            self.need(8)
+
+    def animation_frame(self, frame_chunk_size: int):
+        self.need(16)
+        if frame_chunk_size < 16:
+            raise ValueError("WebP: bad ANMF chunk")
+        f = _WebPFrame()
+        f.x, f.y = 2 * self.u(3), 2 * self.u(3)
+        if (1 + self.u(3)) * (1 + self.u(3)) >= 1 << 32:
+            raise ValueError("WebP: frame too large")
+        self.pos += 4  # duration, dispose and blend bits
+        start = self.pos
+        self.store_frame(len(self.frames) + 1, frame_chunk_size - 16, f)
+        if self.pos - start > frame_chunk_size - 16:
+            raise ValueError("WebP: a frame runs past its ANMF chunk")
+        if self.flags & _WEBP_ANIMATION and f.frame_num > 0:
+            self.frames.append(f)
+
+    def valid_extended(self) -> bool:
+        """The frame checks of libwebp's IsValidExtendedFormat: an image
+        in each (after its ALPH), inside the canvas (the canvas itself
+        for a still)."""
+        is_animation = bool(self.flags & _WEBP_ANIMATION)
+        cw, ch = self.canvas
+        if not self.frames or self.flags & ~_WEBP_VALID_FLAGS:
+            return False
+        for f in self.frames:
+            if not is_animation and f.frame_num > 1:
+                return False
+            if f.img[1] == 0 or (f.alpha[1] > 0 and f.alpha[0] > f.img[0]):
+                return False
+            if not is_animation:
+                if f.x or f.y or (f.width, f.height) != (cw, ch):
+                    return False
+            elif f.x + f.width > cw or f.y + f.height > ch:
+                return False
+        return True
+
+
+def _webp_payload(data: bytes, f: _WebPFrame):
+    """The frame's payload as libwebp's decoder is handed it (its ALPH
+    chunk through its image chunk) -> (is_lossless, the image chunk's
+    data with its padding byte, its width, height, the ALPH data or
+    None), with the checks WebPDecode makes on its headers."""
+    start, size = f.img
+    if f.alpha[1] > 0:
+        payload = data[f.alpha[0]:start + size]
+    else:
+        payload = data[start:start + size]
+    pos, alpha = 0, None
+    if payload[:4] == b"ALPH":
+        while True:  # the chunks before the image (ParseOptionalChunks)
+            if len(payload) - pos < 8:
+                raise ValueError("WebP: truncated chunk")
+            csize = struct.unpack_from("<I", payload, pos + 4)[0]
+            if csize > _WEBP_MAX_PAYLOAD:
+                raise ValueError("WebP: bad chunk size")
+            if payload[pos:pos + 4] in (b"VP8 ", b"VP8L"):
+                break
+            disk = (8 + csize + 1) & ~1
+            if len(payload) - pos < disk:
+                raise ValueError("WebP: truncated chunk")
+            if payload[pos:pos + 4] == b"ALPH":
+                alpha = payload[pos + 8:pos + 8 + csize]
+            pos += disk
+    if len(payload) - pos < 8:
+        raise ValueError("WebP: truncated image chunk")
+    csize = struct.unpack_from("<I", payload, pos + 4)[0]
+    body = payload[pos + 8:]
+    if csize > len(body):
+        raise ValueError("WebP: truncated image chunk")
+    feats = _webp_features(payload[pos:])
+    if feats is None:
+        raise ValueError("WebP: bad image header")
+    return payload[pos:pos + 4] == b"VP8L", body, feats[0], feats[1], alpha
+
+
+def _webp_vp8_planes(lib, body: bytes, w: int, h: int):
+    y = np.empty((h, w), np.uint8)
+    u = np.empty(((h + 1) // 2, (w + 1) // 2), np.uint8)
+    v = np.empty_like(u)
+    if lib.f101webp_vp8_yuv(body, len(body), w, h, y.ctypes.data,
+                            u.ctypes.data, v.ctypes.data):
+        raise ValueError("WebP: broken VP8 data")
+    return y, u, v
+
+
+def _webp_demux(data: bytes) -> _WebPDemux:
+    if data[:4] != b"RIFF" or data[8:12] != b"WEBP" or len(data) < 20:
+        raise ValueError("not a WebP")
+    if data[12:16] not in (b"VP8 ", b"VP8L", b"VP8X"):
+        raise ValueError("WebP: the first chunk is not VP8, VP8L or VP8X")
+    dmux = _WebPDemux(data)
+    dmux.parse()
+    w, h = dmux.canvas
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"WebP: {w}x{h} exceeds {MAX_PIXELS} pixels")
+    return dmux
+
+
+def decode_webp_yuv(data: bytes) -> tuple:
+    """The Y, U and V planes of a lossy WebP's (first) frame, as libwebp's
+    ``WebPDecodeYUV`` gives them for a still: Y of the frame's size, U
+    and V of half its size rounded up. Raises ValueError for a lossless
+    file or a broken one."""
+    lib = _webp_lib()
+    f = _webp_demux(data).frames[0]
+    lossless, body, w, h, _ = _webp_payload(data, f)
+    if lossless:
+        raise ValueError("WebP: lossless, no Y/U/V planes")
+    return _webp_vp8_planes(lib, body, w, h)
+
+
+def decode_webp_rgb8(data: bytes) -> np.ndarray:
+    """WebP bytes -> uint8 HxWx3, as PIL's ``Image.open(...).convert(
+    "RGB")`` gives them: libwebp's animation decoder, which PIL opens every
+    WebP with, puts the first frame on a canvas of the file's size cleared
+    to transparent black, decoded with the default options (fancy
+    upsampling, the loop filter) as non-premultiplied RGBA, and the alpha
+    is then dropped. Lossy (VP8), lossless (VP8L), VP8X with ALPH (raw or
+    lossless, each filter) and animations (their first frame, at its
+    offset; the pixels around it black) decode; ICCP, EXIF and XMP are
+    skipped. Raises ValueError wherever libwebp or PIL refuses the file
+    (the demuxer's checks, a broken bitstream or alpha, too many pixels)."""
+    lib = _webp_lib()
+    dmux = _webp_demux(data)
+    f = dmux.frames[0]
+    lossless, body, w, h, alpha = _webp_payload(data, f)
+    if lossless:
+        argb = np.empty((h, w), np.uint32)
+        if lib.f101webp_vp8l_argb(body, len(body), w, h, argb.ctypes.data):
+            raise ValueError("WebP: broken VP8L data")
+        rgb = np.stack([(argb >> s).astype(np.uint8) for s in (16, 8, 0)],
+                       axis=2)
+    else:
+        y, u, v = _webp_vp8_planes(lib, body, w, h)
+        if alpha is not None:
+            plane = np.empty((h, w), np.uint8)
+            if lib.f101webp_alpha(alpha, len(alpha), w, h, plane.ctypes.data):
+                raise ValueError("WebP: broken ALPH data")
+        rgb = np.empty((h, w, 3), np.uint8)
+        lib.f101webp_yuv_rgb(y.ctypes.data, u.ctypes.data, v.ctypes.data, w,
+                             h, rgb.ctypes.data, 3 * w)
+    cw, ch = dmux.canvas
+    if (f.x, f.y, w, h) == (0, 0, cw, ch):
+        return rgb
+    canvas = np.zeros((ch, cw, 3), np.uint8)
+    canvas[f.y:f.y + h, f.x:f.x + w] = rgb
+    return canvas
+
+
+# ---------------------------------------------------------------------------
 # the request decoder
 # ---------------------------------------------------------------------------
 
@@ -678,24 +1044,31 @@ def decode_image(data: bytes) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, as PIL's ``Image.open(...)
     .convert("RGB")`` gives them (how the JAX package's server decodes an
     upload), by the format's signature: PNG (:func:`decode_png_rgb8`),
-    JPEG (:func:`decode_jpeg_rgb8` with ``strict``: a truncated stream
-    raises, as PIL's ``load()`` does), GIF (:func:`decode_gif_rgb8`) or
-    BMP (:func:`decode_bmp_rgb8`). Raises :class:`UnsupportedImage` naming
-    a recognised format the port does not decode (WebP, TIFF, ICO, PPM and
-    the others PIL opens) or a JPEG variant it refuses (lossless,
-    hierarchical, 12-bit), ValueError for bytes that are no image or a
-    broken one."""
+    JPEG (:func:`decode_jpeg_rgb8` with ``strict``: a stream cut short or
+    an arithmetic-coded scan past PIL's 64 KiB read block raises where
+    PIL's ``load()`` does), GIF (:func:`decode_gif_rgb8`), BMP
+    (:func:`decode_bmp_rgb8`) or WebP (:func:`decode_webp_rgb8`). Raises
+    :class:`UnsupportedImage` naming a recognised format the port does not
+    decode (TIFF, ICO, PPM and the others PIL opens), arithmetic lossless
+    (SOF11) JPEG, or a codec that did not build here; ValueError for bytes
+    that are no image, a broken one, or one PIL refuses (12-bit and
+    hierarchical JPEG among them)."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png_rgb8(data)
     if data.startswith(b"\xff\xd8\xff"):
-        return decode_jpeg_rgb8(data, strict=True)
+        _jpeg_lib()  # a codec that did not build stays 415, named
+        try:
+            return decode_jpeg_rgb8(data, strict=True)
+        except UnsupportedImage as e:
+            if "SOF11" in str(e):  # no tool writes one: PIL's answer unknown
+                raise
+            raise ValueError(f"{e} (PIL refuses it too)") from None
     if data[:6] in (b"GIF87a", b"GIF89a"):
         return decode_gif_rgb8(data)
     if data.startswith(b"BM"):
         return decode_bmp_rgb8(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise UnsupportedImage("WebP is not supported (PNG, JPEG, GIF and "
-                               "BMP only)")
+        return decode_webp_rgb8(data)
     name = next((n for m, n in _OTHER_FORMATS if data.startswith(m)), None)
     if name is None and data[:1] == b"P" and data[1:2] in b"1234567" \
             and data[2:3] in b" \t\r\n#":
@@ -704,6 +1077,6 @@ def decode_image(data: bytes) -> np.ndarray:
             b"avif", b"avis", b"heic", b"heix", b"mif1"):
         name = "AVIF/HEIF"
     if name is not None:
-        raise UnsupportedImage(f"{name} is not supported (PNG, JPEG, GIF "
-                               "and BMP only)")
-    raise ValueError("not a PNG, JPEG, GIF or BMP image")
+        raise UnsupportedImage(f"{name} is not supported (PNG, JPEG, GIF, "
+                               "BMP and WebP only)")
+    raise ValueError("not a PNG, JPEG, GIF, BMP or WebP image")

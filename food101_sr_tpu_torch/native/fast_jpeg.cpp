@@ -37,7 +37,12 @@
 //     entropy-coded data feeds zero bits and leaves the following MCUs
 //     alone until a restart marker is found (jpeg_resync_to_restart), a
 //     bad Huffman code decodes as 0. PIL's mode refuses a stream that
-//     ends before its EOI (its load() does).
+//     ends before its EOI where its load() does: PIL feeds libjpeg 64 KiB
+//     blocks and raises when a suspended decoder finds the file at its
+//     end, so a sequential single-scan image decodes when libjpeg-turbo's
+//     reader never asks for a byte past the end (replayed by PilFeed), and
+//     an arithmetic-coded scan fails where it needs a byte past the block
+//     it was fed (jdarith.c cannot suspend).
 //   - Refused by name (return -2, message from fastjpeg_error):
 //     hierarchical and arithmetic lossless streams, precisions other than
 //     8, component counts other than 1, 3 and 4; the JAX package refuses
@@ -372,6 +377,8 @@ struct Huff {
 // until a restart marker is found. Data ending without a marker is a
 // truncated stream: the lenient decodes never see it (their input is
 // followed by the fake EOI markers of libjpeg's memory source).
+struct NeedFeed {};  // see PilFeed
+
 struct Bits {
   const uint8_t* d;
   size_t n, pos;
@@ -379,21 +386,34 @@ struct Bits {
   int nbits = 0, pad = 0;
   bool marker = false;  // an unread marker: pos is at an 0xFF before it
   bool insufficient = false;
+  // at the end of the data: 0 fails, 1 throws NeedFeed, 2 reads on as at
+  // a marker (zeros)
+  int on_end = 0;
+  // when set, each Huffman code's length (x2) and each run of raw bits
+  // (x2 + 1) consumed, as PilFeed replays them
+  std::vector<int>* events = nullptr;
 
   Bits(const uint8_t* data, size_t len, size_t start) : d(data), n(len), pos(start) {}
 
+  void at_end() {
+    if (on_end == 0) CORRUPT("JPEG: truncated (the data ends inside a scan)");
+    if (on_end == 1) throw NeedFeed{};
+    marker = true;
+  }
   void fill() {
     while (nbits <= 56) {
       uint32_t b = 0;
       if (!marker) {
-        if (pos >= n) CORRUPT("JPEG: truncated (the data ends inside a scan)");
-        if (d[pos] != 0xFF) {
+        if (pos >= n) {
+          at_end();
+        } else if (d[pos] != 0xFF) {
           b = d[pos++];
         } else {
           size_t q = pos + 1;
           while (q < n && d[q] == 0xFF) ++q;  // fill bytes
-          if (q >= n) CORRUPT("JPEG: truncated (the data ends inside a scan)");
-          if (d[q] == 0x00) {
+          if (q >= n) {
+            at_end();
+          } else if (d[q] == 0x00) {
             b = 0xFF;
             pos = q + 1;
           } else {
@@ -411,6 +431,7 @@ struct Bits {
   }
   int get(int k) {
     if (k == 0) return 0;
+    if (events) events->push_back(k << 1 | 1);
     if (nbits < k) fill();
     nbits -= k;
     check();
@@ -424,6 +445,7 @@ struct Bits {
     uint16_t e = h.look[(acc >> (nbits - kLook)) & ((1 << kLook) - 1)];
     if (e) {
       nbits -= e >> 8;
+      if (events) events->push_back((e >> 8) << 1);
       check();
       return e & 0xFF;
     }
@@ -432,11 +454,13 @@ struct Bits {
       int code = code16 >> (16 - l);
       if (code <= h.maxcode[l]) {
         nbits -= l;
+        if (events) events->push_back(l << 1);
         check();
         return h.vals[(code + h.valoffset[l]) & 0xFF];
       }
     }
     nbits -= 17;
+    if (events) events->push_back(17 << 1);
     check();
     return 0;
   }
@@ -453,6 +477,175 @@ struct Bits {
 inline int extend(int v, int s) {
   return s == 0 ? 0 : v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
+
+// PIL feeds libjpeg the file in 64 KiB blocks (ImageFile.MAXBLOCK), one
+// more each time the decoder suspends; at the end of the file it raises.
+constexpr size_t kPilBlock = 65536;
+
+inline size_t pil_blocks(size_t upto) {  // the bytes PIL has fed to read upto
+  return std::max<size_t>(kPilBlock, (upto + kPilBlock - 1) / kPilBlock *
+                                         kPilBlock);
+}
+
+// libjpeg-turbo 3.1's sequential Huffman reader as PIL feeds it: jdhuff.c's
+// decode_mcu with its fast path (taken when 512 bytes per block are fed
+// and no marker is pending: 6 bytes whenever 16 bits or fewer are left)
+// and its slow path (jpeg_fill_bit_buffer: bytes until 57 bits, a marker,
+// or the fed data ends, which suspends the MCU), and process_restart.
+// Replays each MCU's codes and bits, as the decode consumed them, over the
+// bytes fed, and answers false once PIL would need a byte past the end of
+// the file. A sequential single-scan image decodes in PIL when that never
+// happens, its EOI marker or not (PIL's load() stops once every row is
+// out), which is what decides a stream cut before its EOI.
+struct PilFeed {
+  const uint8_t* d;
+  size_t n, pos, end;
+  int bits_left = 0, unread_marker = 0, next_rst = 0;
+  bool insufficient = false;
+
+  PilFeed(const uint8_t* data, size_t len, size_t start)
+      : d(data), n(len), pos(start), end(std::min(len, pil_blocks(start))) {}
+
+  bool more() {  // PIL reads the next block; false at the end of the file
+    if (end >= n) return false;
+    end = std::min(n, end + kPilBlock);
+    return true;
+  }
+  // jpeg_fill_bit_buffer; false when it suspends
+  bool fill(int& bl, size_t& p, int nbits) {
+    if (unread_marker == 0) {
+      while (bl < 57) {
+        if (p >= end) return false;
+        int c = d[p++];
+        if (c == 0xFF) {
+          do {
+            if (p >= end) return false;
+            c = d[p++];
+          } while (c == 0xFF);
+          if (c != 0) {
+            unread_marker = c;
+            break;
+          }
+        }
+        bl += 8;
+      }
+      if (unread_marker == 0) return true;
+    }
+    if (nbits > bl) {  // zeros past the marker
+      insufficient = true;
+      bl = 57;
+    }
+    return true;
+  }
+  bool slow(const std::vector<int>& ev) {
+    int bl = bits_left;
+    size_t p = pos;
+    for (int e : ev) {
+      const int k = e >> 1;
+      if (e & 1) {  // CHECK_BIT_BUFFER, GET_BITS
+        if (bl < k && !fill(bl, p, k)) return false;
+        bl -= k;
+        continue;
+      }
+      int first = 9;  // HUFF_DECODE: a lookahead of 8 bits
+      if (bl < 8) {
+        if (!fill(bl, p, 0)) return false;
+        if (bl < 8) first = 1;  // at a marker: jpeg_huff_decode from 1 bit
+      }
+      if (first == 9 && k <= 8) {
+        bl -= k;
+        continue;
+      }
+      if (bl < first && !fill(bl, p, first)) return false;
+      bl -= first;
+      for (int i = first; i < k; ++i) {
+        if (bl < 1 && !fill(bl, p, 1)) return false;
+        bl -= 1;
+      }
+    }
+    bits_left = bl;
+    pos = p;
+    return true;
+  }
+  bool fast(const std::vector<int>& ev) {  // false when it meets a marker
+    int bl = bits_left;
+    size_t p = pos;
+    bool marker = false;
+    for (int e : ev) {
+      if (bl <= 16)
+        for (int i = 0; i < 6; ++i) {  // FILL_BIT_BUFFER_FAST
+          const int c0 = p < n ? d[p] : 0, c1 = p + 1 < n ? d[p + 1] : 0;
+          ++p;
+          bl += 8;
+          if (c0 == 0xFF) {
+            ++p;
+            if (c1 != 0) {  // the marker is met again by each later read
+              marker = true;
+              p -= 2;
+            }
+          }
+        }
+      bl -= e >> 1;
+    }
+    if (marker) return false;
+    bits_left = bl;
+    pos = p;
+    return true;
+  }
+  // decode_mcu for one MCU of `blocks` blocks; false once PIL fails
+  bool mcu(const std::vector<int>& ev, int blocks, bool restarts) {
+    if (insufficient) return true;  // the MCU stays zero, nothing read
+    for (;;) {
+      if (!restarts && unread_marker == 0 &&
+          end - pos >= static_cast<size_t>(512) * blocks && fast(ev))
+        return true;
+      if (slow(ev)) return true;
+      if (!more()) return false;
+    }
+  }
+  // process_restart: the bit buffer dropped, the RSTn marker read
+  // (next_marker, which syncs after each byte it discards); false once
+  // PIL fails, or for a marker other than the next restart (its resync is
+  // not replayed)
+  bool restart() {
+    bits_left = 0;
+    while (unread_marker == 0) {
+      size_t p = pos, sync = pos;
+      int c = -1;  // the marker code; -1 while the fed bytes run out first
+      while (p < end) {
+        int b = d[p++];
+        while (b != 0xFF && p < end) {
+          sync = p;
+          b = d[p++];
+        }
+        if (b != 0xFF) {
+          sync = p;
+          break;
+        }
+        while (p < end && (b = d[p++]) == 0xFF) {
+        }
+        if (b == 0xFF) break;
+        if (b != 0) {
+          c = b;
+          break;
+        }
+        sync = p;  // FF 00 outside the data: discarded
+      }
+      if (c > 0) {
+        unread_marker = c;
+        pos = p;
+      } else {
+        pos = sync;
+        if (!more()) return false;
+      }
+    }
+    if (unread_marker != 0xD0 + next_rst) return false;
+    unread_marker = 0;
+    next_rst = (next_rst + 1) & 7;
+    insufficient = false;
+    return true;
+  }
+};
 
 // ---------------------------------------------------------------------------
 // arithmetic decoding (jdarith.c, the QM-coder of ITU-T T.81 Annex D)
@@ -513,12 +706,20 @@ struct Arith {
   int64_t c = 0, a = 0;
   int ct = -16;
   bool marker = false;  // an unread marker: pos is at the 0xFF before it
+  // PIL's decode: the bytes fed so far (PilFeed); jdarith.c cannot suspend,
+  // so a byte needed past them fails the decode
+  size_t fed = SIZE_MAX;
 
   Arith(const uint8_t* data, size_t len, size_t start) : d(data), n(len), pos(start) {}
 
   int byte() {
     if (pos >= n) CORRUPT("JPEG: truncated (the data ends inside a scan)");
+    if (pos >= fed) pil_cannot_suspend();
     return d[pos++];
+  }
+  [[noreturn]] static void pil_cannot_suspend() {
+    CORRUPT("JPEG: the arithmetic-coded data runs past a 64 KiB block of "
+            "PIL's feed, where libjpeg cannot suspend");
   }
   int decode(uint8_t* st) {
     while (a < 0x8000) {  // renormalization and data input, D.2.6
@@ -649,8 +850,9 @@ enum Mode { kLibjpeg = 0, kPil = 1 };
 
 class Decoder {
  public:
-  Decoder(const uint8_t* d, size_t n, int mode = kPil, bool region = false)
-      : mode_(mode), region_(region) {
+  Decoder(const uint8_t* d, size_t n, int mode = kPil, bool region = false,
+          bool pil_feed = false)
+      : mode_(mode), region_(region), pil_feed_(pil_feed) {
     if (mode_ == kLibjpeg) {
       // jpeg_mem_src's fill_input_buffer: past the end, EOI markers
       // without end (enough of them for any one marker segment)
@@ -707,6 +909,20 @@ class Decoder {
     cw_ = cw;
     ch_ = ch;
     size_t pos = start();
+    try {
+      markers(pos);
+    } catch (const EndOfData&) {
+      // PIL's decode of a single-scan image ends with its last MCU: what
+      // follows the scan may be cut off (see PilFeed)
+    }
+    if (!scans_) CORRUPT("JPEG: no image data");
+    output(out);
+  }
+
+ private:
+  struct EndOfData {};
+
+  void markers(size_t pos) {
     for (;;) {
       int m = next_marker(&pos);
       if (m == 0xD9) break;  // EOI
@@ -754,14 +970,20 @@ class Decoder {
       }
       pos += len;
     }
-    if (!scans_) CORRUPT("JPEG: no image data");
-    output(out);
   }
+
+ public:
 
  private:
   static constexpr size_t kPad = 65536 + 16;
   int mode_;
   bool region_;  // a region decode (fastjpeg_decode_crop_rgb8)
+  // PIL's mode: replay its feed over a sequential single-scan image whose
+  // data ends inside the scan (PilFeed)
+  bool pil_feed_;
+  bool eoi_optional_ = false;  // the replay found every MCU fed
+  size_t fed_ = kPilBlock;     // the bytes PIL has fed (arithmetic scans)
+  size_t marker_read_ = 0;     // the last marker code next_marker read
   std::vector<uint8_t> padded_;
   const uint8_t* d_;
   size_t n_;
@@ -808,17 +1030,23 @@ class Decoder {
     for (;;) {
       while (p < n_ && d_[p] != 0xFF) ++p;
       while (p < n_ && d_[p] == 0xFF) ++p;
-      if (p >= n_) CORRUPT("JPEG: truncated (no EOI marker)");
+      if (p >= n_) {
+        if (eoi_optional_) throw EndOfData{};
+        CORRUPT("JPEG: truncated (no EOI marker)");
+      }
       if (d_[p] != 0x00) break;
       ++p;  // a stuffed zero outside a scan: garbage
     }
     *pos = p + 1;
+    marker_read_ = p;
     return d_[p];
   }
 
   size_t seg_len(size_t pos) {
+    if (eoi_optional_ && pos + 2 > n_) throw EndOfData{};
     if (pos + 2 > n_) CORRUPT("JPEG: truncated marker segment");
     size_t len = (d_[pos] << 8) | d_[pos + 1];
+    if (eoi_optional_ && len >= 2 && pos + len > n_) throw EndOfData{};
     if (len < 2 || pos + len > n_) CORRUPT("JPEG: truncated marker segment");
     return len;
   }
@@ -1218,6 +1446,13 @@ class Decoder {
 
   size_t huff_scan(const Scan& sc, size_t data) {
     Bits br(d_, n_, data);
+    // PIL's mode, a sequential single-scan image: data that ends inside
+    // the scan is replayed through PIL's feed (PilFeed)
+    const bool seq = mode_ == kPil && !progressive_ && single_scan_;
+    std::vector<int> events;
+    PilFeed feed(d_, n_, data);
+    if (seq) br.on_end = pil_feed_ ? 2 : 1;
+    if (seq && pil_feed_) br.events = &events;
     int togo = restart_, next_rst = 0, eobrun = 0;
     for_mcus(sc, [&](int row, int16_t** blk, const int* si, int nb) {
       if (restart_) {
@@ -1229,11 +1464,16 @@ class Decoder {
           for (int i = 0; i < sc.n; ++i) comp_[sc.ci[i]].dc_pred = 0;
           eobrun = 0;
           togo = restart_;
+          if (br.events && !feed.restart()) pil_runs_out();
         }
         --togo;
       }
+      events.clear();
       // out of data: the MCU stays as it is (zero, or the earlier scans')
-      if (br.insufficient) return;
+      if (br.insufficient) {
+        if (br.events && !feed.mcu(events, nb, restart_ != 0)) pil_runs_out();
+        return;
+      }
       last_good_ = row;
       for (int b = 0; b < nb; ++b) {
         const int i = si[b];
@@ -1247,8 +1487,15 @@ class Decoder {
         else
           ac_refine(br, ac_[sc.ta[i]], sc, blk[b], &eobrun);
       }
+      if (br.events && !feed.mcu(events, nb, restart_ != 0)) pil_runs_out();
     });
+    if (br.events) eoi_optional_ = true;
     return br.marker ? br.pos : skip_entropy(d_, n_, br.pos);
+  }
+
+  [[noreturn]] static void pil_runs_out() {
+    CORRUPT("JPEG: truncated (PIL's reader needs bytes past the end of the "
+            "file)");
   }
 
   // repeated extreme differences would overflow the predictor; libjpeg-turbo
@@ -1363,12 +1610,16 @@ class Decoder {
 
   size_t arith_scan(const Scan& sc, size_t data) {
     Arith ar(d_, n_, data);
+    // PIL has fed the blocks that reach past the scan header, or more
+    fed_ = std::max(fed_, pil_blocks(data));
+    if (pil()) ar.fed = fed_;
     int togo = restart_, next_rst = 0;
     for_mcus(sc, [&](int row, int16_t** blk, const int* si, int nb) {
       if (restart_) {
         if (togo == 0) {  // process_restart: statistics and registers reset
           bool held;
           size_t p = restart_marker(ar.pos, &next_rst, &held);
+          if (marker_read_ >= ar.fed) Arith::pil_cannot_suspend();
           ar.reset(p, held);
           for (int i = 0; i < sc.n; ++i) {
             Comp& c = comp_[sc.ci[i]];
@@ -2272,6 +2523,17 @@ class Encoder {
   }
 };
 
+// A decode, again with PIL's feed replayed where its data ends inside a
+// sequential single-scan image (PilFeed).
+void decode_fed(const unsigned char* buf, size_t len, int mode, bool region,
+                int x0, int y0, int cw, int ch, unsigned char* out) {
+  try {
+    Decoder(buf, len, mode, region).decode(x0, y0, cw, ch, out);
+  } catch (const NeedFeed&) {
+    Decoder(buf, len, mode, region, true).decode(x0, y0, cw, ch, out);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -2301,8 +2563,8 @@ int fastjpeg_decode_rgb8(const unsigned char* buf, long len,
     Decoder(buf, static_cast<size_t>(len)).dims(&W, &H, &to_pil);
     if (static_cast<long>(W) * H * 3 > out_cap)
       CORRUPT("JPEG: output buffer too small");
-    Decoder(buf, static_cast<size_t>(len), to_pil ? kPil : mode)
-        .decode(0, 0, W, H, out);
+    decode_fed(buf, static_cast<size_t>(len), to_pil ? kPil : mode, false, 0,
+               0, W, H, out);
     *w = W;
     *h = H;
   });
@@ -2328,8 +2590,8 @@ int fastjpeg_decode_crop_rgb8(const unsigned char* buf, long len, int x0,
     return -3;
   }
   return guarded([&] {
-    Decoder(buf, static_cast<size_t>(len), to_pil ? kPil : kLibjpeg, true)
-        .decode(x0, y0, cw, ch, out);
+    decode_fed(buf, static_cast<size_t>(len), to_pil ? kPil : kLibjpeg, true,
+               x0, y0, cw, ch, out);
   });
 }
 

@@ -1,9 +1,9 @@
 """Guards of the port's boundaries: food101_sr_tpu_torch and chip_smoke.py
 import nothing of JAX, PIL or the JAX package; the port's C++ and CUDA
-include no JPEG library's header and nothing links one; kernel wrappers
-never fall
-back from a device they have no kernel for; entry points default to CUDA
-and fail there without a card instead of moving to the CPU."""
+include no JPEG or WebP library's header and nothing links one; kernel
+wrappers never fall back from a device they have no kernel for; entry
+points default to CUDA and fail there without a card instead of moving
+to the CPU."""
 import ast
 import inspect
 import os
@@ -147,6 +147,21 @@ def test_codecs_use_no_jpeg_library():
     deps = subprocess.run(["ldd", native._libs["fast_jpeg"]._name],
                           capture_output=True, text=True).stdout
     assert "jpeg" not in deps.replace(native._libs["fast_jpeg"]._name, "")
+
+
+def test_webp_codec_uses_no_library():
+    """The WebP decoder is the port's own: no source includes libwebp's
+    headers, no build command or script names -lwebp, and the library
+    fast_webp.cpp builds into depends on no libwebp."""
+    pkg = ROOT / "food101_sr_tpu_torch"
+    for src in sorted(pkg.rglob("*.cpp")) + sorted(pkg.rglob("*.h")):
+        assert not any("webp/" in ln for ln in src.read_text().splitlines()
+                       if ln.lstrip().startswith("#include")), src
+    for py in sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert "-lwebp" not in py.read_text(), py
+    so = native._webp_lib()._name
+    deps = subprocess.run(["ldd", so], capture_output=True, text=True).stdout
+    assert "webp" not in deps.replace(so, "")
 
 
 # mean_kernel dispatches by layout to two counted entry points

@@ -296,7 +296,9 @@ def _outcome(fn, *args):
 @pytest.mark.parametrize("feature", list(_refused()))
 def test_refused_features_are_named(libjpeg, feature):
     """What the JAX package refuses too (12-bit, hierarchical: its libjpeg
-    and PIL both) is refused by name; the rest decodes as it decodes: CMYK
+    and PIL both) is refused by name by the dataset decoders and as PIL
+    refuses it by the request decoder (ValueError: the JAX server answers
+    400, not 415); the rest decodes as it decodes: CMYK
     through its PIL fallback, the arithmetic-patched stream (Huffman data
     read by the QM decoder: garbage, but libjpeg's garbage) through its
     libjpeg, the lossless-patched one as PIL takes it."""
@@ -304,11 +306,13 @@ def test_refused_features_are_named(libjpeg, feature):
     assert native.jpeg_dims(data) == (32, 24)
     if feature in ("12-bit", "hierarchical"):
         assert _outcome(jax_native.decode_jpeg_rgb8, data) == "raises"
-        for call in (lambda: native.decode_image(data),
-                     lambda: native.decode_jpeg_rgb8(data),
+        for call in (lambda: native.decode_jpeg_rgb8(data),
                      lambda: native.decode_jpeg_crop_rgb8(data, 0, 0, 8, 8)):
             with pytest.raises(native.UnsupportedImage, match=feature):
                 call()
+        with pytest.raises(ValueError, match=feature) as e:
+            native.decode_image(data)
+        assert not isinstance(e.value, native.UnsupportedImage)
         return
     want = _outcome(jax_native.decode_jpeg_rgb8, data)
     got = _outcome(native.decode_jpeg_rgb8, data)
@@ -412,8 +416,10 @@ def test_committed_fixtures_match_their_goldens():
     """The fixtures and goldens that chip_smoke.py's food101 and http
     phases hold on the card (tools/export_port_assets.py --what jpeg):
     every JPEG stream's decode_jpeg_rgb8 has the JAX package's digest and
-    every stream's decode_image PIL's (the JAX server's), the WebP is
-    refused naming it and the truncated ones as PIL refuses them, the
+    every stream's decode_image PIL's (the JAX server's), WebP included,
+    the truncated, 12-bit, hierarchical and past-64-KiB arithmetic ones
+    refused as PIL refuses them (the binding refusing the 12-bit and
+    hierarchical ones, as the JAX package's does), the
     seeded regions have the JAX package's region digests, both encodes
     hash to JAX's, and the loader's first two batches over the mini
     Food-101 tree (an arithmetic-coded and a CMYK image among them), train
@@ -421,15 +427,16 @@ def test_committed_fixtures_match_their_goldens():
     goldens = json.loads((JPEG_ASSETS / "goldens.json").read_text())
     for name, g in goldens["streams"].items():
         data = (JPEG_ASSETS / g["file"]).read_bytes()
-        if "refused" in g:
-            with pytest.raises(native.UnsupportedImage, match=g["refused"]):
-                native.decode_image(data)
-            continue
         if g.get("served_refused"):
-            with pytest.raises(ValueError):
+            with pytest.raises(ValueError) as e:
                 native.decode_image(data)
+            assert not isinstance(e.value, native.UnsupportedImage), name
         else:
             assert sha256(native.decode_image(data)) == g["served_sha256"]
+        if g.get("binding_refused"):
+            with pytest.raises(native.UnsupportedImage):
+                native.decode_jpeg_rgb8(data)
+            continue
         px = native.decode_jpeg_rgb8(data) if g["file"].endswith(".jpg") \
             else native.decode_image(data)
         assert list(px.shape) == g["shape"] and sha256(px) == g["sha256"], name

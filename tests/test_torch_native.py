@@ -206,11 +206,11 @@ def test_broken_pngs_raise_value_error_not_unsupported(damage):
     (b"BM" + bytes(60), "BMP"), (b"GIF89a" + bytes(20), "GIF"),
     (b"RIFF\x00\x00\x00\x00WEBPVP8 ", "WebP"), (b"II*\x00" + bytes(8), "TIFF")])
 def test_other_formats_are_refused_by_name(data, name):
-    """WebP and TIFF, which PIL opens and the port does not, are refused
-    naming the format (415); BMP and GIF are decoded now, so these broken
-    ones are refused as PIL refuses them, with ValueError naming the
-    format (400)."""
-    if name in ("BMP", "GIF"):
+    """TIFF, which PIL opens and the port does not, is refused naming the
+    format (415); BMP, GIF and WebP are decoded now, so these broken ones
+    are refused as PIL refuses them, with ValueError naming the format
+    (400)."""
+    if name in ("BMP", "GIF", "WebP"):
         with pytest.raises(ValueError, match=name) as e:
             native.decode_image(data)
         assert not isinstance(e.value, native.UnsupportedImage)

@@ -4,9 +4,9 @@ against the JAX package's ``serve.py`` on shared weights: an AttentionSR
 served by both in float32 answers the same PNG, small and tiled, within
 1 uint8 level; ``/healthz`` and ``/statz`` carry JAX's keys; zoo
 routing, the JPEG response format, every error status of JAX's server
-(and 415 for images the port does not read), the shutdown drain, warmup,
-the CLI end to end with SIGTERM, and the unported flags naming their
-ROADMAP items."""
+(and 415 for images the port does not read, such as TIFF), the shutdown
+drain, warmup, the CLI end to end with SIGTERM, and the unported flags
+naming their ROADMAP items."""
 import io
 import json
 import os
@@ -300,12 +300,14 @@ def _post(body: bytes, length=None) -> bytes:
     (b"\x00\xff GARBAGE\r\n\r\n", None, b""),
     (_post(b"this is not an image at all, not even close"), b"400",
      b"could not decode"),
-    (_post(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(64)), b"415", b"WebP"),
+    (_post(b"II*\x00" + bytes(64)), b"415", b"TIFF"),
+    (_post(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(64)), b"400",
+     b"could not decode"),
     (b"GET /nowhere HTTP/1.1\r\nHost: x\r\n\r\n", b"404", b""),
     (_post(b"x", b"1").replace(b"/sr", b"/upscale"), b"404", b"/sr"),
 ], ids=["413", "negative-length", "non-numeric-length", "truncated-body",
-        "garbage-request-line", "non-image", "bmp-415", "get-404",
-        "post-404"])
+        "garbage-request-line", "non-image", "bmp-415", "webp-400",
+        "get-404", "post-404"])
 def test_error_statuses_and_the_server_survives(pair, payload, status, text):
     port = pair[3]
     resp = _raw_request(port, payload)

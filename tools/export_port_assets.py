@@ -15,8 +15,8 @@ file). For the committed SRCNN winner (``weights/winner_srcnn_best``,
   served outputs for them (``sr_0``..``sr_3``: ``serve.SRServer("auto",
   checkpoint, dtype=float32).upscale``).
 
-For the port's JPEG codec it writes ``assets/jpeg/`` (``--what jpeg``),
-under 500 KB:
+For the port's codecs it writes ``assets/jpeg/`` (``--what jpeg``),
+under 600 KB:
 
 - ``food-101/``: a mini Food-101 tree (``images/<class>/<id>.jpg``,
   ``meta/train.txt`` and ``meta/test.txt``) of 16 train and 4 test images
@@ -28,19 +28,28 @@ under 500 KB:
 - ``streams/``: one stream per decoder feature. Written by PIL: 4:4:4,
   4:2:2, 4:2:0, grayscale, progressive, optimized Huffman, restart
   markers, EXIF, 16-bit DQT, odd sizes, CMYK, 16-bit gray PNG, GIF
-  (interlaced and not), BMP (1-, 8-, 24- and 32-bit) and a WebP the
-  port refuses. Written by libjpeg through a small C helper built here
-  with ``gcc -ljpeg``: arithmetic coding (sequential, progressive, with
-  restarts), YCCK, and progressive scripts that leave coefficients
-  unrefined (block smoothing). Assembled with ``struct`` and ``zlib``:
-  16-bit RGB, RGBA and gray+alpha PNG, Adam7-interlaced PNG, a lossless
-  (SOF3) JPEG, RLE8, 16-bit and top-down BMP; truncated JPEGs are other
-  streams cut short;
+  (interlaced and not), BMP (1-, 8-, 24- and 32-bit), lossy, lossless,
+  RGBA, ICC/EXIF WebP. Written by libjpeg through a small C helper built
+  here with ``gcc -ljpeg``: arithmetic coding (sequential, progressive,
+  with restarts; one past PIL's 64 KiB read block), YCCK, and
+  progressive scripts that leave coefficients unrefined (block
+  smoothing). Written by the wheel's libwebp through ctypes
+  (``libwebp()``): WebP with the simple loop filter, none, sharpness 7,
+  1 and 4 segments, 8 token partitions, quantized alpha levels.
+  Assembled with ``struct`` and ``zlib``: 16-bit RGB, RGBA and gray+alpha
+  PNG, Adam7-interlaced PNG, a lossless (SOF3) JPEG, RLE8, 16-bit and
+  top-down BMP, WebP ALPH raw and VP8L-coded with each filter, an
+  animated WebP whose first frame is smaller than its canvas, 12-bit and
+  hierarchical JPEG (a frame header patched); truncated JPEGs are other
+  streams cut short, two of them just before EOI (one PIL decodes);
 - ``goldens.json``: sha256 digests (not pixels, to stay small) of, for
   each stream, the JAX package's ``decode_jpeg_rgb8`` (``sha256``; for
-  PNG, GIF and BMP PIL's decode) and of what its server decodes, PIL's
+  PNG, GIF, BMP and WebP PIL's decode; ``binding_refused`` where it
+  raises) and of what its server decodes, PIL's
   ``Image.open(...).convert("RGB")`` (``served_sha256``, or
-  ``served_refused`` where PIL raises); of its region decodes at seeded
+  ``served_refused`` where PIL raises); of each lossy WebP still's
+  Y/U/V planes, libwebp's ``WebPDecodeYUV`` (``yuv_sha256``: the three
+  planes' bytes in turn); of its region decodes at seeded
   regions (``crops``: ``decode_jpeg_crop_rgb8``, or its loader's PIL
   fallback, full decode then crop, where that returns None); of its
   ``encode_jpeg_rgb8`` at q90 on a seeded 256x256 image and at q92 on a
@@ -220,6 +229,161 @@ def libjpeg_encoder():
             raise RuntimeError("libjpeg encode failed")
         return out.raw[:n]
     return encode
+
+
+class _WebPConfig(ctypes.Structure):
+    """libwebp's WebPConfig (encode.h), field for field."""
+    _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR")
+                 else ctypes.c_int) for n in (
+        "lossless quality method image_hint target_size target_PSNR "
+        "segments sns_strength filter_strength filter_sharpness filter_type "
+        "autofilter alpha_compression alpha_filtering alpha_quality pass_ "
+        "show_compressed preprocessing partitions partition_limit "
+        "emulate_jpeg_size thread_level low_memory near_lossless exact "
+        "use_delta_palette use_sharp_yuv qmin qmax").split()] + [
+        ("pad", ctypes.c_uint32 * 8)]
+
+
+class _WebPPicture(ctypes.Structure):
+    """libwebp's WebPPicture (encode.h), field for field."""
+    _vp, _i, _u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    _fields_ = [("use_argb", _i), ("colorspace", _i), ("width", _i),
+                ("height", _i), ("y", _vp), ("u", _vp), ("v", _vp),
+                ("y_stride", _i), ("uv_stride", _i), ("a", _vp),
+                ("a_stride", _i), ("pad1", _u * 2), ("argb", _vp),
+                ("argb_stride", _i), ("pad2", _u * 3), ("writer", _vp),
+                ("custom_ptr", _vp), ("extra_info_type", _i),
+                ("extra_info", _vp), ("stats", _vp), ("error_code", _i),
+                ("progress_hook", _vp), ("user_data", _vp),
+                ("pad3", _u * 3), ("pad4", _vp), ("pad5", _vp),
+                ("pad6", _u * 8), ("memory_", _vp), ("memory_argb_", _vp),
+                ("pad7", _vp * 2)]
+
+
+class _WebPWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.c_void_p), ("size", ctypes.c_size_t),
+                ("max_size", ctypes.c_size_t), ("pad", ctypes.c_uint32)]
+
+
+def libwebp():
+    """The libwebp that PIL's wheel ships, through ctypes: ``encode(img,
+    **config)`` (uint8 HxWx3 or HxWx4; any WebPConfig field, e.g.
+    ``filter_type=0``, ``segments=1``, ``partitions=3``,
+    ``alpha_filtering=2``) -> a whole WebP file, and ``decode_yuv(data)``
+    -> WebPDecodeYUV's (y, u, v) planes. Raises OSError where the wheel
+    has no libwebp."""
+    import glob
+    import types
+
+    import PIL
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                        "pillow.libs")
+    found = glob.glob(os.path.join(libs, "libwebp-*.so*"))
+    if not found:
+        raise OSError(f"no libwebp under {libs}")
+    for dep in sorted(glob.glob(os.path.join(libs, "libsharpyuv-*.so*"))):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+    lib = ctypes.CDLL(found[0])
+    abi = 0x0200  # the encoder and decoder ABIs' major version
+    vp = ctypes.c_void_p
+    lib.WebPDecodeYUV.restype = vp
+    lib.WebPDecodeYUV.argtypes = [ctypes.c_char_p, ctypes.c_size_t] + [vp] * 6
+    lib.WebPFree.argtypes = [vp]
+
+    def encode(img, **config):
+        img = np.ascontiguousarray(img, np.uint8)
+        h, w, nc = img.shape
+        cfg = _WebPConfig()
+        if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0,
+                                          ctypes.c_float(75.0), abi):
+            raise OSError("WebPConfigInit failed")
+        for k, v in config.items():
+            setattr(cfg, k, v)
+        pic = _WebPPicture()
+        if not lib.WebPPictureInitInternal(ctypes.byref(pic), abi):
+            raise OSError("WebPPictureInit failed")
+        pic.use_argb = int(bool(cfg.lossless))
+        pic.width, pic.height = w, h
+        imp = (lib.WebPPictureImportRGBA if nc == 4
+               else lib.WebPPictureImportRGB)
+        if not imp(ctypes.byref(pic), img.ctypes.data_as(vp), w * nc):
+            raise OSError("WebPPictureImport failed")
+        wr = _WebPWriter()
+        lib.WebPMemoryWriterInit(ctypes.byref(wr))
+        pic.writer = ctypes.cast(lib.WebPMemoryWrite, vp).value
+        pic.custom_ptr = ctypes.addressof(wr)
+        ok = lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic))
+        data = ctypes.string_at(wr.mem, wr.size) if ok else None
+        lib.WebPMemoryWriterClear(ctypes.byref(wr))
+        lib.WebPPictureFree(ctypes.byref(pic))
+        if data is None:
+            raise OSError(f"WebPEncode failed ({pic.error_code})")
+        return data
+
+    def decode_yuv(data: bytes):
+        w, h, stride, uv_stride = (ctypes.c_int() for _ in range(4))
+        u, v = ctypes.c_void_p(), ctypes.c_void_p()
+        y = lib.WebPDecodeYUV(data, len(data), ctypes.byref(w),
+                              ctypes.byref(h), ctypes.byref(u),
+                              ctypes.byref(v), ctypes.byref(stride),
+                              ctypes.byref(uv_stride))
+        if not y:
+            raise ValueError("WebPDecodeYUV refused the stream")
+        W, H, uw, uh = w.value, h.value, (w.value + 1) // 2, (h.value + 1) // 2
+
+        def plane(ptr, rows, cols, st):
+            raw = ctypes.string_at(ptr, st * (rows - 1) + cols)
+            return np.array([np.frombuffer(raw[r * st:r * st + cols],
+                                           np.uint8) for r in range(rows)])
+        out = (plane(y, H, W, stride.value), plane(u.value, uh, uw,
+                                                    uv_stride.value),
+               plane(v.value, uh, uw, uv_stride.value))
+        lib.WebPFree(y)
+        return out
+
+    return types.SimpleNamespace(encode=encode, decode_yuv=decode_yuv)
+
+
+def webp_chunks(data: bytes) -> list:
+    """(fourcc, payload) of each chunk of a WebP file's RIFF body."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        tag, n = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((tag, data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def webp_file(chunks) -> bytes:
+    """A WebP file from (fourcc, payload) chunks, each padded to even."""
+    body = b"".join(t + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1)
+                    for t, p in chunks)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def webp_vp8x(w: int, h: int, flags: int) -> tuple:
+    return (b"VP8X", struct.pack("<I", flags) + (w - 1).to_bytes(3, "little")
+            + (h - 1).to_bytes(3, "little"))
+
+
+def webp_raw_alpha(alpha: np.ndarray, filt: int) -> bytes:
+    """An uncompressed ALPH payload: the plane predicted by ``filt`` (0
+    none, 1 horizontal, 2 vertical, 3 gradient) as libwebp's filters do."""
+    a = alpha.astype(np.int32)
+    h, w = a.shape
+    pred = np.zeros_like(a)
+    if filt:
+        pred[0, 1:] = a[0, :-1]  # the first row is always horizontal
+        if filt == 1:
+            pred[1:, 0] = a[:-1, 0]
+            pred[1:, 1:] = a[1:, :-1]
+        elif filt == 2:
+            pred[1:] = a[:-1]
+        else:
+            pred[1:, 0] = a[:-1, 0]
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0,
+                                   255)
+    return bytes([filt << 2]) + ((a - pred) & 0xFF).astype(np.uint8).tobytes()
 
 
 def lossless_jpeg(img: np.ndarray, predictor: int, pt: int = 0,
@@ -413,6 +577,101 @@ def _other_streams(rng) -> dict:
     return out
 
 
+def webp_lossless_alpha(alpha: np.ndarray, filt: int, encode) -> bytes:
+    """A VP8L-coded ALPH payload: the plane predicted by ``filt`` as
+    webp_raw_alpha does, coded by libwebp's lossless encoder as the green
+    channel of an image (its VP8L stream without the 5-byte header)."""
+    res = np.frombuffer(webp_raw_alpha(alpha, filt)[1:], np.uint8).reshape(
+        alpha.shape)
+    vp8l = dict(webp_chunks(encode(np.repeat(res[..., None], 3, 2),
+                                   lossless=1, exact=1)))[b"VP8L"]
+    return bytes([1 | filt << 2]) + vp8l[5:]
+
+
+def webp_anmf(x: int, y: int, still: bytes) -> tuple:
+    """An ANMF chunk at (x, y) holding a still's ALPH/VP8/VP8L chunks."""
+    chunks = [(t, p) for t, p in webp_chunks(still)
+              if t in (b"ALPH", b"VP8 ", b"VP8L")]
+    img = chunks[-1][1]
+    if chunks[-1][0] == b"VP8L":
+        bits = int.from_bytes(img[1:5], "little")
+        w, h = (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    else:
+        w, h = (v & 0x3FFF for v in struct.unpack_from("<HH", img, 6))
+    hdr = b"".join(v.to_bytes(3, "little") for v in (x // 2, y // 2, w - 1,
+                                                     h - 1, 100)) + b"\0"
+    body = b"".join(t + struct.pack("<I", len(p)) + p + b"\0" * (len(p) & 1)
+                    for t, p in chunks)
+    return (b"ANMF", hdr + body)
+
+
+def _webp_streams() -> dict:
+    """name -> bytes of the WebP streams: PIL's lossy (quality 0, 50 and
+    100, methods 0 and 6, odd sizes, a 512x384), lossless, RGBA, ICC and
+    EXIF; libwebp's encoder (ctypes) for the simple filter, a filter
+    strength of 0, sharpness 7, 1 and 4 segments, 8 token partitions,
+    quantized alpha levels; and assembled here: ALPH raw and VP8L-coded
+    with each filter, an animation whose first frame is smaller than the
+    canvas."""
+    rng = np.random.default_rng(17)
+    enc = libwebp().encode
+    out = {}
+
+    def pil(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="WEBP", **kw)
+        return buf.getvalue()
+    photo = make_image(rng, 64, 64)
+    for h, w in ((1, 1), (13, 7), (97, 131)):
+        out[f"webp_{h}x{w}"] = pil(make_image(rng, h, w), quality=80)
+    for q in (0, 50, 100):
+        out[f"webp_q{q}"] = pil(photo, quality=q)
+    for m in (0, 6):
+        out[f"webp_method{m}"] = pil(photo, quality=75, method=m)
+    big = make_image(rng, 384, 512)
+    out["webp_512x384"] = pil(big, quality=60)
+    for name, cfg in (("simple_filter", {"filter_type": 0}),
+                      ("filter0", {"filter_strength": 0}),
+                      ("sharpness7", {"filter_sharpness": 7}),
+                      ("segments1", {"segments": 1}),
+                      ("segments4", {"segments": 4, "sns_strength": 100}),
+                      ("partitions8", {"partitions": 3})):
+        out[f"webp_{name}"] = enc(photo, quality=70, **cfg)
+    small = make_image(rng, 40, 48)
+    out["webp_lossless"] = pil(small, lossless=True, exact=True)
+    pal = (rng.integers(0, 6, (31, 37)) * 40).astype(np.uint8)
+    out["webp_lossless_palette"] = pil(np.stack([pal, pal // 2, 255 - pal],
+                                                2), lossless=True)
+    alpha = np.clip(np.add.outer(np.arange(64) * 3, np.arange(64) * 2)
+                    + rng.integers(0, 24, (64, 64)), 0, 255).astype(np.uint8)
+    rgba = np.concatenate([photo, alpha[..., None]], 2)
+    out["webp_rgba"] = pil(rgba, quality=70)
+    out["webp_rgba_lossless"] = pil(rgba[:40, :48], lossless=True,
+                                    exact=True)
+    out["webp_alpha_levels"] = enc(rgba, quality=70, alpha_quality=50)
+    base = webp_chunks(enc(rgba, quality=70, alpha_compression=0))
+    for f in range(4):
+        for kind, payload in (("raw", webp_raw_alpha(alpha, f)),
+                              ("vp8l", webp_lossless_alpha(alpha, f, enc))):
+            if kind == "vp8l" and f == 0:
+                continue  # webp_rgba is that
+            out[f"webp_alpha_{kind}_f{f}"] = webp_file(
+                [(t, payload if t == b"ALPH" else p) for t, p in base])
+    exif = Image.Exif()
+    exif[0x010E] = "a plate of food"
+    out["webp_icc_exif"] = pil(small, quality=80, icc_profile=bytes(64),
+                               exif=exif.tobytes())
+    frames = [enc(make_image(rng, 30, 40), quality=70),
+              enc(make_image(rng, 48, 64), lossless=1),
+              enc(np.concatenate([make_image(rng, 48, 64),
+                                  alpha[:48, :, None]], 2), quality=70)]
+    out["webp_animation"] = webp_file(
+        [webp_vp8x(64, 48, 0x12), (b"ANIM", bytes(6)),
+         webp_anmf(8, 6, frames[0]), webp_anmf(0, 0, frames[1]),
+         webp_anmf(0, 0, frames[2])])
+    return {f"{k}.webp": v for k, v in out.items()}
+
+
 def _streams() -> dict:
     """name -> JPEG bytes, one per decoder feature."""
     rng = np.random.default_rng(11)
@@ -453,7 +712,44 @@ def _streams() -> dict:
                                              "progressive"),
                       ("truncated_arith", "arith_progressive")):
         out[name] = out[src][:len(out[src]) * 2 // 3]
-    return {f"{k}.jpg": v for k, v in out.items()} | _other_streams(rng)
+    out.update(_pil_feed_streams(enc))
+    return ({f"{k}.jpg": v for k, v in out.items()} | _other_streams(rng)
+            | _webp_streams())
+
+
+def _pil_feed_streams(enc) -> dict:
+    """The JPEG uploads whose answer rests on how PIL feeds libjpeg: two
+    baseline streams cut just before their EOI marker (one PIL decodes,
+    its reader having read ahead no further than the data; one it
+    refuses), an arithmetic-coded stream whose scan runs past PIL's first
+    64 KiB block (refused: libjpeg's arithmetic decoder cannot suspend),
+    and a 12-bit and a hierarchical stream (refused; the JAX package's
+    binding refuses them too)."""
+    rng = np.random.default_rng(23)
+    out = {}
+    while len(out) < 2:
+        h, w = (int(v) for v in rng.integers(12, 64, 2))
+        cut = _pil_jpeg(Image.fromarray(make_image(rng, h, w)),
+                        quality=90)[:-2]
+        try:
+            _pil_rgb(cut)
+            out.setdefault("cut_before_eoi_decodes", cut)
+        except OSError:
+            out.setdefault("cut_before_eoi", cut)
+    side = 224
+    while "arith_past_64k" not in out:  # just past one block: keep it small
+        data = enc(make_image(rng, side, side), 97, arith=1)
+        if len(data) > 65536:
+            try:
+                _pil_rgb(data)
+            except OSError:
+                out["arith_past_64k"] = data
+        side += 4
+    base = _pil_jpeg(Image.fromarray(make_image(rng, 16, 16)), quality=90)
+    i = base.index(b"\xff\xc0")
+    out["precision_12bit"] = base[:i + 4] + b"\x0c" + base[i + 5:]
+    out["hierarchical"] = base[:i + 1] + b"\xc5" + base[i + 2:]
+    return out
 
 
 def export_jpeg(out_dir: str) -> dict:
@@ -492,17 +788,22 @@ def export_jpeg(out_dir: str) -> dict:
             f.write(data)
         name, ext = os.path.splitext(fname)
         entry = {"file": f"streams/{fname}"}
-        if ext == ".webp":
-            entry["refused"] = "WebP"
-            goldens["streams"][name] = entry
-            continue
         try:
             served = _pil_rgb(data)
             entry["served_sha256"] = sha256(served)
         except OSError:
             served, entry["served_refused"] = None, True
-        px = jax_native.decode_jpeg_rgb8(data) if ext == ".jpg" else served
+        try:
+            px = (jax_native.decode_jpeg_rgb8(data) if ext == ".jpg"
+                  else served)
+        except (ValueError, RuntimeError, OSError):
+            entry["binding_refused"] = True
+            goldens["streams"][name] = entry
+            continue
         entry.update(shape=list(px.shape), sha256=sha256(px))
+        if ext == ".webp" and b"VP8 " in data[12:] and b"ANMF" not in data:
+            entry["yuv_sha256"] = sha256(np.concatenate(
+                [p.ravel() for p in libwebp().decode_yuv(data)]))
         goldens["streams"][name] = entry
         if ext != ".jpg":
             continue
