@@ -63,6 +63,31 @@ Phases, one short line each; any failure raises and the exit code is 1:
           PIL refuses) and 415 (TIFF, naming it); then K2 NHWC at the
           --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
+8b. winner  the trained AttentionSR x4 winner, the committed asset
+          (food101_sr_tpu_torch/assets/winner_attentionsr.pth, 5,842,630
+          parameters) held against the JAX package's goldens for it
+          (tools/export_port_assets.py --what attentionsr): the handler of
+          ``serve --architecture auto --checkpoint <asset> --warmup
+          --dtype float32`` in this process, TF32 off, answers the five
+          golden LR inputs as PNG uploads (four small: the mini tree's
+          test images; one 200x152, tiled), each within 1 level of JAX's
+          float32 output; the four scored on the card (their HRs rebuilt
+          from the committed JPEGs by the port's decoder): PSNR, SSIM,
+          LPIPS and NLPD against JAX's, and LPIPS and NLPD against the CPU
+          calculator's; a bf16 server and a bf16 --quantize int8 server:
+          their PSNR costs against the port's own float32 PSNR beside
+          JAX's, and the int8 SNR; predict on the five PNGs byte-equal to
+          the server's responses; export_serving of the asset at 64x64
+          (bf16, --check), its program from load_bucket byte-equal to the
+          eager bf16 forward on the small inputs' tiles; the README's GAN
+          fine-tune and the RUNBOOK's QAT fine-tune (train
+          --pretrained_weights <asset> on the mini tree, one epoch each):
+          the generator before the first step equal to the asset bit for
+          bit, every logged loss finite, nothing skipped; visualize's
+          default table (the SRCNN and AttentionSR assets; the absent
+          winners' rows skipped); K2 NHWC on the trained net's bf16 SE
+          inputs and K1 on the scoring pyramids against their plain
+          versions, with times ("winner numbers:" line)
 9. train  the supervised step on the registry AttentionSR x4 (float32,
           channels-last, the phase-space tail as train() runs it, train
           mode), NLPD loss, Adam 4e-4, batch 16 of
@@ -282,7 +307,11 @@ main path and read just after it: serving (the serve and score phases:
 K2 32 per device batch, all through the NHWC entry, and K1 4 for the one
 NLPD call), the http phase (K2 NHWC 32 per device batch of the zoo and
 of predict's server, 64 per --tta device batch, K1 0: ``http_launches``;
-the --tta requests' alone on K2's TTA-shape row), one train step (K1 4
+the --tta requests' alone on K2's TTA-shape row), the winner phase's
+runs (``winner_launches``: the float32 server's HTTP round with its
+scoring, K2 NHWC 32 per device batch and K1 4 per NLPD call; the bf16
+and int8 servers; predict; one exported program call; the two
+fine-tunes; visualize; per run in ``winner numbers:``), one train step (K1 4
 forward and 4 backward, K2 NHWC 32, K2 plane 0), one GAN D step and one G step (K2 NHWC 32 each, K1 0), one
 train step of each of the other generators (K1 8, K2 0:
 ``generator_launches``), the uninterrupted train() runs of the loop
@@ -426,6 +455,30 @@ HTTP_TILED_SHAPE = (200, 152)
 TTA_REQUESTS, TTA_CHECKED, PREDICT_IMAGES, DRAIN_REQUESTS = 16, 2, 16, 4
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "food101_sr_tpu_torch", "assets")
+# the winner phase: the trained AttentionSR x4 winner (the committed asset
+# and the JAX package's goldens for it, tools/export_port_assets.py --what
+# attentionsr): WINNER_SMALL small inputs (the mini tree's test images,
+# their HRs rebuilt here) and one tiled one. The port's float32 server
+# within LEVEL_TOL of JAX's float32 outputs on all five; on the small ones
+# its scores within WINNER_PSNR_DB (dB) and WINNER_SSIM of JAX's, LPIPS
+# and NLPD within WINNER_RTOL relative, and the PSNR costs of its bf16 and
+# its int8 server (each the mean of the per-image gaps to the port's own
+# float32 PSNR) within WINNER_BF16_DB and WINNER_INT8_DB of JAX's costs.
+# The port's CPU servers against the same goldens measured: PSNR 2.7e-5
+# dB, SSIM 1.5e-5, LPIPS 2.8e-5 and NLPD 1.2e-5 relative; the bf16 cost
+# 0.0427 dB against JAX's 0.0363 (0.0064 apart), int8 0.1325 against
+# 0.1213 (0.0112 apart); int8 SNR 42.68 dB against JAX's 42.02
+WINNER_SMALL = 4
+WINNER_PSNR_DB, WINNER_SSIM, WINNER_RTOL = 0.01, 1e-4, 1e-3
+WINNER_BF16_DB, WINNER_INT8_DB = 0.05, 0.02
+# the README's GAN fine-tune and the RUNBOOK's QAT fine-tune from the
+# winner, one epoch of the mini tree each (16 train images: 14 train, 2
+# val; 4 test) at WINNER_BATCH crops of WINNER_CROP px; visualize on
+# WINNER_VIS synthetic images
+WINNER_TUNES = {"gan": ["--loss_function", "gan", "--lr", "1e-4"],
+                "qat": ["--loss_function", "mae", "--quantize", "qat",
+                        "--lr", "1e-4"]}
+WINNER_BATCH, WINNER_CROP, WINNER_VIS = 4, 200, 4
 
 # the food101 phase: the committed JPEG fixtures and the JAX package's
 # goldens for them (tools/export_port_assets.py writes both), and train()
@@ -2809,6 +2862,512 @@ def phase_http(rates) -> tuple[dict, dict]:
     return launches, _k2_tta(rates, tta_launches)
 
 
+def _psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR in dB of two uint8 images (data range 1 on the /255 values)."""
+    d = a.astype(np.float64) / 255 - b.astype(np.float64) / 255
+    return float(10 * np.log10(1.0 / np.mean(d * d)))
+
+
+def _winner_goldens() -> tuple[list, list, list, dict]:
+    """The winner's goldens (module docstring, phase 8b): the LR inputs,
+    JAX's float32 outputs (PNG streams in the file), the small inputs'
+    HRs rebuilt from the committed JPEGs by the port's decoder, centre-
+    cropped to a multiple of 4 as the tool crops them, and JAX's scores."""
+    from food101_sr_tpu_torch import native
+
+    g = np.load(os.path.join(ASSETS, "winner_attentionsr_goldens.npz"))
+    lrs = [native.decode_image(g[f"lr_{i}"].tobytes())
+           for i in range(WINNER_SMALL + 1)]
+    srs = [native.decode_image(g[f"sr_{i}"].tobytes())
+           for i in range(WINNER_SMALL + 1)]
+    base = os.path.join(JPEG_ASSETS, "food-101")
+    with open(os.path.join(base, "meta", "test.txt")) as f:
+        names = f.read().split()
+    hrs = []
+    for name in names:
+        with open(os.path.join(base, "images", name + ".jpg"), "rb") as f:
+            img = native.decode_jpeg_rgb8(f.read())
+        h, w = img.shape[:2]
+        y0, x0 = (h % 4) // 2, (w % 4) // 2
+        hrs.append(img[y0:y0 + h - h % 4, x0:x0 + w - w % 4])
+    if [h.shape for h in hrs] != [s.shape for s in srs[:WINNER_SMALL]]:
+        raise AssertionError("winner: the rebuilt HRs do not match the "
+                             "goldens' outputs in shape")
+    return lrs, srs, hrs, {k: np.asarray(g[k]) for k in (
+        "psnr", "ssim", "lpips", "nlpd", "psnr_bf16", "psnr_int8",
+        "snr_int8")}
+
+
+def _tile(x: np.ndarray, tile: int) -> np.ndarray:
+    """``x`` edge-padded to a multiple of ``tile``, as the server pads it."""
+    return np.pad(x, ((0, -x.shape[0] % tile), (0, -x.shape[1] % tile),
+                      (0, 0)), mode="edge")
+
+
+def _winner_serve(asset: str, lrs, hrs, tmp: str) -> dict:
+    """``serve --architecture auto --checkpoint asset --warmup --dtype
+    float32`` in this process, TF32 off: the five LR PNGs over HTTP and
+    the small ones scored on the card, counted from zero; then predict on
+    the same PNGs. Returns the responses, outputs, scores and launches."""
+    from food101_sr_tpu_torch import native, predict, serve
+    from food101_sr_tpu_torch.metrics import MetricsCalculator
+    from food101_sr_tpu_torch.ops import full_fp32
+
+    a = serve.parse_args(["--architecture", "auto", "--checkpoint", asset,
+                          "--warmup", "--dtype", "float32"])
+    bodies = [native.encode_png_rgb8(x) for x in lrs]
+    pred_in, pred_out = os.path.join(tmp, "in"), os.path.join(tmp, "out")
+    os.makedirs(pred_in)
+    for i, b in enumerate(bodies):
+        with open(os.path.join(pred_in, f"w{i}.png"), "wb") as f:
+            f.write(b)
+    metrics = MetricsCalculator(device="cuda")
+    out = {}
+    with full_fp32():
+        srv, default = serve.build_servers(a)
+        httpd = None
+        try:
+            t0 = time.perf_counter()
+            srv.warmup()
+            out["warmup_s"] = time.perf_counter() - t0
+            httpd = serve.SRHTTPServer(("127.0.0.1", 0),
+                                       serve.make_handler(srv, default))
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            torch.cuda.synchronize()
+            # ---- main path: counts from zero -----------------------------
+            _zero_counts()
+            b0 = srv.batcher.n_batches
+            res, out["wall_s"] = _burst(httpd.server_address[1], "/sr",
+                                        bodies, HTTP_THREADS)
+            out["batches"] = srv.batcher.n_batches - b0
+            sr = [native.decode_image(r[2]) for r in res]
+            out["scores"] = [metrics.compute(
+                sr[i][None].astype(np.float32) / 255,
+                hrs[i][None].astype(np.float32) / 255)
+                for i in range(WINNER_SMALL)]
+            torch.cuda.synchronize()
+            out["launches"] = _counts()
+            # ---- end of main path ----------------------------------------
+            out["n_blocks"] = srv.model.num_residuals
+            out["architecture"] = srv.architecture
+        finally:
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+                thread.join(timeout=60)
+            srv.close()
+        # ---- main path: predict on the same PNGs, counts from zero -------
+        _zero_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            predict.main([pred_in, "--out_dir", pred_out, "--architecture",
+                          "auto", "--checkpoint", asset, "--dtype",
+                          "float32"])
+        torch.cuda.synchronize()
+        out["predict_launches"] = _counts()
+        out["predict_s"] = time.perf_counter() - t0
+        # ---- end of main path --------------------------------------------
+    out["predict"] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["predict_bytes"] = []
+    for i in range(len(lrs)):
+        with open(os.path.join(pred_out, f"w{i}_x4.png"), "rb") as f:
+            out["predict_bytes"].append(f.read())
+    out["responses"], out["sr"] = res, sr
+    return out
+
+
+def _winner_dtypes(asset: str, lrs) -> dict:
+    """The production servers on the winner: bf16, and bf16 with
+    ``--quantize int8``, on the small inputs, each counted from zero; and
+    the bf16 net's SE inputs on one device batch of the small inputs'
+    tiles (a forward hook on every SE block), for K2."""
+    from food101_sr_tpu_torch.serving import SRServer
+
+    out = {"sr": {}, "launches": {}, "batches": {}}
+    for mode in ("", "int8"):
+        srv = SRServer("auto", checkpoint=asset, device="cuda",
+                       dtype=torch.bfloat16, quantize=mode)
+        try:
+            srv.warmup([(srv.tile, srv.tile)])
+            torch.cuda.synchronize()
+            # ---- main path: counts from zero -----------------------------
+            _zero_counts()
+            b0 = srv.batcher.n_batches
+            with cf.ThreadPoolExecutor(WINNER_SMALL) as pool:
+                out["sr"][mode] = list(pool.map(srv.upscale,
+                                                lrs[:WINNER_SMALL]))
+            torch.cuda.synchronize()
+            out["launches"][mode] = _counts()
+            out["batches"][mode] = srv.batcher.n_batches - b0
+            # ---- end of main path ----------------------------------------
+            if mode:
+                continue
+            tiles = [_tile(x, srv.tile) for x in lrs[:WINNER_SMALL]]
+            x8 = torch.from_numpy(np.stack(
+                (tiles * srv.batcher.max_batch)[:srv.batcher.max_batch])).cuda()
+            se_in = []
+            hooks = [m.register_forward_hook(
+                lambda mod, inp, o: se_in.append(inp[0].detach().clone()))
+                for n, m in srv.model.named_modules() if n.endswith(".se")]
+            try:
+                srv.forward_u8(x8)
+            finally:
+                for h in hooks:
+                    h.remove()
+            out["se_inputs"] = se_in
+        finally:
+            srv.close()
+    return out
+
+
+def _winner_export(asset: str, lrs, tmp: str) -> dict:
+    """``export_serving --architecture auto --checkpoint asset --shapes
+    64x64 --check`` (bf16, batch AOT_BATCH), then the program from
+    ``load_bucket`` on the small inputs' tiles (the first one's in row 0),
+    counted from zero, against the eager bf16 forward: byte-equal, as the
+    aot phase holds the seeded net's."""
+    from food101_sr_tpu_torch import export_serving
+    from food101_sr_tpu_torch.serving import SRServer
+
+    out_dir = os.path.join(tmp, "aot")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = export_serving.main([
+            "--architecture", "auto", "--checkpoint", asset, "--out",
+            out_dir, "--shapes", "64x64", "--batch", str(AOT_BATCH),
+            "--check"])
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        man = json.load(f)
+    if not (summary["checked"] == 1 and len(man["buckets"]) == 1
+            and man["architecture"] == "AttentionSR"
+            and man["dtype"] == "bfloat16"):
+        raise AssertionError(f"winner: export manifest {man}")
+    prog = export_serving.load_bucket(
+        os.path.join(out_dir, man["buckets"][0]["file"]), "cuda")
+    live = SRServer("auto", checkpoint=asset, device="cuda",
+                    dtype=torch.bfloat16, max_batch=AOT_BATCH)
+    try:
+        tiles = [_tile(x, live.tile) for x in lrs[:WINNER_SMALL]]
+        x = torch.from_numpy(np.stack(
+            (tiles * AOT_BATCH)[:AOT_BATCH])).cuda()
+        eager = live.forward_u8(x)
+        torch.cuda.synchronize()
+        # ---- main path: one program call, counts from zero ---------------
+        _zero_counts()
+        got = prog(x)
+        torch.cuda.synchronize()
+        launches = _counts()
+        # ---- end of main path --------------------------------------------
+        equal = bool(torch.equal(got, eager))
+    finally:
+        live.close()
+    return {"export_s": export_s, "mb": man["buckets"][0]["bytes"] / 1e6,
+            "equal": equal, "launches": launches}
+
+
+def _winner_tune(asset: str, tag: str, tmp: str, n_blocks: int) -> dict:
+    """``train --pretrained_weights asset`` with WINNER_TUNES[tag] on the
+    mini tree for one epoch, counted from zero: the generator handed to
+    its train state before any step equals the asset bit for bit (a
+    recording subclass of the loop's SRTrainState), every logged loss is
+    finite, the guard skipped nothing, launches as the closed form."""
+    from food101_sr_tpu_torch import train as train_cli
+    from food101_sr_tpu_torch.training import loop
+
+    seen = {}
+
+    class Recording(loop.SRTrainState):
+        @classmethod
+        def create(cls, model, *args, **kw):
+            seen.setdefault("g", {k: v.detach().cpu().clone()
+                                  for k, v in model.state_dict().items()})
+            return super().create(model, *args, **kw)
+
+    runs, w = os.path.join(tmp, "runs"), os.path.join(tmp, f"w_{tag}")
+    old_env, old_state = os.environ.get("FOOD101_SR_RUN_DIR"), loop.SRTrainState
+    os.environ["FOOD101_SR_RUN_DIR"] = runs
+    loop.SRTrainState = Recording
+    t0 = time.perf_counter()
+    try:
+        # ---- main path: one fine-tune, counts from zero ------------------
+        _zero_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            final = train_cli.main([
+                "--dataset", "food101", "--data_root", JPEG_ASSETS,
+                "--architecture", "AttentionSR", *WINNER_TUNES[tag],
+                "--epochs", "1", "--batch_size", str(WINNER_BATCH),
+                "--crop_size", str(WINNER_CROP), "--pretrained_weights",
+                asset, "--save_name", f"winner_{tag}", "--weights_dir", w,
+                "--log_every", "1", "--run_name", f"winner_{tag}",
+                "--use_wandb", "false"])
+        torch.cuda.synchronize()
+        launches = _counts()
+        # ---- end of main path --------------------------------------------
+    finally:
+        loop.SRTrainState = old_state
+        if old_env is None:
+            os.environ.pop("FOOD101_SR_RUN_DIR", None)
+        else:
+            os.environ["FOOD101_SR_RUN_DIR"] = old_env
+    wall = time.perf_counter() - t0
+    sd = torch.load(asset, weights_only=True)
+    if not (seen.get("g", {}).keys() >= sd.keys() and all(
+            torch.equal(seen["g"][k], v) for k, v in sd.items())):
+        raise AssertionError(f"winner {tag}: the generator before the first "
+                             "step is not the asset")
+    with open(os.path.join(runs, f"winner_{tag}", "log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "train_loss" in r]
+    (epoch,) = [r for r in recs if "epoch" in r]
+    nb = _loop_batches(16, 4, {"seed": 0, "batch_size": WINNER_BATCH})
+    d_steps = (len(range(0, nb["steps"], loop.DEFAULTS["d_update_every"]))
+               if tag == "gan" else 0)
+    want = (4 * nb["test"],
+            n_blocks * (nb["steps"] + d_steps + nb["val"] + nb["test"]), 0)
+    losses = [v for r in steps for k, v in r.items() if "loss" in k]
+    if not (launches == want and len(steps) == nb["steps"]
+            and all(np.isfinite(losses))
+            and all(r.get(k, 0) == 0 for r in steps
+                    for k in ("nonfinite_steps", "nonfinite_steps_D"))
+            and epoch["nonfinite_total"] == 0
+            and all(np.isfinite(list(final.values())))):
+        raise AssertionError(f"winner {tag}: launches {launches} (expected "
+                             f"{want}), {len(steps)} logged steps, losses "
+                             f"{losses}, epoch {epoch}, final {final}")
+    return {"launches": launches, "steps": nb["steps"], "d_steps": d_steps,
+            "step_ms": epoch["time/step_ms"], "train_loss": [
+                r["train_loss"] for r in steps], "final": final,
+            "wall_s": wall}
+
+
+def _winner_kernels(rates, se_inputs, sr, hrs) -> tuple[dict, dict]:
+    """K2 NHWC on the trained net's bf16 SE inputs (every block's, one
+    device batch) within one bf16 ulp of its plain version, timed on the
+    first; K1 forward and backward on the scoring pyramids of the small
+    inputs (pred and target of one image, 4 levels, the served outputs)
+    within K1_TOL, timed on the first image's."""
+    from food101_sr_tpu_torch.ops.gaussian import depthwise_blur
+    from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
+                                                       spatial_mean_plain)
+
+    ulp = err2 = 0.0
+    for x in se_inputs:
+        if not (x.dtype == torch.bfloat16
+                and x.is_contiguous(memory_format=torch.channels_last)):
+            raise AssertionError(f"winner: SE input {x.dtype} {x.shape}")
+        got, want = mean_nhwc_kernel(x).float(), spatial_mean_plain(x).float()
+        ulp = max(ulp, ((got - want).abs() / _ulp_bf16(want)).max().item())
+        err2 = max(err2, (got - want).abs().max().item())
+    if not ulp <= 1.0:
+        raise AssertionError(f"winner: K2 on the SE inputs, {ulp} ulp")
+    x = se_inputs[0]
+    k2 = _timings(lambda: mean_nhwc_kernel(x), lambda: spatial_mean_plain(x),
+                  lambda: x.mean((2, 3)), launches=1)
+    k2["bound_ms"], k2["bound_by"] = bound(
+        2 * x.numel() + 2 * x.shape[0] * x.shape[1], x.numel(), rates)
+    k2.update(ulp=ulp, max_abs_err=err2, at=f"{tuple(x.shape)} bfloat16 channels-last, the "
+              f"trained winner's SE inputs ({len(se_inputs)} blocks, one "
+              "device batch of the small inputs' tiles)")
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    pyrs = []
+    for s, h in zip(sr, hrs):
+        lv = torch.from_numpy(np.stack([s, h])).cuda().permute(
+            0, 3, 1, 2).float().contiguous() / 255
+        pyr = []
+        for _ in range(4):
+            pyr.append(lv)
+            lv = depthwise_blur(lv)[:, :, ::2, ::2].contiguous()
+        pyrs.append(pyr)
+    err = max(_k1_err(p, gen) for p in pyrs)
+    if not err <= K1_TOL:
+        raise AssertionError(f"winner: K1 on the scoring pyramids, {err}")
+    k1 = _k1_timings(pyrs[0], rates)
+    sides = ",".join(f"{p.shape[2]}x{p.shape[3]}" for p in pyrs[0])
+    k1.update(max_abs_err=err, at=f"(2,3,{{{sides}}}) float32, the scoring "
+              "pyramid of one served output and its HR; checked at the "
+              f"{len(pyrs)} small inputs' sizes")
+    return k1, k2
+
+
+def phase_winner(rates, k1: dict, k2: dict) -> dict:
+    """The trained AttentionSR x4 winner through the port's entry points
+    (module docstring, phase 8b). Returns the launches of its counted runs
+    by kernel and the kernels line's two new rows."""
+    from food101_sr_tpu_torch import visualize
+    from food101_sr_tpu_torch.metrics import MetricsCalculator
+
+    t_phase = time.perf_counter()
+    asset = os.path.join(ASSETS, "winner_attentionsr.pth")
+    lrs, srs, hrs, gold = _winner_goldens()
+    small = range(WINNER_SMALL)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_winner_") as tmp:
+        serve = _winner_serve(asset, lrs, hrs, tmp)
+        n_blocks = serve["n_blocks"]
+        runs["serve"] = serve["launches"]
+        runs["predict"] = serve["predict_launches"]
+        prod = _winner_dtypes(asset, lrs)
+        runs.update({f"bf16{m and '_' + m}": c
+                     for m, c in prod["launches"].items()})
+        aot = _winner_export(asset, lrs, tmp)
+        runs["aot"] = aot["launches"]
+        tunes = {tag: _winner_tune(asset, tag, tmp, n_blocks)
+                 for tag in WINNER_TUNES}
+        runs.update({f"tune_{t}": r["launches"] for t, r in tunes.items()})
+        # ---- main path: visualize's default table, counts from zero -----
+        _zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the absent winners' rows
+            times = visualize.run_comparison(
+                dataset="synthetic", num_examples=WINNER_VIS, seed=0,
+                out_dir=os.path.join(tmp, "report"))
+        torch.cuda.synchronize()
+        runs["visualize"] = _counts()
+        # ---- end of main path -------------------------------------------
+
+    # the served outputs against JAX's float32 goldens, the tiled one too
+    sr = serve["sr"]
+    levels = [_levels(s, g) for s, g in zip(sr, srs)]
+    if not (serve["architecture"] == "AttentionSR"
+            and all(r[1]["Content-Type"] == "image/png"
+                    for r in serve["responses"])
+            and max(levels) <= LEVEL_TOL):
+        raise AssertionError(f"winner: served vs JAX goldens {levels} "
+                             "levels")
+    if serve["launches"] != (4 * WINNER_SMALL, n_blocks * serve["batches"],
+                             0):
+        raise AssertionError(f"winner: serve launches {serve['launches']} "
+                             f"for {serve['batches']} device batches and "
+                             f"{WINNER_SMALL} NLPD calls")
+    # the port's scores against JAX's, and against the CPU calculator's
+    cpu = MetricsCalculator(device="cpu")
+    plain = [cpu.compute(sr[i][None].astype(np.float32) / 255,
+                         hrs[i][None].astype(np.float32) / 255)
+             for i in small]
+    got = {k: np.array([s[k] for s in serve["scores"]])
+           for k in ("psnr", "ssim", "lpips", "nlpd")}
+    dist = {"psnr_db": float(np.abs(got["psnr"] - gold["psnr"]).max()),
+            "ssim": float(np.abs(got["ssim"] - gold["ssim"]).max()),
+            **{f"{k}_rel": float((np.abs(got[k] - gold[k])
+                                  / np.abs(gold[k])).max())
+               for k in ("lpips", "nlpd")}}
+    card_cpu = {k: max(abs(s[k] - p[k]) / abs(p[k])
+                       for s, p in zip(serve["scores"], plain))
+                for k in ("lpips", "nlpd")}
+    if not (dist["psnr_db"] <= WINNER_PSNR_DB and dist["ssim"] <= WINNER_SSIM
+            and dist["lpips_rel"] <= WINNER_RTOL
+            and dist["nlpd_rel"] <= WINNER_RTOL
+            and card_cpu["nlpd"] <= NLPD_RTOL
+            and card_cpu["lpips"] <= LPIPS_RTOL):
+        raise AssertionError(f"winner: scores {got} against JAX's {gold} "
+                             f"({dist}), card vs CPU {card_cpu}")
+    # the production dtypes' PSNR costs against the port's own float32
+    f32 = np.array([_psnr_u8(sr[i], hrs[i]) for i in small])
+    jax_f32 = np.array([_psnr_u8(srs[i], hrs[i]) for i in small])
+    costs = {}
+    for mode, key, tol in (("", "bf16", WINNER_BF16_DB),
+                           ("int8", "int8", WINNER_INT8_DB)):
+        p = np.array([_psnr_u8(y, hrs[i])
+                      for i, y in enumerate(prod["sr"][mode])])
+        port, jax = float(np.mean(f32 - p)), float(
+            np.mean(jax_f32 - gold[f"psnr_{key}"]))
+        costs[key] = {"port_db": port, "jax_db": jax, "psnr": p.tolist()}
+        if not abs(port - jax) <= tol:
+            raise AssertionError(f"winner: the {key} PSNR cost {port:.4f} dB "
+                                 f"against JAX's {jax:.4f}")
+        if prod["launches"][mode] != (0, n_blocks * prod["batches"][mode], 0):
+            raise AssertionError(f"winner: {key} server launches "
+                                 f"{prod['launches'][mode]} for "
+                                 f"{prod['batches'][mode]} device batches")
+    ref = np.concatenate([x.ravel() for x in sr[:WINNER_SMALL]]).astype(
+        np.float64)
+    q8 = np.concatenate([x.ravel() for x in prod["sr"]["int8"]]).astype(
+        np.float64)
+    costs["int8"]["snr_db"] = float(10 * np.log10(
+        np.mean(ref * ref) / np.mean((q8 - ref) ** 2)))
+    costs["int8"]["jax_snr_db"] = float(gold["snr_int8"])
+    # predict: byte-equal to the server's responses
+    pred_launches = runs["predict"]
+    if not (serve["predict"]["n_images"] == len(lrs)
+            and serve["predict"]["failed"] == 0
+            and serve["predict_bytes"] == [r[2] for r in serve["responses"]]
+            and pred_launches[0] == pred_launches[2] == 0
+            and pred_launches[1] % n_blocks == 0 and pred_launches[1] > 0):
+        raise AssertionError(f"winner: predict {serve['predict']}, launches "
+                             f"{pred_launches}, outputs byte-equal "
+                             f"{[a == r[2] for a, r in zip(serve['predict_bytes'], serve['responses'])]}")
+    # the exported program against the eager bf16 forward
+    if not (aot["equal"] and aot["launches"] == (0, n_blocks, 0)):
+        raise AssertionError(f"winner: exported program {aot}")
+    # visualize: the AttentionSR row on the asset, beside SRCNN's
+    want_vis = (0, n_blocks * _vis_forwards(WINNER_VIS), 0)
+    if not (set(times) == {"SRCNN", "AttentionSR"}
+            and runs["visualize"] == want_vis):
+        raise AssertionError(f"winner: visualize models {set(times)}, "
+                             f"launches {runs['visualize']} (expected "
+                             f"{want_vis})")
+    vis_ms = {n: float(np.mean(t) * 1e3) for n, t in times.items()}
+    k1_row, k2_row = _winner_kernels(rates, prod["se_inputs"],
+                                     sr[:WINNER_SMALL], hrs)
+    totals = [sum(c[j] for c in runs.values()) for j in range(3)]
+    k1_row.update({k: k1[k] for k in ("route", "source", "replaces",
+                                      "wrapper")},
+                  name="K1 depthwise Gaussian blur 5x5, the winner's "
+                       "scoring pyramids", launches=totals[0])
+    k2_row.update({k: k2[k] for k in ("route", "source", "replaces",
+                                      "wrapper")},
+                  name="K2 spatial mean (SE squeeze), nhwc input, the "
+                       "trained winner", launches=totals[1])
+    numbers = {
+        "levels_f32_vs_jax": levels, "batches": serve["batches"],
+        "http_images_per_s": len(lrs) / serve["wall_s"],
+        "warmup_s": serve["warmup_s"],
+        "scores": {k: v.tolist() for k, v in got.items()},
+        "jax_scores": {k: gold[k].tolist() for k in
+                       ("psnr", "ssim", "lpips", "nlpd")},
+        "distance_to_jax": dist, "card_vs_cpu_rel": card_cpu,
+        "psnr_f32": f32.tolist(), "costs": costs,
+        "predict": {**serve["predict"], "s": serve["predict_s"]},
+        "export": {k: aot[k] for k in ("export_s", "mb", "equal")},
+        "tunes": {t: {k: r[k] for k in ("steps", "d_steps", "step_ms",
+                                        "train_loss", "final", "wall_s")}
+                  for t, r in tunes.items()},
+        "visualize_ms_per_image": vis_ms,
+        "launches": runs, "phase_s": time.perf_counter() - t_phase}
+    print(f"winner: AttentionSR x4 asset, f32 over HTTP (TF32 off) vs JAX "
+          f"goldens {levels} level(s) ({serve['batches']} device batches, "
+          f"the 200x152 one tiled) | psnr {np.round(got['psnr'], 4).tolist()}"
+          f" vs JAX: {dist['psnr_db']:.2g} dB, ssim {dist['ssim']:.2g}, "
+          f"lpips rel {dist['lpips_rel']:.2g}, nlpd rel "
+          f"{dist['nlpd_rel']:.2g} | card vs CPU calculator: lpips "
+          f"{card_cpu['lpips']:.2g}, nlpd {card_cpu['nlpd']:.2g} | PSNR cost "
+          f"bf16 {costs['bf16']['port_db']:.4f} dB (JAX "
+          f"{costs['bf16']['jax_db']:.4f}), int8 "
+          f"{costs['int8']['port_db']:.4f} (JAX {costs['int8']['jax_db']:.4f})"
+          f", int8 SNR {costs['int8']['snr_db']:.2f} dB (JAX "
+          f"{costs['int8']['jax_snr_db']:.2f})", flush=True)
+    print(f"winner: predict byte-equal to the server ({len(lrs)} images, "
+          f"{serve['predict_s']:.1f} s) | export 64x64 bf16 in "
+          f"{aot['export_s']:.1f} s ({aot['mb']:.1f} MB), the program "
+          f"byte-equal to eager, K2 {aot['launches'][1]} | "
+          + " | ".join(f"{t}: {r['steps']} steps from the asset (bit-equal),"
+                       f" step {r['step_ms']:.1f} ms, losses "
+                       f"{np.round(r['train_loss'], 5).tolist()}, launches "
+                       f"{r['launches']}" for t, r in tunes.items())
+          + f" | visualize ms/image {vis_ms} | K2 on the SE inputs "
+          f"{k2_row['ulp']:.2g} ulp, K1 on the scoring pyramids "
+          f"{k1_row['max_abs_err']:.2g} | launches {runs} | "
+          f"{numbers['phase_s']:.1f} s", flush=True)
+    print("winner numbers: " + json.dumps(numbers), flush=True)
+    return {"launches": {key: totals[j] for j, key in enumerate(
+        ("K1", "K2 nhwc", "K2 nchw"))}, "rows": [k1_row, k2_row]}
+
+
 def _deterministic() -> None:
     """The loop phase's determinism switches, set in its own process
     (cuBLAS reads CUBLAS_WORKSPACE_CONFIG when CUDA starts, so the parent
@@ -5102,20 +5661,19 @@ def _nlpd_train(rates, k1: dict) -> dict:
     return row
 
 
-def _vis_forwards() -> int:
-    """AttentionSR forwards of the visualize run: one per image and one
-    warm-up per distinct padded LR shape (its images and sizes, as
-    run_comparison draws them)."""
+def _vis_forwards(n: int = VIS_IMAGES) -> int:
+    """AttentionSR forwards of a visualize run on ``n`` synthetic images:
+    one per image and one warm-up per distinct padded LR shape (its
+    images and sizes, as run_comparison draws them)."""
     from food101_sr_tpu_torch import visualize
     from food101_sr_tpu_torch.data import SyntheticSource
 
-    src = SyntheticSource(n=max(VIS_IMAGES, 16), seed=0)
-    idx = np.random.default_rng(0).choice(len(src), size=VIS_IMAGES,
-                                          replace=False)
+    src = SyntheticSource(n=max(n, 16), seed=0)
+    idx = np.random.default_rng(0).choice(len(src), size=n, replace=False)
     b, s = visualize.BUCKET, visualize.SCALE_FACTOR
     shapes = {tuple(-(-(d // s) // b) * b for d in src.sizes[i % len(src.sizes)])
               for i in idx}
-    return VIS_IMAGES + len(shapes)
+    return n + len(shapes)
 
 
 def _tools(tmp: str) -> dict:
@@ -5436,6 +5994,9 @@ def main() -> int:
     http_launches, k2_tta = phase_http(rates)
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
         d["http_launches"] = http_launches[key]
+    winner = phase_winner(rates, k1, k2_nhwc)
+    for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
+        d["winner_launches"] = winner["launches"][key]
     k1_train, k2_train = phase_train(rates)
     k2_gan = phase_gan(rates)
     gens = phase_generators()
@@ -5473,7 +6034,7 @@ def main() -> int:
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
         d["aot_launches"] = aot["launches"][key]
     keys = ("name", "route", "source", "replaces", "launches",
-            "http_launches", "loop_launches", "gan_loop_launches", "generator_launches",
+            "http_launches", "winner_launches", "loop_launches", "gan_loop_launches", "generator_launches",
             "rrdb_gan_loop_launches", "food101_loop_launches",
             "tail_launches", "quant_serve_launches", "qat_loop_launches",
             "bf16_launches", *CACHE_LAUNCH_KEYS.values(), "dp_launches",
@@ -5490,7 +6051,8 @@ def main() -> int:
     kernels = [{k: d[k] for k in keys if k in d}
                for d in (k1, k2_nhwc, k2_nchw, k2_tta, k1_train, k2_train,
                          k2_gan, k1_bf16, k2_bf16, dp["k2_rank"],
-                         dp["k2_halo"], *bench["rows"], *aot["rows"])]
+                         dp["k2_halo"], *bench["rows"], *aot["rows"],
+                         *winner["rows"])]
     print(f"done: elapsed_s {time.perf_counter() - t_start:.1f} | {smi}",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,6 +15,30 @@ file). For the committed SRCNN winner (``weights/winner_srcnn_best``,
   served outputs for them (``sr_0``..``sr_3``: ``serve.SRServer("auto",
   checkpoint, dtype=float32).upscale``).
 
+For the committed AttentionSR x4 winner (``weights/winner_attentionsr_best``,
+5,842,630 parameters; ``--what attentionsr``) it writes:
+
+- ``winner_attentionsr.pth``: its reference-layout float32 state_dict
+  (~23.4 MB), which loads with ``strict=True`` into the port's registry
+  AttentionSR (32 blocks x 96 channels);
+- ``winner_attentionsr_goldens.npz`` (under 1.5 MB): five uint8 LR inputs
+  (``lr_0``..``lr_4``) and the JAX package's float32 served outputs for
+  them (``sr_0``..``sr_4``), each stored as the bytes of a PNG stream. The
+  first four LRs are the mini tree's test images (``assets/jpeg/``,
+  below) decoded by the JAX package's binding, centre-cropped to a
+  multiple of 4 (the HR, not stored: the port's decoder rebuilds it
+  pixel-equal) and degraded x4 as its eval step does
+  (``data.prepare_batch``), rounded to uint8; the fifth is a 200x152 LR
+  of an 800x608 HR from ``make_image`` (seed 19), which takes the
+  server's tiled path. For the four small ones: the JAX
+  ``MetricsCalculator``'s ``psnr``, ``ssim``, ``lpips`` and ``nlpd`` of
+  each float32 output against its HR (LPIPS on the port's seeded
+  fallback AlexNet, the one its card host runs, written as JAX's weight
+  file: both packages score on the same weights), ``psnr_bf16`` and
+  ``psnr_int8`` of JAX's bfloat16 server and of its ``quantize="int8"``
+  one (bfloat16, its serving default), and ``snr_int8``, the int8
+  outputs' SNR in dB against the float32 ones over all four images.
+
 For the port's codecs it writes ``assets/jpeg/`` (``--what jpeg``),
 under 600 KB:
 
@@ -59,6 +83,7 @@ under 600 KB:
 
     python tools/export_port_assets.py      # JAX_PLATFORMS=cpu is set here
     python tools/export_port_assets.py --what jpeg
+    python tools/export_port_assets.py --what attentionsr   # ~4 min
 
 The directory is not called ``weights``: files under any ``weights``
 directory are kept out of the copy sent to the GPU host.
@@ -89,7 +114,8 @@ from PIL import Image  # noqa: E402
 
 from chip_smoke import jpeg_test_image, sha256  # noqa: E402
 from food101_sr_tpu import native as jax_native  # noqa: E402
-from food101_sr_tpu.data import Food101Source, SRDataLoader  # noqa: E402
+from food101_sr_tpu.data import (Food101Source, SRDataLoader,  # noqa: E402
+                                 prepare_batch)
 from food101_sr_tpu.training import load_checkpoint  # noqa: E402
 from tools.export_sr_checkpoint import export_state_dict  # noqa: E402
 from tools.make_fake_food101 import CLASSES, make_image  # noqa: E402
@@ -106,13 +132,153 @@ def golden_inputs(seed: int = SEED) -> list[np.ndarray]:
     return [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in LR_SHAPES]
 
 
-def jax_served(inputs, checkpoint: str = CHECKPOINT) -> list[np.ndarray]:
-    """The JAX package's float32 server's outputs for ``inputs``."""
+def jax_served(inputs, checkpoint: str = CHECKPOINT, dtype=jnp.float32,
+               quantize: str = "") -> list[np.ndarray]:
+    """The JAX package's server's outputs for ``inputs`` (float32 unless
+    ``dtype`` says otherwise)."""
     import serve
 
-    server = serve.SRServer("auto", checkpoint, dtype=jnp.float32)
+    server = serve.SRServer("auto", checkpoint, dtype=dtype,
+                            quantize=quantize)
     return [np.asarray(server.upscale(Image.fromarray(x)), np.uint8)
             for x in inputs]
+
+
+# The AttentionSR winner (--what attentionsr): the mini tree's four test
+# images as small inputs, and one large HR drawn by make_image whose x4 LR
+# takes the server's tiled path
+ATTN_CHECKPOINT = os.path.join(ROOT, "weights", "winner_attentionsr_best")
+ATTN_LARGE_HR, ATTN_LARGE_SEED = (800, 608), 19  # (h, w): a 200x152 LR
+
+
+def winner_hr() -> list[np.ndarray]:
+    """The HR images of the AttentionSR goldens: the mini tree's four test
+    JPEGs decoded by the JAX package's binding and centre-cropped to a
+    multiple of 4, then the large HR (``make_image`` from a fixed seed,
+    the generator of the tree the winners were trained on)."""
+    base = os.path.join(ASSETS, "jpeg", "food-101")
+    with open(os.path.join(base, "meta", "test.txt")) as f:
+        names = f.read().split()
+    out = []
+    for name in names:
+        with open(os.path.join(base, "images", name + ".jpg"), "rb") as f:
+            img = jax_native.decode_jpeg_rgb8(f.read())
+        out.append(center_crop4(img))
+    out.append(make_image(np.random.default_rng(ATTN_LARGE_SEED),
+                          *ATTN_LARGE_HR))
+    return out
+
+
+def center_crop4(img: np.ndarray) -> np.ndarray:
+    """The centred crop of ``img`` whose sides are multiples of 4."""
+    h, w = img.shape[:2]
+    y0, x0 = (h % 4) // 2, (w % 4) // 2
+    return img[y0:y0 + h - h % 4, x0:x0 + w - w % 4]
+
+
+def winner_lr(hr: np.ndarray) -> np.ndarray:
+    """The uint8 x4 LR of ``hr``, degraded as the JAX package's eval step
+    does (``data.prepare_batch``: ToTensor, the antialiased bicubic) and
+    rounded to uint8."""
+    lr, _ = prepare_batch(jnp.asarray(hr)[None], 4)
+    return np.asarray(jnp.clip(lr[0], 0.0, 1.0) * 255.0 + 0.5).astype(
+        np.uint8)
+
+
+def port_alexnet_npz(weights_dir: str) -> str:
+    """Write the port's seeded fallback AlexNet (what its LPIPS runs on
+    without weight files, the card host's case) as JAX's
+    ``alexnet_features.npz`` into ``weights_dir``, so both packages score
+    LPIPS on the same weights; the heads stay uniform on both sides."""
+    import warnings
+
+    from food101_sr_tpu_torch.models.feature_nets import load_alexnet
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net, pretrained = load_alexnet(tempfile.mkdtemp())
+    assert not pretrained
+    path = os.path.join(weights_dir, "alexnet_features.npz")
+    np.savez(path, **{
+        f"{name}/{leaf}": (m.weight.detach().numpy().transpose(2, 3, 1, 0)
+                           if leaf == "kernel" else m.bias.detach().numpy())
+        for name, m in net.named_children() for leaf in ("kernel", "bias")})
+    return path
+
+
+def jax_scores(srs, hrs) -> dict:
+    """Per image, the JAX package's MetricsCalculator (LPIPS on the port's
+    seeded AlexNet, ``port_alexnet_npz``) of each uint8 SR against its
+    uint8 HR: {"psnr": [...], "ssim": [...], "lpips": [...], "nlpd": [...]}."""
+    import warnings
+
+    from food101_sr_tpu.metrics import MetricsCalculator
+
+    with tempfile.TemporaryDirectory() as d:
+        port_alexnet_npz(d)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the heads' uniform fallback
+            calc = MetricsCalculator(weights_dir=d)
+    assert calc.pretrained and not calc.heads_pretrained
+    out = {k: [] for k in ("psnr", "ssim", "lpips", "nlpd")}
+    for sr, hr in zip(srs, hrs):
+        got = calc.compute(sr[None].astype(np.float32) / 255,
+                           hr[None].astype(np.float32) / 255)
+        for k in out:
+            out[k].append(got[k])
+    return out
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR in dB of two uint8 images (the metric's data range 1 on /255)."""
+    d = a.astype(np.float64) / 255 - b.astype(np.float64) / 255
+    return float(10 * np.log10(1.0 / np.mean(d * d)))
+
+
+def snr_db(got, ref) -> float:
+    """SNR in dB of ``got`` against ``ref`` over all their pixels (uint8
+    values), as chip_smoke.py's quant phase measures int8 against bf16."""
+    g = np.concatenate([x.ravel() for x in got]).astype(np.float64)
+    r = np.concatenate([x.ravel() for x in ref]).astype(np.float64)
+    return float(10 * np.log10(np.mean(r * r) / np.mean((g - r) ** 2)))
+
+
+def png_array(img: np.ndarray) -> np.ndarray:
+    """``img`` as the bytes of a PNG stream (PIL, optimized), a 1-D uint8
+    array: PNG's row filters store the goldens' images in half the room
+    deflate alone takes."""
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "PNG", optimize=True)
+    return np.frombuffer(buf.getvalue(), np.uint8)
+
+
+def export_attentionsr(out_dir: str) -> tuple[str, str]:
+    """Write winner_attentionsr.pth and winner_attentionsr_goldens.npz
+    (module docstring) under ``out_dir``; return their paths."""
+    sd, arch = export_state_dict(load_checkpoint(ATTN_CHECKPOINT))
+    if arch != "AttentionSR":
+        raise SystemExit(f"{ATTN_CHECKPOINT} holds {arch}, not AttentionSR")
+    os.makedirs(out_dir, exist_ok=True)
+    pth = os.path.join(out_dir, "winner_attentionsr.pth")
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in sd.items()}, pth)
+    hrs = winner_hr()
+    lrs = [winner_lr(hr) for hr in hrs]
+    small = len(hrs) - 1
+    f32 = jax_served(lrs, ATTN_CHECKPOINT)
+    bf16 = jax_served(lrs[:small], ATTN_CHECKPOINT, dtype=jnp.bfloat16)
+    int8 = jax_served(lrs[:small], ATTN_CHECKPOINT, dtype=jnp.bfloat16,
+                      quantize="int8")
+    scores = jax_scores(f32[:small], hrs[:small])
+    npz = os.path.join(out_dir, "winner_attentionsr_goldens.npz")
+    np.savez_compressed(
+        npz, **{f"lr_{i}": png_array(x) for i, x in enumerate(lrs)},
+        **{f"sr_{i}": png_array(y) for i, y in enumerate(f32)},
+        **{k: np.asarray(v) for k, v in scores.items()},
+        psnr_bf16=np.asarray([psnr_u8(y, h) for y, h in zip(bf16, hrs)]),
+        psnr_int8=np.asarray([psnr_u8(y, h) for y, h in zip(int8, hrs)]),
+        snr_int8=np.asarray(snr_db(int8, f32[:small])))
+    return pth, npz
 
 
 # (h, w) of the mini tree's images: 16 train (two below the crop of 200),
@@ -840,7 +1006,8 @@ def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--out_dir", default=ASSETS)
-    p.add_argument("--what", default="all", choices=["all", "srcnn", "jpeg"])
+    p.add_argument("--what", default="all",
+                   choices=["all", "srcnn", "attentionsr", "jpeg"])
     a = p.parse_args()
     jax.config.update("jax_platforms", "cpu")
 
@@ -850,7 +1017,10 @@ def main():
                     for d, _, fs in os.walk(os.path.join(a.out_dir, "jpeg"))
                     for f in fs)
         print(f"{os.path.join(a.out_dir, 'jpeg')}: {total:,} bytes")
-    if a.what == "jpeg":
+    if a.what in ("all", "attentionsr"):
+        for path in export_attentionsr(a.out_dir):
+            print(f"{path}: {os.path.getsize(path):,} bytes")
+    if a.what not in ("all", "srcnn"):
         return
     sd, arch = export_state_dict(load_checkpoint(CHECKPOINT))
     if arch != "SRCNN":
