@@ -48,7 +48,13 @@ Phases, one short line each; any failure raises and the exit code is 1:
           and Adam7-interlaced PNG, GIF, BMP, and WebP: lossy with the
           simple filter, 8 partitions, 4 segments, lossless with and
           without a palette, alpha raw and coded, ICC and EXIF, an
-          animation: assets/jpeg/streams/), each 200, one device batch
+          animation; TIFF: LZW with predictor 2, tiled Deflate, JPEG
+          YCbCr 4:2:0 with JPEGTables and PIL's RGB JPEG, PackBits
+          palette, G4, G3 2-D, Modified Huffman, 16-bit RGB big-endian,
+          separate planes, BigTIFF, CMYK, LZMA, a float with predictor
+          3, YCbCr LZW through libtiff's RGBA reader, Orientation 6;
+          binary and plain PPM, 16-bit PGM, PFM, ICO with PNG and with
+          BMP entries, CUR, QOI: assets/jpeg/streams/), each 200, one device batch
           (K2 NHWC launched once per block), decoded to the JAX server's
           digest and answered with the PNG of SRServer.upscale byte for
           byte, with each class's decode ms on the host ("codec
@@ -59,8 +65,9 @@ Phases, one short line each; any failure raises and the exit code is 1:
           by hand; predict.main on 16 64x64 PNGs, a tiled one and a
           WebP, every output equal to upscale's; a shutdown with 4
           requests inside their handlers answers each; 404, 413, 400
-          (truncated body), 400 (truncated JPEG and broken WebP, which
-          PIL refuses) and 415 (TIFF, naming it); then K2 NHWC at the
+          (truncated body), 400 (truncated JPEG, broken WebP and cut
+          TIFF, which PIL refuses) and 415 (a ZSTD TIFF, which PIL
+          decodes, and a PSD, each named); then K2 NHWC at the
           --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
 8b. winner  the trained AttentionSR x4 winner, the committed asset
@@ -2528,7 +2535,27 @@ CODEC_UPLOADS = {"arithmetic JPEG": "arith.jpg",
                  "WebP, coded vertical-filtered alpha":
                      "webp_alpha_vp8l_f2.webp",
                  "WebP with ICC and EXIF": "webp_icc_exif.webp",
-                 "animated WebP": "webp_animation.webp"}
+                 "animated WebP": "webp_animation.webp",
+                 "TIFF LZW, predictor 2": "tiff_lzw_pred2.tif",
+                 "TIFF tiled Deflate": "tiff_deflate_tiled.tif",
+                 "TIFF JPEG YCbCr 4:2:0, JPEGTables":
+                     "tiff_jpeg_ycbcr420.tif",
+                 "TIFF JPEG RGB (PIL)": "tiff_jpeg_rgb.tif",
+                 "TIFF PackBits 4-bit palette": "tiff_packbits_palette.tif",
+                 "TIFF G4": "tiff_g4.tif", "TIFF G3 2-D": "tiff_g3_2d.tif",
+                 "TIFF Modified Huffman": "tiff_mh.tif",
+                 "TIFF 16-bit RGB big-endian": "tiff_rgb16_be.tif",
+                 "TIFF separate planes": "tiff_planar.tif",
+                 "BigTIFF": "tiff_bigtiff.tif", "TIFF CMYK": "tiff_cmyk.tif",
+                 "TIFF LZMA": "tiff_lzma.tif",
+                 "TIFF float, predictor 3": "tiff_float_pred3.tif",
+                 "TIFF YCbCr LZW (RGBA reader)": "tiff_ycbcr_lzw.tif",
+                 "TIFF Orientation 6": "tiff_orientation6.tif",
+                 "binary PPM": "ppm_binary.ppm", "plain PPM": "ppm_plain.ppm",
+                 "16-bit PGM": "pgm16.pgm", "PFM": "pfm.pfm",
+                 "ICO with a PNG": "ico_png.ico",
+                 "ICO with BMPs": "ico_bmp.ico",
+                 "CUR with a BMP": "cur_bmp.cur", "QOI RGBA": "qoi_rgba.qoi"}
 
 
 def _codec_uploads() -> dict:
@@ -2621,6 +2648,7 @@ def phase_http(rates) -> tuple[dict, dict]:
                                  f"{native.build_error('fast_jpeg')}")
         native._gifbmp_lib()  # raises, naming the compiler's error
         native._webp_lib()
+        native.tiff_lib()
         jpeg_body = native.encode_jpeg_rgb8(small[0], 95)
         jpeg_imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
                      for _ in range(JPEG_ROUND)]
@@ -2629,6 +2657,10 @@ def phase_http(rates) -> tuple[dict, dict]:
         with open(os.path.join(JPEG_ASSETS, "streams", "webp.webp"),
                   "rb") as f:
             webp_body = f.read()
+        with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
+            zstd = json.load(f)["port_refused"]["tiff_zstd"]
+        with open(os.path.join(JPEG_ASSETS, zstd["file"]), "rb") as f:
+            zstd_body = f.read()
         truncated_body = jpeg_body[:len(jpeg_body) * 2 // 3]
         torch.cuda.synchronize()
 
@@ -2793,20 +2825,20 @@ def phase_http(rates) -> tuple[dict, dict]:
                                         truncated_body),
             "400 broken WebP": _http(port, "/sr?model=attn",
                                      webp_body[:len(webp_body) // 2]),
-            "415 TIFF": _http(port, "/sr?model=attn",
-                              b"II*\x00" + bytes(64)),
+            "400 cut TIFF": _http(port, "/sr?model=attn",
+                                  uploads["TIFF LZW, predictor 2"][0][:600]),
+            "415 ZSTD TIFF": _http(port, "/sr?model=attn", zstd_body),
+            "415 PSD": _http(port, "/sr?model=attn", b"8BPS" + bytes(64)),
         }
-        codes = {"404 unknown model": errors["404 unknown model"][0],
-                 "413": int(errors["413"][9:12] or 0),
-                 "400 truncated": int(errors["400 truncated"][9:12] or 0),
-                 "400 truncated JPEG": errors["400 truncated JPEG"][0],
-                 "400 broken WebP": errors["400 broken WebP"][0],
-                 "415 TIFF": errors["415 TIFF"][0]}
+        codes = {name: (int(r[9:12] or 0) if isinstance(r, bytes) else r[0])
+                 for name, r in errors.items()}
         if (codes != {"404 unknown model": 404, "413": 413,
                       "400 truncated": 400, "400 truncated JPEG": 400,
-                      "400 broken WebP": 400, "415 TIFF": 415}
+                      "400 broken WebP": 400, "400 cut TIFF": 400,
+                      "415 ZSTD TIFF": 415, "415 PSD": 415}
                 or b"truncated" not in errors["400 truncated"]
-                or b"TIFF" not in errors["415 TIFF"][2]):
+                or zstd["refusal"].encode() not in errors["415 ZSTD TIFF"][2]
+                or b"PSD" not in errors["415 PSD"][2]):
             raise AssertionError(f"error statuses {codes}")
     finally:
         for httpd, thread in httpds:
@@ -3736,6 +3768,19 @@ def _jpeg_fixtures() -> dict:
             raise AssertionError(f"stream {name}: {px.shape} decode differs "
                                  "from the JAX package's")
         checked += 1
+    # streams the JAX server decodes and the port refuses by name (415)
+    for name, g in goldens.get("port_refused", {}).items():
+        with open(os.path.join(JPEG_ASSETS, g["file"]), "rb") as f:
+            data = f.read()
+        try:
+            native.decode_image(data)
+        except native.UnsupportedImage as e:
+            if g["refusal"] not in str(e):
+                raise AssertionError(f"{name}: 415 without naming "
+                                     f"{g['refusal']}: {e}")
+        else:
+            raise AssertionError(f"{name} decoded; the port has no decoder "
+                                 f"for {g['refusal']}")
     for c in goldens["crops"]:
         got = native.decode_jpeg_crop_rgb8(streams[c["stream"]], c["x0"],
                                            c["y0"], c["cw"], c["ch"])

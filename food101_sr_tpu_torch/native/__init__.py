@@ -39,8 +39,13 @@ one codec for another:
   RIFF container as libwebp's demuxer reads it in Python; lossy (VP8),
   lossless (VP8L) and alpha (ALPH) bitstreams in ``fast_webp.cpp``, which
   needs no library; animations give their first frame.
-- TIFF and the other formats PIL opens raise :class:`UnsupportedImage`
-  naming the format.
+- TIFF (``tiff.py``: PIL's container and raw decoder, libtiff's
+  strips and tiles, PackBits, LZW and CCITT in ``fast_tiff.cpp``, Deflate
+  and LZMA with the stdlib, JPEG with ``fast_jpeg.cpp``), Netpbm, ICO, CUR
+  and QOI (``rasters.py``; QOI's ops in ``fast_tiff.cpp``), decoded as
+  PIL's ``convert("RGB")``.
+- The other formats PIL opens, and the TIFF compressions and colour
+  spaces ``tiff.py`` names, raise :class:`UnsupportedImage` naming them.
 
 Each C++ unit is compiled with ``g++`` on first use into the package's
 git-ignored ``_build/`` directory, under a name carrying a hash of its
@@ -175,24 +180,42 @@ _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
               3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
 
 
-def _png_chunks(data: bytes):
-    """(type, body) of each chunk through IEND; raises ValueError on a
-    truncated chunk or a CRC mismatch."""
+def _png_parts(data: bytes) -> tuple:
+    """(IHDR body, PLTE body or None, the image data) as PIL's PNG plugin
+    reads them: the chunks before the first IDAT whole and CRC-checked,
+    then the data of the IDAT chunks that follow one another (cut where
+    the file ends), their CRCs and whatever follows unread. Raises
+    ValueError for a chunk cut short or a bad CRC before the image data,
+    or no image data."""
     pos = len(PNG_SIGNATURE)
+    ihdr = plte = None
     while True:
         if pos + 8 > len(data):
-            raise ValueError("PNG: truncated before IEND")
+            raise ValueError("PNG: truncated before the image data")
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        if ctype == b"IDAT":
+            break
         end = pos + 8 + length
         if end + 4 > len(data):
             raise ValueError(f"PNG: truncated {ctype!r} chunk")
         body = data[pos + 8:end]
         if zlib.crc32(ctype + body) != struct.unpack(">I", data[end:end + 4])[0]:
             raise ValueError(f"PNG: bad CRC in {ctype!r} chunk")
-        yield ctype, body
         if ctype == b"IEND":
-            return
+            raise ValueError("PNG: no image data")
+        if ctype == b"IHDR":
+            ihdr = body
+        elif ctype == b"PLTE":
+            plte = body
         pos = end + 4
+    idat = []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        if ctype != b"IDAT":
+            break
+        idat.append(data[pos + 8:pos + 8 + length])
+        pos += 12 + length
+    return ihdr, plte, b"".join(idat)
 
 
 def _unpack_bits(rows: np.ndarray, depth: int, n: int) -> np.ndarray:
@@ -256,22 +279,18 @@ def decode_png_rgb8(data: bytes) -> np.ndarray:
     replicated, alpha dropped without compositing, the palette expanded,
     tRNS ignored; 16-bit RGB, RGBA and gray+alpha keep the high byte
     (PIL's ``;16B`` raw modes), 16-bit gray is PIL's ``I;16`` clipped at
-    255. Raises ValueError for anything that is not a whole, valid PNG."""
+    255. Raises ValueError where PIL refuses the file: a chunk before the
+    image data cut short or with a bad CRC, image data that ends before
+    the image is whole (the CRCs of the data chunks, and what follows
+    them, IEND included, are not read)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG")
-    ihdr, plte, idat = None, None, []
-    for ctype, body in _png_chunks(data):
-        if ctype == b"IHDR":
-            if len(body) != 13:
-                raise ValueError("PNG: bad IHDR")
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"PLTE":
-            plte = np.frombuffer(body, np.uint8)
-        elif ctype == b"IDAT":
-            idat.append(body)
-    if ihdr is None or not idat:
-        raise ValueError("PNG: no IHDR or no IDAT")
-    w, h, depth, color, comp, filt, interlace = ihdr
+    ihdr, plte, idat = _png_parts(data)
+    if ihdr is None or len(ihdr) != 13:
+        raise ValueError("PNG: no IHDR, or a bad one")
+    if plte is not None:
+        plte = np.frombuffer(plte, np.uint8)
+    w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", ihdr)
     if color not in _PNG_TYPES or depth not in _PNG_TYPES[color][1]:
         raise ValueError(f"PNG: invalid color type {color} at depth {depth}")
     if comp or filt or interlace > 1 or w == 0 or h == 0:
@@ -281,7 +300,10 @@ def decode_png_rgb8(data: bytes) -> np.ndarray:
     channels = _PNG_TYPES[color][0]
     passes = _png_passes(w, h, channels, depth, interlace)
     need = sum(ph * (stride + 1) for *_, ph, stride in passes)
-    raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    try:
+        raw = zlib.decompressobj().decompress(idat, need)
+    except zlib.error as e:
+        raise ValueError(f"PNG: broken image data ({e})") from None
     if len(raw) < need:
         raise ValueError("PNG: image data truncated")
     vals = _png_samples(raw, passes, h, w, channels, depth)
@@ -321,6 +343,8 @@ def _register_jpeg(lib):
     lib.fastjpeg_encode_rgb8.restype = ll
     lib.fastjpeg_encode_rgb8.argtypes = [ctypes.c_void_p, i, i, i,
                                          ctypes.c_void_p, ll]
+    lib.fastjpeg_decode_tiff.restype = i
+    lib.fastjpeg_decode_tiff.argtypes = [p, ll, i, ctypes.c_void_p, ll, ip]
 
 
 def jpeg_available() -> bool:
@@ -1031,13 +1055,13 @@ def decode_webp_rgb8(data: bytes) -> np.ndarray:
 
 # formats PIL opens that are recognised by their first bytes but not
 # decoded here
-_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                  (b"II+\x00", "BigTIFF"), (b"MM\x00+", "BigTIFF"),
-                  (b"\x00\x00\x01\x00", "ICO"), (b"\x00\x00\x02\x00", "CUR"),
-                  (b"8BPS", "PSD"), (b"qoif", "QOI"), (b"DDS ", "DDS"),
+_OTHER_FORMATS = ((b"8BPS", "PSD"), (b"DDS ", "DDS"),
                   (b"\xffO\xffQ", "JPEG 2000"),
                   (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
                   (b"icns", "ICNS"), (b"\x97JB2", "JBIG2"))
+_TIFF_PREFIXES = (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*",
+                  b"MM\x00+", b"II+\x00")
+_DECODED = "PNG, JPEG, GIF, BMP, WebP, TIFF, Netpbm, ICO, CUR and QOI"
 
 
 def decode_image(data: bytes) -> np.ndarray:
@@ -1047,12 +1071,17 @@ def decode_image(data: bytes) -> np.ndarray:
     JPEG (:func:`decode_jpeg_rgb8` with ``strict``: a stream cut short or
     an arithmetic-coded scan past PIL's 64 KiB read block raises where
     PIL's ``load()`` does), GIF (:func:`decode_gif_rgb8`), BMP
-    (:func:`decode_bmp_rgb8`) or WebP (:func:`decode_webp_rgb8`). Raises
-    :class:`UnsupportedImage` naming a recognised format the port does not
-    decode (TIFF, ICO, PPM and the others PIL opens), arithmetic lossless
-    (SOF11) JPEG, or a codec that did not build here; ValueError for bytes
-    that are no image, a broken one, or one PIL refuses (12-bit and
-    hierarchical JPEG among them)."""
+    (:func:`decode_bmp_rgb8`), WebP (:func:`decode_webp_rgb8`), TIFF
+    (:func:`decode_tiff_rgb8`), Netpbm (:func:`decode_netpbm_rgb8`), ICO
+    (:func:`decode_ico_rgb8`), CUR (:func:`decode_cur_rgb8`) or QOI
+    (:func:`decode_qoi_rgb8`). Raises :class:`UnsupportedImage` naming a
+    recognised format the port does not decode (PSD, JPEG 2000 and the
+    others PIL opens), a TIFF compression or colour space it does not
+    decode (ZSTD, WebP, old-style JPEG, SGILog, ThunderScan, raw-16,
+    YCbCr outside JPEG, CIELab), arithmetic lossless (SOF11) JPEG, or a
+    codec that did not build here; ValueError for bytes that are no image,
+    a broken one, or one PIL refuses (12-bit and hierarchical JPEG among
+    them)."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png_rgb8(data)
     if data.startswith(b"\xff\xd8\xff"):
@@ -1069,14 +1098,28 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_bmp_rgb8(data)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return decode_webp_rgb8(data)
+    if data[:4] in _TIFF_PREFIXES:
+        tiff_lib()  # a unit that did not build stays 415, named
+        return decode_tiff_rgb8(data)
+    if is_netpbm(data):
+        return decode_netpbm_rgb8(data)
+    if data.startswith(b"\x00\x00\x01\x00"):
+        return decode_ico_rgb8(data)
+    if data.startswith(b"\x00\x00\x02\x00"):
+        return decode_cur_rgb8(data)
+    if data.startswith(b"qoif"):
+        tiff_lib()
+        return decode_qoi_rgb8(data)
     name = next((n for m, n in _OTHER_FORMATS if data.startswith(m)), None)
-    if name is None and data[:1] == b"P" and data[1:2] in b"1234567" \
-            and data[2:3] in b" \t\r\n#":
-        name = "PPM"
     if name is None and data[4:8] == b"ftyp" and data[8:12] in (
             b"avif", b"avis", b"heic", b"heix", b"mif1"):
         name = "AVIF/HEIF"
     if name is not None:
-        raise UnsupportedImage(f"{name} is not supported (PNG, JPEG, GIF, "
-                               "BMP and WebP only)")
-    raise ValueError("not a PNG, JPEG, GIF, BMP or WebP image")
+        raise UnsupportedImage(f"{name} is not supported ({_DECODED} only)")
+    raise ValueError(f"not a {_DECODED.replace(' and ', ' or ')} image")
+
+
+# the TIFF, Netpbm, ICO, CUR and QOI decoders (they use the codecs above)
+from .tiff import decode_tiff_rgb8, tiff_lib  # noqa: E402
+from .rasters import (decode_cur_rgb8, decode_ico_rgb8,  # noqa: E402
+                      decode_netpbm_rgb8, decode_qoi_rgb8, is_netpbm)

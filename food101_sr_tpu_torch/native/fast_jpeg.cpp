@@ -880,6 +880,26 @@ class Decoder {
     }
   }
 
+  void tiff_color(int c) { tiff_color_ = c; }
+  int components() const { return ncomp_; }
+  int h_samp(int i) const { return comp_[i].h; }
+  int v_samp(int i) const { return comp_[i].v; }
+
+  // Header only, up to the first frame header, which is read.
+  void header_only() {
+    size_t pos = start();
+    for (;;) {
+      int m = next_marker(&pos);
+      if (m == 0xD9 || m == 0xDA) CORRUPT("JPEG: no frame header");
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA) {
+        read_sof(m, d_ + pos + 2, seg_len(pos) - 2);
+        return;
+      }
+      pos += standalone(m) ? 0 : seg_len(pos);
+    }
+  }
+
   // Header only: width and height from the first SOF of any kind, and
   // whether the JAX package's binding hands the stream to PIL (4
   // components, lossless).
@@ -914,6 +934,12 @@ class Decoder {
     } catch (const EndOfData&) {
       // PIL's decode of a single-scan image ends with its last MCU: what
       // follows the scan may be cut off (see PilFeed)
+    } catch (const Failure& f) {
+      // libtiff reads a strip's scanlines, then calls jpeg_finish_decompress
+      // and takes its error for success (CALLJPEG's -1 is true): what
+      // follows a sequential image's whole scan cannot fail a TIFF strip
+      if (tiff_color_ < 0 || f.code != -1 || !single_scan_ || !scan_done_)
+        throw;
     }
     if (!scans_) CORRUPT("JPEG: no image data");
     output(out);
@@ -953,6 +979,7 @@ class Decoder {
         restart_ = (s[0] << 8) | s[1];
       } else if (m == 0xDA) {
         pos = scan(s, sl, pos + len);
+        scan_done_ = true;
         // libjpeg's region decode of a single-scan image stops reading
         // there (jpeg_abort_decompress): what follows is never parsed
         if (region_ && single_scan_ && !pil()) break;
@@ -1001,7 +1028,12 @@ class Decoder {
   bool jfif_ = false, adobe_ = false;
   int adobe_transform_ = 0;
   Color color_ = kYCbCr;
+  // a JPEG strip or tile of a TIFF (fastjpeg_decode_tiff): libtiff forces
+  // the colour space and, unless it is YCbCr, asks for the components
+  // themselves (JCS_UNKNOWN)
+  int tiff_color_ = -1;  // -1: not a TIFF decode, 0: components, 1: YCbCr
   bool allocated_ = false, single_scan_ = false;
+  bool scan_done_ = false;  // a scan has been decoded to its end
   int scans_ = 0;
   int limit_imcu_ = 0;  // iMCU rows to entropy-decode
   int last_good_ = 0;   // jdmaster's last_good_iMCU_row
@@ -1153,6 +1185,7 @@ class Decoder {
     } else {
       color_ = kYCbCr;
     }
+    if (tiff_color_ == 1) color_ = kYCbCr;
     hmax_ = vmax_ = 1;
     for (int i = 0; i < ncomp_; ++i) {
       hmax_ = std::max(hmax_, comp_[i].h);
@@ -2079,6 +2112,17 @@ class Decoder {
     uint8_t* r1 = r0 + cw_;
     uint8_t* r2 = r1 + cw_;
     uint8_t* r3 = r2 + cw_;
+    if (tiff_color_ == 0 || (tiff_color_ == 1 && ncomp_ != 3)) {
+      uint8_t* r[4] = {r0, r1, r2, r3};
+      for (int yy = 0; yy < ch_; ++yy) {
+        uint8_t* o = out + static_cast<size_t>(yy) * cw_ * ncomp_;
+        for (int k = 0; k < ncomp_; ++k) {
+          upsample_row(comp_[k], pl[k], y0_ + yy, r[k]);
+          for (int i = 0; i < cw_; ++i) o[ncomp_ * i + k] = r[k][i];
+        }
+      }
+      return;
+    }
     for (int yy = 0; yy < ch_; ++yy) {
       const int y = y0_ + yy;
       uint8_t* o = out + static_cast<size_t>(yy) * cw_ * 3;
@@ -2592,6 +2636,44 @@ int fastjpeg_decode_crop_rgb8(const unsigned char* buf, long len, int x0,
   return guarded([&] {
     decode_fed(buf, static_cast<size_t>(len), to_pil ? kPil : kLibjpeg, true,
                x0, y0, cw, ch, out);
+  });
+}
+
+// A JPEG strip or tile of a TIFF, as libtiff 4.7 decodes it through
+// libjpeg (its memory source: the data ends in fake EOI markers): `color`
+// 1 forces YCbCr -> RGB (JPEGCOLORMODE_RGB on a YCbCr image), 0 gives the
+// components as they are (JCS_UNKNOWN). Probe first with out == NULL:
+// fills w, h, the component count and component 0's sampling factors.
+// out holds w*h*ncomp bytes (3 with color 1). 0 on success, -1 or -2 as
+// above.
+int fastjpeg_decode_tiff(const unsigned char* buf, long len, int color,
+                         unsigned char* out, long out_cap, int* info) {
+  return guarded([&] {
+    int W = 0, H = 0;
+    // the headers need no padding: the probes read them as they are
+    Decoder probe(buf, static_cast<size_t>(len), kPil);
+    probe.dims(&W, &H);
+    if (!out) {
+      Decoder d(buf, static_cast<size_t>(len), kPil);
+      d.tiff_color(color);
+      d.header_only();
+      info[0] = W;
+      info[1] = H;
+      info[2] = d.components();
+      info[3] = d.h_samp(0);
+      info[4] = d.v_samp(0);
+      int others = 1;
+      for (int i = 1; i < d.components(); ++i)
+        others &= d.h_samp(i) == 1 && d.v_samp(i) == 1;
+      info[5] = others;
+      return;
+    }
+    Decoder d(buf, static_cast<size_t>(len), kLibjpeg);
+    d.tiff_color(color);
+    const long nc = color == 1 ? 3 : info[2];
+    if (static_cast<long>(W) * H * nc > out_cap)
+      CORRUPT("JPEG: output buffer too small");
+    d.decode(0, 0, W, H, out);
   });
 }
 

@@ -12,12 +12,15 @@ One process owns the card; each model loads once into an
 coalesces concurrent same-bucket requests (and the windows of large,
 tiled images) into fixed-shape device batches. Requests are decoded and
 responses encoded by the port's own codecs (``native``, needing no
-library): PNG, JPEG, GIF, BMP and WebP uploads (lossy, lossless, with
-alpha, the first frame of an animation) decode to the pixels the JAX
-server's PIL gives, and a stream PIL refuses (a truncated JPEG, a 12-bit
-one, a broken WebP) is answered 400 as there. A format the codecs do not
-read (TIFF, ICO, PPM and PIL's other formats) is answered 415 with the
-reason, never decoded another way.
+library): PNG, JPEG, GIF, BMP, WebP (lossy, lossless, with alpha, the
+first frame of an animation), TIFF (every compression but ZSTD, old-style
+JPEG, ThunderScan and raw-16; strips, tiles, separate planes, BigTIFF),
+Netpbm, ICO, CUR and QOI uploads decode to the pixels the JAX server's
+PIL gives, and a stream PIL refuses (a truncated JPEG, a 12-bit one, a
+broken WebP, a WebP-compressed TIFF) is answered 400 as there. A format
+or variant the codecs do not read (PSD, JPEG 2000, a ZSTD TIFF, a CIELab
+one and the others ``native.decode_image`` names) is answered 415 with
+the reason, never decoded another way.
 
 Routes: ``GET /healthz``, ``GET /statz``, ``POST /sr[?model=NAME]
 [&format=png|jpeg][&quality=Q]`` (or ``Accept: image/jpeg``).

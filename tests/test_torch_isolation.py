@@ -164,6 +164,22 @@ def test_webp_codec_uses_no_library():
     assert "webp" not in deps.replace(so, "")
 
 
+def test_tiff_codec_uses_no_library():
+    """The TIFF decompressors (PackBits, LZW, CCITT) and QOI's ops are the
+    port's own: fast_tiff.cpp includes no libtiff header, no build command
+    or script names -ltiff, and the library it builds into depends on no
+    libtiff (Deflate and LZMA come from Python's stdlib zlib and lzma)."""
+    pkg = ROOT / "food101_sr_tpu_torch"
+    for src in sorted(pkg.rglob("*.cpp")) + sorted(pkg.rglob("*.h")):
+        assert not any("tiff" in ln.lower() for ln in src.read_text()
+                       .splitlines() if ln.lstrip().startswith("#include")), src
+    for py in sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        assert "-ltiff" not in py.read_text(), py
+    so = native.tiff_lib()._name
+    deps = subprocess.run(["ldd", so], capture_output=True, text=True).stdout
+    assert "tiff" not in deps.replace(so, "").lower()
+
+
 # mean_kernel dispatches by layout to two counted entry points
 @pytest.mark.parametrize("wrapper,counted", [
     pytest.param(blur_kernel, [blur_kernel], id="blur_kernel"),

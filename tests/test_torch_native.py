@@ -185,6 +185,10 @@ def test_16bit_and_interlaced_pngs_are_refused_by_name(what):
 
 @pytest.mark.parametrize("damage", ["crc", "truncated", "filter", "no IEND"])
 def test_broken_pngs_raise_value_error_not_unsupported(damage):
+    """A bad CRC before the image data, image data cut short and an
+    unknown filter are refused as PIL refuses them (ValueError: 400); a
+    file that ends after its image data, without IEND, PIL decodes (it
+    reads no chunk after the image data), and so does the port."""
     data = bytearray(native.encode_png_rgb8(_rgb(8, 8, 4)))
     if damage == "crc":
         data[20] ^= 0xFF  # inside IHDR
@@ -197,6 +201,10 @@ def test_broken_pngs_raise_value_error_not_unsupported(damage):
                        for y in range(8))
         data = (data[:33] + _chunk(b"IDAT", zlib.compress(raw))
                 + _chunk(b"IEND", b""))
+    if damage == "no IEND":
+        assert np.array_equal(native.decode_image(bytes(data)),
+                              _pil_rgb(bytes(data)))
+        return
     with pytest.raises(ValueError) as e:
         native.decode_image(bytes(data))
     assert not isinstance(e.value, native.UnsupportedImage)
@@ -204,13 +212,14 @@ def test_broken_pngs_raise_value_error_not_unsupported(damage):
 
 @pytest.mark.parametrize("data,name", [
     (b"BM" + bytes(60), "BMP"), (b"GIF89a" + bytes(20), "GIF"),
-    (b"RIFF\x00\x00\x00\x00WEBPVP8 ", "WebP"), (b"II*\x00" + bytes(8), "TIFF")])
+    (b"RIFF\x00\x00\x00\x00WEBPVP8 ", "WebP"), (b"II*\x00" + bytes(8), "TIFF"),
+    (b"8BPS" + bytes(30), "PSD")])
 def test_other_formats_are_refused_by_name(data, name):
-    """TIFF, which PIL opens and the port does not, is refused naming the
-    format (415); BMP, GIF and WebP are decoded now, so these broken ones
-    are refused as PIL refuses them, with ValueError naming the format
-    (400)."""
-    if name in ("BMP", "GIF", "WebP"):
+    """PSD, which PIL opens and the port does not, is refused naming the
+    format (415); BMP, GIF, WebP and TIFF are decoded now, so these broken
+    ones are refused as PIL refuses them, with ValueError naming the
+    format (400)."""
+    if name in ("BMP", "GIF", "WebP", "TIFF"):
         with pytest.raises(ValueError, match=name) as e:
             native.decode_image(data)
         assert not isinstance(e.value, native.UnsupportedImage)

@@ -71,13 +71,13 @@ def test_predict_end_to_end_small_and_tiled(tmp_path, capsys):
             "big": _write_png(src / "big.png", 48, 56, seed=2)}
     (src / "corrupt.jpg").write_bytes(b"\xff\xd8 not actually a jpeg")
     (src / "bitmap.bmp").write_bytes(b"BM" + bytes(64))
-    # a WebP is decoded as PIL decodes it; a TIFF behind a .bmp name is
+    # a WebP is decoded as PIL decodes it; a PSD behind a .bmp name is
     # a format the port does not read
     webp = io.BytesIO()
     Image.fromarray(_img(18, 22, 3)).save(webp, format="WEBP", quality=80)
     (src / "photo.webp").write_bytes(webp.getvalue())
     imgs["photo"] = np.asarray(Image.open(webp).convert("RGB"))
-    (src / "scan.bmp").write_bytes(b"II*\x00" + bytes(64))
+    (src / "scan.bmp").write_bytes(b"8BPS" + bytes(64))
     out = tmp_path / "out"
     predict.main([str(src), "--out_dir", str(out), "--architecture",
                   "SRCNN", "--tile", "16", "--max_batch", "4",
@@ -99,9 +99,9 @@ def test_predict_end_to_end_small_and_tiled(tmp_path, capsys):
     assert summary["architecture"] == "SRCNN" and summary["scale"] == 4
     assert summary["images_per_s"] > 0 and summary["device"] == "cpu"
     assert "FAILED" in captured.err and "corrupt.jpg" in captured.err
-    # a broken BMP (PIL refuses it too) and a TIFF the port does not read
+    # a broken BMP (PIL refuses it too) and a PSD the port does not read
     assert "bitmap.bmp" in captured.err and "BMP" in captured.err
-    assert "UnsupportedImage" in captured.err and "TIFF" in captured.err
+    assert "UnsupportedImage" in captured.err and "PSD" in captured.err
 
 
 @pytest.mark.parametrize("files,strict,code", [

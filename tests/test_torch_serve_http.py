@@ -4,7 +4,7 @@ against the JAX package's ``serve.py`` on shared weights: an AttentionSR
 served by both in float32 answers the same PNG, small and tiled, within
 1 uint8 level; ``/healthz`` and ``/statz`` carry JAX's keys; zoo
 routing, the JPEG response format, every error status of JAX's server
-(and 415 for images the port does not read, such as TIFF), the shutdown
+(and 415 for images the port does not read, such as PSD), the shutdown
 drain, warmup, the CLI end to end with SIGTERM, and the unported flags
 naming their ROADMAP items."""
 import io
@@ -300,7 +300,7 @@ def _post(body: bytes, length=None) -> bytes:
     (b"\x00\xff GARBAGE\r\n\r\n", None, b""),
     (_post(b"this is not an image at all, not even close"), b"400",
      b"could not decode"),
-    (_post(b"II*\x00" + bytes(64)), b"415", b"TIFF"),
+    (_post(b"8BPS" + bytes(64)), b"415", b"PSD"),
     (_post(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(64)), b"400",
      b"could not decode"),
     (b"GET /nowhere HTTP/1.1\r\nHost: x\r\n\r\n", b"404", b""),

@@ -1,0 +1,641 @@
+"""The port's TIFF decoder (food101_sr_tpu_torch/native/tiff.py and the
+PackBits, LZW and CCITT decoders of native/fast_tiff.cpp) against PIL,
+which the JAX package's server decodes uploads with (Pillow 12.1: its own
+raw decoder for uncompressed files, libtiff 4.7 for the rest): every
+committed stream pixel-equal to PIL live and to its golden; every
+(photometric, sample format, fill order, bits, extra samples) key of
+PIL's pixel table in both byte orders, uncompressed and compressed, in
+strips, tiles and separate planes; each compression, both predictors,
+BigTIFF, the Orientation tag; JPEG strips and tiles with YCbCr
+subsampling and shared tables; CCITT at odd widths; YCbCr through
+libtiff's RGBA reader; the compressions refused by name; seeded
+truncations and bit flips refused exactly where PIL refuses them; a TIFF
+upload answered alike by the port's and the JAX package's servers; and a
+.tif through the port's predict."""
+import io
+import json
+import struct
+import sys
+import threading
+import zlib
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_threads import one_thread  # noqa: F401
+from PIL import Image, TiffImagePlugin
+
+from food101_sr_tpu_torch import native, predict, serve
+from food101_sr_tpu_torch.native import tiff as port_tiff
+from food101_sr_tpu_torch.serving import SRServer
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+import serve as jax_serve  # noqa: E402
+from chip_smoke import sha256  # noqa: E402
+from tools.raster_writers import (jpeg_strip, jpeg_tables, lzw,  # noqa: E402
+                                  packbits, pil_tiff, tiff_file, tiff_image)
+
+JPEG_ASSETS = ROOT / "food101_sr_tpu_torch" / "assets" / "jpeg"
+ALL = json.loads((JPEG_ASSETS / "goldens.json").read_text())
+GOLDENS = ALL["streams"]
+TIFF = sorted(n for n, g in GOLDENS.items() if g["file"].endswith(".tif"))
+ASSET = ROOT / "food101_sr_tpu_torch" / "assets" / "winner_srcnn.pth"
+CHECKPOINT = ROOT / "weights" / "winner_srcnn_best"
+
+
+def _outcome(fn, data):
+    """fn's pixels, "415", or "raises" (PIL's and the port's errors differ
+    in kind; the HTTP status, 400, is what they share)."""
+    try:
+        return np.asarray(fn(data))
+    except native.UnsupportedImage:
+        return "415"
+    except Exception:  # PIL raises OSError, ValueError, EOFError, ...
+        return "raises"
+
+
+def _pil(data):
+    return _outcome(lambda d: Image.open(io.BytesIO(d)).convert("RGB"), data)
+
+
+def _same_as_pil(data, pixels=True) -> bool:
+    a, b = _pil(data), _outcome(native.decode_image, data)
+    if isinstance(a, str) or isinstance(b, str) or not pixels:
+        return (a if isinstance(a, str) else "px") == \
+            (b if isinstance(b, str) else "px")
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def _photo(h, w, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([np.sin(xx / 5.0 + c) * 60 + np.cos(yy / 7.0 - c) * 50
+                     + 128 for c in range(3)], 2)
+    return np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+
+
+# --- the committed streams ---
+
+@pytest.mark.parametrize("name", TIFF)
+def test_committed_stream_matches_pil_and_its_golden(name):
+    g = GOLDENS[name]
+    data = (JPEG_ASSETS / g["file"]).read_bytes()
+    px = native.decode_image(data)
+    assert list(px.shape) == g["shape"] and sha256(px) == g["served_sha256"]
+    assert np.array_equal(px, _pil(data))
+
+
+def test_the_zstd_stream_is_refused_by_name():
+    """PIL decodes a ZSTD TIFF; the port has no ZSTD decoder and answers
+    415 naming it (goldens' port_refused)."""
+    g = ALL["port_refused"]["tiff_zstd"]
+    data = (JPEG_ASSETS / g["file"]).read_bytes()
+    assert sha256(_pil(data)) == g["served_sha256"]
+    with pytest.raises(native.UnsupportedImage, match=g["refusal"]):
+        native.decode_image(data)
+
+
+# --- PIL's pixel table: every key, both byte orders ---
+
+def _samples(key, h, w, rng):
+    _, photo, fmt, _, bps, _ = key
+    b = bps[0]
+    if fmt == (3,):
+        return rng.normal(100, 120, (h, w, len(bps))).astype(np.float32)
+    if fmt == (2,):
+        return rng.integers(-(1 << (b - 1)), 1 << (b - 1), (h, w, len(bps)))
+    return rng.integers(0, 1 << b, (h, w, len(bps)))
+
+
+KEYS = [k for k, (mode, _) in port_tiff.OPEN_INFO.items() if mode != "LAB"]
+
+
+def _key_id(k):
+    bo, photo, fmt, fill, bps, extra = k
+    return (f"{bo.decode()}-p{photo}-f{fmt[0]}-o{fill}-"
+            f"{'.'.join(map(str, bps))}-x{''.join(map(str, extra))}")
+
+
+@pytest.mark.parametrize("key", KEYS, ids=_key_id)
+def test_every_pixel_table_key_matches_pil(key):
+    """Each key uncompressed (PIL's raw decoder: strips, tiles, one band a
+    layer for PlanarConfiguration 2) and Deflate- and LZW-compressed
+    (libtiff and PIL's TiffDecode: its planes copied per band byte, its
+    fill-order-1 raw mode). Keys PIL names but cannot read (raw modes it
+    has no unpacker for, separate planes its strip reader refuses) are
+    refused where PIL refuses them. A palette image gets a random 16-bit
+    ColorMap (PIL keeps each entry's high byte)."""
+    bo, photo, fmt, fill, bps, extra = key
+    rng = np.random.default_rng(zlib.crc32(_key_id(key).encode()))
+    s = _samples(key, 13, 21, rng)
+    cmap = rng.integers(0, 65536, 3 * (1 << bps[0])) if photo == 3 else None
+    for comp in (1, 8, 5):
+        for layout in ({"rows_per_strip": 5}, {"tile": (16, 16)},
+                       {"rows_per_strip": 5, "planar": 2},
+                       {"tile": (16, 16), "planar": 2}):
+            data = tiff_image(s, bps, photo, order="<" if bo == b"II" else ">",
+                              compression=comp, fillorder=fill,
+                              sampleformat=fmt[0], extra=extra,
+                              colormap=cmap, **layout)
+            assert _same_as_pil(data), (comp, layout)
+
+
+def test_cielab_is_refused_by_name():
+    """PIL converts LAB to RGB through LittleCMS, which the port does not
+    have: 415 naming CIELab."""
+    lab = np.random.default_rng(3).integers(0, 256, (6, 7, 3))
+    data = tiff_image(lab, 8, 8)
+    assert isinstance(_pil(data), np.ndarray)
+    with pytest.raises(native.UnsupportedImage, match="CIELab"):
+        native.decode_image(data)
+
+
+# --- compressions, predictors, layouts ---
+
+@pytest.mark.parametrize("comp", [1, 32773, 5, 8, 32946, 34925],
+                         ids=["none", "packbits", "lzw", "deflate",
+                              "deflate32946", "lzma"])
+@pytest.mark.parametrize("order", ["<", ">"], ids=["II", "MM"])
+def test_compressions_strips_tiles_planes(comp, order):
+    """RGB, 16-bit gray and a 4-bit palette in strips of several sizes,
+    in tiles with cropped edges, in separate planes, and BigTIFF."""
+    rng = np.random.default_rng(comp)
+    rgb = _photo(37, 45, comp)
+    g16 = rng.integers(0, 65536, (37, 45, 1))
+    pal = rng.integers(0, 16, (37, 45, 1))
+    cmap = rng.integers(0, 65536, 48)
+    for layout in ({"rows_per_strip": 1}, {"rows_per_strip": 8},
+                   {"rows_per_strip": 100}, {"tile": (16, 32)},
+                   {"tile": (48, 48)}, {"rows_per_strip": 8, "planar": 2},
+                   {"rows_per_strip": 8, "big": True}):
+        for s, bits, photo, kw in ((rgb, 8, 2, {}), (g16, 16, 1, {}),
+                                   (pal, 4, 3, {"colormap": cmap})):
+            data = tiff_image(s, bits, photo, order=order, compression=comp,
+                              **layout, **kw)
+            assert _same_as_pil(data), (layout, bits)
+
+
+@pytest.mark.parametrize("comp", [5, 8, 34925], ids=["lzw", "deflate",
+                                                     "lzma"])
+@pytest.mark.parametrize("order", ["<", ">"], ids=["II", "MM"])
+def test_predictors(comp, order):
+    """Horizontal differencing of 8-, 16- and 32-bit samples (contiguous
+    and in planes; libtiff accumulates in native order) and the
+    floating-point predictor (bytes split into planes, most significant
+    first) on float32."""
+    rng = np.random.default_rng(comp + len(order))
+    cases = [(_photo(29, 33, 1), 8, 2, 1, {}),
+             (_photo(29, 33, 2), 8, 2, 1, {"planar": 2}),
+             (rng.integers(0, 65536, (29, 33, 3)), 16, 2, 1, {}),
+             (rng.integers(0, 65536, (29, 33, 1)), 16, 1, 1,
+              {"tile": (16, 16)}),
+             (rng.integers(-2 ** 31, 2 ** 31, (29, 33, 1)), 32, 1, 2, {})]
+    for s, bits, photo, fmt, kw in cases:
+        data = tiff_image(s, bits, photo, order=order, compression=comp,
+                          predictor=2, sampleformat=fmt, rows_per_strip=8,
+                          **kw)
+        assert _same_as_pil(data), (bits, kw)
+    f = rng.normal(50, 80, (29, 33, 1)).astype(np.float32)
+    for kw in ({"rows_per_strip": 8}, {"tile": (16, 32)}):
+        data = tiff_image(f, 32, 1, order=order, compression=comp,
+                          predictor=3, sampleformat=3, **kw)
+        assert _same_as_pil(data), kw
+
+
+def test_fill_order_2_and_orientation():
+    """FillOrder 2: PIL's reversed raw modes uncompressed, libtiff's bit
+    reversal of compressed data; Orientation 1-8 (ImageOps.exif_transpose
+    after the load, on both paths)."""
+    rng = np.random.default_rng(5)
+    for bits, photo in ((1, 0), (4, 1), (8, 1)):
+        s = rng.integers(0, 1 << bits, (19, 27, 1))
+        for comp in (1, 5, 8, 32773):
+            assert _same_as_pil(tiff_image(s, bits, photo, compression=comp,
+                                           fillorder=2, rows_per_strip=6))
+    img = _photo(14, 23, 4)
+    for o in range(1, 9):
+        for comp in (1, 5):
+            data = tiff_image(img, 8, 2, compression=comp,
+                              extra_tags={274: (3, (o,))})
+            assert _same_as_pil(data), (o, comp)
+
+
+def test_pil_written_files():
+    """What PIL's own writer makes (libtiff for the compressed ones): each
+    mode and compression it writes."""
+    img = Image.fromarray(_photo(21, 30, 6))
+    for mode in ("1", "L", "P", "RGB", "RGBA", "CMYK", "I;16", "I", "F",
+                 "LA"):
+        im = img.convert(mode) if mode not in ("I;16", "I", "F") else \
+            img.convert("L").convert(mode)
+        for comp in (None, "tiff_lzw", "packbits", "tiff_adobe_deflate",
+                     "lzma"):
+            assert _same_as_pil(pil_tiff(im, compression=comp)), (mode, comp)
+    assert _same_as_pil(pil_tiff(img, compression="jpeg", quality=90))
+    assert _same_as_pil(pil_tiff(img.convert("YCbCr"), compression="jpeg"))
+
+
+def test_misordered_headers_and_multipage():
+    """PIL's TIFF plugin also accepts 'II\\0*' (classic little-endian) and
+    serves the first page of a multi-page file."""
+    img = _photo(9, 12, 7)
+    data = tiff_image(img, 8, 2)
+    assert _same_as_pil(b"II\x00*" + data[4:])
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "TIFF", save_all=True, append_images=[
+        Image.fromarray(img[::-1])])
+    assert np.array_equal(native.decode_image(buf.getvalue()), img)
+
+
+# --- JPEG ---
+
+@pytest.mark.parametrize("sub,factors", [(0, (1, 1)), (1, (2, 1)),
+                                         (2, (2, 2))],
+                         ids=["444", "422", "420"])
+def test_jpeg_strips_and_tiles(sub, factors):
+    """libtiff's JPEG codec in RGB mode (JPEGCOLORMODE_RGB: libjpeg's
+    YCbCr conversion and fancy upsampling) on strips with a short last
+    one and on tiles with cropped edges; one set of tables shared through
+    JPEGTables; a frame whose sampling disagrees with YCbCrSubSampling
+    refused as libtiff refuses it."""
+    img = _photo(37, 45, sub)
+    for layout in ({"rows_per_strip": 16}, {"tile": (32, 32)}):
+        data = tiff_image(img, 8, 6, compression=7,
+                          chunk_codec=jpeg_strip(sub),
+                          extra_tags={530: (3, factors)}, **layout)
+        assert _same_as_pil(data), layout
+    strips = [jpeg_strip(sub)(img[y:y + 16]) for y in range(0, 37, 16)]
+    tables, short = jpeg_tables(strips)
+    tags = {256: (4, (45,)), 257: (4, (37,)), 258: (3, (8, 8, 8)),
+            259: (3, (7,)), 262: (3, (6,)), 277: (3, (3,)),
+            278: (4, (16,)), 284: (3, (1,)), 347: (7, tables),
+            530: (3, factors)}
+    assert _same_as_pil(tiff_file(tags, short))
+    wrong = (1, 2) if factors != (1, 2) else (2, 2)
+    data = tiff_file({**tags, 530: (3, wrong)}, short)
+    assert _pil(data) == "raises" and _outcome(native.decode_image,
+                                               data) == "raises"
+
+
+# --- CCITT ---
+
+def _bilevel(h, w, seed, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return rng.random((h, w)) > 0.5
+    img = np.zeros((h, w), bool)  # text-like: strokes and blocks
+    for _ in range(max(1, h * w // 400)):
+        y, x = rng.integers(0, h), rng.integers(0, w)
+        img[y:y + rng.integers(1, 4), x:x + rng.integers(2, 40)] = True
+    return img
+
+
+@pytest.mark.parametrize("comp", ["group3", "group3_2d", "group4",
+                                  "tiff_ccitt"])
+def test_ccitt_at_odd_widths(comp):
+    """PIL's libtiff writer: T.4 1-D and 2-D, T.6 and Modified Huffman,
+    random and text-like bilevel images at odd widths (one past 2560, for
+    the extended make-up codes), one strip and several; then the same
+    strips with FillOrder 2 (the bits of each byte reversed)."""
+    info = {292: 1} if comp == "group3_2d" else {}
+    pil_comp = comp.replace("_2d", "")
+    for h, w, kind in ((17, 13, "random"), (40, 61, "random"),
+                       (33, 97, "text"), (6, 2700, "text"),
+                       (5, 1900, "random")):
+        im = Image.fromarray(_bilevel(h, w, h * w, kind).astype(np.uint8)
+                             * 255).convert("1")
+        for rows in (h, 4):
+            old = TiffImagePlugin.STRIP_SIZE
+            TiffImagePlugin.STRIP_SIZE = rows * ((w + 7) // 8)
+            try:
+                data = pil_tiff(im, compression=pil_comp, tiffinfo=info)
+            finally:
+                TiffImagePlugin.STRIP_SIZE = old
+            assert _same_as_pil(data), (h, w, kind, rows)
+            t = Image.open(io.BytesIO(data)).tag_v2
+            offs, cnts = t[273], t[279]
+            rev = bytearray(data)
+            for o, c in zip(offs, cnts):
+                rev[o:o + c] = port_tiff._REV[np.frombuffer(
+                    data[o:o + c], np.uint8)].tobytes()
+            # FillOrder is inline: patch its value in the directory
+            rev = bytes(rev)
+            entry = b"\x0a\x01\x03\x00\x01\x00\x00\x00\x01\x00"
+            if entry in rev:
+                rev = rev.replace(entry, entry[:-2] + b"\x02\x00", 1)
+                assert _same_as_pil(rev), (h, w, kind, rows, "fill 2")
+
+
+def test_bilevel_photometric_and_tiles():
+    """A BlackIsZero CCITT image (libtiff's bits taken as PIL's '1'), and
+    PackBits bilevel tiles."""
+    img = _bilevel(30, 50, 1, "text")
+    im = Image.fromarray(img.astype(np.uint8) * 255).convert("1")
+    data = pil_tiff(im, compression="group4")
+    patched = data.replace(b"\x06\x01\x03\x00\x01\x00\x00\x00\x01\x00",
+                           b"\x06\x01\x03\x00\x01\x00\x00\x00\x00\x00", 1)
+    assert _same_as_pil(data) and _same_as_pil(patched)
+    s = img[..., None].astype(np.uint8)
+    assert _same_as_pil(tiff_image(s, 1, 0, compression=32773,
+                                   tile=(16, 16)))
+
+
+# --- YCbCr through libtiff's RGBA reader ---
+
+@pytest.mark.parametrize("hs,vs", [(1, 1), (2, 1), (2, 2), (4, 1), (4, 2),
+                                   (4, 4), (1, 2), (1, 4)])
+def test_ycbcr_rgba_reader(hs, vs):
+    """A YCbCr TIFF not JPEG-coded: libtiff's packed blocks (hs x vs Y, then
+    Cb and Cr) and TIFFYCbCrtoRGB, at sizes that cut blocks; subsamplings
+    its reader has no routine for refused where PIL refuses them; 1x1 in
+    separate planes."""
+    rng = np.random.default_rng(hs * 10 + vs)
+    for h, w, rows in ((13, 19, 4), (16, 16, 16)):
+        chunks = []
+        for y in range(0, h, rows):
+            n = min(rows, h - y)
+            blocks = -(-w // hs) * -(-n // vs) * (hs * vs + 2)
+            chunks.append(lzw(rng.integers(0, 256, blocks,
+                                           np.uint8).tobytes()))
+        data = tiff_file({256: (4, (w,)), 257: (4, (h,)),
+                          258: (3, (8, 8, 8)), 259: (3, (5,)),
+                          262: (3, (6,)), 277: (3, (3,)),
+                          278: (4, (rows,)), 284: (3, (1,)),
+                          530: (3, (hs, vs))}, chunks)
+        assert _same_as_pil(data), (h, w)
+    ycc = rng.integers(0, 256, (13, 19, 3))
+    for comp in (5, 8):
+        data = tiff_image(ycc, 8, 6, compression=comp, planar=2,
+                          rows_per_strip=5,
+                          extra_tags={530: (3, (hs, vs))})
+        assert _same_as_pil(data)
+
+
+# --- refusals ---
+
+@pytest.mark.parametrize("comp,name,status", [
+    (6, "old-style JPEG", "415"), (32771, "raw-16", "415"),
+    (32809, "ThunderScan", "415"), (50000, "ZSTD", "415"),
+    (34676, "SGILog", "raises"), (34677, "SGILog24", "raises"),
+    (50001, "WebP", "raises"), (32766, None, "raises")])
+def test_compressions_the_port_refuses(comp, name, status):
+    """ZSTD, old-style JPEG, ThunderScan and raw-16 are decoded by PIL's
+    libtiff and not by the port: 415 naming the compression. PIL's libtiff
+    is built without WebP and refuses SGILog under every photometric PIL
+    opens, so those are 400 on both servers, as is a compression PIL does
+    not know."""
+    data = tiff_image(_photo(8, 8, 1), 8, 2,
+                      extra_tags={259: (3, (comp,))})
+    got = _outcome(native.decode_image, data)
+    assert got == status
+    if status == "415":
+        with pytest.raises(native.UnsupportedImage, match=name):
+            native.decode_image(data)
+    else:
+        assert _pil(data) == "raises"
+
+
+# --- truncations and bit flips ---
+
+def _ccitt(compression, info=None):
+    im = Image.fromarray(_bilevel(40, 61, 3, "random").astype(np.uint8)
+                         * 255).convert("1")
+    old = TiffImagePlugin.STRIP_SIZE
+    TiffImagePlugin.STRIP_SIZE = 64
+    try:
+        return pil_tiff(im, compression=compression, tiffinfo=info or {})
+    finally:
+        TiffImagePlugin.STRIP_SIZE = old
+
+
+@pytest.mark.parametrize("kind", ["raw", "raw_tiles", "lzw", "packbits",
+                                  "deflate_tiles", "lzma", "jpeg", "g3",
+                                  "g3_2d", "g4", "mh"])
+def test_truncations_and_bit_flips_refused_where_pil_refuses(kind):
+    """Seeded cuts and bit flips (the strips and the directory): the port
+    raises ValueError exactly where PIL raises, never crashes, and decodes
+    the rest to PIL's pixels. Pixels are compared where the flips left the
+    directory alone: a directory that disagrees with the strips (a width
+    past a JPEG strip's) leaves bytes of PIL's buffer unwritten, which
+    hold what its allocator gave it. CCITT is held to PIL's outcome only:
+    after a strip with corrupt codes libtiff 4.7 decodes the following
+    strips of the file otherwise than it decodes them alone, which the
+    port (each strip on its own) does not reproduce."""
+    img = _photo(29, 35, 8)
+    data = {
+        "raw": lambda: tiff_image(img, 8, 2, rows_per_strip=8),
+        "raw_tiles": lambda: tiff_image(img, 8, 2, tile=(16, 16)),
+        "lzw": lambda: tiff_image(img, 8, 2, compression=5, predictor=2,
+                                  rows_per_strip=8),
+        "packbits": lambda: tiff_image(img // 64 * 64, 8, 2,
+                                       compression=32773, rows_per_strip=8),
+        "deflate_tiles": lambda: tiff_image(img, 8, 2, compression=8,
+                                            tile=(16, 16)),
+        "lzma": lambda: tiff_image(img, 8, 2, compression=34925,
+                                   rows_per_strip=8),
+        "jpeg": lambda: tiff_image(img, 8, 6, compression=7,
+                                   chunk_codec=jpeg_strip(2),
+                                   rows_per_strip=16,
+                                   extra_tags={530: (3, (2, 2))}),
+        "g3": lambda: _ccitt("group3"),
+        "g3_2d": lambda: _ccitt("group3", {292: 1}),
+        "g4": lambda: _ccitt("group4"),
+        "mh": lambda: _ccitt("tiff_ccitt")}[kind]()
+    ccitt = kind in ("g3", "g3_2d", "g4", "mh")
+    directory = int.from_bytes(data[4:8], "little")  # after the strips
+    rng = np.random.default_rng(len(kind))
+    refused = 0
+    for k in range(100):
+        b = bytearray(data)
+        if k % 4 == 0:
+            b = b[:int(rng.integers(1, len(b)))]
+        elif k % 4 == 1:
+            b[int(rng.integers(0, min(len(b), 200)))] ^= \
+                1 << int(rng.integers(0, 8))
+        else:
+            for _ in range(1 + k % 3):
+                b[int(rng.integers(8, len(b)))] ^= 1 << int(rng.integers(0, 8))
+        intact = all(b[i] == data[i] for i in range(directory, len(b)))
+        assert _same_as_pil(bytes(b), intact and not ccitt), k
+        got = _outcome(native.decode_image, bytes(b))
+        assert not (isinstance(got, str) and got == "415"), k
+        refused += isinstance(got, str)
+    # Deflate's checksum fails every flip of its data; raw strips decode
+    # most flips
+    assert refused > 0 and (kind not in ("raw", "raw_tiles") or refused < 100)
+
+
+@pytest.mark.parametrize("comp", ["group3", "group4", "tiff_ccitt"])
+def test_ccitt_strips_cut_short_as_libtiff_ends_them(comp):
+    """A strip whose byte count is cut at every length: libtiff 4.7 fails
+    a Modified Huffman strip that ends early, decodes what a T.4 1-D strip
+    holds, and a T.6 strip once a row is whole; the port refuses exactly
+    the same cuts. The pixels are not held: after a strip that ends early
+    libtiff decodes the file's later strips otherwise than alone, which
+    the port does not reproduce (ROADMAP §3, fault 1); nor is T.4 2-D at
+    every cut, where the measured rule misses some."""
+    im = Image.fromarray(_bilevel(24, 45, 4, "random").astype(np.uint8)
+                         * 255).convert("1")
+    old = TiffImagePlugin.STRIP_SIZE
+    TiffImagePlugin.STRIP_SIZE = 8 * 6
+    try:
+        data = pil_tiff(im, compression=comp)
+    finally:
+        TiffImagePlugin.STRIP_SIZE = old
+    counts = Image.open(io.BytesIO(data)).tag_v2[279]
+    packed = struct.pack(f"<{len(counts)}L", *counts)
+    at = data.index(packed)
+    for n in range(1, counts[0] + 1):
+        cut = struct.pack(f"<{len(counts)}L", n, *counts[1:])
+        assert _same_as_pil(data[:at] + cut + data[at + len(packed):],
+                            pixels=False), n
+
+
+def test_lzma_checks_after_a_full_strip_do_not_fail_it():
+    """liblzma reports a broken block check or index once the strip is
+    full, which libtiff does not count as a failure: such a file decodes
+    on both servers; a break inside the data fails on both."""
+    img = _photo(20, 24, 9)
+    data = tiff_image(img, 8, 2, compression=34925)
+    offs = Image.open(io.BytesIO(data)).tag_v2[273][0]
+    cnt = Image.open(io.BytesIO(data)).tag_v2[279][0]
+    for pos in (offs + cnt - 1, offs + cnt - 13, offs + cnt - 30,
+                offs + cnt // 2, offs + 20):
+        bad = bytearray(data)
+        bad[pos] ^= 0x10
+        assert _same_as_pil(bytes(bad)), pos - offs
+
+
+def test_duplicate_tags_as_each_reader_takes_them():
+    """PIL keeps the last of duplicate tags, libtiff the first: a second
+    Compression or RowsPerStrip entry decodes (or fails) as PIL's
+    libtiff decode does."""
+    img = _photo(16, 20, 10)
+    base = tiff_image(img, 8, 2, compression=5, rows_per_strip=8)
+    off = struct.unpack_from("<I", base, 4)[0]
+    n = struct.unpack_from("<H", base, off)[0]
+    entries = [base[off + 2 + 12 * i:off + 14 + 12 * i] for i in range(n)]
+    tags = [struct.unpack_from("<H", e)[0] for e in entries]
+    for donor, dup in ((258, 259), (262, 278), (284, 259)):
+        i = tags.index(donor)
+        patched = bytearray(base)
+        struct.pack_into("<H", patched, off + 2 + 12 * i, dup)
+        assert _same_as_pil(bytes(patched)), (donor, dup)
+
+
+def test_packbits_and_lzw_encoders_round_trip():
+    """The writers the tests build layouts with: PackBits and LZW (with a
+    table reset past 4093 entries) decode to their input through the
+    port's libtiff-equivalent decoders and PIL's."""
+    rng = np.random.default_rng(2)
+    raw = np.repeat(rng.integers(0, 256, 20000, np.uint8),
+                    rng.integers(1, 5, 20000)).tobytes()[:40000]
+    s = np.frombuffer(raw, np.uint8).reshape(100, 400, 1)
+    for comp in (5, 32773):
+        data = tiff_image(s, 8, 1, compression=comp)
+        assert np.array_equal(native.decode_image(data)[..., 0], s[..., 0])
+        assert _same_as_pil(data)
+    assert packbits(b"") == b"" and len(lzw(raw)) < len(raw)
+
+
+# --- the entry points ---
+
+@pytest.fixture(scope="module")
+def srcnn_servers():
+    """(JAX server port, port server port, port server): the SRCNN winner
+    (JAX from its Orbax checkpoint, the port from its asset) in float32
+    behind each HTTP front end."""
+    jsrv = jax_serve.SRServer("auto", str(CHECKPOINT), dtype=jnp.float32)
+    psrv = SRServer("auto", checkpoint=str(ASSET), dtype=torch.float32,
+                    device="cpu")
+    jhttpd = jax_serve.SRHTTPServer(("127.0.0.1", 0),
+                                    jax_serve.make_handler(jsrv))
+    phttpd = serve.SRHTTPServer(("127.0.0.1", 0), serve.make_handler(psrv))
+    for h in (jhttpd, phttpd):
+        threading.Thread(target=h.serve_forever, daemon=True).start()
+    yield jhttpd.server_address[1], phttpd.server_address[1], psrv
+    for h in (jhttpd, phttpd):
+        h.shutdown()
+        h.server_close()
+    psrv.close()
+
+
+def _post(port, body):
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/sr", data=body,
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+@pytest.mark.parametrize("name", ["tiff_lzw_pred2", "tiff_jpeg_ycbcr420",
+                                  "tiff_g4"])
+def test_tiff_upload_answered_as_the_jax_server(srcnn_servers, name):
+    """Both servers answer 200; the port's body is the PNG of its engine's
+    upscale of PIL's pixels, byte for byte, and the two bodies decode
+    within 1 level of each other (the float32 SRCNN forward rounds a few
+    values differently in XLA and PyTorch); a cut TIFF is a 400 on both,
+    and a ZSTD one 200 from the JAX server and 415 naming ZSTD from the
+    port."""
+    jport, pport, psrv = srcnn_servers
+    data = (JPEG_ASSETS / GOLDENS[name]["file"]).read_bytes()
+    (jcode, jbody), (pcode, pbody) = _post(jport, data), _post(pport, data)
+    assert jcode == pcode == 200
+    assert pbody == native.encode_png_rgb8(psrv.upscale(_pil(data)),
+                                           psrv.png_level)
+    jpx = native.decode_image(jbody).astype(np.int16)
+    ppx = native.decode_image(pbody).astype(np.int16)
+    assert jpx.shape == ppx.shape and np.abs(jpx - ppx).max() <= 1
+    cut = data[:len(data) // 3]
+    assert _post(jport, cut)[0] == _post(pport, cut)[0] == 400
+    zstd = (JPEG_ASSETS / ALL["port_refused"]["tiff_zstd"]["file"]) \
+        .read_bytes()
+    assert _post(jport, zstd)[0] == 200
+    code, body = _post(pport, zstd)
+    assert code == 415 and b"ZSTD" in body
+
+
+def test_a_tiff_unit_that_does_not_build_is_415_naming_it(srcnn_servers,
+                                                         monkeypatch):
+    """No fallback: on a host where g++ cannot build fast_tiff.cpp, a TIFF
+    upload is a 415 naming the build failure, and PNG still serves."""
+    monkeypatch.setitem(native._libs, "fast_tiff", None)
+    monkeypatch.setitem(native._errors, "fast_tiff", "g++: not found")
+    data = (JPEG_ASSETS / GOLDENS["tiff_deflate_tiled"]["file"]).read_bytes()
+    with pytest.raises(native.UnsupportedImage, match="did not build"):
+        native.decode_image(data)
+    code, body = _post(srcnn_servers[1], data)
+    assert code == 415 and b"did not build" in body and b"g++" in body
+    png = native.encode_png_rgb8(_photo(8, 8, 1))
+    assert _post(srcnn_servers[1], png)[0] == 200
+
+
+def test_predict_upscales_a_tif(tmp_path, capsys):
+    """A .tif named on the command line is read (a directory walk, like
+    the JAX CLI's, takes only its extensions, which do not include
+    .tif)."""
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    data = (JPEG_ASSETS / GOLDENS["tiff_planar"]["file"]).read_bytes()
+    (src / "scan.tif").write_bytes(data)
+    predict.main([str(src / "scan.tif"), "--out_dir", str(out),
+                  "--architecture", "SRCNN", "--tile", "16", "--max_batch",
+                  "4", "--dtype", "float32", "--device", "cpu"])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["n_images"] == 1 and summary["failed"] == 0
+    ref = SRServer("SRCNN", dtype=torch.float32, device="cpu", tile=16,
+                   max_batch=4)
+    try:
+        got = native.decode_image((out / "scan_x4.png").read_bytes())
+        assert np.array_equal(got, ref.upscale(_pil(data)))
+    finally:
+        ref.close()
+    assert predict.collect_inputs([str(src)])[0] == []

@@ -65,7 +65,18 @@ under 600 KB:
   top-down BMP, WebP ALPH raw and VP8L-coded with each filter, an
   animated WebP whose first frame is smaller than its canvas, 12-bit and
   hierarchical JPEG (a frame header patched); truncated JPEGs are other
-  streams cut short, two of them just before EOI (one PIL decodes);
+  streams cut short, two of them just before EOI (one PIL decodes).
+  TIFF, Netpbm, ICO, CUR and QOI (``tools/raster_writers.py``): TIFFs
+  with LZW and a predictor, tiled Deflate, Deflate (32946) RGBA, JPEG
+  YCbCr 4:2:0 strips sharing ``JPEGTables``, PackBits 4-bit palette,
+  16-bit RGB big-endian, separate planes, BigTIFF, a float with the
+  floating-point predictor, LZW YCbCr 4:2:0 (libtiff's RGBA path), an
+  Orientation tag; PIL's own JPEG RGB, CMYK, LZMA and CCITT (G3 1-D and
+  2-D, G4, Modified Huffman) TIFFs; binary and plain PPM, 16-bit and
+  maxval-100 PGM, plain and binary PBM, PFM; ICO with PNG and BMP
+  entries, a CUR; QOI RGB and RGBA. A ZSTD TIFF, which PIL decodes and
+  the port refuses by name, is in ``streams/`` too but listed under
+  ``port_refused`` in the goldens, not ``streams``;
 - ``goldens.json``: sha256 digests (not pixels, to stay small) of, for
   each stream, the JAX package's ``decode_jpeg_rgb8`` (``sha256``; for
   PNG, GIF, BMP and WebP PIL's decode; ``binding_refused`` where it
@@ -119,6 +130,9 @@ from food101_sr_tpu.data import (Food101Source, SRDataLoader,  # noqa: E402
 from food101_sr_tpu.training import load_checkpoint  # noqa: E402
 from tools.export_sr_checkpoint import export_state_dict  # noqa: E402
 from tools.make_fake_food101 import CLASSES, make_image  # noqa: E402
+from tools.raster_writers import (dib, ico, jpeg_strip,  # noqa: E402
+                                  jpeg_tables, lzw, netpbm, pfm, pil_tiff,
+                                  qoi, tiff_file, tiff_image)
 
 CHECKPOINT = os.path.join(ROOT, "weights", "winner_srcnn_best")
 ASSETS = os.path.join(ROOT, "food101_sr_tpu_torch", "assets")
@@ -880,7 +894,103 @@ def _streams() -> dict:
         out[name] = out[src][:len(out[src]) * 2 // 3]
     out.update(_pil_feed_streams(enc))
     return ({f"{k}.jpg": v for k, v in out.items()} | _other_streams(rng)
-            | _webp_streams())
+            | _webp_streams() | _raster_streams())
+
+
+def _pil_ccitt(img: Image.Image, compression: str, rows: int, **kw) -> bytes:
+    """A bilevel TIFF through PIL's libtiff writer, ``rows`` rows a strip
+    (PIL sizes strips by TiffImagePlugin.STRIP_SIZE bytes)."""
+    from PIL import TiffImagePlugin
+    old = TiffImagePlugin.STRIP_SIZE
+    TiffImagePlugin.STRIP_SIZE = rows * ((img.size[0] + 7) // 8)
+    try:
+        return pil_tiff(img, compression=compression, **kw)
+    finally:
+        TiffImagePlugin.STRIP_SIZE = old
+
+
+def _raster_streams() -> dict:
+    """name -> bytes of the TIFF, Netpbm, ICO, CUR and QOI streams: one per
+    decoder feature the http phase uploads on the card (the tests hold
+    the rest of each format's table against PIL live)."""
+    rng = np.random.default_rng(29)
+    photo = make_image(rng, 40, 48)
+    pil = Image.fromarray(photo)
+    out = {}
+    out["tiff_lzw_pred2.tif"] = tiff_image(photo, 8, 2, compression=5,
+                                           predictor=2, rows_per_strip=16)
+    out["tiff_deflate_tiled.tif"] = tiff_image(photo, 8, 2, compression=8,
+                                               tile=(32, 16))
+    out["tiff_deflate32946_rgba.tif"] = tiff_image(
+        np.concatenate([photo, photo[..., :1]], 2), 8, 2, compression=32946,
+        extra=(2,), rows_per_strip=8)
+    strips = [jpeg_strip(2, 85)(photo[y:y + 16]) for y in range(0, 40, 16)]
+    tables, short = jpeg_tables(strips)
+    out["tiff_jpeg_ycbcr420.tif"] = tiff_file(
+        {256: (4, (48,)), 257: (4, (40,)), 258: (3, (8, 8, 8)),
+         259: (3, (7,)), 262: (3, (6,)), 277: (3, (3,)), 278: (4, (16,)),
+         284: (3, (1,)), 347: (7, tables), 530: (3, (2, 2))}, short)
+    out["tiff_jpeg_rgb.tif"] = pil_tiff(pil, compression="jpeg", quality=85)
+    idx = (photo[..., 1] >> 4).astype(np.uint8)
+    cmap = rng.integers(0, 65536, 3 * 16)
+    out["tiff_packbits_palette.tif"] = tiff_image(
+        idx[..., None], 4, 3, compression=32773, colormap=cmap,
+        rows_per_strip=10)
+    bw = pil.convert("1")
+    out["tiff_g4.tif"] = _pil_ccitt(bw, "group4", 12)
+    out["tiff_g3_2d.tif"] = _pil_ccitt(bw, "group3", 12, tiffinfo={292: 1})
+    out["tiff_g3.tif"] = _pil_ccitt(bw, "group3", 12)
+    out["tiff_mh.tif"] = _pil_ccitt(bw, "tiff_ccitt", 12)
+    wide = photo.astype(np.uint16) * 257 + rng.integers(0, 256, photo.shape)
+    out["tiff_rgb16_be.tif"] = tiff_image(wide, 16, 2, order=">",
+                                          compression=5, predictor=2,
+                                          rows_per_strip=8)
+    out["tiff_planar.tif"] = tiff_image(photo, 8, 2, compression=8, planar=2,
+                                        rows_per_strip=16)
+    out["tiff_bigtiff.tif"] = tiff_image(photo, 8, 2, compression=8,
+                                         big=True, rows_per_strip=8)
+    out["tiff_cmyk.tif"] = pil_tiff(pil.convert("CMYK"),
+                                    compression="tiff_lzw")
+    out["tiff_lzma.tif"] = pil_tiff(pil, compression="lzma")
+    f32 = (photo[..., 0].astype(np.float32) * 1.25 - 20)[..., None]
+    out["tiff_float_pred3.tif"] = tiff_image(f32, 32, 1, compression=8,
+                                             predictor=3, sampleformat=3,
+                                             rows_per_strip=8)
+    ycc = rng.integers(0, 256, (20 * 24 * 6,), np.uint8).reshape(20, 24, 6)
+    out["tiff_ycbcr_lzw.tif"] = tiff_file(
+        {256: (4, (48,)), 257: (4, (40,)), 258: (3, (8, 8, 8)),
+         259: (3, (5,)), 262: (3, (6,)), 277: (3, (3,)), 278: (4, (40,)),
+         284: (3, (1,)), 530: (3, (2, 2))}, [lzw(ycc.tobytes())])
+    out["tiff_orientation6.tif"] = tiff_image(
+        photo, 8, 2, extra_tags={274: (3, (6,))}, rows_per_strip=13)
+    gray = photo[..., 1]
+    out["ppm_binary.ppm"] = netpbm(b"P6", photo, 255)
+    out["ppm_plain.ppm"] = netpbm(b"P3", photo[:12, :16], 255, comment=True)
+    out["pgm16.pgm"] = netpbm(b"P5", gray.astype(np.uint16) * 200, 65535)
+    out["pgm_maxval100.pgm"] = netpbm(b"P5", gray // 3, 100)
+    out["pbm_plain.pbm"] = netpbm(b"P1", (gray > 128).astype(np.uint8))
+    out["pbm.pbm"] = netpbm(b"P4", (gray > 100).astype(np.uint8))
+    out["pfm.pfm"] = pfm(gray.astype(np.float32) * 1.1 - 10, little=True)
+    buf = io.BytesIO()
+    Image.fromarray(photo[:32, :32]).save(buf, "PNG")
+    pal = rng.integers(0, 256, (256, 3))
+    out["ico_png.ico"] = ico([(16, 16, 0, 24, dib(photo[:16, :16], 24)),
+                              (32, 32, 0, 32, buf.getvalue())])
+    out["ico_bmp.ico"] = ico([(32, 32, 0, 8, dib(gray[:32, :32], 8, pal)),
+                              (32, 32, 0, 24, dib(photo[:32, :32], 24))])
+    out["cur_bmp.cur"] = ico([(32, 32, 0, 24, dib(photo[8:40, 8:40], 24))],
+                             cursor=True)
+    out["qoi_rgb.qoi"] = qoi(photo)
+    out["qoi_rgba.qoi"] = qoi(np.concatenate([photo, gray[..., None]], 2))
+    return out
+
+
+def _port_refused_streams() -> dict:
+    """name -> (bytes, the refusal's name) of streams the JAX server
+    decodes and the port answers 415 naming what it lacks."""
+    rng = np.random.default_rng(31)
+    pil = Image.fromarray(make_image(rng, 40, 48))
+    return {"tiff_zstd.tif": (pil_tiff(pil, compression="zstd"), "ZSTD")}
 
 
 def _pil_feed_streams(enc) -> dict:
@@ -982,6 +1092,14 @@ def export_jpeg(out_dir: str) -> dict:
                 got = px[y0:y0 + ch, x0:x0 + cw]
             goldens["crops"].append({"stream": name, "x0": x0, "y0": y0,
                                      "cw": cw, "ch": ch, "sha256": sha256(got)})
+    goldens["port_refused"] = {}
+    for fname, (data, refusal) in _port_refused_streams().items():
+        with open(os.path.join(root, "streams", fname), "wb") as f:
+            f.write(data)
+        served = _pil_rgb(data)
+        goldens["port_refused"][os.path.splitext(fname)[0]] = {
+            "file": f"streams/{fname}", "refusal": refusal,
+            "shape": list(served.shape), "served_sha256": sha256(served)}
     for h, w, q, seed in ENCODE:
         data = jax_native.encode_jpeg_rgb8(jpeg_test_image(h, w, seed), q)
         goldens["encode"].append({"h": h, "w": w, "quality": q, "seed": seed,

@@ -1,0 +1,375 @@
+"""Writers for the TIFF, Netpbm, ICO, CUR and QOI streams the port's
+decoders are held against: layouts PIL's own writers do not make (tiles,
+``PlanarConfiguration`` 2, predictors, BigTIFF, every bit depth and sample
+format of TIFF's pixel table, fill order 2, JPEG strips with and without
+``JPEGTables``, ICO/CUR with BMP payloads) assembled with ``struct``,
+payloads from ``zlib``, ``lzma``, PIL's encoders or the small PackBits and
+LZW encoders here. The goldens are always PIL's decode of the result.
+
+Used by ``tools/export_port_assets.py --what jpeg`` and the port's tests;
+needs numpy and PIL, not JAX.
+"""
+from __future__ import annotations
+
+import io
+import lzma
+import struct
+import zlib
+
+import numpy as np
+from PIL import Image
+
+# TIFF field types: code -> struct code
+_CODES = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 11: "f", 12: "d",
+          13: "L", 16: "Q"}
+
+
+def tiff_file(tags: dict, chunks: list, order: str = "<", big: bool = False,
+              tiled: bool = False) -> bytes:
+    """A TIFF whose first directory holds ``tags`` (tag -> (type, values),
+    values a tuple of numbers, or bytes for types 1, 2 and 7) and the
+    strips (or tiles) ``chunks``, their offsets and byte counts filled in."""
+    e = order
+    magic = (b"II" if e == "<" else b"MM") + struct.pack(e + "H",
+                                                         43 if big else 42)
+    data = bytearray(magic + (struct.pack(e + "HHQ", 8, 0, 0) if big
+                              else struct.pack(e + "L", 0)))
+    offsets = []
+    for c in chunks:
+        offsets.append(len(data))
+        data += c
+        if len(data) & 1:
+            data += b"\0"
+    tags = dict(tags)
+    wide = 16 if big else 4
+    off_tag, cnt_tag = (324, 325) if tiled else (273, 279)
+    tags[off_tag] = (wide, tuple(offsets))
+    tags[cnt_tag] = (wide, tuple(len(c) for c in chunks))
+    ifd_pos = len(data)
+    n = len(tags)
+    inline, ent = (8, 20) if big else (4, 12)
+    extra_pos = ifd_pos + (8 if big else 2) + n * ent + inline
+    ifd = bytearray(struct.pack(e + ("Q" if big else "H"), n))
+    extra = bytearray()
+    for tag, (typ, vals) in sorted(tags.items()):
+        if isinstance(vals, (bytes, bytearray)):
+            payload, count = bytes(vals), len(vals)
+        elif typ == 5:
+            payload = b"".join(struct.pack(e + "LL", *v) for v in vals)
+            count = len(vals)
+        else:
+            payload = struct.pack(f"{e}{len(vals)}{_CODES[typ]}", *vals)
+            count = len(vals)
+        if len(payload) <= inline:
+            field = payload.ljust(inline, b"\0")
+        else:
+            field = struct.pack(e + ("Q" if big else "L"),
+                                extra_pos + len(extra))
+            extra += payload
+            if len(extra) & 1:
+                extra += b"\0"
+        ifd += struct.pack(e + ("HHQ" if big else "HHL"), tag, typ,
+                           count) + field
+    ifd += b"\0" * inline  # no next directory
+    struct.pack_into(e + ("Q" if big else "L"), data, 8 if big else 4,
+                     ifd_pos)
+    return bytes(data + ifd + extra)
+
+
+def packbits(raw: bytes) -> bytes:
+    """PackBits: runs of 3 or more as repeats, the rest as literals."""
+    out, i, n = bytearray(), 0, len(raw)
+    while i < n:
+        j = i
+        while j + 1 < n and raw[j + 1] == raw[i] and j - i < 127:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i + 1), raw[i]])
+            i = j + 1
+            continue
+        lit = i
+        while lit < n and lit - i < 128 and not (
+                lit + 2 < n and raw[lit] == raw[lit + 1] == raw[lit + 2]):
+            lit += 1
+        out += bytes([lit - i - 1]) + raw[i:lit]
+        i = lit
+    return bytes(out)
+
+
+def lzw(raw: bytes) -> bytes:
+    """TIFF LZW: 9-12 bit codes, most significant bit first, a code's width
+    the bit length of the next free entry (libtiff's early change), Clear
+    before the table fills, EOI at the end."""
+    acc, nacc, out = 0, 0, bytearray()
+
+    def emit(code, width):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+
+    def width(nxt):
+        return max(9, min(12, nxt.bit_length()))
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    emit(256, 9)
+    w = b""
+    for b in raw:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w], width(nxt))
+        table[wc] = nxt
+        nxt += 1
+        w = bytes([b])
+        if nxt == 4093:
+            emit(256, width(nxt))
+            table = {bytes([i]): i for i in range(256)}
+            nxt = 258
+    if w:
+        emit(table[w], width(nxt))
+        nxt += 1
+    emit(257, width(nxt))
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+_REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def _pack_rows(s: np.ndarray, bits: int, order: str, fmt: int) -> np.ndarray:
+    """(rows, n) samples -> (rows, bytes) of each row packed MSB first at
+    ``bits`` (8, 16 and 32 in the file's byte order; 32 float for fmt 3)."""
+    rows = s.shape[0]
+    if bits in (8, 16, 32):
+        kind = "f" if fmt == 3 else "i" if fmt == 2 else "u"
+        dt = np.dtype(f"{order}{kind}{bits // 8}")
+        return s.astype(dt).view(np.uint8).reshape(rows, -1)
+    v = s.astype(np.uint64)
+    n = v.shape[1]
+    total = n * bits
+    nbytes = (total + 7) // 8
+    out = np.zeros((rows, nbytes), np.uint8)
+    for k in range(bits):  # bit k of each sample, MSB first
+        bit = ((v >> np.uint64(bits - 1 - k)) & np.uint64(1)).astype(np.uint8)
+        pos = np.arange(n) * bits + k
+        np.bitwise_or.at(out, (slice(None), pos // 8),
+                         (bit << (7 - pos % 8).astype(np.uint8)))
+    return out
+
+
+def _predict(rows: np.ndarray, pred: int, bits: int, spp: int, order: str,
+             width: int) -> np.ndarray:
+    """Differencing as libtiff's encoder applies it (rows of one strip or
+    tile, in file order): 2 horizontal per sample, 3 floating point."""
+    if pred == 2:
+        dt = np.dtype(f"{order}u{bits // 8}")
+        a = rows.view(dt).reshape(rows.shape[0], width, spp).astype(np.int64)
+        d = np.diff(a, axis=1, prepend=0) % (1 << bits)
+        d[:, 0] = a[:, 0]
+        return d.astype(dt).view(np.uint8).reshape(rows.shape[0], -1)
+    if pred == 3:
+        nb = bits // 8
+        a = rows.reshape(rows.shape[0], width * spp, nb)
+        if order == "<":
+            a = a[..., ::-1]  # most significant byte first
+        planes = a.transpose(0, 2, 1).reshape(rows.shape[0], -1)
+        p = planes.reshape(rows.shape[0], -1, spp).astype(np.int64)
+        d = np.diff(p, axis=1, prepend=0) % 256
+        d[:, 0] = p[:, 0]
+        return d.astype(np.uint8).reshape(rows.shape[0], -1)
+    return rows
+
+
+def compress(raw: bytes, compression: int) -> bytes:
+    if compression == 1:
+        return raw
+    if compression == 32773:
+        return packbits(raw)
+    if compression == 5:
+        return lzw(raw)
+    if compression in (8, 32946):
+        return zlib.compress(raw, 6)
+    if compression == 34925:
+        return lzma.compress(raw, lzma.FORMAT_XZ)
+    raise ValueError(f"no encoder here for compression {compression}")
+
+
+def tiff_image(samples: np.ndarray, bits, photometric: int, *,
+               order: str = "<", compression: int = 1, planar: int = 1,
+               rows_per_strip: int | None = None, tile=None,
+               predictor: int = 1, fillorder: int = 1, sampleformat: int = 1,
+               extra=(), colormap=None, big: bool = False,
+               extra_tags: dict | None = None, chunk_codec=None) -> bytes:
+    """``samples`` (h, w, spp) as a TIFF: ``bits`` per sample (an int, or
+    a tuple written as given), strips of ``rows_per_strip`` rows or
+    ``tile`` (tw, th) tiles (zero-padded at the edges), one plane per
+    sample for ``planar`` 2, each chunk differenced by ``predictor``,
+    compressed, and bit-reversed for ``fillorder`` 2. ``chunk_codec(pixels
+    (rows, cols, spp)) -> bytes`` replaces packing and compression (JPEG)."""
+    h, w, spp = samples.shape
+    bits_t = bits if isinstance(bits, tuple) else (bits,) * spp
+    b = bits_t[0]
+    tags = {256: (4, (w,)), 257: (4, (h,)), 258: (3, bits_t),
+            259: (3, (compression,)), 262: (3, (photometric,)),
+            277: (3, (spp,)), 284: (3, (planar,))}
+    if fillorder != 1:
+        tags[266] = (3, (fillorder,))
+    if predictor != 1:
+        tags[317] = (3, (predictor,))
+    if sampleformat != 1:
+        tags[339] = (3, (sampleformat,) * spp)
+    if extra:
+        tags[338] = (3, tuple(extra))
+    if colormap is not None:
+        tags[320] = (3, tuple(int(v) for v in colormap))
+    if tile:
+        tw, th = tile
+        tags[322], tags[323] = (4, (tw,)), (4, (th,))
+        boxes = [(y, x, th, tw) for y in range(0, h, th)
+                 for x in range(0, w, tw)]
+    else:
+        rps = rows_per_strip or h
+        tags[278] = (4, (rps,))
+        boxes = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
+    tags.update(extra_tags or {})
+    planes = [samples[..., i:i + 1] for i in range(spp)] if planar == 2 \
+        else [samples]
+    chunks = []
+    for pl in planes:
+        for y, x, ch, cw in boxes:
+            block = np.zeros((ch, cw, pl.shape[2]), samples.dtype)
+            part = pl[y:y + ch, x:x + cw]
+            block[:part.shape[0], :part.shape[1]] = part
+            if chunk_codec is not None:
+                chunks.append(chunk_codec(block))
+                continue
+            rows = _pack_rows(block.reshape(ch, -1), b, order, sampleformat)
+            rows = _predict(rows, predictor, b, pl.shape[2], order, cw)
+            data = compress(rows.tobytes(), compression)
+            if fillorder == 2:
+                data = _REV[np.frombuffer(data, np.uint8)].tobytes()
+            chunks.append(data)
+    return tiff_file(tags, chunks, order, big, bool(tile))
+
+
+def jpeg_strip(subsampling: int = 2, quality: int = 85):
+    """A chunk codec: each strip or tile as a whole JPEG stream (JFIF,
+    YCbCr at PIL's ``subsampling``: 0 4:4:4, 1 4:2:2, 2 4:2:0), or gray."""
+    def codec(block: np.ndarray) -> bytes:
+        buf = io.BytesIO()
+        img = Image.fromarray(block[..., 0] if block.shape[2] == 1 else block)
+        img.save(buf, "JPEG", quality=quality, subsampling=subsampling)
+        return buf.getvalue()
+    return codec
+
+
+def jpeg_tables(strips: list) -> tuple:
+    """Whole JPEG streams that share their tables -> (JPEGTables: SOI, the
+    DQT and DHT segments, EOI; the abbreviated streams: SOI, the frame and
+    scan, EOI)."""
+    def segments(s):
+        pos, out = 2, []
+        while pos < len(s):
+            m = s[pos + 1]
+            if m == 0xDA:
+                out.append((m, s[pos:]))
+                break
+            n = struct.unpack_from(">H", s, pos + 2)[0]
+            out.append((m, s[pos:pos + 2 + n]))
+            pos += 2 + n
+        return out
+    first = segments(strips[0])
+    tables = b"\xff\xd8" + b"".join(b for m, b in first if m in (0xDB, 0xC4)) \
+        + b"\xff\xd9"
+    short = [b"\xff\xd8" + b"".join(b for m, b in segments(s)
+                                    if m not in (0xDB, 0xC4, 0xE0))
+             for s in strips]
+    return tables, short
+
+
+def pil_tiff(img: Image.Image, **kw) -> bytes:
+    buf = io.BytesIO()
+    img.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# Netpbm, ICO, CUR, QOI
+# ---------------------------------------------------------------------------
+
+def netpbm(magic: bytes, samples: np.ndarray, maxval: int | None = None,
+           comment: bool = False) -> bytes:
+    """P1-P6 (plain ones with a value per token, rows on lines) of
+    ``samples`` (h, w[, c]); ``comment`` puts one in the header."""
+    h, w = samples.shape[:2]
+    head = magic + (b"\n# a comment\n" if comment else b"\n") + \
+        b"%d %d\n" % (w, h)
+    if maxval is not None:
+        head += b"%d\n" % maxval
+    if magic in (b"P1", b"P2", b"P3"):
+        rows = samples.reshape(h, -1)
+        body = b"\n".join(b" ".join(b"%d" % v for v in r)
+                           for r in rows) + b"\n"
+        return head + body
+    if magic == b"P4":
+        return head + np.packbits(samples.astype(np.uint8), axis=1).tobytes()
+    dt = ">u2" if maxval is not None and maxval > 255 else np.uint8
+    return head + samples.astype(dt).tobytes()
+
+
+def pfm(values: np.ndarray, little: bool) -> bytes:
+    """PIL's Pf: one float32 channel, rows bottom-up, the scale's sign the
+    byte order."""
+    h, w = values.shape
+    head = b"Pf\n%d %d\n%s\n" % (w, h, b"-1.0" if little else b"1.0")
+    return head + values[::-1].astype("<f4" if little else ">f4").tobytes()
+
+
+def dib(img: np.ndarray, bits: int, palette=None, mask=None) -> bytes:
+    """A BITMAPINFOHEADER DIB as ICO and CUR hold it: the height doubled,
+    the XOR image bottom-up (8-bit palette indices, or 24/32-bit BGR(A)),
+    then the 1-bit AND mask."""
+    h, w = img.shape[:2]
+    colors = 0 if palette is None else len(palette)
+    if bits == 8:
+        stride = (w + 3) & ~3
+        rows = [bytes(r) + bytes(stride - w) for r in img[::-1]]
+    else:
+        k = bits // 8
+        stride = (w * k + 3) & ~3
+        px = img[..., [2, 1, 0, 3][:k]] if k == 4 else img[..., ::-1]
+        rows = [r.tobytes() + bytes(stride - w * k) for r in px[::-1]]
+    pal = b"" if palette is None else b"".join(
+        bytes([b_, g, r, 0]) for r, g, b_ in palette)
+    m = mask if mask is not None else np.zeros((h, w), np.uint8)
+    mrow = ((w + 31) // 32) * 4
+    mbits = b"".join(np.packbits(r).tobytes().ljust(mrow, b"\0")
+                     for r in m[::-1])
+    hdr = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0,
+                      len(rows) * stride, 0, 0, colors, 0)
+    return hdr + pal + b"".join(rows) + mbits
+
+
+def ico(entries: list, cursor: bool = False) -> bytes:
+    """ICO (or CUR) of ``entries``: (width, height, colors, bpp, payload);
+    a width or height of 256 is written as 0."""
+    out = struct.pack("<HHH", 0, 2 if cursor else 1, len(entries))
+    off = 6 + 16 * len(entries)
+    body = b""
+    for w, h, colors, bpp, payload in entries:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0,
+                           1, bpp, len(payload), off + len(body))
+        body += payload
+    return out + body
+
+
+def qoi(pixels: np.ndarray) -> bytes:
+    """QOI through PIL's encoder (RGB or RGBA)."""
+    buf = io.BytesIO()
+    Image.fromarray(pixels).save(buf, "QOI")
+    return buf.getvalue()
