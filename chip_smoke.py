@@ -66,7 +66,8 @@ Phases, one short line each; any failure raises and the exit code is 1:
           WebP, every output equal to upscale's; a shutdown with 4
           requests inside their handlers answers each; 404, 413, 400
           (truncated body), 400 (truncated JPEG, broken WebP and cut
-          TIFF, which PIL refuses) and 415 (a ZSTD TIFF, which PIL
+          TIFF, which PIL refuses, and JBIG2 and HEIC headers, which no
+          PIL plugin takes) and 415 (a ZSTD TIFF, which PIL
           decodes, and a PSD, each named); then K2 NHWC at the
           --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
@@ -91,10 +92,21 @@ Phases, one short line each; any failure raises and the exit code is 1:
           --pretrained_weights <asset> on the mini tree, one epoch each):
           the generator before the first step equal to the asset bit for
           bit, every logged loss finite, nothing skipped; visualize's
-          default table (the SRCNN and AttentionSR assets; the absent
-          winners' rows skipped); K2 NHWC on the trained net's bf16 SE
+          default table (the SRCNN, ResNetSR and AttentionSR assets; the
+          absent winners' rows skipped); K2 NHWC on the trained net's bf16 SE
           inputs and K1 on the scoring pyramids against their plain
-          versions, with times ("winner numbers:" line)
+          versions, with times ("winner numbers:" line). Then the same
+          serve, score and cost checks on the trained ResNetSR x4 winner
+          and its QAT fine-tune (assets/winner_resnet.pth and
+          winner_resnet_qat.pth, 1,549,462 parameters, BatchNorm running
+          stats included; tools/export_port_assets.py --what resnet), the
+          int8 cost within WINNER_RESNET_INT8_DB of JAX's and both nets'
+          int8 costs printed side by side; predict and the exported
+          64x64 program for the plain one; the README's QAT fine-tune
+          from it (train --architecture RESNET --quantize qat, NLPD, lr
+          1e-5), K1 launches as the closed form; K2 0 on every ResNetSR
+          batch; visualize's default table with its RESNET row; K1 on
+          the ResNetSR scoring pyramids against its plain version
 9. train  the supervised step on the registry AttentionSR x4 (float32,
           channels-last, the phase-space tail as train() runs it, train
           mode), NLPD loss, Adam 4e-4, batch 16 of
@@ -478,14 +490,39 @@ ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 WINNER_SMALL = 4
 WINNER_PSNR_DB, WINNER_SSIM, WINNER_RTOL = 0.01, 1e-4, 1e-3
 WINNER_BF16_DB, WINNER_INT8_DB = 0.05, 0.02
+# the ResNetSR winners' int8 cost against JAX's: the bound
+# tests/test_torch_phase_tail.py holds the QAT winner's int8 forward to
+# (its trained weights put rounding ties on the int8 grid, which float32
+# sums in another order resolve differently)
+WINNER_RESNET_INT8_DB = 0.05
 # the README's GAN fine-tune and the RUNBOOK's QAT fine-tune from the
-# winner, one epoch of the mini tree each (16 train images: 14 train, 2
-# val; 4 test) at WINNER_BATCH crops of WINNER_CROP px; visualize on
-# WINNER_VIS synthetic images
+# AttentionSR winner, and the README's QAT fine-tune from the ResNetSR one
+# (NLPD, the default loss), one epoch of the mini tree each (16 train
+# images: 14 train, 2 val; 4 test) at WINNER_BATCH crops of WINNER_CROP
+# px; visualize on WINNER_VIS synthetic images
 WINNER_TUNES = {"gan": ["--loss_function", "gan", "--lr", "1e-4"],
                 "qat": ["--loss_function", "mae", "--quantize", "qat",
-                        "--lr", "1e-4"]}
+                        "--lr", "1e-4"],
+                "resnet_qat": ["--quantize", "qat", "--lr", "1e-5"]}
 WINNER_BATCH, WINNER_CROP, WINNER_VIS = 4, 200, 4
+# the winners, each the asset winner_<name>.pth: its architecture, its
+# goldens (file and key prefix; every winner's LR inputs are the
+# AttentionSR goldens'), its int8 cost bound, its fine-tunes and whether
+# its 64x64 program is exported
+WINNERS = {
+    "attentionsr": {"arch": "AttentionSR",
+                    "goldens": ("winner_attentionsr_goldens.npz", ""),
+                    "int8_db": WINNER_INT8_DB, "tunes": ("gan", "qat"),
+                    "export": True},
+    "resnet": {"arch": "RESNET",
+               "goldens": ("winner_resnet_goldens.npz", "resnet_"),
+               "int8_db": WINNER_RESNET_INT8_DB, "tunes": ("resnet_qat",),
+               "export": True},
+    "resnet_qat": {"arch": "RESNET",
+                   "goldens": ("winner_resnet_goldens.npz", "resnet_qat_"),
+                   "int8_db": WINNER_RESNET_INT8_DB, "tunes": (),
+                   "export": False},
+}
 
 # the food101 phase: the committed JPEG fixtures and the JAX package's
 # goldens for them (tools/export_port_assets.py writes both), and train()
@@ -2419,8 +2456,8 @@ def _hand_tta(server, img: np.ndarray) -> np.ndarray:
                 y = server.model(batch)[:1]
                 y = torch.flip(y, (3,)) if flip else y
                 acc = acc + torch.rot90(y, -k, (2, 3)).float()
-    y = (acc / 8).to(server.dtype).float()
-    y8 = (y.clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    y = (acc / 8).to(server.dtype)  # quantized in it, as the server does
+    y8 = (y.clamp(0.0, 1.0) * 255.0 + 0.5).clamp(max=255.0).to(torch.uint8)
     return y8[0].permute(1, 2, 0).cpu().numpy()
 
 
@@ -2789,8 +2826,12 @@ def phase_http(rates) -> tuple[dict, dict]:
                         dtype=torch.bfloat16)
         try:
             lv_gold_bf16 = [_levels(half.upscale(x), want) for x, want in gold]
+            rule_bf16 = _u8_rule_diff(half, [x for x, _ in gold])
         finally:
             half.close()
+        if rule_bf16:
+            raise AssertionError(f"SRCNN asset bf16: {rule_bf16} output "
+                                 "bytes off the JAX server's uint8 rule")
 
         # --tta against the eight dihedral forwards averaged by hand
         lv_tta = max(_levels(native.decode_image(r_tta[i][2]),
@@ -2827,6 +2868,10 @@ def phase_http(rates) -> tuple[dict, dict]:
                                      webp_body[:len(webp_body) // 2]),
             "400 cut TIFF": _http(port, "/sr?model=attn",
                                   uploads["TIFF LZW, predictor 2"][0][:600]),
+            "400 JBIG2": _http(port, "/sr?model=attn",
+                               b"\x97JB2\r\n\x1a\n\x01" + bytes(64)),
+            "400 HEIC": _http(port, "/sr?model=attn",
+                              b"\x00\x00\x00\x1cftypheic" + bytes(64)),
             "415 ZSTD TIFF": _http(port, "/sr?model=attn", zstd_body),
             "415 PSD": _http(port, "/sr?model=attn", b"8BPS" + bytes(64)),
         }
@@ -2835,6 +2880,7 @@ def phase_http(rates) -> tuple[dict, dict]:
         if (codes != {"404 unknown model": 404, "413": 413,
                       "400 truncated": 400, "400 truncated JPEG": 400,
                       "400 broken WebP": 400, "400 cut TIFF": 400,
+                      "400 JBIG2": 400, "400 HEIC": 400,
                       "415 ZSTD TIFF": 415, "415 PSD": 415}
                 or b"truncated" not in errors["400 truncated"]
                 or zstd["refusal"].encode() not in errors["415 ZSTD TIFF"][2]
@@ -2860,6 +2906,7 @@ def phase_http(rates) -> tuple[dict, dict]:
         "predict": pred,
         "statz": stats[-1],
         "levels_srcnn_f32": lv_gold, "levels_srcnn_bf16": lv_gold_bf16,
+        "srcnn_bf16_bytes_off_jax_rule": rule_bf16,
         "levels_tta_vs_hand": lv_tta, "jpeg": True,
         "drain_s": drain_s, "warmup_s": warm_s, "launches": launches,
         "codec_decode_ms": codec_ms,
@@ -2886,7 +2933,8 @@ def phase_http(rates) -> tuple[dict, dict]:
           f"decoded to the JAX server's digests: "
           f"{', '.join(CODEC_UPLOADS)}) | --tta vs hand ensemble {lv_tta} level(s) | SRCNN "
           f"asset f32 vs JAX goldens {lv_gold} level(s), bf16 "
-          f"{lv_gold_bf16} | errors {codes} | drain {drain_s:.2f} s | "
+          f"{lv_gold_bf16} (uint8 rule: {rule_bf16} bytes off JAX's) | "
+          f"errors {codes} | drain {drain_s:.2f} s | "
           f"predict: {pred_line} | launches {launches}, --tta "
           f"{tta_launches} = 2 x {n_blocks} x {b_tta} batches | "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2900,17 +2948,20 @@ def _psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
     return float(10 * np.log10(1.0 / np.mean(d * d)))
 
 
-def _winner_goldens() -> tuple[list, list, list, dict]:
-    """The winner's goldens (module docstring, phase 8b): the LR inputs,
-    JAX's float32 outputs (PNG streams in the file), the small inputs'
-    HRs rebuilt from the committed JPEGs by the port's decoder, centre-
-    cropped to a multiple of 4 as the tool crops them, and JAX's scores."""
+def _winner_goldens(spec: dict) -> tuple[list, list, list, dict]:
+    """A winner's goldens (module docstring, phase 8b): the LR inputs (the
+    AttentionSR goldens'), JAX's float32 outputs (PNG streams in the
+    file), the small inputs' HRs rebuilt from the committed JPEGs by the
+    port's decoder, centre-cropped to a multiple of 4 as the tool crops
+    them, and JAX's scores."""
     from food101_sr_tpu_torch import native
 
-    g = np.load(os.path.join(ASSETS, "winner_attentionsr_goldens.npz"))
-    lrs = [native.decode_image(g[f"lr_{i}"].tobytes())
+    lr_file = np.load(os.path.join(ASSETS, "winner_attentionsr_goldens.npz"))
+    name, prefix = spec["goldens"]
+    g = np.load(os.path.join(ASSETS, name))
+    lrs = [native.decode_image(lr_file[f"lr_{i}"].tobytes())
            for i in range(WINNER_SMALL + 1)]
-    srs = [native.decode_image(g[f"sr_{i}"].tobytes())
+    srs = [native.decode_image(g[f"{prefix}sr_{i}"].tobytes())
            for i in range(WINNER_SMALL + 1)]
     base = os.path.join(JPEG_ASSETS, "food-101")
     with open(os.path.join(base, "meta", "test.txt")) as f:
@@ -2925,7 +2976,7 @@ def _winner_goldens() -> tuple[list, list, list, dict]:
     if [h.shape for h in hrs] != [s.shape for s in srs[:WINNER_SMALL]]:
         raise AssertionError("winner: the rebuilt HRs do not match the "
                              "goldens' outputs in shape")
-    return lrs, srs, hrs, {k: np.asarray(g[k]) for k in (
+    return lrs, srs, hrs, {k: np.asarray(g[prefix + k]) for k in (
         "psnr", "ssim", "lpips", "nlpd", "psnr_bf16", "psnr_int8",
         "snr_int8")}
 
@@ -2934,6 +2985,29 @@ def _tile(x: np.ndarray, tile: int) -> np.ndarray:
     """``x`` edge-padded to a multiple of ``tile``, as the server pads it."""
     return np.pad(x, ((0, -x.shape[0] % tile), (0, -x.shape[1] % tile),
                       (0, 0)), mode="edge")
+
+
+def _u8_rule_diff(srv, lrs) -> int:
+    """The elements where ``srv.forward_u8`` on one device batch of
+    ``lrs``' first tiles differs from the JAX server's rule applied to the
+    same net output: clip to [0, 1], then x255 and +0.5 each rounded to
+    the output's dtype, then truncated and saturated at 255 (XLA's
+    conversion to uint8). 0 expected."""
+    rows = srv.batcher.max_batch
+    tiles = [_tile(x, srv.tile)[:srv.tile, :srv.tile] for x in lrs]
+    x8 = torch.from_numpy(np.stack((tiles * rows)[:rows])).cuda()
+    seen, net = [], srv._net
+    srv._net = lambda m, x: seen.append(net(m, x)) or seen[-1]
+    try:
+        with torch.inference_mode():
+            got = srv.forward_u8(x8)
+    finally:
+        del srv._net  # the class's method again
+    y = seen[0]
+    t = (y.float().clamp(0.0, 1.0) * 255.0).to(y.dtype)
+    t = (t.float() + 0.5).to(y.dtype)
+    want = t.float().trunc().clamp(0.0, 255.0).to(torch.uint8)
+    return int((got != want.permute(0, 2, 3, 1)).sum())
 
 
 def _winner_serve(asset: str, lrs, hrs, tmp: str) -> dict:
@@ -3014,7 +3088,8 @@ def _winner_dtypes(asset: str, lrs) -> dict:
     """The production servers on the winner: bf16, and bf16 with
     ``--quantize int8``, on the small inputs, each counted from zero; and
     the bf16 net's SE inputs on one device batch of the small inputs'
-    tiles (a forward hook on every SE block), for K2."""
+    tiles (a forward hook on every SE block; none in a net without
+    them), for K2."""
     from food101_sr_tpu_torch.serving import SRServer
 
     out = {"sr": {}, "launches": {}, "batches": {}}
@@ -3034,27 +3109,32 @@ def _winner_dtypes(asset: str, lrs) -> dict:
             out["launches"][mode] = _counts()
             out["batches"][mode] = srv.batcher.n_batches - b0
             # ---- end of main path ----------------------------------------
+            out.setdefault("rule_diff", {})[mode] = _u8_rule_diff(
+                srv, lrs[:WINNER_SMALL])
             if mode:
+                continue
+            out["se_inputs"] = se_in = []
+            blocks = [m for n, m in srv.model.named_modules()
+                      if n.endswith(".se")]
+            if not blocks:
                 continue
             tiles = [_tile(x, srv.tile) for x in lrs[:WINNER_SMALL]]
             x8 = torch.from_numpy(np.stack(
                 (tiles * srv.batcher.max_batch)[:srv.batcher.max_batch])).cuda()
-            se_in = []
             hooks = [m.register_forward_hook(
                 lambda mod, inp, o: se_in.append(inp[0].detach().clone()))
-                for n, m in srv.model.named_modules() if n.endswith(".se")]
+                for m in blocks]
             try:
                 srv.forward_u8(x8)
             finally:
                 for h in hooks:
                     h.remove()
-            out["se_inputs"] = se_in
         finally:
             srv.close()
     return out
 
 
-def _winner_export(asset: str, lrs, tmp: str) -> dict:
+def _winner_export(asset: str, arch: str, lrs, tmp: str) -> dict:
     """``export_serving --architecture auto --checkpoint asset --shapes
     64x64 --check`` (bf16, batch AOT_BATCH), then the program from
     ``load_bucket`` on the small inputs' tiles (the first one's in row 0),
@@ -3074,7 +3154,7 @@ def _winner_export(asset: str, lrs, tmp: str) -> dict:
     with open(os.path.join(out_dir, "manifest.json")) as f:
         man = json.load(f)
     if not (summary["checked"] == 1 and len(man["buckets"]) == 1
-            and man["architecture"] == "AttentionSR"
+            and man["architecture"] == arch
             and man["dtype"] == "bfloat16"):
         raise AssertionError(f"winner: export manifest {man}")
     prog = export_serving.load_bucket(
@@ -3100,12 +3180,15 @@ def _winner_export(asset: str, lrs, tmp: str) -> dict:
             "equal": equal, "launches": launches}
 
 
-def _winner_tune(asset: str, tag: str, tmp: str, n_blocks: int) -> dict:
-    """``train --pretrained_weights asset`` with WINNER_TUNES[tag] on the
-    mini tree for one epoch, counted from zero: the generator handed to
-    its train state before any step equals the asset bit for bit (a
-    recording subclass of the loop's SRTrainState), every logged loss is
-    finite, the guard skipped nothing, launches as the closed form."""
+def _winner_tune(asset: str, arch: str, tag: str, tmp: str,
+                 se_blocks: int) -> dict:
+    """``train --architecture arch --pretrained_weights asset`` with
+    WINNER_TUNES[tag] on the mini tree for one epoch, counted from zero:
+    the generator handed to its train state before any step equals the
+    asset bit for bit (a recording subclass of the loop's SRTrainState;
+    BatchNorm running stats included), every logged loss is finite, the
+    guard skipped nothing, launches as the closed form (``se_blocks`` SE
+    squeezes a forward)."""
     from food101_sr_tpu_torch import train as train_cli
     from food101_sr_tpu_torch.training import loop
 
@@ -3129,7 +3212,7 @@ def _winner_tune(asset: str, tag: str, tmp: str, n_blocks: int) -> dict:
         with contextlib.redirect_stdout(io.StringIO()):
             final = train_cli.main([
                 "--dataset", "food101", "--data_root", JPEG_ASSETS,
-                "--architecture", "AttentionSR", *WINNER_TUNES[tag],
+                "--architecture", arch, *WINNER_TUNES[tag],
                 "--epochs", "1", "--batch_size", str(WINNER_BATCH),
                 "--crop_size", str(WINNER_CROP), "--pretrained_weights",
                 asset, "--save_name", f"winner_{tag}", "--weights_dir", w,
@@ -3155,10 +3238,16 @@ def _winner_tune(asset: str, tag: str, tmp: str, n_blocks: int) -> dict:
     steps = [r for r in recs if "train_loss" in r]
     (epoch,) = [r for r in recs if "epoch" in r]
     nb = _loop_batches(16, 4, {"seed": 0, "batch_size": WINNER_BATCH})
+    args = WINNER_TUNES[tag]
+    loss = (args[args.index("--loss_function") + 1]
+            if "--loss_function" in args else "nlpd")
     d_steps = (len(range(0, nb["steps"], loop.DEFAULTS["d_update_every"]))
-               if tag == "gan" else 0)
-    want = (4 * nb["test"],
-            n_blocks * (nb["steps"] + d_steps + nb["val"] + nb["test"]), 0)
+               if loss == "gan" else 0)
+    # the test metrics' NLPD; an NLPD loss adds 4 forward and 4 backward
+    # blurs a step and 4 a val batch
+    want = ((8 * nb["steps"] + 4 * nb["val"] if loss == "nlpd" else 0)
+            + 4 * nb["test"],
+            se_blocks * (nb["steps"] + d_steps + nb["val"] + nb["test"]), 0)
     losses = [v for r in steps for k, v in r.items() if "loss" in k]
     if not (launches == want and len(steps) == nb["steps"]
             and all(np.isfinite(losses))
@@ -3175,13 +3264,10 @@ def _winner_tune(asset: str, tag: str, tmp: str, n_blocks: int) -> dict:
             "wall_s": wall}
 
 
-def _winner_kernels(rates, se_inputs, sr, hrs) -> tuple[dict, dict]:
+def _winner_k2(rates, se_inputs) -> dict:
     """K2 NHWC on the trained net's bf16 SE inputs (every block's, one
     device batch) within one bf16 ulp of its plain version, timed on the
-    first; K1 forward and backward on the scoring pyramids of the small
-    inputs (pred and target of one image, 4 levels, the served outputs)
-    within K1_TOL, timed on the first image's."""
-    from food101_sr_tpu_torch.ops.gaussian import depthwise_blur
+    first."""
     from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
                                                        spatial_mean_plain)
 
@@ -3203,10 +3289,18 @@ def _winner_kernels(rates, se_inputs, sr, hrs) -> tuple[dict, dict]:
     k2.update(ulp=ulp, max_abs_err=err2, at=f"{tuple(x.shape)} bfloat16 channels-last, the "
               f"trained winner's SE inputs ({len(se_inputs)} blocks, one "
               "device batch of the small inputs' tiles)")
+    return k2
+
+
+def _winner_k1(rates, sr, hrs, what: str) -> dict:
+    """K1 forward and backward on the scoring pyramids of the served
+    outputs ``sr`` against their HRs (pred and target of one image, 4
+    levels) within K1_TOL, timed on the first image's."""
+    from food101_sr_tpu_torch.ops.gaussian import depthwise_blur
 
     gen = torch.Generator(device="cuda").manual_seed(43)
     pyrs = []
-    for s, h in zip(sr, hrs):
+    for s, h in zip(sr, hrs, strict=True):
         lv = torch.from_numpy(np.stack([s, h])).cuda().permute(
             0, 3, 1, 2).float().contiguous() / 255
         pyr = []
@@ -3220,62 +3314,55 @@ def _winner_kernels(rates, se_inputs, sr, hrs) -> tuple[dict, dict]:
     k1 = _k1_timings(pyrs[0], rates)
     sides = ",".join(f"{p.shape[2]}x{p.shape[3]}" for p in pyrs[0])
     k1.update(max_abs_err=err, at=f"(2,3,{{{sides}}}) float32, the scoring "
-              "pyramid of one served output and its HR; checked at the "
-              f"{len(pyrs)} small inputs' sizes")
-    return k1, k2
+              f"pyramid of one served output and its HR; checked at {what}")
+    return k1
 
 
-def phase_winner(rates, k1: dict, k2: dict) -> dict:
-    """The trained AttentionSR x4 winner through the port's entry points
-    (module docstring, phase 8b). Returns the launches of its counted runs
-    by kernel and the kernels line's two new rows."""
-    from food101_sr_tpu_torch import visualize
+def _winner_leg(name: str, spec: dict, tmp: str) -> dict:
+    """One winner through the port's entry points (module docstring,
+    phase 8b), each run counted from zero: serve and predict, the bf16 and
+    int8 servers, the export, the fine-tunes. Checks every result against
+    JAX's goldens and prints the winner's lines; returns its outputs,
+    launches by run and numbers."""
     from food101_sr_tpu_torch.metrics import MetricsCalculator
 
-    t_phase = time.perf_counter()
-    asset = os.path.join(ASSETS, "winner_attentionsr.pth")
-    lrs, srs, hrs, gold = _winner_goldens()
+    t_leg = time.perf_counter()
+    asset = os.path.join(ASSETS, f"winner_{name}.pth")
+    arch = spec["arch"]
+    lrs, srs, hrs, gold = _winner_goldens(spec)
     small = range(WINNER_SMALL)
+    tmp = os.path.join(tmp, name)
+    os.makedirs(tmp)
     runs = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_winner_") as tmp:
-        serve = _winner_serve(asset, lrs, hrs, tmp)
-        n_blocks = serve["n_blocks"]
-        runs["serve"] = serve["launches"]
-        runs["predict"] = serve["predict_launches"]
-        prod = _winner_dtypes(asset, lrs)
-        runs.update({f"bf16{m and '_' + m}": c
-                     for m, c in prod["launches"].items()})
-        aot = _winner_export(asset, lrs, tmp)
+    serve = _winner_serve(asset, lrs, hrs, tmp)
+    n_blocks = serve["n_blocks"]
+    se = n_blocks if arch == "AttentionSR" else 0  # SE squeezes a forward
+    runs["serve"] = serve["launches"]
+    runs["predict"] = serve["predict_launches"]
+    prod = _winner_dtypes(asset, lrs)
+    runs.update({f"bf16{m and '_' + m}": c
+                 for m, c in prod["launches"].items()})
+    aot = None
+    if spec["export"]:
+        aot = _winner_export(asset, arch, lrs, tmp)
         runs["aot"] = aot["launches"]
-        tunes = {tag: _winner_tune(asset, tag, tmp, n_blocks)
-                 for tag in WINNER_TUNES}
-        runs.update({f"tune_{t}": r["launches"] for t, r in tunes.items()})
-        # ---- main path: visualize's default table, counts from zero -----
-        _zero_counts()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf), warnings.catch_warnings():
-            warnings.simplefilter("ignore")  # the absent winners' rows
-            times = visualize.run_comparison(
-                dataset="synthetic", num_examples=WINNER_VIS, seed=0,
-                out_dir=os.path.join(tmp, "report"))
-        torch.cuda.synchronize()
-        runs["visualize"] = _counts()
-        # ---- end of main path -------------------------------------------
+    tunes = {tag: _winner_tune(asset, arch, tag, tmp, se)
+             for tag in spec["tunes"]}
+    runs.update({f"tune_{t}": r["launches"] for t, r in tunes.items()})
 
     # the served outputs against JAX's float32 goldens, the tiled one too
     sr = serve["sr"]
     levels = [_levels(s, g) for s, g in zip(sr, srs)]
-    if not (serve["architecture"] == "AttentionSR"
+    if not (serve["architecture"] == arch
             and all(r[1]["Content-Type"] == "image/png"
                     for r in serve["responses"])
             and max(levels) <= LEVEL_TOL):
-        raise AssertionError(f"winner: served vs JAX goldens {levels} "
-                             "levels")
-    if serve["launches"] != (4 * WINNER_SMALL, n_blocks * serve["batches"],
-                             0):
-        raise AssertionError(f"winner: serve launches {serve['launches']} "
-                             f"for {serve['batches']} device batches and "
-                             f"{WINNER_SMALL} NLPD calls")
+        raise AssertionError(f"winner {name}: served vs JAX goldens "
+                             f"{levels} levels ({serve['architecture']})")
+    if serve["launches"] != (4 * WINNER_SMALL, se * serve["batches"], 0):
+        raise AssertionError(f"winner {name}: serve launches "
+                             f"{serve['launches']} for {serve['batches']} "
+                             f"device batches and {WINNER_SMALL} NLPD calls")
     # the port's scores against JAX's, and against the CPU calculator's
     cpu = MetricsCalculator(device="cpu")
     plain = [cpu.compute(sr[i][None].astype(np.float32) / 255,
@@ -3296,24 +3383,29 @@ def phase_winner(rates, k1: dict, k2: dict) -> dict:
             and dist["nlpd_rel"] <= WINNER_RTOL
             and card_cpu["nlpd"] <= NLPD_RTOL
             and card_cpu["lpips"] <= LPIPS_RTOL):
-        raise AssertionError(f"winner: scores {got} against JAX's {gold} "
-                             f"({dist}), card vs CPU {card_cpu}")
+        raise AssertionError(f"winner {name}: scores {got} against JAX's "
+                             f"{gold} ({dist}), card vs CPU {card_cpu}")
     # the production dtypes' PSNR costs against the port's own float32
     f32 = np.array([_psnr_u8(sr[i], hrs[i]) for i in small])
     jax_f32 = np.array([_psnr_u8(srs[i], hrs[i]) for i in small])
     costs = {}
     for mode, key, tol in (("", "bf16", WINNER_BF16_DB),
-                           ("int8", "int8", WINNER_INT8_DB)):
+                           ("int8", "int8", spec["int8_db"])):
         p = np.array([_psnr_u8(y, hrs[i])
                       for i, y in enumerate(prod["sr"][mode])])
         port, jax = float(np.mean(f32 - p)), float(
             np.mean(jax_f32 - gold[f"psnr_{key}"]))
-        costs[key] = {"port_db": port, "jax_db": jax, "psnr": p.tolist()}
+        costs[key] = {"port_db": port, "jax_db": jax, "psnr": p.tolist(),
+                      "rule_diff": prod["rule_diff"][mode]}
+        if prod["rule_diff"][mode]:
+            raise AssertionError(f"winner {name}: the {key} server's output "
+                                 f"has {prod['rule_diff'][mode]} bytes off "
+                                 "the JAX server's uint8 rule")
         if not abs(port - jax) <= tol:
-            raise AssertionError(f"winner: the {key} PSNR cost {port:.4f} dB "
-                                 f"against JAX's {jax:.4f}")
-        if prod["launches"][mode] != (0, n_blocks * prod["batches"][mode], 0):
-            raise AssertionError(f"winner: {key} server launches "
+            raise AssertionError(f"winner {name}: the {key} PSNR cost "
+                                 f"{port:.4f} dB against JAX's {jax:.4f}")
+        if prod["launches"][mode] != (0, se * prod["batches"][mode], 0):
+            raise AssertionError(f"winner {name}: {key} server launches "
                                  f"{prod['launches'][mode]} for "
                                  f"{prod['batches'][mode]} device batches")
     ref = np.concatenate([x.ravel() for x in sr[:WINNER_SMALL]]).astype(
@@ -3329,33 +3421,17 @@ def phase_winner(rates, k1: dict, k2: dict) -> dict:
             and serve["predict"]["failed"] == 0
             and serve["predict_bytes"] == [r[2] for r in serve["responses"]]
             and pred_launches[0] == pred_launches[2] == 0
-            and pred_launches[1] % n_blocks == 0 and pred_launches[1] > 0):
-        raise AssertionError(f"winner: predict {serve['predict']}, launches "
-                             f"{pred_launches}, outputs byte-equal "
+            and ((pred_launches[1] % se == 0 and pred_launches[1] > 0)
+                 if se else pred_launches[1] == 0)):
+        raise AssertionError(f"winner {name}: predict {serve['predict']}, "
+                             f"launches {pred_launches}, outputs byte-equal "
                              f"{[a == r[2] for a, r in zip(serve['predict_bytes'], serve['responses'])]}")
     # the exported program against the eager bf16 forward
-    if not (aot["equal"] and aot["launches"] == (0, n_blocks, 0)):
-        raise AssertionError(f"winner: exported program {aot}")
-    # visualize: the AttentionSR row on the asset, beside SRCNN's
-    want_vis = (0, n_blocks * _vis_forwards(WINNER_VIS), 0)
-    if not (set(times) == {"SRCNN", "AttentionSR"}
-            and runs["visualize"] == want_vis):
-        raise AssertionError(f"winner: visualize models {set(times)}, "
-                             f"launches {runs['visualize']} (expected "
-                             f"{want_vis})")
-    vis_ms = {n: float(np.mean(t) * 1e3) for n, t in times.items()}
-    k1_row, k2_row = _winner_kernels(rates, prod["se_inputs"],
-                                     sr[:WINNER_SMALL], hrs)
-    totals = [sum(c[j] for c in runs.values()) for j in range(3)]
-    k1_row.update({k: k1[k] for k in ("route", "source", "replaces",
-                                      "wrapper")},
-                  name="K1 depthwise Gaussian blur 5x5, the winner's "
-                       "scoring pyramids", launches=totals[0])
-    k2_row.update({k: k2[k] for k in ("route", "source", "replaces",
-                                      "wrapper")},
-                  name="K2 spatial mean (SE squeeze), nhwc input, the "
-                       "trained winner", launches=totals[1])
+    if aot is not None and not (aot["equal"]
+                                and aot["launches"] == (0, se, 0)):
+        raise AssertionError(f"winner {name}: exported program {aot}")
     numbers = {
+        "winner": name, "architecture": arch,
         "levels_f32_vs_jax": levels, "batches": serve["batches"],
         "http_images_per_s": len(lrs) / serve["wall_s"],
         "warmup_s": serve["warmup_s"],
@@ -3365,39 +3441,116 @@ def phase_winner(rates, k1: dict, k2: dict) -> dict:
         "distance_to_jax": dist, "card_vs_cpu_rel": card_cpu,
         "psnr_f32": f32.tolist(), "costs": costs,
         "predict": {**serve["predict"], "s": serve["predict_s"]},
-        "export": {k: aot[k] for k in ("export_s", "mb", "equal")},
+        "export": aot and {k: aot[k] for k in ("export_s", "mb", "equal")},
         "tunes": {t: {k: r[k] for k in ("steps", "d_steps", "step_ms",
                                         "train_loss", "final", "wall_s")}
                   for t, r in tunes.items()},
-        "visualize_ms_per_image": vis_ms,
-        "launches": runs, "phase_s": time.perf_counter() - t_phase}
-    print(f"winner: AttentionSR x4 asset, f32 over HTTP (TF32 off) vs JAX "
-          f"goldens {levels} level(s) ({serve['batches']} device batches, "
-          f"the 200x152 one tiled) | psnr {np.round(got['psnr'], 4).tolist()}"
-          f" vs JAX: {dist['psnr_db']:.2g} dB, ssim {dist['ssim']:.2g}, "
-          f"lpips rel {dist['lpips_rel']:.2g}, nlpd rel "
-          f"{dist['nlpd_rel']:.2g} | card vs CPU calculator: lpips "
-          f"{card_cpu['lpips']:.2g}, nlpd {card_cpu['nlpd']:.2g} | PSNR cost "
-          f"bf16 {costs['bf16']['port_db']:.4f} dB (JAX "
+        "launches": runs, "leg_s": time.perf_counter() - t_leg}
+    print(f"winner: {arch} x4 asset winner_{name}.pth, f32 over HTTP (TF32 "
+          f"off) vs JAX goldens {levels} level(s) ({serve['batches']} device"
+          f" batches, the 200x152 one tiled) | psnr "
+          f"{np.round(got['psnr'], 4).tolist()} vs JAX: "
+          f"{dist['psnr_db']:.2g} dB, ssim {dist['ssim']:.2g}, lpips rel "
+          f"{dist['lpips_rel']:.2g}, nlpd rel {dist['nlpd_rel']:.2g} | card "
+          f"vs CPU calculator: lpips {card_cpu['lpips']:.2g}, nlpd "
+          f"{card_cpu['nlpd']:.2g} | PSNR cost bf16 "
+          f"{costs['bf16']['port_db']:.4f} dB (JAX "
           f"{costs['bf16']['jax_db']:.4f}), int8 "
           f"{costs['int8']['port_db']:.4f} (JAX {costs['int8']['jax_db']:.4f})"
           f", int8 SNR {costs['int8']['snr_db']:.2f} dB (JAX "
-          f"{costs['int8']['jax_snr_db']:.2f})", flush=True)
-    print(f"winner: predict byte-equal to the server ({len(lrs)} images, "
-          f"{serve['predict_s']:.1f} s) | export 64x64 bf16 in "
-          f"{aot['export_s']:.1f} s ({aot['mb']:.1f} MB), the program "
-          f"byte-equal to eager, K2 {aot['launches'][1]} | "
-          + " | ".join(f"{t}: {r['steps']} steps from the asset (bit-equal),"
-                       f" step {r['step_ms']:.1f} ms, losses "
-                       f"{np.round(r['train_loss'], 5).tolist()}, launches "
-                       f"{r['launches']}" for t, r in tunes.items())
+          f"{costs['int8']['jax_snr_db']:.2f}) | uint8 rule: bf16 "
+          f"{costs['bf16']['rule_diff']}, int8 {costs['int8']['rule_diff']} "
+          "bytes off JAX's", flush=True)
+    print(f"winner: {name}: predict byte-equal to the server ({len(lrs)} "
+          f"images, {serve['predict_s']:.1f} s)"
+          + (f" | export 64x64 bf16 in {aot['export_s']:.1f} s "
+             f"({aot['mb']:.1f} MB), the program byte-equal to eager, K2 "
+             f"{aot['launches'][1]}" if aot else "")
+          + "".join(f" | {t}: {r['steps']} steps from the asset (bit-equal),"
+                    f" step {r['step_ms']:.1f} ms, losses "
+                    f"{np.round(r['train_loss'], 5).tolist()}, launches "
+                    f"{r['launches']}" for t, r in tunes.items())
+          + f" | launches {runs} | {numbers['leg_s']:.1f} s", flush=True)
+    print("winner numbers: " + json.dumps(numbers), flush=True)
+    return {"runs": runs, "sr": sr[:WINNER_SMALL], "hrs": hrs,
+            "se_inputs": prod["se_inputs"], "n_blocks": n_blocks,
+            "costs": costs}
+
+
+def phase_winner(rates, k1: dict, k2: dict) -> dict:
+    """The trained winners through the port's entry points (module
+    docstring, phase 8b), then visualize's default table. Returns the
+    launches of the counted runs by kernel and winner, and the kernels
+    line's new rows."""
+    from food101_sr_tpu_torch import visualize
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_winner_") as tmp:
+        legs = {name: _winner_leg(name, spec, tmp)
+                for name, spec in WINNERS.items()}
+        # ---- main path: visualize's default table, counts from zero -----
+        _zero_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the absent winners' rows
+            times = visualize.run_comparison(
+                dataset="synthetic", num_examples=WINNER_VIS, seed=0,
+                out_dir=os.path.join(tmp, "report"))
+        torch.cuda.synchronize()
+        vis = _counts()
+        # ---- end of main path -------------------------------------------
+
+    # visualize: the SRCNN, ResNetSR and AttentionSR rows on the assets
+    want_vis = (0, legs["attentionsr"]["n_blocks"] * _vis_forwards(WINNER_VIS),
+                0)
+    if not (set(times) == {"SRCNN", "RESNET", "AttentionSR"}
+            and vis == want_vis):
+        raise AssertionError(f"winner: visualize models {set(times)}, "
+                             f"launches {vis} (expected {want_vis})")
+    vis_ms = {n: float(np.mean(t) * 1e3) for n, t in times.items()}
+    by_winner = {name: [sum(c[j] for c in leg["runs"].values())
+                        for j in range(3)] for name, leg in legs.items()}
+    by_winner["visualize"] = list(vis)
+    resnet = [n for n, spec in WINNERS.items() if spec["arch"] == "RESNET"]
+    if any(by_winner[n][1] or by_winner[n][2] for n in resnet):
+        raise AssertionError(f"winner: K2 launched on a ResNetSR batch "
+                             f"{by_winner}")
+
+    attn = legs["attentionsr"]
+    k2_row = _winner_k2(rates, attn["se_inputs"])
+    k1_row = _winner_k1(rates, attn["sr"], attn["hrs"],
+                        f"the {WINNER_SMALL} small inputs' sizes")
+    k1_resnet = _winner_k1(
+        rates, [s for n in resnet for s in legs[n]["sr"]],
+        [h for n in resnet for h in legs[n]["hrs"]],
+        f"both ResNetSR winners' {WINNER_SMALL} small outputs")
+    for row, d in ((k1_row, k1), (k2_row, k2), (k1_resnet, k1)):
+        row.update({key: d[key] for key in ("route", "source", "replaces",
+                                            "wrapper")})
+    k1_row.update(name="K1 depthwise Gaussian blur 5x5, the winner's "
+                       "scoring pyramids",
+                  launches=by_winner["attentionsr"][0] + vis[0])
+    k2_row.update(name="K2 spatial mean (SE squeeze), nhwc input, the "
+                       "trained winner",
+                  launches=by_winner["attentionsr"][1] + vis[1])
+    k1_resnet.update(name="K1 depthwise Gaussian blur 5x5, the ResNetSR "
+                          "winners' scoring pyramids",
+                     launches=sum(by_winner[n][0] for n in resnet))
+    costs = {n: legs[n]["costs"]["int8"] for n in resnet}
+    print("winner: ResNetSR int8 PSNR cost on the card (bf16 server with "
+          "--quantize int8 against the port's float32, mean of the "
+          f"{WINNER_SMALL} small inputs): "
+          + ", ".join(f"{n} {c['port_db']:.4f} dB (JAX {c['jax_db']:.4f})"
+                      for n, c in costs.items())
           + f" | visualize ms/image {vis_ms} | K2 on the SE inputs "
           f"{k2_row['ulp']:.2g} ulp, K1 on the scoring pyramids "
-          f"{k1_row['max_abs_err']:.2g} | launches {runs} | "
-          f"{numbers['phase_s']:.1f} s", flush=True)
-    print("winner numbers: " + json.dumps(numbers), flush=True)
-    return {"launches": {key: totals[j] for j, key in enumerate(
-        ("K1", "K2 nhwc", "K2 nchw"))}, "rows": [k1_row, k2_row]}
+          f"{k1_row['max_abs_err']:.2g} (AttentionSR), "
+          f"{k1_resnet['max_abs_err']:.2g} (ResNetSR) | launches by winner "
+          f"{by_winner} | {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"by_winner": {key: {n: c[j] for n, c in by_winner.items()}
+                          for j, key in enumerate(
+                              ("K1", "K2 nhwc", "K2 nchw"))},
+            "rows": [k1_row, k2_row, k1_resnet]}
 
 
 def _deterministic() -> None:
@@ -4146,7 +4299,7 @@ def phase_caches(tmp: str, loop: dict, food: dict) -> dict:
 
 
 def _u8(y: torch.Tensor) -> torch.Tensor:
-    """A net's output as the server rounds it: clamp, x255, round."""
+    """A net's output rounded to uint8 in float32: clamp, x255, round."""
     return (y.float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
 
@@ -6041,7 +6194,7 @@ def main() -> int:
         d["http_launches"] = http_launches[key]
     winner = phase_winner(rates, k1, k2_nhwc)
     for d, key in ((k1, "K1"), (k2_nhwc, "K2 nhwc"), (k2_nchw, "K2 nchw")):
-        d["winner_launches"] = winner["launches"][key]
+        d["winner_launches"] = winner["by_winner"][key]
     k1_train, k2_train = phase_train(rates)
     k2_gan = phase_gan(rates)
     gens = phase_generators()

@@ -1053,12 +1053,17 @@ def decode_webp_rgb8(data: bytes) -> np.ndarray:
 # the request decoder
 # ---------------------------------------------------------------------------
 
-# formats PIL opens that are recognised by their first bytes but not
-# decoded here
+# formats PIL decodes that are recognised by their first bytes but not
+# decoded here (answered 415). Bytes no PIL plugin with a signature
+# accepts (JBIG2, HEIC) and the formats PIL identifies but cannot load
+# (its BUFR, GRIB, HDF5 and WMF stubs, MPEG, EPS without Ghostscript) are
+# ValueError (400): PIL's failure is the JAX server's 400
 _OTHER_FORMATS = ((b"8BPS", "PSD"), (b"DDS ", "DDS"),
                   (b"\xffO\xffQ", "JPEG 2000"),
                   (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-                  (b"icns", "ICNS"), (b"\x97JB2", "JBIG2"))
+                  (b"icns", "ICNS"))
+# the ISO-BMFF brands PIL's AVIF plugin accepts
+_AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 _TIFF_PREFIXES = (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*",
                   b"MM\x00+", b"II+\x00")
 _DECODED = "PNG, JPEG, GIF, BMP, WebP, TIFF, Netpbm, ICO, CUR and QOI"
@@ -1075,13 +1080,13 @@ def decode_image(data: bytes) -> np.ndarray:
     (:func:`decode_tiff_rgb8`), Netpbm (:func:`decode_netpbm_rgb8`), ICO
     (:func:`decode_ico_rgb8`), CUR (:func:`decode_cur_rgb8`) or QOI
     (:func:`decode_qoi_rgb8`). Raises :class:`UnsupportedImage` naming a
-    recognised format the port does not decode (PSD, JPEG 2000 and the
-    others PIL opens), a TIFF compression or colour space it does not
+    recognised format the port does not decode (PSD, JPEG 2000, AVIF and
+    the others PIL decodes), a TIFF compression or colour space it does not
     decode (ZSTD, WebP, old-style JPEG, SGILog, ThunderScan, raw-16,
     YCbCr outside JPEG, CIELab), arithmetic lossless (SOF11) JPEG, or a
     codec that did not build here; ValueError for bytes that are no image,
-    a broken one, or one PIL refuses (12-bit and hierarchical JPEG among
-    them)."""
+    a broken one, or one PIL refuses (12-bit and hierarchical JPEG, JBIG2,
+    HEIC and PIL's stub formats among them)."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png_rgb8(data)
     if data.startswith(b"\xff\xd8\xff"):
@@ -1111,8 +1116,7 @@ def decode_image(data: bytes) -> np.ndarray:
         tiff_lib()
         return decode_qoi_rgb8(data)
     name = next((n for m, n in _OTHER_FORMATS if data.startswith(m)), None)
-    if name is None and data[4:8] == b"ftyp" and data[8:12] in (
-            b"avif", b"avis", b"heic", b"heix", b"mif1"):
+    if name is None and data[4:8] == b"ftyp" and data[8:12] in _AVIF_BRANDS:
         name = "AVIF/HEIF"
     if name is not None:
         raise UnsupportedImage(f"{name} is not supported ({_DECODED} only)")

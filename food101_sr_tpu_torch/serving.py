@@ -390,7 +390,11 @@ class SRServer:
                                for m in self.replicas], x, self.mesh)
         else:
             y = self._net(self.model, x)
-        y8 = (y[:n].float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+        # the clip and 255-quantization in the output's dtype, as the JAX
+        # server's: a bfloat16 output is scaled and rounded in bfloat16,
+        # where 255.5 rounds to 256, which XLA's conversion saturates
+        y8 = (y[:n].clamp(0.0, 1.0) * 255.0 + 0.5).clamp(max=255.0).to(
+            torch.uint8)
         return y8.permute(0, 2, 3, 1)
 
     def _net(self, model: nn.Module, x: torch.Tensor) -> torch.Tensor:

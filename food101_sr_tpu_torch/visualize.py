@@ -49,9 +49,9 @@ BUCKET = 32
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 # The JAX tool's table, in the port's checkpoint format: the committed
-# SRCNN and AttentionSR winners, and port files for the other winners (a
-# row whose file is absent is skipped; override any row with --weights
-# NAME=PATH).
+# SRCNN, ResNetSR and AttentionSR winners, and port files for the other
+# winners (a row whose file is absent is skipped; override any row with
+# --weights NAME=PATH).
 WEIGHTS = {
     "SRCNN": os.path.join(ASSETS, "winner_srcnn.pth"),
     "RESNET": os.path.join(ASSETS, "winner_resnet.pth"),

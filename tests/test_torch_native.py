@@ -230,6 +230,92 @@ def test_other_formats_are_refused_by_name(data, name):
         native.decode_image(data)
 
 
+def _ftyp(brand: bytes) -> bytes:
+    return b"\x00\x00\x00\x1cftyp" + brand + bytes(4) + brand + b"mif1"
+
+
+# one header each: the port's refused signatures, the ISO-BMFF brands, and
+# formats PIL identifies but cannot load here
+_SIGNATURES = {
+    "PSD": b"8BPS\x00\x01" + bytes(6) + b"\x00\x03",
+    "DDS": b"DDS |\x00\x00\x00\x07\x10\x00\x00",
+    "JPEG 2000 codestream": b"\xffO\xffQ\x00/\x00\x00",
+    "JPEG 2000 JP2": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00\x00\x00\x14ftypjp2 ",
+    "ICNS": b"icns\x00\x00\x10\x00",
+    "JBIG2": b"\x97JB2\r\n\x1a\n\x01\x00\x00\x00\x01",
+    **{f"ftyp {b}": _ftyp(b.encode())
+       for b in ("avif", "avis", "mif1", "msf1", "heic", "heix")},
+    "BUFR": b"BUFR\x00\x00\x64\x04",
+    "GRIB": b"GRIB\x00\x00\x64\x01",
+    "HDF5": b"\x89HDF\r\n\x1a\n",
+    "MPEG": b"\x00\x00\x01\xb3\x14\x00\xf0\x13",
+    "EPS": b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 16 16\n"
+           b"%%EndComments\nshowpage\n%%EOF\n",
+    "WMF": b"\xd7\xcd\xc6\x9a\x00\x00" + struct.pack("<hhhhH", 0, 0, 16,
+                                                         16, 72),
+}
+
+
+def _pil_plugin(data: bytes):
+    """The first PIL plugin, in ``Image.ID`` order, whose signature check
+    takes these first 16 bytes as ``Image.open`` does (a string is a
+    refusal with a warning; IM, IMT and IPTC have no check and come after
+    every plugin that has one here)."""
+    Image.init()
+    for fmt in Image.ID:
+        accept = Image.OPEN[fmt][1]
+        if accept is not None:
+            got = accept(data[:16])
+            if got and not isinstance(got, str):
+                return fmt
+    return None
+
+
+def _pil_loads_with(fmt) -> bool:
+    """Whether PIL decodes pixels with plugin ``fmt``: its stubs have no
+    loader without a handler, MPEG reads only the size, and EPS needs
+    Ghostscript."""
+    from PIL import EpsImagePlugin, ImageFile
+
+    if fmt is None or issubclass(Image.OPEN[fmt][0], ImageFile.StubImageFile):
+        return False
+    if fmt == "EPS":
+        return bool(EpsImagePlugin.has_ghostscript())
+    return fmt != "MPEG"
+
+
+@pytest.mark.parametrize("name", list(_SIGNATURES))
+def test_refusals_follow_pil_plugins(name):
+    """415 (UnsupportedImage) exactly where a PIL plugin that decodes
+    accepts the header, the JAX server then serving the image; 400
+    (ValueError) where no plugin accepts it or PIL's plugin cannot load
+    it, the JAX server's ``Image.open(...).load()`` raising there."""
+    data = _SIGNATURES[name] + bytes(64)
+    fmt = _pil_plugin(data)
+    if _pil_loads_with(fmt):
+        with pytest.raises(native.UnsupportedImage) as e:
+            native.decode_image(data)
+        want = "AVIF/HEIF" if fmt == "AVIF" else name.split(" ")[0]
+        assert want in str(e.value)
+        return
+    with pytest.raises(ValueError) as e:
+        native.decode_image(data)
+    assert not isinstance(e.value, native.UnsupportedImage)
+    with pytest.raises((OSError, ValueError)):
+        Image.open(io.BytesIO(data)).load()
+    if name in ("JBIG2", "ftyp heic", "ftyp heix"):
+        assert fmt is None
+
+
+def test_refused_signatures_are_all_held_to_pil():
+    """Every signature the port refuses by name is among the headers
+    above, so the test before holds each one to PIL's plugins."""
+    for magic, _ in native._OTHER_FORMATS:
+        assert any(v.startswith(magic) for v in _SIGNATURES.values()), magic
+    for brand in native._AVIF_BRANDS:
+        assert _ftyp(brand) in _SIGNATURES.values(), brand
+
+
 def test_non_image_bytes_are_a_value_error():
     with pytest.raises(ValueError) as e:
         native.decode_image(b"this is not an image at all")

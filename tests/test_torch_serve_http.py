@@ -286,6 +286,11 @@ def _raw_request(port, payload: bytes, recv_timeout=10.0) -> bytes:
         return b"".join(chunks)
 
 
+# a JBIG2 file header and an ISO-BMFF HEIC one: no PIL plugin takes them
+JBIG2 = b"\x97JB2\r\n\x1a\n\x01\x00\x00\x00\x01"
+HEIC = b"\x00\x00\x00\x1cftypheic\x00\x00\x00\x00heicmif1"
+
+
 def _post(body: bytes, length=None) -> bytes:
     n = str(len(body)).encode() if length is None else length
     return (b"POST /sr HTTP/1.1\r\nHost: x\r\nContent-Length: " + n
@@ -303,11 +308,13 @@ def _post(body: bytes, length=None) -> bytes:
     (_post(b"8BPS" + bytes(64)), b"415", b"PSD"),
     (_post(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(64)), b"400",
      b"could not decode"),
+    (_post(JBIG2 + bytes(64)), b"400", b"could not decode"),
+    (_post(HEIC + bytes(64)), b"400", b"could not decode"),
     (b"GET /nowhere HTTP/1.1\r\nHost: x\r\n\r\n", b"404", b""),
     (_post(b"x", b"1").replace(b"/sr", b"/upscale"), b"404", b"/sr"),
 ], ids=["413", "negative-length", "non-numeric-length", "truncated-body",
         "garbage-request-line", "non-image", "bmp-415", "webp-400",
-        "get-404", "post-404"])
+        "jbig2-400", "heic-400", "get-404", "post-404"])
 def test_error_statuses_and_the_server_survives(pair, payload, status, text):
     port = pair[3]
     resp = _raw_request(port, payload)
@@ -319,6 +326,15 @@ def test_error_statuses_and_the_server_survives(pair, payload, status, text):
     code, _, data = _request(port, "/sr", native.encode_png_rgb8(
         _img(16, 16, 77)))
     assert code == 200 and native.decode_image(data).shape == (64, 64, 3)
+
+
+@pytest.mark.parametrize("head", [JBIG2, HEIC], ids=["jbig2", "heic"])
+def test_jbig2_and_heic_uploads_are_400_on_the_jax_server(pair, head):
+    """PIL identifies neither, so the JAX server answers 400 (it cannot
+    decode them): the port's 400 for the same uploads is held in
+    ``test_error_statuses_and_the_server_survives``."""
+    code, _, data = _request(pair[2], "/sr", head + bytes(256))
+    assert code == 400 and b"could not decode" in data, data
 
 
 def test_sixteen_bit_png_is_415_naming_it(pair):

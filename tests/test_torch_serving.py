@@ -244,3 +244,29 @@ def test_receptive_radius_matches_jax(nets):
         jax_receptive_radius("AttentionSR") == 80
     with pytest.raises(ValueError):
         receptive_radius(None, torch.nn.Conv2d(3, 3, 3))
+
+
+def test_bf16_output_rounds_as_the_jax_server():
+    """The JAX server clips, scales and rounds the net's output in its
+    dtype and converts to uint8 with saturation: a bf16 output of 1.0
+    gives 255.5, which bf16 rounds to 256, served as 255. The port's
+    forward_u8 on the SRCNN asset in bf16 (seeded noise, so that outputs
+    saturate) equals JAX's rounding of the same bf16 outputs."""
+    sd = torch.load(ROOT / "food101_sr_tpu_torch" / "assets" /
+                    "winner_srcnn.pth", weights_only=True)
+    srv = SRServer("auto", state_dict=sd, dtype=torch.bfloat16,
+                   device="cpu", tile=TILE, max_batch=2)
+    try:
+        x8 = np.random.default_rng(5).integers(0, 256, (2, TILE, TILE, 3),
+                                               np.uint8)
+        got = srv.forward_u8(torch.from_numpy(x8)).numpy()
+        with torch.no_grad():
+            y = srv.model((torch.from_numpy(x8).permute(0, 3, 1, 2).float()
+                           / 255.0).to(torch.bfloat16))
+    finally:
+        srv.close()
+    yj = jnp.asarray(y.float().permute(0, 2, 3, 1).numpy(), jnp.bfloat16)
+    want = np.asarray((jnp.clip(yj, 0.0, 1.0) * 255.0 + 0.5)
+                      .astype(jnp.uint8))
+    assert (got == 255).any() and np.array_equal(got, want)
+

@@ -152,6 +152,20 @@ def test_train_starts_from_the_asset(asset, tmp_path, monkeypatch):
         assert torch.equal(seen["sd"][k], v), k
 
 
+def _jax_prelu_outputs(inter, params) -> dict:
+    """Each PReLU's captured output (NHWC) and slope in a JAX forward's
+    ``intermediates``, by the port's module name; the residual blocks are
+    counted from ``params``."""
+    n_blocks = sum(k.startswith("res_") for k in params)
+    names = {"prelu": "prelu", "up_0": "upsample.2", "up_1": "upsample.5",
+             **{f"res_{i}": f"res_blocks.{i}.prelu" for i in range(n_blocks)}}
+    return {port_name: (
+        np.asarray((inter[k] if k == "prelu" else inter[k]["prelu"])[
+            "__call__"][0]),
+        np.asarray((params[k] if k == "prelu" else params[k]["prelu"])[
+            "alpha"])) for k, port_name in names.items()}
+
+
 def _jax_prelu_inputs(net, params, lr_img) -> dict:
     """The input of each PReLU of the JAX net's forward (NHWC), by the
     port's module name: recovered from the captured outputs, as every
@@ -161,15 +175,9 @@ def _jax_prelu_inputs(net, params, lr_img) -> dict:
     _, state = net.apply({"params": params}, lr_img, train=True,
                          capture_intermediates=lambda m, _: isinstance(
                              m, PReLU), mutable=["intermediates"])
-    inter = state["intermediates"]
-    names = {"prelu": "prelu", "up_0": "upsample.2", "up_1": "upsample.5",
-             **{f"res_{i}": f"res_blocks.{i}.prelu" for i in range(32)}}
     out = {}
-    for key, port_name in names.items():
-        y = np.asarray((inter[key] if key == "prelu" else
-                        inter[key]["prelu"])["__call__"][0])
-        a = np.asarray((params[key] if key == "prelu" else
-                        params[key]["prelu"])["alpha"])
+    for port_name, (y, a) in _jax_prelu_outputs(
+            state["intermediates"], params).items():
         assert (a > 0).all()
         out[port_name] = np.where(y > 0, y, y / a)
     return out

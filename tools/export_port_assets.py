@@ -39,6 +39,21 @@ For the committed AttentionSR x4 winner (``weights/winner_attentionsr_best``,
   one (bfloat16, its serving default), and ``snr_int8``, the int8
   outputs' SNR in dB against the float32 ones over all four images.
 
+For the committed ResNetSR x4 winner (``weights/winner_resnet_best``,
+1,549,462 parameters) and its QAT fine-tune
+(``weights/winner_resnet_qat_best``, float weights served through
+``quantize="int8"``; ``--what resnet``) it writes:
+
+- ``winner_resnet.pth`` and ``winner_resnet_qat.pth``: their
+  reference-layout float32 state_dicts (~6.2 MB each, every BatchNorm's
+  running mean and variance included), which load with ``strict=True``
+  into the port's registry ResNetSR (16 blocks x 64 channels);
+- ``winner_resnet_goldens.npz`` (under 1.5 MB): for each net, under the
+  prefix ``resnet_`` or ``resnet_qat_``, the same goldens as the
+  AttentionSR winner's on the same five LR inputs, which are read from
+  ``winner_attentionsr_goldens.npz`` (and held equal to
+  ``winner_lr(winner_hr())``) rather than stored twice.
+
 For the port's codecs it writes ``assets/jpeg/`` (``--what jpeg``),
 under 600 KB:
 
@@ -95,6 +110,7 @@ under 600 KB:
     python tools/export_port_assets.py      # JAX_PLATFORMS=cpu is set here
     python tools/export_port_assets.py --what jpeg
     python tools/export_port_assets.py --what attentionsr   # ~4 min
+    python tools/export_port_assets.py --what resnet
 
 The directory is not called ``weights``: files under any ``weights``
 directory are kept out of the copy sent to the GPU host.
@@ -266,33 +282,93 @@ def png_array(img: np.ndarray) -> np.ndarray:
     return np.frombuffer(buf.getvalue(), np.uint8)
 
 
+def winner_goldens(checkpoint: str, lrs, hrs, prefix: str = "") -> dict:
+    """The goldens of one winner (module docstring) under keys that start
+    with ``prefix``: JAX's float32 served outputs for ``lrs`` as PNG
+    streams, then, on the small inputs (all but the last), its scores
+    against ``hrs``, its bfloat16 and int8 servers' PSNRs and the int8
+    SNR."""
+    small = len(lrs) - 1
+    f32 = jax_served(lrs, checkpoint)
+    bf16 = jax_served(lrs[:small], checkpoint, dtype=jnp.bfloat16)
+    int8 = jax_served(lrs[:small], checkpoint, dtype=jnp.bfloat16,
+                      quantize="int8")
+    scores = jax_scores(f32[:small], hrs[:small])
+    return {
+        **{f"{prefix}sr_{i}": png_array(y) for i, y in enumerate(f32)},
+        **{prefix + k: np.asarray(v) for k, v in scores.items()},
+        prefix + "psnr_bf16": np.asarray([psnr_u8(y, h)
+                                          for y, h in zip(bf16, hrs)]),
+        prefix + "psnr_int8": np.asarray([psnr_u8(y, h)
+                                          for y, h in zip(int8, hrs)]),
+        prefix + "snr_int8": np.asarray(snr_db(int8, f32[:small]))}
+
+
+def export_winner_pth(checkpoint: str, arch: str, pth: str) -> None:
+    """Write the reference-layout float32 state_dict of the Orbax
+    ``checkpoint`` (which must hold ``arch``) to ``pth``."""
+    sd, got = export_state_dict(load_checkpoint(checkpoint))
+    if got != arch:
+        raise SystemExit(f"{checkpoint} holds {got}, not {arch}")
+    os.makedirs(os.path.dirname(pth), exist_ok=True)
+    # ascontiguousarray makes 0-d arrays 1-d: keep each shape (a
+    # BatchNorm's num_batches_tracked is a scalar)
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v).reshape(
+        np.shape(v))) for k, v in sd.items()}, pth)
+
+
 def export_attentionsr(out_dir: str) -> tuple[str, str]:
     """Write winner_attentionsr.pth and winner_attentionsr_goldens.npz
     (module docstring) under ``out_dir``; return their paths."""
-    sd, arch = export_state_dict(load_checkpoint(ATTN_CHECKPOINT))
-    if arch != "AttentionSR":
-        raise SystemExit(f"{ATTN_CHECKPOINT} holds {arch}, not AttentionSR")
-    os.makedirs(out_dir, exist_ok=True)
     pth = os.path.join(out_dir, "winner_attentionsr.pth")
-    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in sd.items()}, pth)
+    export_winner_pth(ATTN_CHECKPOINT, "AttentionSR", pth)
     hrs = winner_hr()
     lrs = [winner_lr(hr) for hr in hrs]
-    small = len(hrs) - 1
-    f32 = jax_served(lrs, ATTN_CHECKPOINT)
-    bf16 = jax_served(lrs[:small], ATTN_CHECKPOINT, dtype=jnp.bfloat16)
-    int8 = jax_served(lrs[:small], ATTN_CHECKPOINT, dtype=jnp.bfloat16,
-                      quantize="int8")
-    scores = jax_scores(f32[:small], hrs[:small])
     npz = os.path.join(out_dir, "winner_attentionsr_goldens.npz")
     np.savez_compressed(
         npz, **{f"lr_{i}": png_array(x) for i, x in enumerate(lrs)},
-        **{f"sr_{i}": png_array(y) for i, y in enumerate(f32)},
-        **{k: np.asarray(v) for k, v in scores.items()},
-        psnr_bf16=np.asarray([psnr_u8(y, h) for y, h in zip(bf16, hrs)]),
-        psnr_int8=np.asarray([psnr_u8(y, h) for y, h in zip(int8, hrs)]),
-        snr_int8=np.asarray(snr_db(int8, f32[:small])))
+        **winner_goldens(ATTN_CHECKPOINT, lrs, hrs))
     return pth, npz
+
+
+# The ResNetSR winners (--what resnet): the plain one and its QAT
+# fine-tune, each under its tag in one goldens file
+RESNET_WINNERS = {
+    "resnet": os.path.join(ROOT, "weights", "winner_resnet_best"),
+    "resnet_qat": os.path.join(ROOT, "weights", "winner_resnet_qat_best")}
+
+
+def attentionsr_lrs(out_dir: str) -> list[np.ndarray]:
+    """The LR inputs stored in the AttentionSR goldens (``out_dir``'s, or
+    the committed ones), held equal to ``winner_lr(winner_hr())``."""
+    npz = os.path.join(out_dir, "winner_attentionsr_goldens.npz")
+    g = np.load(npz if os.path.exists(npz) else
+                os.path.join(ASSETS, "winner_attentionsr_goldens.npz"))
+    n = sum(k.startswith("lr_") for k in g.files)
+    lrs = [np.asarray(Image.open(io.BytesIO(g[f"lr_{i}"].tobytes())))
+           for i in range(n)]
+    if not all(np.array_equal(x, winner_lr(hr))
+               for x, hr in zip(lrs, winner_hr(), strict=True)):
+        raise SystemExit("the AttentionSR goldens' LRs are not "
+                         "winner_lr(winner_hr())")
+    return lrs
+
+
+def export_resnet(out_dir: str) -> tuple[str, ...]:
+    """Write winner_resnet.pth, winner_resnet_qat.pth and
+    winner_resnet_goldens.npz (module docstring) under ``out_dir``; return
+    their paths."""
+    paths = []
+    for tag, checkpoint in RESNET_WINNERS.items():
+        paths.append(os.path.join(out_dir, f"winner_{tag}.pth"))
+        export_winner_pth(checkpoint, "RESNET", paths[-1])
+    hrs = winner_hr()
+    lrs = attentionsr_lrs(out_dir)
+    npz = os.path.join(out_dir, "winner_resnet_goldens.npz")
+    np.savez_compressed(npz, **{
+        k: v for tag, checkpoint in RESNET_WINNERS.items()
+        for k, v in winner_goldens(checkpoint, lrs, hrs, tag + "_").items()})
+    return (*paths, npz)
 
 
 # (h, w) of the mini tree's images: 16 train (two below the crop of 200),
@@ -1125,7 +1201,8 @@ def main():
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--out_dir", default=ASSETS)
     p.add_argument("--what", default="all",
-                   choices=["all", "srcnn", "attentionsr", "jpeg"])
+                   choices=["all", "srcnn", "attentionsr", "resnet",
+                            "jpeg"])
     a = p.parse_args()
     jax.config.update("jax_platforms", "cpu")
 
@@ -1138,15 +1215,13 @@ def main():
     if a.what in ("all", "attentionsr"):
         for path in export_attentionsr(a.out_dir):
             print(f"{path}: {os.path.getsize(path):,} bytes")
+    if a.what in ("all", "resnet"):
+        for path in export_resnet(a.out_dir):
+            print(f"{path}: {os.path.getsize(path):,} bytes")
     if a.what not in ("all", "srcnn"):
         return
-    sd, arch = export_state_dict(load_checkpoint(CHECKPOINT))
-    if arch != "SRCNN":
-        raise SystemExit(f"{CHECKPOINT} holds {arch}, not SRCNN")
-    os.makedirs(a.out_dir, exist_ok=True)
     pth = os.path.join(a.out_dir, "winner_srcnn.pth")
-    torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in sd.items()}, pth)
+    export_winner_pth(CHECKPOINT, "SRCNN", pth)
     inputs = golden_inputs()
     outputs = jax_served(inputs)
     npz = os.path.join(a.out_dir, "winner_srcnn_goldens.npz")
