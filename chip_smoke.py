@@ -71,9 +71,12 @@ Phases, one short line each; any failure raises and the exit code is 1:
           decodes, and a PSD, each named); then K2 NHWC at the
           --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
-8b. winner  the trained AttentionSR x4 winner, the committed asset
-          (food101_sr_tpu_torch/assets/winner_attentionsr.pth, 5,842,630
-          parameters) held against the JAX package's goldens for it
+8b. winner  each committed winner's packed weights file decoded on the
+          host (bytes and decode ms printed, with the committed tree's
+          git ls-files bytes where this is a git checkout); the trained
+          AttentionSR x4 winner, the committed asset
+          (food101_sr_tpu_torch/assets/winner_attentionsr.f101w,
+          5,842,630 parameters) held against the JAX package's goldens for it
           (tools/export_port_assets.py --what attentionsr): the handler of
           ``serve --architecture auto --checkpoint <asset> --warmup
           --dtype float32`` in this process, TF32 off, answers the five
@@ -91,22 +94,29 @@ Phases, one short line each; any failure raises and the exit code is 1:
           fine-tune and the RUNBOOK's QAT fine-tune (train
           --pretrained_weights <asset> on the mini tree, one epoch each):
           the generator before the first step equal to the asset bit for
-          bit, every logged loss finite, nothing skipped; visualize's
-          default table (the SRCNN, ResNetSR and AttentionSR assets; the
-          absent winners' rows skipped); K2 NHWC on the trained net's bf16 SE
-          inputs and K1 on the scoring pyramids against their plain
-          versions, with times ("winner numbers:" line). Then the same
-          serve, score and cost checks on the trained ResNetSR x4 winner
-          and its QAT fine-tune (assets/winner_resnet.pth and
-          winner_resnet_qat.pth, 1,549,462 parameters, BatchNorm running
-          stats included; tools/export_port_assets.py --what resnet), the
-          int8 cost within WINNER_RESNET_INT8_DB of JAX's and both nets'
-          int8 costs printed side by side; predict and the exported
-          64x64 program for the plain one; the README's QAT fine-tune
-          from it (train --architecture RESNET --quantize qat, NLPD, lr
-          1e-5), K1 launches as the closed form; K2 0 on every ResNetSR
-          batch; visualize's default table with its RESNET row; K1 on
-          the ResNetSR scoring pyramids against its plain version
+          bit, every logged loss finite, nothing skipped ("winner
+          numbers:" line). Then the same serve, score and cost checks on
+          the trained ResNetSR x4 winner and its QAT fine-tune
+          (assets/winner_resnet.f101w and winner_resnet_qat.f101w,
+          1,549,462 parameters, BatchNorm running stats included;
+          tools/export_port_assets.py --what resnet), the int8 cost within
+          WINNER_RESNET_INT8_DB of JAX's; predict and the exported 64x64
+          program for the plain one; the README's QAT fine-tune from it
+          (train --architecture RESNET --quantize qat, NLPD, lr 1e-5), K1
+          launches as the closed form; K2 0 on every ResNetSR batch. Then
+          the AttentionSR GAN and QAT winners (winner_attentionsr_gan.f101w
+          and winner_attentionsr_qat.f101w, bfloat16 deltas against the
+          AttentionSR winner; goldens from JAX on the same rounded weights,
+          tools/export_port_assets.py --what attentionsr_tunes): serve,
+          predict, score, the bf16 and int8 costs (the QAT winner's int8
+          server built as serve --quantize int8 builds it), the int8 cost
+          within WINNER_TUNES_INT8_DB of JAX's; every winner's int8 cost
+          printed side by side; visualize's default table (the SRCNN,
+          ResNetSR, AttentionSR and AttentionSR_GAN rows; the absent RRDB
+          rows skipped); K2 NHWC on each AttentionSR winner's bf16 SE
+          inputs, K1 on the AttentionSR winners' and on the ResNetSR
+          winners' scoring pyramids against their plain versions, with
+          times
 9. train  the supervised step on the registry AttentionSR x4 (float32,
           channels-last, the phase-space tail as train() runs it, train
           mode), NLPD loss, Adam 4e-4, batch 16 of
@@ -495,6 +505,15 @@ WINNER_BF16_DB, WINNER_INT8_DB = 0.05, 0.02
 # (its trained weights put rounding ties on the int8 grid, which float32
 # sums in another order resolve differently)
 WINNER_RESNET_INT8_DB = 0.05
+# the AttentionSR GAN and QAT winners (bfloat16 packs, goldens from JAX on
+# the same rounded weights): their int8 cost against JAX's. The QAT
+# winner's weights sit near the int8 grid, and rounding them to bfloat16
+# moves each channel's max abs and so its scale; JAX's costs are taken on
+# the same rounded weights. The port's CPU servers (each bf16 conv's bias
+# added after the sum, as cuDNN adds it) measured int8 costs 0.0008 dB
+# (GAN) and 0.0007 dB (QAT) from JAX's, bf16 0.0019 and 0.0003; the bound
+# is the plain AttentionSR winner's WINNER_INT8_DB
+WINNER_TUNES_INT8_DB = 0.02
 # the README's GAN fine-tune and the RUNBOOK's QAT fine-tune from the
 # AttentionSR winner, and the README's QAT fine-tune from the ResNetSR one
 # (NLPD, the default loss), one epoch of the mini tree each (16 train
@@ -505,23 +524,34 @@ WINNER_TUNES = {"gan": ["--loss_function", "gan", "--lr", "1e-4"],
                         "--lr", "1e-4"],
                 "resnet_qat": ["--quantize", "qat", "--lr", "1e-5"]}
 WINNER_BATCH, WINNER_CROP, WINNER_VIS = 4, 200, 4
-# the winners, each the asset winner_<name>.pth: its architecture, its
-# goldens (file and key prefix; every winner's LR inputs are the
-# AttentionSR goldens'), its int8 cost bound, its fine-tunes and whether
-# its 64x64 program is exported
+# the winners, each the packed weights file winner_<name>.f101w: its
+# architecture, its goldens (file and key prefix; every winner's LR inputs
+# are the AttentionSR goldens'), its int8 cost bound, its fine-tunes,
+# whether its 64x64 program is exported and whether its int8 server is
+# built the README's way (serve --quantize int8) rather than as SRServer
 WINNERS = {
     "attentionsr": {"arch": "AttentionSR",
                     "goldens": ("winner_attentionsr_goldens.npz", ""),
                     "int8_db": WINNER_INT8_DB, "tunes": ("gan", "qat"),
-                    "export": True},
+                    "export": True, "int8_cli": False},
     "resnet": {"arch": "RESNET",
                "goldens": ("winner_resnet_goldens.npz", "resnet_"),
                "int8_db": WINNER_RESNET_INT8_DB, "tunes": ("resnet_qat",),
-               "export": True},
+               "export": True, "int8_cli": False},
     "resnet_qat": {"arch": "RESNET",
                    "goldens": ("winner_resnet_goldens.npz", "resnet_qat_"),
                    "int8_db": WINNER_RESNET_INT8_DB, "tunes": (),
-                   "export": False},
+                   "export": False, "int8_cli": False},
+    "attentionsr_gan": {"arch": "AttentionSR",
+                        "goldens": ("winner_attentionsr_tunes_goldens.npz",
+                                    "attentionsr_gan_"),
+                        "int8_db": WINNER_TUNES_INT8_DB, "tunes": (),
+                        "export": False, "int8_cli": False},
+    "attentionsr_qat": {"arch": "AttentionSR",
+                        "goldens": ("winner_attentionsr_tunes_goldens.npz",
+                                    "attentionsr_qat_"),
+                        "int8_db": WINNER_TUNES_INT8_DB, "tunes": (),
+                        "export": False, "int8_cli": True},
 }
 
 # the food101 phase: the committed JPEG fixtures and the JAX package's
@@ -3084,18 +3114,28 @@ def _winner_serve(asset: str, lrs, hrs, tmp: str) -> dict:
     return out
 
 
-def _winner_dtypes(asset: str, lrs) -> dict:
+def _winner_dtypes(asset: str, lrs, int8_cli: bool = False) -> dict:
     """The production servers on the winner: bf16, and bf16 with
-    ``--quantize int8``, on the small inputs, each counted from zero; and
-    the bf16 net's SE inputs on one device batch of the small inputs'
-    tiles (a forward hook on every SE block; none in a net without
-    them), for K2."""
+    ``--quantize int8`` (with ``int8_cli``, built as ``serve
+    --architecture auto --checkpoint asset --quantize int8`` builds it),
+    on the small inputs, each counted from zero; and the bf16 net's SE
+    inputs on one device batch of the small inputs' tiles (a forward hook
+    on every SE block; none in a net without them), for K2."""
+    from food101_sr_tpu_torch import serve
     from food101_sr_tpu_torch.serving import SRServer
 
     out = {"sr": {}, "launches": {}, "batches": {}}
     for mode in ("", "int8"):
-        srv = SRServer("auto", checkpoint=asset, device="cuda",
-                       dtype=torch.bfloat16, quantize=mode)
+        if mode and int8_cli:
+            srv, _ = serve.build_servers(serve.parse_args([
+                "--architecture", "auto", "--checkpoint", asset,
+                "--quantize", mode, "--warmup"]))
+            if srv.dtype != torch.bfloat16 or srv.quantize != mode:
+                raise AssertionError(f"winner: serve --quantize {mode} "
+                                     f"built {srv.dtype} {srv.quantize!r}")
+        else:
+            srv = SRServer("auto", checkpoint=asset, device="cuda",
+                           dtype=torch.bfloat16, quantize=mode)
         try:
             srv.warmup([(srv.tile, srv.tile)])
             torch.cuda.synchronize()
@@ -3190,7 +3230,7 @@ def _winner_tune(asset: str, arch: str, tag: str, tmp: str,
     guard skipped nothing, launches as the closed form (``se_blocks`` SE
     squeezes a forward)."""
     from food101_sr_tpu_torch import train as train_cli
-    from food101_sr_tpu_torch.training import loop
+    from food101_sr_tpu_torch.training import load_checkpoint, loop
 
     seen = {}
 
@@ -3228,7 +3268,7 @@ def _winner_tune(asset: str, arch: str, tag: str, tmp: str,
         else:
             os.environ["FOOD101_SR_RUN_DIR"] = old_env
     wall = time.perf_counter() - t0
-    sd = torch.load(asset, weights_only=True)
+    sd = load_checkpoint(asset)
     if not (seen.get("g", {}).keys() >= sd.keys() and all(
             torch.equal(seen["g"][k], v) for k, v in sd.items())):
         raise AssertionError(f"winner {tag}: the generator before the first "
@@ -3264,10 +3304,10 @@ def _winner_tune(asset: str, arch: str, tag: str, tmp: str,
             "wall_s": wall}
 
 
-def _winner_k2(rates, se_inputs) -> dict:
-    """K2 NHWC on the trained net's bf16 SE inputs (every block's, one
+def _winner_k2(rates, se_inputs, who: str) -> dict:
+    """K2 NHWC on a trained net's bf16 SE inputs (every block's, one
     device batch) within one bf16 ulp of its plain version, timed on the
-    first."""
+    first; ``who`` names the net."""
     from food101_sr_tpu_torch.ops.spatial_mean import (mean_nhwc_kernel,
                                                        spatial_mean_plain)
 
@@ -3286,9 +3326,10 @@ def _winner_k2(rates, se_inputs) -> dict:
                   lambda: x.mean((2, 3)), launches=1)
     k2["bound_ms"], k2["bound_by"] = bound(
         2 * x.numel() + 2 * x.shape[0] * x.shape[1], x.numel(), rates)
-    k2.update(ulp=ulp, max_abs_err=err2, at=f"{tuple(x.shape)} bfloat16 channels-last, the "
-              f"trained winner's SE inputs ({len(se_inputs)} blocks, one "
-              "device batch of the small inputs' tiles)")
+    k2.update(ulp=ulp, max_abs_err=err2,
+              at=f"{tuple(x.shape)} bfloat16 channels-last, {who}'s SE "
+              f"inputs ({len(se_inputs)} blocks, one device batch of the "
+              "small inputs' tiles)")
     return k2
 
 
@@ -3327,7 +3368,7 @@ def _winner_leg(name: str, spec: dict, tmp: str) -> dict:
     from food101_sr_tpu_torch.metrics import MetricsCalculator
 
     t_leg = time.perf_counter()
-    asset = os.path.join(ASSETS, f"winner_{name}.pth")
+    asset = os.path.join(ASSETS, f"winner_{name}.f101w")
     arch = spec["arch"]
     lrs, srs, hrs, gold = _winner_goldens(spec)
     small = range(WINNER_SMALL)
@@ -3339,7 +3380,7 @@ def _winner_leg(name: str, spec: dict, tmp: str) -> dict:
     se = n_blocks if arch == "AttentionSR" else 0  # SE squeezes a forward
     runs["serve"] = serve["launches"]
     runs["predict"] = serve["predict_launches"]
-    prod = _winner_dtypes(asset, lrs)
+    prod = _winner_dtypes(asset, lrs, spec["int8_cli"])
     runs.update({f"bf16{m and '_' + m}": c
                  for m, c in prod["launches"].items()})
     aot = None
@@ -3446,7 +3487,7 @@ def _winner_leg(name: str, spec: dict, tmp: str) -> dict:
                                         "train_loss", "final", "wall_s")}
                   for t, r in tunes.items()},
         "launches": runs, "leg_s": time.perf_counter() - t_leg}
-    print(f"winner: {arch} x4 asset winner_{name}.pth, f32 over HTTP (TF32 "
+    print(f"winner: {arch} x4 asset winner_{name}.f101w, f32 over HTTP (TF32 "
           f"off) vs JAX goldens {levels} level(s) ({serve['batches']} device"
           f" batches, the 200x152 one tiled) | psnr "
           f"{np.round(got['psnr'], 4).tolist()} vs JAX: "
@@ -3477,6 +3518,38 @@ def _winner_leg(name: str, spec: dict, tmp: str) -> dict:
             "costs": costs}
 
 
+def _tree_bytes():
+    """The bytes of the files ``git ls-files`` lists beside this script,
+    or None where it is not in a git checkout (the card host's copy) or
+    in one that tracks none of them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        names = subprocess.run(["git", "ls-files", "-z"], cwd=here,
+                               capture_output=True, check=True,
+                               timeout=60).stdout.split(b"\0")
+    except (OSError, subprocess.SubprocessError):
+        return None
+    paths = [os.path.join(here, n.decode()) for n in names if n]
+    return sum(os.path.getsize(p) for p in paths if os.path.isfile(p)) \
+        if paths else None
+
+
+def _pack_decode_ms() -> dict:
+    """Each winner's packed weights file: its bytes and the host's
+    ``unpack_state_dict`` ms (one call; a delta decodes its base too),
+    which every server and visualize start pays."""
+    from food101_sr_tpu_torch.training.packed import unpack_state_dict
+
+    out = {}
+    for name in WINNERS:
+        path = os.path.join(ASSETS, f"winner_{name}.f101w")
+        t0 = time.perf_counter()
+        unpack_state_dict(path)
+        out[name] = {"bytes": os.path.getsize(path),
+                     "decode_ms": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
 def phase_winner(rates, k1: dict, k2: dict) -> dict:
     """The trained winners through the port's entry points (module
     docstring, phase 8b), then visualize's default table. Returns the
@@ -3485,6 +3558,13 @@ def phase_winner(rates, k1: dict, k2: dict) -> dict:
     from food101_sr_tpu_torch import visualize
 
     t_phase = time.perf_counter()
+    packs, tree = _pack_decode_ms(), _tree_bytes()
+    print("winner: packed weights files (host decode ms) "
+          + ", ".join(f"{n} {p['bytes']:,} bytes {p['decode_ms']:.1f} ms"
+                      for n, p in packs.items())
+          + " | committed tree "
+          + (f"{tree:,} bytes (git ls-files)" if tree is not None else
+             "not measured (no git checkout here)"), flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_winner_") as tmp:
         legs = {name: _winner_leg(name, spec, tmp)
                 for name, spec in WINNERS.items()}
@@ -3500,10 +3580,12 @@ def phase_winner(rates, k1: dict, k2: dict) -> dict:
         vis = _counts()
         # ---- end of main path -------------------------------------------
 
-    # visualize: the SRCNN, ResNetSR and AttentionSR rows on the assets
-    want_vis = (0, legs["attentionsr"]["n_blocks"] * _vis_forwards(WINNER_VIS),
-                0)
-    if not (set(times) == {"SRCNN", "RESNET", "AttentionSR"}
+    # visualize: the SRCNN, ResNetSR, AttentionSR and AttentionSR_GAN rows
+    # on the assets, each AttentionSR row the same forwards
+    per_row = legs["attentionsr"]["n_blocks"] * _vis_forwards(WINNER_VIS)
+    want_vis = (0, 2 * per_row, 0)
+    if not (set(times) == {"SRCNN", "RESNET", "AttentionSR",
+                           "AttentionSR_GAN"}
             and vis == want_vis):
         raise AssertionError(f"winner: visualize models {set(times)}, "
                              f"launches {vis} (expected {want_vis})")
@@ -3516,41 +3598,55 @@ def phase_winner(rates, k1: dict, k2: dict) -> dict:
         raise AssertionError(f"winner: K2 launched on a ResNetSR batch "
                              f"{by_winner}")
 
-    attn = legs["attentionsr"]
-    k2_row = _winner_k2(rates, attn["se_inputs"])
-    k1_row = _winner_k1(rates, attn["sr"], attn["hrs"],
-                        f"the {WINNER_SMALL} small inputs' sizes")
+    attns = [n for n, spec in WINNERS.items()
+             if spec["arch"] == "AttentionSR"]
+    # K2 on each AttentionSR winner's SE inputs, the visualize rows' share
+    # with the plain winner's and the GAN winner's
+    titles = {"attentionsr": "the trained winner",
+              "attentionsr_gan": "the GAN winner",
+              "attentionsr_qat": "the QAT winner"}
+    k2_rows = {n: _winner_k2(rates, legs[n]["se_inputs"], titles[n])
+               for n in attns}
+    k1_row = _winner_k1(rates, [s for n in attns for s in legs[n]["sr"]],
+                        [h for n in attns for h in legs[n]["hrs"]],
+                        f"the AttentionSR winners' {WINNER_SMALL} small "
+                        "outputs each")
     k1_resnet = _winner_k1(
         rates, [s for n in resnet for s in legs[n]["sr"]],
         [h for n in resnet for h in legs[n]["hrs"]],
         f"both ResNetSR winners' {WINNER_SMALL} small outputs")
-    for row, d in ((k1_row, k1), (k2_row, k2), (k1_resnet, k1)):
+    for row, d in ((k1_row, k1), (k1_resnet, k1),
+                   *((r, k2) for r in k2_rows.values())):
         row.update({key: d[key] for key in ("route", "source", "replaces",
                                             "wrapper")})
-    k1_row.update(name="K1 depthwise Gaussian blur 5x5, the winner's "
-                       "scoring pyramids",
-                  launches=by_winner["attentionsr"][0] + vis[0])
-    k2_row.update(name="K2 spatial mean (SE squeeze), nhwc input, the "
-                       "trained winner",
-                  launches=by_winner["attentionsr"][1] + vis[1])
+    k1_row.update(name="K1 depthwise Gaussian blur 5x5, the AttentionSR "
+                       "winners' scoring pyramids",
+                  launches=sum(by_winner[n][0] for n in attns) + vis[0])
+    vis_k2 = {"attentionsr": per_row, "attentionsr_gan": per_row}
+    for n, row in k2_rows.items():
+        row.update(name="K2 spatial mean (SE squeeze), nhwc input, "
+                        + titles[n],
+                   launches=by_winner[n][1] + vis_k2.get(n, 0))
     k1_resnet.update(name="K1 depthwise Gaussian blur 5x5, the ResNetSR "
                           "winners' scoring pyramids",
                      launches=sum(by_winner[n][0] for n in resnet))
-    costs = {n: legs[n]["costs"]["int8"] for n in resnet}
-    print("winner: ResNetSR int8 PSNR cost on the card (bf16 server with "
+    costs = {n: legs[n]["costs"]["int8"] for n in WINNERS}
+    print("winner: int8 PSNR cost on the card (bf16 server with "
           "--quantize int8 against the port's float32, mean of the "
           f"{WINNER_SMALL} small inputs): "
           + ", ".join(f"{n} {c['port_db']:.4f} dB (JAX {c['jax_db']:.4f})"
                       for n, c in costs.items())
           + f" | visualize ms/image {vis_ms} | K2 on the SE inputs "
-          f"{k2_row['ulp']:.2g} ulp, K1 on the scoring pyramids "
-          f"{k1_row['max_abs_err']:.2g} (AttentionSR), "
-          f"{k1_resnet['max_abs_err']:.2g} (ResNetSR) | launches by winner "
-          f"{by_winner} | {time.perf_counter() - t_phase:.1f} s", flush=True)
+          + ", ".join(f"{n} {r['ulp']:.2g} ulp" for n, r in k2_rows.items())
+          + f", K1 on the scoring pyramids {k1_row['max_abs_err']:.2g} "
+          f"(AttentionSR), {k1_resnet['max_abs_err']:.2g} (ResNetSR) | "
+          f"launches by winner {by_winner} | "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"by_winner": {key: {n: c[j] for n, c in by_winner.items()}
                           for j, key in enumerate(
                               ("K1", "K2 nhwc", "K2 nchw"))},
-            "rows": [k1_row, k2_row, k1_resnet]}
+            "rows": [k1_row, *k2_rows.values(), k1_resnet],
+            "packs": packs, "tree_bytes": tree}
 
 
 def _deterministic() -> None:

@@ -29,6 +29,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -190,21 +191,33 @@ struct Eof {};       // the data ended where libtiff's decoder jumps to EOF
 struct Overflow {};  // libtiff's "Buffer overflow": the strip fails
 
 // The fax decoder of one strip or tile: libtiff's macros (Fax3Decode1D,
-// Fax3Decode2D, Fax3DecodeRLE, Fax4Decode) as member functions.
+// Fax3Decode2D, Fax3DecodeRLE, Fax4Decode) as member functions. runs is
+// the image's run arrays (fax_runs()), which libtiff allocates once per
+// image and zeroes: each strip starts with the current row in its first
+// half and the reference row (2-D coding) in its second (Fax3PreDecode),
+// and entries past a row's runs keep what earlier rows and strips wrote.
 class Fax {
  public:
-  Fax(const uint8_t* cp, long n, bool msb_first, int width)
-      : cp_(cp), ep_(cp + n), width_(width) {
+  Fax(const uint8_t* cp, long n, bool msb_first, int width, bool noeol,
+      bool refline, uint32_t* runs)
+      : start_(cp), cp_(cp), ep_(cp + n), width_(width),
+        nruns_(fax_runs(width, refline) / 2), cur_(runs),
+        ref_(refline ? runs + nruns_ : nullptr), noeol_(noeol) {
     const Tables& t = tables();
     // libtiff's bit reader takes each byte's bits low first; a file in
     // FillOrder 1 has them high first, so its bytes go through BitRevTable
     for (int i = 0; i < 256; ++i)
       bitmap_[i] = msb_first ? t.rev[i] : static_cast<uint8_t>(i);
-    nruns_ = 2 * ((width + 1 + 31) / 32 * 32);
-    cur_.assign(nruns_ + 2, 0);  // room for the runs libtiff writes unchecked
-    ref_.assign(nruns_ + 2, 0);
-    ref_[0] = width;  // an all-white reference line
-    ref_[1] = 0;
+    if (ref_) {
+      ref_[0] = width;  // an all-white reference line
+      ref_[1] = 0;
+    }
+  }
+
+  // libtiff's nruns (per half) times 2, for a row of width pixels
+  static int fax_runs(int width, bool refline) {
+    const int n = (width + 1 + 31) / 32 * 32;
+    return 2 * (refline ? 2 * n : n);
   }
 
   // Compression 2: 1-D rows, each starting on a byte boundary. Data that
@@ -225,43 +238,57 @@ class Fax {
   }
 
   // Compression 3: rows after an EOL; with 2-D coding a tag bit per row
-  // chooses 1-D or 2-D. Data that ends early ends the strip as libtiff
-  // 4.7 ends it (measured against it): with 1-D coding successfully,
-  // with 2-D coding successfully where it ends looking for an EOL or a
-  // tag bit once two rows are whole, else failing it.
+  // chooses 1-D or 2-D. Data that ends early fails the strip, as in
+  // libtiff 4.7 (Fax3Decode1D, Fax3Decode2D), but for its SYNC_EOL: where
+  // the data ends past an EOL's zeros, before its 1 (zero padding makes
+  // any data that ends mid-row look so), libtiff takes the file for one
+  // coded without EOLs ("Try to decode (read) fax Group 3 data without
+  // EOL"): it decodes the strip again from its first byte, from the row it
+  // was in, with no EOL before a row, and keeps that mode for the image's
+  // later strips (noeol()). Zero padding then carries 1-D rows to the end
+  // of the strip; 2-D rows may still reach the end of the data.
   int g3(uint8_t* buf, int rows, int rowbytes, bool twod) {
     for (int line = 0; line < rows; ++line) {
       start_row();
       uint8_t* row = buf + static_cast<long>(line) * rowbytes;
-      bool in_row = false;
       try {
-        sync_eol();
+        if (!noeol_ && !sync_eol()) {
+          noeol_ = true;
+          cp_ = start_;
+          acc_ = 0;
+          avail_ = 0;
+          eolcnt_ = 0;
+          --line;
+          continue;
+        }
         bool is1d = true;
         if (twod) {
           need(1);
           is1d = bits(1);
           clr(1);
         }
-        pb_ = 0;
-        b1_ = ref_[pb_++];
-        in_row = true;
+        if (twod) {
+          pb_ = 0;
+          b1_ = ref_[pb_++];
+        }
         if (is1d)
           expand1d();
         else
           expand2d();
       } catch (const Eof&) {
         fillruns(row);
-        if (!twod) return line + 1;
-        return line >= 2 && !in_row ? line + 1 : -1;
+        return -1;
       }
       fillruns(row);
       if (twod) {
         if (pa_ < nruns_) setvalue(0);  // imaginary change for reference
-        cur_.swap(ref_);
+        std::swap(cur_, ref_);
       }
     }
     return rows;
   }
+
+  bool noeol() const { return noeol_; }
 
   // Compression 4: 2-D rows against the previous one, no EOLs. Returns the
   // rows decoded. When the data ends early libtiff fills the row it was in
@@ -285,25 +312,30 @@ class Fax {
       }
       fillruns(row);
       setvalue(0);  // imaginary change for reference
-      cur_.swap(ref_);
+      std::swap(cur_, ref_);
     }
     return rows;
   }
 
  private:
+  const uint8_t* start_;
   const uint8_t* cp_;
   const uint8_t* ep_;
   uint8_t bitmap_[256];
   uint32_t acc_ = 0;
   int avail_ = 0;
   int width_;
-  int nruns_;
+  const int nruns_;
   // libtiff's types: runs are uint32_t, positions int (C's conversions
   // between them included)
-  std::vector<uint32_t> cur_, ref_;
+  // libtiff's curruns and refruns; the run arrays have 4 entries past
+  // their end for the runs libtiff writes unchecked
+  uint32_t* cur_;
+  uint32_t* ref_;
   int pa_ = 0, pb_ = 0;
   int32_t a0_ = 0, run_length_ = 0, b1_ = 0;
   int eolcnt_ = 0;
+  bool noeol_;
 
   void start_row() {
     a0_ = 0;
@@ -350,7 +382,9 @@ class Fax {
     return static_cast<int32_t>(static_cast<uint32_t>(a) + b);
   }
 
-  void sync_eol() {
+  // SYNC_EOL: false where the data ends looking for the EOL's 1
+  // (libtiff's noEOLFound)
+  bool sync_eol() {
     if (eolcnt_ == 0) {
       for (;;) {
         need(11);
@@ -359,13 +393,18 @@ class Fax {
       }
     }
     for (;;) {
-      need(8);
+      try {
+        need(8);
+      } catch (const Eof&) {
+        return false;
+      }
       if (bits(8)) break;
       clr(8);
     }
     while (bits(1) == 0) clr(1);
     clr(1);  // the EOL's 1
     eolcnt_ = 0;
+    return true;
   }
 
   void cleanup_runs() {
@@ -529,12 +568,19 @@ class Fax {
   }
 
   // _TIFFFax3fillruns: white runs clear bits, black runs set them; a run
-  // past the row is cut at its end.
+  // past the row is cut at its end. An odd count gets a closing 0 run in
+  // the array but not in pa_ (libtiff's fill takes its end by value), so
+  // the imaginary change written next lands on it: entries past the row's
+  // end keep what earlier rows left there, which a 2-D row can read.
   void fillruns(uint8_t* buf) {
-    if (pa_ & 1) push_unchecked(0);
+    int end = pa_;
+    if (end & 1) {
+      if (end >= nruns_ + 2) throw Overflow();
+      cur_[end++] = 0;
+    }
     const uint32_t lastx = static_cast<uint32_t>(width_);
     uint32_t x = 0;
-    for (int i = 0; i < pa_; i += 2) {
+    for (int i = 0; i < end; i += 2) {
       for (int k = 0; k < 2; ++k) {
         uint32_t r = cur_[i + k];
         if (x + r > lastx || r > lastx) r = cur_[i + k] = lastx - x;
@@ -681,23 +727,35 @@ int f101tiff_lzw(const uint8_t* src, long n, uint8_t* dst, long occ,
 
 // CCITT (2, 3, 4): rows x width bilevel pixels, 1 = black, MSB first, rows
 // of rowbytes. kind is the compression, twod T4Options' 2-D bit,
-// msb_first FillOrder 1. 0 on success, -1 when the data ends where libtiff
-// fails the strip, -2 when the runs overflow libtiff's run arrays (it
-// fails the strip), else the rows decoded when the data ended early and
-// libtiff succeeds (the rows after those keep what dst held).
+// msb_first FillOrder 1; *noeol is libtiff's "without EOL" mode of the
+// image (Fax::g3), read and updated, and runs its run arrays
+// (f101tiff_fax_runs entries). 0 on success, -1 when the data ends
+// where libtiff fails the strip, -2 when the runs overflow libtiff's run
+// arrays (it fails the strip), else the rows decoded when the data ended
+// early and libtiff succeeds (the rows after those keep what dst held).
 int f101tiff_fax(const uint8_t* src, long n, int kind, int twod,
-                 int msb_first, int width, int rows, uint8_t* dst) {
+                 int msb_first, int width, int rows, uint8_t* dst,
+                 int* noeol, uint32_t* runs) {
   if (width <= 0 || rows <= 0) return -1;
   const int rowbytes = (width + 7) / 8;
+  Fax fax(src, n, msb_first != 0, width, *noeol != 0,
+          kind == 4 || (kind == 3 && twod), runs);
+  int got;
   try {
-    Fax fax(src, n, msb_first != 0, width);
-    const int got = kind == 2   ? fax.rle(dst, rows, rowbytes)
-                    : kind == 3 ? fax.g3(dst, rows, rowbytes, twod != 0)
-                                : fax.g4(dst, rows, rowbytes);
-    return got == rows ? 0 : got;
+    got = kind == 2   ? fax.rle(dst, rows, rowbytes)
+          : kind == 3 ? fax.g3(dst, rows, rowbytes, twod != 0)
+                      : fax.g4(dst, rows, rowbytes);
   } catch (const Overflow&) {
-    return -2;
+    got = -2;
   }
+  *noeol = fax.noeol();
+  return got == rows ? 0 : got;
+}
+
+// The entries of the run arrays f101tiff_fax takes for a row of width
+// pixels (zeroed, kept for every strip and tile of the image).
+long f101tiff_fax_runs(int width, int refline) {
+  return Fax::fax_runs(width, refline != 0) + 4;
 }
 
 // QOI: w x h pixels of `bands` (3 or 4) bytes into dst. Returns the bytes

@@ -171,8 +171,11 @@ def _register(lib):
     lib.f101tiff_packbits.restype = i
     lib.f101tiff_lzw.argtypes = [cp, ll, p, ll, i]
     lib.f101tiff_lzw.restype = i
-    lib.f101tiff_fax.argtypes = [cp, ll, i, i, i, i, i, p]
+    lib.f101tiff_fax.argtypes = [cp, ll, i, i, i, i, i, p,
+                                 ctypes.POINTER(i), p]
     lib.f101tiff_fax.restype = i
+    lib.f101tiff_fax_runs.argtypes = [i, i]
+    lib.f101tiff_fax_runs.restype = ll
     lib.f101qoi_decode.argtypes = [cp, ll, i, i, i, p]
     lib.f101qoi_decode.restype = ll
 
@@ -939,6 +942,8 @@ class _Libtiff:
             raise ValueError("TIFF: zero samples per pixel")
         self.bits = lt.per_sample(BITS, 1, self.spp)
         self.fmt = lt.per_sample(SAMPLEFORMAT, 1, self.spp)
+        if not 1 <= self.fmt <= 6:  # TIFFSetField refuses it: no directory
+            raise ValueError(f"TIFF: sample format {self.fmt}")
         self.planar = lt.one(PLANAR, 1, 0xFFFF)
         if self.planar not in (1, 2):
             raise ValueError("TIFF: bad PlanarConfiguration")
@@ -946,12 +951,27 @@ class _Libtiff:
         self.extra = tuple(ex) if ex is not None else None
         self.fillorder = lt.one(FILLORDER, 1, 0xFFFF, essential=False)
         self.predictor = lt.one(PREDICTOR, 1, 0xFFFF, essential=False)
+        if comp in (5, 8, 32946, 34925) and self.predictor not in (1, 2, 3):
+            # PredictorSetup fails the codec's setup, so every read
+            raise ValueError(f"TIFF: predictor {self.predictor}")
         self.t4 = lt.one(T4OPTIONS, 0, essential=False)
+        # libtiff's CCITT state that outlives a strip (fast_tiff.cpp, Fax):
+        # the T.4 "without EOL" mode a strip can switch on, the run arrays
+        self.noeol = ctypes.c_int(0)
+        self.runs = None
         self.photometric = lt.one(PHOTOMETRIC, None, 0xFFFF,
                                   essential=False)
         if self.photometric is None:  # libtiff's guess for a missing tag
             self.photometric = 0 if comp in (2, 3, 4) or self.bits == 1 \
                 else 2 if self.spp == 3 else 1
+        if self.photometric == 3 and self.bits < 8:
+            # a ColorMap of another count than 3 << bits is ignored, and a
+            # palette image below 8 bits without one does not open
+            cmap = lt.raw(COLORMAP)
+            if cmap is None or cmap[1] != 3 << self.bits or \
+                    cmap[0] not in _LT_INTS or cmap[2] is None:
+                raise ValueError("TIFF: palette without a ColorMap libtiff "
+                                 "reads")
         try:
             sub = lt.ints(YCBCRSUBSAMPLING)
         except ValueError:
@@ -1121,9 +1141,15 @@ class _Libtiff:
         if self.bits != 1 or self.pspp != 1:
             raise ValueError("TIFF: CCITT coding of a non-bilevel image")
         out = self.pil_buffer(((width + 7) // 8) * rows)
-        rc = lib.f101tiff_fax(raw, len(raw), self.comp, self.t4 & 1,
+        twod = self.t4 & 1
+        if self.runs is None:
+            self.runs = np.zeros(lib.f101tiff_fax_runs(
+                width, int(self.comp == 4 or (self.comp == 3 and twod))),
+                np.uint32)
+        rc = lib.f101tiff_fax(raw, len(raw), self.comp, twod,
                               int(self.fillorder != 2), width, rows,
-                              out.ctypes.data)
+                              out.ctypes.data, ctypes.byref(self.noeol),
+                              self.runs.ctypes.data)
         if rc < 0:
             raise ValueError("TIFF: CCITT data ends where libtiff fails the "
                              "strip" if rc == -1 else
@@ -1193,11 +1219,18 @@ class _Libtiff:
         buf.reshape(rows, rb)[:jh_out, :jw * out_nc] = px
         return buf.tobytes()
 
+    def rgba_block(self) -> None:
+        """Start one of PIL's TIFFRGBAImageGet calls (a strip, or a row of
+        tiles): libtiff's gtStripContig/gtTileContig allocate their buffer
+        afresh in each call, at its first read."""
+        self.rgba_buffers = {}
+        self.rgba_allocated = False
+
     def rgba_read(self, index: int, width: int, rows: int, plane: int,
                   occ: int) -> bytes:
         """_TIFFReadEncodedStripAndAllocBuffer: a strip libtiff cannot
-        read fails the image before its buffer exists and is zeros after;
-        a decode error leaves what was decoded."""
+        read fails the image before the call's buffer exists and is zeros
+        after; a decode error leaves what was decoded."""
         try:
             got = self.read(index, width, rows, plane, occ, partial=True)
         except _Unreadable:
@@ -1208,8 +1241,8 @@ class _Libtiff:
         return got
 
     def rgba_buffer(self, n: int, plane: int = 0) -> np.ndarray:
-        """libtiff's strip buffer of TIFFRGBAImageGet (one a plane), zeroed
-        when allocated and reused for every strip."""
+        """libtiff's buffer of one TIFFRGBAImageGet call (one a plane),
+        zeroed when allocated and reused for every tile of the call."""
         bufs = self.rgba_buffers
         if plane not in bufs or len(bufs[plane]) < n:
             grown = np.zeros(n, np.uint8)
@@ -1241,7 +1274,15 @@ class _Libtiff:
                 raise ValueError("TIFF: no fill order 1 mode") from None
         if self.photometric == 6 and not (self.comp == 7
                                           and self.planar == 1):
-            return self.ycbcr_rgba()
+            rgba = self.ycbcr_rgba()
+            if raw == "RGBX":
+                return rgba
+            # PIL unpacks libtiff's RGBA rows with its own raw mode, which
+            # is L where its directory ends before SamplesPerPixel
+            img = _new(mode, im.ysize, im.xsize)
+            _put(img, 0, 0, UNPACKERS[raw][1](
+                rgba.reshape(im.ysize, -1), im.xsize))
+            return img
         if self.photometric == 6 and self.comp == 7:
             raw = "RGB" if self.spp == 3 else raw
         elif raw == "I;16":
@@ -1250,13 +1291,9 @@ class _Libtiff:
             raw = raw[:-1] + "N"
         bits, main = UNPACKERS[raw]
         # PIL copies the first of the mode's bands from separate planes
-        # (one plane per band byte, the high byte of 16-bit samples); its
-        # strip reader refuses a file with planes the mode has no band for
+        # (one plane per band byte, the high byte of 16-bit samples)
         bands = 4 if mode in ("RGBA", "CMYK") else 3 if mode == "RGB" else \
             2 if mode in ("LA", "PA") else 1
-        if self.planar == 2 and not self.tiled and self.spp != bands:
-            raise ValueError("TIFF: separate planes PIL's strip reader "
-                             "refuses")
         if self.planar == 2 and bands > 1:
             self.planes = bands
             b16 = self.bits == 16
@@ -1271,6 +1308,13 @@ class _Libtiff:
             unpackers = [main]
         img = _new(mode, im.ysize, im.xsize)
         per = (im.xsize * bits // self.planes + 7) // 8
+        if self.planar == 2 and not self.tiled and \
+                per > self.row_bytes(im.xsize):
+            # _decodeStrip: the unpacker's row is longer than libtiff's
+            # (a plane's) scanline, where the raw mode has samples the
+            # planes do not give one a band
+            raise ValueError("TIFF: separate planes PIL's strip reader "
+                             "refuses")
         if self.tiled:
             tile_bytes = self.row_bytes(self.tw) * self.th
             per_tile = ((self.th * bits // self.planes + 7) // 8) * self.tw
@@ -1352,6 +1396,7 @@ class _Libtiff:
         r, g, b = _ycbcr_tables(d)
         w, h = im.xsize, im.ysize
         out = np.zeros((h, w, 4), np.uint8)
+        out[..., 3] = 255  # libtiff's PACK: opaque
         if self.tiled:
             boxes = [(y, x, self.th, self.tw) for y in range(0, h, self.th)
                      for x in range(0, w, self.tw)]
@@ -1363,6 +1408,8 @@ class _Libtiff:
             boxes = [(y, 0, min(rps, h - y), w) for y in range(0, h, rps)]
         if self.planar == 2:  # putseparate8bitYCbCr11tile
             for i, (y, x, rows, cols) in enumerate(boxes):
+                if x == 0:
+                    self.rgba_block()
                 planes = []
                 for p in range(3):
                     buf = self.rgba_buffer(rows * cols, p)
@@ -1378,14 +1425,16 @@ class _Libtiff:
                 out[y:y + ch, x:x + cw, 2] = b(yy, cb)
             return out
         for i, (y, x, rows, cols) in enumerate(boxes):
+            if x == 0:
+                self.rgba_block()
             bw, bh = -(-cols // hs), -(-rows // vs)
             occ = bw * bh * (hs * vs + 2)
             # libtiff asks for whole rows of its per-row share of a block
             # row, rounded down: the last bytes of each block row are then
-            # not decoded (what its buffer held before; zeros here)
+            # not decoded (zeros: the call's buffer is new)
             share = bw * (hs * vs + 2) // vs * vs * bh
             # TIFFRGBAImageGet(stoponerr 0): a strip that fails to decode
-            # leaves what it decoded in libtiff's reused buffer
+            # leaves what it decoded in the call's buffer
             buf = self.rgba_buffer(occ)
             got = self.rgba_read(i, cols, rows, 0, min(share, occ))
             buf[:len(got)] = np.frombuffer(got, np.uint8)

@@ -15,6 +15,11 @@ Two kinds, as in the JAX package:
   rolling save and the number of microbatches consumed for a mid-epoch
   preemption save, where ``--resume`` re-enters the epoch.
 
+``load_checkpoint`` also reads the port's packed weights files
+(``training.packed``, ``.f101w``: its committed winners), by their magic:
+a state_dict, float tensors as float32. Training checkpoints stay torch
+files.
+
 Files are written to a temporary name and renamed, so a crash mid-write
 leaves the previous checkpoint whole. In a multi-process run the state is
 the same on every rank, so the loop saves from rank 0 alone (no two
@@ -30,6 +35,8 @@ from typing import Any
 
 import torch
 
+from .packed import is_packed, unpack_state_dict
+
 
 def save_checkpoint(tree: Any, path: str) -> str:
     """Save ``tree`` (tensors in nested dicts) at ``path``; returns the
@@ -43,9 +50,13 @@ def save_checkpoint(tree: Any, path: str) -> str:
 
 
 def load_checkpoint(path: str, device: str | torch.device = "cpu") -> Any:
-    """The tree saved at ``path``, its tensors on ``device``."""
-    return torch.load(os.path.abspath(path), map_location=device,
-                      weights_only=True)
+    """The tree saved at ``path``, its tensors on ``device``: a torch file,
+    or a packed weights file (its state_dict; ``PackError`` where it
+    cannot be decoded)."""
+    path = os.path.abspath(path)
+    if is_packed(path):
+        return {k: v.to(device) for k, v in unpack_state_dict(path).items()}
+    return torch.load(path, map_location=device, weights_only=True)
 
 
 def save_train_checkpoint(state, epoch: int, scheduler, stopper, path: str,

@@ -48,15 +48,15 @@ OUTPUT_DIR = "report/images"
 BUCKET = 32
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
-# The JAX tool's table, in the port's checkpoint format: the committed
-# SRCNN, ResNetSR and AttentionSR winners, and port files for the other
-# winners (a row whose file is absent is skipped; override any row with
-# --weights NAME=PATH).
+# The JAX tool's table, in the port's checkpoint formats: the committed
+# SRCNN, ResNetSR, AttentionSR and AttentionSR GAN winners (packed weights
+# files but SRCNN's), and port files for the RRDB winners (a row whose
+# file is absent is skipped; override any row with --weights NAME=PATH).
 WEIGHTS = {
     "SRCNN": os.path.join(ASSETS, "winner_srcnn.pth"),
-    "RESNET": os.path.join(ASSETS, "winner_resnet.pth"),
-    "AttentionSR": os.path.join(ASSETS, "winner_attentionsr.pth"),
-    "AttentionSR_GAN": os.path.join(ASSETS, "winner_attentionsr_gan.pth"),
+    "RESNET": os.path.join(ASSETS, "winner_resnet.f101w"),
+    "AttentionSR": os.path.join(ASSETS, "winner_attentionsr.f101w"),
+    "AttentionSR_GAN": os.path.join(ASSETS, "winner_attentionsr_gan.f101w"),
     "RRDB": os.path.join(ASSETS, "winner_rrdb.pth"),
     "RRDB_GAN": os.path.join(ASSETS, "winner_rrdb_gan.pth"),
 }

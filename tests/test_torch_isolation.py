@@ -78,6 +78,7 @@ NEW_MODULES = ("food101_sr_tpu_torch.analyze_models",
                "food101_sr_tpu_torch.training.checkpoint",
                "food101_sr_tpu_torch.training.diagnostics",
                "food101_sr_tpu_torch.training.loop",
+               "food101_sr_tpu_torch.training.packed",
                "food101_sr_tpu_torch.training.preempt",
                "food101_sr_tpu_torch.training.schedule",
                "food101_sr_tpu_torch.training.state",
@@ -122,6 +123,7 @@ def _imported_roots(path: Path) -> set:
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tools/port_serve_profile.py",
                                   "tools/port_wrapper_host.py",
                                   "tools/port_loop_contention.py",
+                                  "tools/port_winner_costs.py",
                                   "food101_sr_tpu_torch"])
 def test_sources_import_nothing_forbidden(path):
     files = ([ROOT / path] if path.endswith(".py")

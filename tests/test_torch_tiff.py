@@ -474,10 +474,10 @@ def test_ccitt_strips_cut_short_as_libtiff_ends_them(comp):
     """A strip whose byte count is cut at every length: libtiff 4.7 fails
     a Modified Huffman strip that ends early, decodes what a T.4 1-D strip
     holds, and a T.6 strip once a row is whole; the port refuses exactly
-    the same cuts. The pixels are not held: after a strip that ends early
-    libtiff decodes the file's later strips otherwise than alone, which
-    the port does not reproduce (ROADMAP §3, fault 1); nor is T.4 2-D at
-    every cut, where the measured rule misses some."""
+    the same cuts. T.4 (1-D and 2-D) is held pixel for pixel, its later
+    strips included, by test_t4_strips_cut_short_decode_as_libtiff; T.6
+    pixels are not held: a T.6 strip that ends early leaves rows of PIL's
+    buffer unwritten, which hold what its allocator gave it."""
     im = Image.fromarray(_bilevel(24, 45, 4, "random").astype(np.uint8)
                          * 255).convert("1")
     old = TiffImagePlugin.STRIP_SIZE
@@ -493,6 +493,145 @@ def test_ccitt_strips_cut_short_as_libtiff_ends_them(comp):
         cut = struct.pack(f"<{len(counts)}L", n, *counts[1:])
         assert _same_as_pil(data[:at] + cut + data[at + len(packed):],
                             pixels=False), n
+
+
+def _strip_counts_cut(data, strip, n):
+    """``data`` with the byte count of ``strip`` set to ``n``."""
+    counts = Image.open(io.BytesIO(data)).tag_v2[279]
+    packed = struct.pack(f"<{len(counts)}L", *counts)
+    at = data.index(packed)
+    cut = list(counts)
+    cut[strip] = n
+    return data[:at] + struct.pack(f"<{len(cut)}L", *cut) + \
+        data[at + len(packed):], counts[strip]
+
+
+@pytest.mark.parametrize("twod", [False, True], ids=["1d", "2d"])
+@pytest.mark.parametrize("h, w, seed, kind, rows", [
+    (9, 77, 9, "text", 9), (10, 40, 310, "random", 10),
+    (24, 45, 24, "random", 6)])
+def test_t4_strips_cut_short_decode_as_libtiff(twod, h, w, seed, kind, rows):
+    """A T.4 strip cut at every length, the first and (in a file of
+    several) the second, decodes to PIL's pixels or fails where PIL fails.
+    libtiff 4.7 fails T.4 data that ends early, but where it ends looking
+    for an EOL's 1 it decodes the strip again from its start as data
+    without EOLs, from that row on and for the later strips of the file;
+    a 2-D row may read the run array past the previous row's runs, which
+    keeps what earlier rows wrote there."""
+    im = Image.fromarray(_bilevel(h, w, seed, kind).astype(np.uint8)
+                         * 255).convert("1")
+    old = TiffImagePlugin.STRIP_SIZE
+    TiffImagePlugin.STRIP_SIZE = rows * ((w + 7) // 8)
+    try:
+        data = pil_tiff(im, compression="group3",
+                        tiffinfo={292: 1} if twod else {})
+    finally:
+        TiffImagePlugin.STRIP_SIZE = old
+    for strip in (0, 1) if rows < h else (0,):
+        full = _strip_counts_cut(data, strip, 1)[1]
+        for n in range(1, full + 1):
+            assert _same_as_pil(_strip_counts_cut(data, strip, n)[0]), \
+                (strip, n)
+
+
+@pytest.mark.parametrize("comp, info", [
+    ("group3", {}), ("group3", {292: 1}), ("tiff_ccitt", {})],
+    ids=["g3", "g3_2d", "mh"])
+def test_ccitt_bit_flips_decode_to_pils_pixels(comp, info):
+    """Seeded bit flips in the strips of a CCITT file of several strips:
+    the port fails where PIL fails and decodes the rest to PIL's pixels,
+    the strips after a corrupt one included (the T.4 mode without EOLs
+    and the run arrays carry over). T.6 is not held: a T.6 strip that ends
+    early leaves rows of PIL's buffer unwritten (its allocator's bytes)."""
+    for h, w, kind, rows in ((40, 61, "random", 8), (33, 97, "text", 11)):
+        im = Image.fromarray(_bilevel(h, w, h * w, kind).astype(np.uint8)
+                             * 255).convert("1")
+        old = TiffImagePlugin.STRIP_SIZE
+        TiffImagePlugin.STRIP_SIZE = rows * ((w + 7) // 8)
+        try:
+            data = pil_tiff(im, compression=comp, tiffinfo=info)
+        finally:
+            TiffImagePlugin.STRIP_SIZE = old
+        t = Image.open(io.BytesIO(data)).tag_v2
+        lo, hi = min(t[273]), max(o + c for o, c in zip(t[273], t[279]))
+        rng = np.random.default_rng(h)
+        for k in range(40):
+            b = bytearray(data)
+            for _ in range(1 + k % 3):
+                b[int(rng.integers(lo, hi))] ^= 1 << int(rng.integers(0, 8))
+            assert _same_as_pil(bytes(b)), (h, k)
+
+
+def _entry(data, tag):
+    """The byte position of ``tag``'s entry in the first directory of a
+    little-endian TIFF."""
+    off = struct.unpack_from("<I", data, 4)[0]
+    for i in range(struct.unpack_from("<H", data, off)[0]):
+        if struct.unpack_from("<H", data, off + 2 + 12 * i)[0] == tag:
+            return off + 2 + 12 * i
+    raise KeyError(tag)
+
+
+def _patched(data, tag, *, count=None, value=None, new_tag=None):
+    b = bytearray(data)
+    at = _entry(data, tag)
+    if count is not None:
+        struct.pack_into("<I", b, at + 4, count)
+    if value is not None:
+        struct.pack_into("<H", b, at + 8, value)
+    if new_tag is not None:
+        struct.pack_into("<H", b, at, new_tag)
+    return bytes(b)
+
+
+def _corrupt_directory(case):
+    """One seeded TIFF whose directory PIL and libtiff read differently."""
+    img = _photo(16, 20, 11)
+    huge = 0x40000001  # a value past the end of the file
+    if case == "huge count, planes":
+        # PIL's parse stops at the Photometric entry: its mode is L, read
+        # from the first of libtiff's three planes
+        return _patched(tiff_image(img, 8, 2, compression=8, planar=2,
+                                   rows_per_strip=5), 262, count=huge)
+    if case == "huge count, YCbCr":
+        # PIL's parse stops at StripOffsets: it unpacks libtiff's RGBA
+        # rows as L
+        return _patched(tiff_image(img, 8, 6, compression=8,
+                                   rows_per_strip=5), 273, count=huge)
+    if case == "huge count, sample format":
+        # PIL never reads SampleFormat 7; libtiff refuses the directory
+        return _patched(tiff_image(img, 8, 2, compression=5,
+                                   rows_per_strip=8, extra_tags={
+                                       305: (1, (1, 2, 3, 4, 5)),
+                                       339: (3, (7,) * 3)}), 305, count=huge)
+    if case == "height past the strips":
+        # libtiff pads StripOffsets with zeros: the RGBA reader's second
+        # call cannot read its strip before it has a buffer
+        return _patched(tiff_image(img, 8, 6, compression=5,
+                                   rows_per_strip=16), 257, value=24)
+    if case == "predictor":
+        return _patched(tiff_image(img, 8, 2, compression=5, predictor=2,
+                                   rows_per_strip=8), 317, value=0x1002)
+    if case == "palette without its ColorMap":
+        # BitsPerSample renamed: 1 bit, and a ColorMap of 48 entries
+        pal = tiff_image(img[..., :1] // 16, 4, 3, compression=32773,
+                         colormap=np.arange(48) * 1000, rows_per_strip=8)
+        return _patched(pal, 258, new_tag=1282)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "huge count, planes", "huge count, YCbCr", "huge count, sample format",
+    "height past the strips", "predictor", "palette without its ColorMap"])
+def test_corrupt_directories_as_pil_reads_them(case):
+    """Directories that PIL's parse and libtiff's read take differently:
+    a count whose value lies past the end of the file stops PIL's parse
+    (the tags after it are missing for PIL, not for libtiff); an image
+    taller than its strips; a predictor libtiff has no routine for; a
+    palette image below 8 bits whose ColorMap libtiff ignores. The port
+    answers as the JAX server's PIL does, its pixels included."""
+    data = _corrupt_directory(case)
+    assert _same_as_pil(data), case
 
 
 def test_lzma_checks_after_a_full_strip_do_not_fail_it():

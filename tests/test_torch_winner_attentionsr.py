@@ -1,5 +1,6 @@
 """The committed AttentionSR x4 winner the card host reads
-(``food101_sr_tpu_torch/assets/winner_attentionsr.pth`` and its goldens,
+(``food101_sr_tpu_torch/assets/winner_attentionsr.f101w``, a packed
+weights file, and its goldens,
 written by ``tools/export_port_assets.py --what attentionsr`` from
 ``weights/winner_attentionsr_best``): the state_dict loads strictly into
 the registry AttentionSR and equals the JAX package's export of the Orbax
@@ -30,7 +31,8 @@ from food101_sr_tpu_torch.data import prepare_batch
 from food101_sr_tpu_torch.losses import get_loss_function
 from food101_sr_tpu_torch.models import get_model
 from food101_sr_tpu_torch.serving import SRServer, load_generator_weights
-from food101_sr_tpu_torch.training import loop, loss_and_grads
+from food101_sr_tpu_torch.training import (load_checkpoint, loop,
+                                           loss_and_grads)
 from test_torch_generators import _SlopeTerms
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -40,7 +42,7 @@ from tools.export_port_assets import winner_hr, winner_lr  # noqa: E402
 from tools.export_sr_checkpoint import export_state_dict  # noqa: E402
 
 ASSETS = ROOT / "food101_sr_tpu_torch" / "assets"
-PTH = ASSETS / "winner_attentionsr.pth"
+PACK = ASSETS / "winner_attentionsr.f101w"
 NPZ = ASSETS / "winner_attentionsr_goldens.npz"
 CHECKPOINT = ROOT / "weights" / "winner_attentionsr_best"
 N_PARAMS = 5_842_630
@@ -63,7 +65,7 @@ def tool_hr():
 
 @pytest.fixture(scope="module")
 def asset():
-    return torch.load(PTH, weights_only=True)
+    return load_checkpoint(str(PACK))
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +74,7 @@ def port_served(goldens):
     at once so that they share one device batch."""
     import concurrent.futures as cf
 
-    srv = SRServer("auto", checkpoint=str(PTH), dtype=torch.float32,
+    srv = SRServer("auto", checkpoint=str(PACK), dtype=torch.float32,
                    device="cpu")
     try:
         with cf.ThreadPoolExecutor(SMALL) as pool:
@@ -87,7 +89,7 @@ def test_asset_loads_strictly_and_equals_the_jax_export(asset):
     model = get_model("AttentionSR", device="cpu")
     model.load_state_dict(asset, strict=True)
     assert sum(p.numel() for p in model.parameters()) == N_PARAMS
-    assert load_generator_weights(str(PTH)).keys() == asset.keys()
+    assert load_generator_weights(str(PACK)).keys() == asset.keys()
     want, arch = export_state_dict(jax_load_checkpoint(str(CHECKPOINT)))
     assert arch == "AttentionSR" and want.keys() == asset.keys()
     for k, v in want.items():
@@ -145,7 +147,7 @@ def test_train_starts_from_the_asset(asset, tmp_path, monkeypatch):
         loop.train({"dataset": "synthetic", "architecture": "AttentionSR",
                     "synthetic_size": 40, "crop_size": 32, "batch_size": 2,
                     "loss_function": "mae", "lr": 1e-4, "epochs": 1,
-                    "pretrained_weights": str(PTH), "use_wandb": False,
+                    "pretrained_weights": str(PACK), "use_wandb": False,
                     "weights_dir": str(tmp_path / "w")}, device="cpu")
     assert seen["sd"].keys() == asset.keys()
     for k, v in asset.items():
@@ -256,5 +258,5 @@ def test_mae_step_gradients_from_the_winner_match_jax(asset):
 
 
 def test_assets_stay_under_25_megabytes():
-    assert PTH.stat().st_size + NPZ.stat().st_size < 25_000_000
+    assert PACK.stat().st_size + NPZ.stat().st_size < 25_000_000
     assert NPZ.stat().st_size <= 1_500_000

@@ -1,7 +1,7 @@
 """The committed ResNetSR x4 winners the card host reads
-(``food101_sr_tpu_torch/assets/winner_resnet.pth``, its QAT fine-tune
-``winner_resnet_qat.pth`` and their goldens, written by
-``tools/export_port_assets.py --what resnet`` from
+(``food101_sr_tpu_torch/assets/winner_resnet.f101w``, its QAT fine-tune
+``winner_resnet_qat.f101w``, packed weights files, and their goldens,
+written by ``tools/export_port_assets.py --what resnet`` from
 ``weights/winner_resnet_best`` and ``weights/winner_resnet_qat_best``),
 each case run for both: the state_dict, BatchNorm running stats included,
 loads strictly into the registry ResNetSR and equals the JAX package's
@@ -32,7 +32,8 @@ from food101_sr_tpu_torch.convert import params_from_jax
 from food101_sr_tpu_torch.losses import get_loss_function
 from food101_sr_tpu_torch.models import get_model
 from food101_sr_tpu_torch.serving import SRServer, load_generator_weights
-from food101_sr_tpu_torch.training import loop, loss_and_grads
+from food101_sr_tpu_torch.training import (load_checkpoint, loop,
+                                           loss_and_grads)
 from test_torch_generators import _SlopeTerms
 from test_torch_winner_attentionsr import (ASSETS, LEVEL_TOL, ROOT, SMALL,
                                            _jax_prelu_outputs, _Started,
@@ -48,8 +49,8 @@ N_PARAMS = 1_549_462
 each = pytest.mark.parametrize("tag", list(WINNERS))
 
 
-def _pth(tag):
-    return ASSETS / f"winner_{tag}.pth"
+def _pack(tag):
+    return ASSETS / f"winner_{tag}.f101w"
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +67,7 @@ def port_served(goldens):
     tag, sent at once so that they share one device batch."""
     out = {}
     for tag in WINNERS:
-        srv = SRServer("auto", checkpoint=str(_pth(tag)),
+        srv = SRServer("auto", checkpoint=str(_pack(tag)),
                        dtype=torch.float32, device="cpu")
         try:
             with cf.ThreadPoolExecutor(SMALL) as pool:
@@ -80,11 +81,11 @@ def port_served(goldens):
 
 @each
 def test_asset_loads_strictly_and_equals_the_jax_export(tag):
-    asset = torch.load(_pth(tag), weights_only=True)
+    asset = load_checkpoint(str(_pack(tag)))
     model = get_model("RESNET", device="cpu")
     model.load_state_dict(asset, strict=True)
     assert sum(p.numel() for p in model.parameters()) == N_PARAMS
-    assert load_generator_weights(str(_pth(tag))).keys() == asset.keys()
+    assert load_generator_weights(str(_pack(tag))).keys() == asset.keys()
     want, arch = export_state_dict(jax_load_checkpoint(str(WINNERS[tag])))
     assert arch == "RESNET" and want.keys() == asset.keys()
     # 33 BatchNorms (two in each of 16 blocks, bn_mid), mean and variance
@@ -140,9 +141,9 @@ def test_train_starts_from_the_asset(tag, tmp_path, monkeypatch):
         loop.train({"dataset": "synthetic", "architecture": "RESNET",
                     "synthetic_size": 40, "crop_size": 32, "batch_size": 2,
                     "quantize": "qat", "lr": 1e-5, "epochs": 1,
-                    "pretrained_weights": str(_pth(tag)), "use_wandb": False,
+                    "pretrained_weights": str(_pack(tag)), "use_wandb": False,
                     "weights_dir": str(tmp_path / "w")}, device="cpu")
-    asset = torch.load(_pth(tag), weights_only=True)
+    asset = load_checkpoint(str(_pack(tag)))
     assert seen["sd"].keys() == asset.keys()
     for k, v in asset.items():
         assert torch.equal(seen["sd"][k], v), k
@@ -275,7 +276,7 @@ def test_qat_step_from_the_asset_matches_jax(tag):
 
     model = get_model("RESNET", device="cpu", quantize="qat",
                       phase_tail=True)
-    model.load_state_dict(torch.load(_pth(tag), weights_only=True),
+    model.load_state_dict(load_checkpoint(str(_pack(tag))),
                           strict=True)
     stats = {}
     with _jax_choices(model, rec, stats):
@@ -310,6 +311,6 @@ def test_qat_step_from_the_asset_matches_jax(tag):
 
 
 def test_assets_stay_under_14_megabytes():
-    total = sum(_pth(t).stat().st_size for t in WINNERS) + NPZ.stat().st_size
+    total = sum(_pack(t).stat().st_size for t in WINNERS) + NPZ.stat().st_size
     assert total < 14_000_000
     assert NPZ.stat().st_size <= 1_500_000

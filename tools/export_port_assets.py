@@ -18,9 +18,11 @@ file). For the committed SRCNN winner (``weights/winner_srcnn_best``,
 For the committed AttentionSR x4 winner (``weights/winner_attentionsr_best``,
 5,842,630 parameters; ``--what attentionsr``) it writes:
 
-- ``winner_attentionsr.pth``: its reference-layout float32 state_dict
-  (~23.4 MB), which loads with ``strict=True`` into the port's registry
-  AttentionSR (32 blocks x 96 channels);
+- ``winner_attentionsr.f101w``: its reference-layout float32 state_dict
+  as a packed weights file (``food101_sr_tpu_torch/training/packed.py``,
+  lossless, ~19.6 MB; ~23.4 MB as a ``.pth``), which loads with
+  ``strict=True`` into the port's registry AttentionSR (32 blocks x 96
+  channels);
 - ``winner_attentionsr_goldens.npz`` (under 1.5 MB): five uint8 LR inputs
   (``lr_0``..``lr_4``) and the JAX package's float32 served outputs for
   them (``sr_0``..``sr_4``), each stored as the bytes of a PNG stream. The
@@ -44,15 +46,36 @@ For the committed ResNetSR x4 winner (``weights/winner_resnet_best``,
 (``weights/winner_resnet_qat_best``, float weights served through
 ``quantize="int8"``; ``--what resnet``) it writes:
 
-- ``winner_resnet.pth`` and ``winner_resnet_qat.pth``: their
-  reference-layout float32 state_dicts (~6.2 MB each, every BatchNorm's
-  running mean and variance included), which load with ``strict=True``
-  into the port's registry ResNetSR (16 blocks x 64 channels);
+- ``winner_resnet.f101w`` and ``winner_resnet_qat.f101w``: their
+  reference-layout float32 state_dicts, packed losslessly (~5.2 MB each,
+  every BatchNorm's running mean and variance and its 0-d counter
+  included), which load with ``strict=True`` into the port's registry
+  ResNetSR (16 blocks x 64 channels);
 - ``winner_resnet_goldens.npz`` (under 1.5 MB): for each net, under the
   prefix ``resnet_`` or ``resnet_qat_``, the same goldens as the
   AttentionSR winner's on the same five LR inputs, which are read from
   ``winner_attentionsr_goldens.npz`` (and held equal to
   ``winner_lr(winner_hr())``) rather than stored twice.
+
+For the AttentionSR winner's GAN and QAT fine-tunes
+(``weights/winner_attentionsr_gan_best`` and
+``weights/winner_attentionsr_qat_best``; ``--what attentionsr_tunes``,
+which needs ``winner_attentionsr.f101w`` in the output directory) it
+writes:
+
+- ``winner_attentionsr_gan.f101w`` and ``winner_attentionsr_qat.f101w``:
+  their state_dicts rounded to bfloat16 (to nearest even), each packed as
+  the XOR of its bfloat16 bits with those of ``winner_attentionsr.f101w``
+  (~4 MB each); they unpack to the rounded weights widened to float32;
+- ``winner_attentionsr_tunes_goldens.npz`` (under 1.5 MB): for each net,
+  under the prefix ``attentionsr_gan_`` or ``attentionsr_qat_``, the same
+  goldens as the AttentionSR winner's on the same five LR inputs (read
+  from its goldens, not stored twice), computed by the JAX server on the
+  same rounded weights (an Orbax copy with every float32 leaf rounded, in
+  a temporary directory); and what the rounding costs JAX's float32
+  server: its PSNR on the original Orbax weights for the small inputs
+  (``psnr_orbax``) and per input the largest uint8 difference between
+  the two weights' outputs (``levels_orbax``), also printed.
 
 For the port's codecs it writes ``assets/jpeg/`` (``--what jpeg``),
 under 600 KB:
@@ -111,6 +134,7 @@ under 600 KB:
     python tools/export_port_assets.py --what jpeg
     python tools/export_port_assets.py --what attentionsr   # ~4 min
     python tools/export_port_assets.py --what resnet
+    python tools/export_port_assets.py --what attentionsr_tunes  # ~10 min
 
 The directory is not called ``weights``: files under any ``weights``
 directory are kept out of the copy sent to the GPU host.
@@ -144,6 +168,8 @@ from food101_sr_tpu import native as jax_native  # noqa: E402
 from food101_sr_tpu.data import (Food101Source, SRDataLoader,  # noqa: E402
                                  prepare_batch)
 from food101_sr_tpu.training import load_checkpoint  # noqa: E402
+from food101_sr_tpu_torch.training.packed import (  # noqa: E402
+    pack_state_dict)
 from tools.export_sr_checkpoint import export_state_dict  # noqa: E402
 from tools.make_fake_food101 import CLASSES, make_image  # noqa: E402
 from tools.raster_writers import (dib, ico, jpeg_strip,  # noqa: E402
@@ -304,31 +330,30 @@ def winner_goldens(checkpoint: str, lrs, hrs, prefix: str = "") -> dict:
         prefix + "snr_int8": np.asarray(snr_db(int8, f32[:small]))}
 
 
-def export_winner_pth(checkpoint: str, arch: str, pth: str) -> None:
-    """Write the reference-layout float32 state_dict of the Orbax
-    ``checkpoint`` (which must hold ``arch``) to ``pth``."""
+def winner_state_dict(checkpoint: str, arch: str) -> dict:
+    """The reference-layout float32 state_dict of the Orbax ``checkpoint``
+    (which must hold ``arch``), as torch tensors."""
     sd, got = export_state_dict(load_checkpoint(checkpoint))
     if got != arch:
         raise SystemExit(f"{checkpoint} holds {got}, not {arch}")
-    os.makedirs(os.path.dirname(pth), exist_ok=True)
     # ascontiguousarray makes 0-d arrays 1-d: keep each shape (a
     # BatchNorm's num_batches_tracked is a scalar)
-    torch.save({k: torch.from_numpy(np.ascontiguousarray(v).reshape(
-        np.shape(v))) for k, v in sd.items()}, pth)
+    return {k: torch.from_numpy(np.ascontiguousarray(v).reshape(
+        np.shape(v))) for k, v in sd.items()}
 
 
 def export_attentionsr(out_dir: str) -> tuple[str, str]:
-    """Write winner_attentionsr.pth and winner_attentionsr_goldens.npz
+    """Write winner_attentionsr.f101w and winner_attentionsr_goldens.npz
     (module docstring) under ``out_dir``; return their paths."""
-    pth = os.path.join(out_dir, "winner_attentionsr.pth")
-    export_winner_pth(ATTN_CHECKPOINT, "AttentionSR", pth)
+    pack = os.path.join(out_dir, "winner_attentionsr.f101w")
+    pack_state_dict(winner_state_dict(ATTN_CHECKPOINT, "AttentionSR"), pack)
     hrs = winner_hr()
     lrs = [winner_lr(hr) for hr in hrs]
     npz = os.path.join(out_dir, "winner_attentionsr_goldens.npz")
     np.savez_compressed(
         npz, **{f"lr_{i}": png_array(x) for i, x in enumerate(lrs)},
         **winner_goldens(ATTN_CHECKPOINT, lrs, hrs))
-    return pth, npz
+    return pack, npz
 
 
 # The ResNetSR winners (--what resnet): the plain one and its QAT
@@ -355,19 +380,93 @@ def attentionsr_lrs(out_dir: str) -> list[np.ndarray]:
 
 
 def export_resnet(out_dir: str) -> tuple[str, ...]:
-    """Write winner_resnet.pth, winner_resnet_qat.pth and
+    """Write winner_resnet.f101w, winner_resnet_qat.f101w and
     winner_resnet_goldens.npz (module docstring) under ``out_dir``; return
     their paths."""
     paths = []
     for tag, checkpoint in RESNET_WINNERS.items():
-        paths.append(os.path.join(out_dir, f"winner_{tag}.pth"))
-        export_winner_pth(checkpoint, "RESNET", paths[-1])
+        paths.append(os.path.join(out_dir, f"winner_{tag}.f101w"))
+        pack_state_dict(winner_state_dict(checkpoint, "RESNET"), paths[-1])
     hrs = winner_hr()
     lrs = attentionsr_lrs(out_dir)
     npz = os.path.join(out_dir, "winner_resnet_goldens.npz")
     np.savez_compressed(npz, **{
         k: v for tag, checkpoint in RESNET_WINNERS.items()
         for k, v in winner_goldens(checkpoint, lrs, hrs, tag + "_").items()})
+    return (*paths, npz)
+
+
+# The AttentionSR fine-tunes (--what attentionsr_tunes): stored as
+# bfloat16 deltas against winner_attentionsr.f101w, with goldens from JAX
+# on the same rounded weights
+ATTN_TUNES = {
+    "attentionsr_gan": os.path.join(ROOT, "weights",
+                                    "winner_attentionsr_gan_best"),
+    "attentionsr_qat": os.path.join(ROOT, "weights",
+                                    "winner_attentionsr_qat_best")}
+
+
+def rounded_checkpoint(checkpoint: str, out: str) -> str:
+    """Write the Orbax ``checkpoint`` with every float32 leaf rounded to
+    bfloat16 (to nearest even) and widened back to float32 at ``out``, the
+    weights the port's bf16 pack decodes to."""
+    from food101_sr_tpu.training import save_checkpoint
+
+    def rne(x):
+        x = np.asarray(x)
+        if x.dtype != np.float32:
+            return x
+        return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(
+            jnp.float32))
+
+    return save_checkpoint(jax.tree_util.tree_map(
+        rne, load_checkpoint(checkpoint)), out)
+
+
+def rounding_cost(checkpoint: str, rounded: str, lrs, hrs,
+                  prefix: str) -> dict:
+    """What rounding to bfloat16 costs the JAX float32 server: its PSNR
+    on the original weights for the small inputs (``psnr_orbax``), and
+    per input the largest uint8 difference between the original's and the
+    rounded weights' outputs (``levels_orbax``)."""
+    small = len(lrs) - 1
+    orig = jax_served(lrs, checkpoint)
+    rnd = jax_served(lrs, rounded)
+    return {
+        prefix + "psnr_orbax": np.asarray([psnr_u8(y, h) for y, h in
+                                           zip(orig[:small], hrs)]),
+        prefix + "levels_orbax": np.asarray(
+            [int(np.abs(a.astype(np.int16) - b).max())
+             for a, b in zip(orig, rnd)])}
+
+
+def export_attentionsr_tunes(out_dir: str) -> tuple[str, ...]:
+    """Write winner_attentionsr_gan.f101w, winner_attentionsr_qat.f101w
+    (bfloat16 deltas against ``out_dir``'s winner_attentionsr.f101w) and
+    winner_attentionsr_tunes_goldens.npz (module docstring); return their
+    paths."""
+    base = os.path.join(out_dir, "winner_attentionsr.f101w")
+    hrs = winner_hr()
+    lrs = attentionsr_lrs(out_dir)
+    paths, gold = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, checkpoint in ATTN_TUNES.items():
+            paths.append(os.path.join(out_dir, f"winner_{tag}.f101w"))
+            pack_state_dict(winner_state_dict(checkpoint, "AttentionSR"),
+                            paths[-1], base=base, dtype="bfloat16")
+            rounded = rounded_checkpoint(checkpoint,
+                                         os.path.join(tmp, tag))
+            gold.update(winner_goldens(rounded, lrs, hrs, tag + "_"))
+            gold.update(rounding_cost(checkpoint, rounded, lrs, hrs,
+                                      tag + "_"))
+            small = len(lrs) - 1
+            print(f"{tag}: bf16 rounding: JAX f32 PSNR "
+                  f"{np.mean(gold[tag + '_psnr_orbax']):.6f} dB on the Orbax "
+                  f"weights, {np.mean(gold[tag + '_psnr'][:small]):.6f} on "
+                  f"the rounded ones; outputs up to "
+                  f"{gold[tag + '_levels_orbax'].max()} levels apart")
+    npz = os.path.join(out_dir, "winner_attentionsr_tunes_goldens.npz")
+    np.savez_compressed(npz, **gold)
     return (*paths, npz)
 
 
@@ -1202,7 +1301,7 @@ def main():
     p.add_argument("--out_dir", default=ASSETS)
     p.add_argument("--what", default="all",
                    choices=["all", "srcnn", "attentionsr", "resnet",
-                            "jpeg"])
+                            "attentionsr_tunes", "jpeg"])
     a = p.parse_args()
     jax.config.update("jax_platforms", "cpu")
 
@@ -1218,10 +1317,14 @@ def main():
     if a.what in ("all", "resnet"):
         for path in export_resnet(a.out_dir):
             print(f"{path}: {os.path.getsize(path):,} bytes")
+    if a.what in ("all", "attentionsr_tunes"):
+        for path in export_attentionsr_tunes(a.out_dir):
+            print(f"{path}: {os.path.getsize(path):,} bytes")
     if a.what not in ("all", "srcnn"):
         return
     pth = os.path.join(a.out_dir, "winner_srcnn.pth")
-    export_winner_pth(CHECKPOINT, "SRCNN", pth)
+    os.makedirs(a.out_dir, exist_ok=True)
+    torch.save(winner_state_dict(CHECKPOINT, "SRCNN"), pth)
     inputs = golden_inputs()
     outputs = jax_served(inputs)
     npz = os.path.join(a.out_dir, "winner_srcnn_goldens.npz")
