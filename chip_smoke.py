@@ -52,7 +52,10 @@ Phases, one short line each; any failure raises and the exit code is 1:
           YCbCr 4:2:0 with JPEGTables and PIL's RGB JPEG, PackBits
           palette, G4, G3 2-D, Modified Huffman, 16-bit RGB big-endian,
           separate planes, BigTIFF, CMYK, LZMA, a float with predictor
-          3, YCbCr LZW through libtiff's RGBA reader, Orientation 6;
+          3, YCbCr LZW through libtiff's RGBA reader, Orientation 6,
+          ZSTD (PIL's, levels 1 and 19, a checksum, two frames, a
+          skippable frame, predictor 2), raw-16, ThunderScan, old-style
+          JPEG (4:4:4, 4:2:0 in restart strips, rebuilt tables);
           binary and plain PPM, 16-bit PGM, PFM, ICO with PNG and with
           BMP entries, CUR, QOI: assets/jpeg/streams/), each 200, one device batch
           (K2 NHWC launched once per block), decoded to the JAX server's
@@ -67,7 +70,7 @@ Phases, one short line each; any failure raises and the exit code is 1:
           requests inside their handlers answers each; 404, 413, 400
           (truncated body), 400 (truncated JPEG, broken WebP and cut
           TIFF, which PIL refuses, and JBIG2 and HEIC headers, which no
-          PIL plugin takes) and 415 (a ZSTD TIFF, which PIL
+          PIL plugin takes) and 415 (a CIELab TIFF, which PIL
           decodes, and a PSD, each named); then K2 NHWC at the
           --tta forwards' shape
           (32,96,64,64) bf16 against its plain version, with its times
@@ -2618,6 +2621,20 @@ CODEC_UPLOADS = {"arithmetic JPEG": "arith.jpg",
                  "TIFF float, predictor 3": "tiff_float_pred3.tif",
                  "TIFF YCbCr LZW (RGBA reader)": "tiff_ycbcr_lzw.tif",
                  "TIFF Orientation 6": "tiff_orientation6.tif",
+                 "TIFF ZSTD (PIL)": "tiff_zstd.tif",
+                 "TIFF ZSTD level 1": "tiff_zstd_l1.tif",
+                 "TIFF ZSTD level 19": "tiff_zstd_l19.tif",
+                 "TIFF ZSTD, checksum": "tiff_zstd_checksum.tif",
+                 "TIFF ZSTD, two frames": "tiff_zstd_two_frames.tif",
+                 "TIFF ZSTD, skippable frame": "tiff_zstd_skippable.tif",
+                 "TIFF ZSTD, predictor 2": "tiff_zstd_pred2.tif",
+                 "TIFF raw-16, FillOrder 2": "tiff_raw16_fill2.tif",
+                 "TIFF ThunderScan": "tiff_thunderscan.tif",
+                 "TIFF old-style JPEG 4:4:4": "tiff_ojpeg_444.tif",
+                 "TIFF old-style JPEG 4:2:0, restart strips":
+                     "tiff_ojpeg_420.tif",
+                 "TIFF old-style JPEG, rebuilt tables":
+                     "tiff_ojpeg_tables.tif",
                  "binary PPM": "ppm_binary.ppm", "plain PPM": "ppm_plain.ppm",
                  "16-bit PGM": "pgm16.pgm", "PFM": "pfm.pfm",
                  "ICO with a PNG": "ico_png.ico",
@@ -2716,6 +2733,7 @@ def phase_http(rates) -> tuple[dict, dict]:
         native._gifbmp_lib()  # raises, naming the compiler's error
         native._webp_lib()
         native.tiff_lib()
+        native.tiff.zstd_lib()
         jpeg_body = native.encode_jpeg_rgb8(small[0], 95)
         jpeg_imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
                      for _ in range(JPEG_ROUND)]
@@ -2725,9 +2743,9 @@ def phase_http(rates) -> tuple[dict, dict]:
                   "rb") as f:
             webp_body = f.read()
         with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
-            zstd = json.load(f)["port_refused"]["tiff_zstd"]
-        with open(os.path.join(JPEG_ASSETS, zstd["file"]), "rb") as f:
-            zstd_body = f.read()
+            lab = json.load(f)["port_refused"]["tiff_cielab"]
+        with open(os.path.join(JPEG_ASSETS, lab["file"]), "rb") as f:
+            lab_body = f.read()
         truncated_body = jpeg_body[:len(jpeg_body) * 2 // 3]
         torch.cuda.synchronize()
 
@@ -2902,7 +2920,7 @@ def phase_http(rates) -> tuple[dict, dict]:
                                b"\x97JB2\r\n\x1a\n\x01" + bytes(64)),
             "400 HEIC": _http(port, "/sr?model=attn",
                               b"\x00\x00\x00\x1cftypheic" + bytes(64)),
-            "415 ZSTD TIFF": _http(port, "/sr?model=attn", zstd_body),
+            "415 CIELab TIFF": _http(port, "/sr?model=attn", lab_body),
             "415 PSD": _http(port, "/sr?model=attn", b"8BPS" + bytes(64)),
         }
         codes = {name: (int(r[9:12] or 0) if isinstance(r, bytes) else r[0])
@@ -2911,9 +2929,9 @@ def phase_http(rates) -> tuple[dict, dict]:
                       "400 truncated": 400, "400 truncated JPEG": 400,
                       "400 broken WebP": 400, "400 cut TIFF": 400,
                       "400 JBIG2": 400, "400 HEIC": 400,
-                      "415 ZSTD TIFF": 415, "415 PSD": 415}
+                      "415 CIELab TIFF": 415, "415 PSD": 415}
                 or b"truncated" not in errors["400 truncated"]
-                or zstd["refusal"].encode() not in errors["415 ZSTD TIFF"][2]
+                or lab["refusal"].encode() not in errors["415 CIELab TIFF"][2]
                 or b"PSD" not in errors["415 PSD"][2]):
             raise AssertionError(f"error statuses {codes}")
     finally:

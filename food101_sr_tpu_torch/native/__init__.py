@@ -40,12 +40,13 @@ one codec for another:
   lossless (VP8L) and alpha (ALPH) bitstreams in ``fast_webp.cpp``, which
   needs no library; animations give their first frame.
 - TIFF (``tiff.py``: PIL's container and raw decoder, libtiff's
-  strips and tiles, PackBits, LZW and CCITT in ``fast_tiff.cpp``, Deflate
-  and LZMA with the stdlib, JPEG with ``fast_jpeg.cpp``), Netpbm, ICO, CUR
-  and QOI (``rasters.py``; QOI's ops in ``fast_tiff.cpp``), decoded as
+  strips and tiles, PackBits, LZW, CCITT, raw-16 and ThunderScan in
+  ``fast_tiff.cpp``, ZSTD in ``fast_zstd.cpp``, Deflate and LZMA with the
+  stdlib, JPEG and old-style JPEG with ``fast_jpeg.cpp``), Netpbm, ICO,
+  CUR and QOI (``rasters.py``; QOI's ops in ``fast_tiff.cpp``), decoded as
   PIL's ``convert("RGB")``.
-- The other formats PIL opens, and the TIFF compressions and colour
-  spaces ``tiff.py`` names, raise :class:`UnsupportedImage` naming them.
+- The other formats PIL opens, and the TIFF colour spaces ``tiff.py``
+  names (CIELab), raise :class:`UnsupportedImage` naming them.
 
 Each C++ unit is compiled with ``g++`` on first use into the package's
 git-ignored ``_build/`` directory, under a name carrying a hash of its
@@ -345,6 +346,8 @@ def _register_jpeg(lib):
                                          ctypes.c_void_p, ll]
     lib.fastjpeg_decode_tiff.restype = i
     lib.fastjpeg_decode_tiff.argtypes = [p, ll, i, ctypes.c_void_p, ll, ip]
+    lib.fastjpeg_decode_ojpeg.restype = i
+    lib.fastjpeg_decode_ojpeg.argtypes = [p, ll, i, ctypes.c_void_p, ll, ip]
 
 
 def jpeg_available() -> bool:
@@ -1081,10 +1084,9 @@ def decode_image(data: bytes) -> np.ndarray:
     (:func:`decode_ico_rgb8`), CUR (:func:`decode_cur_rgb8`) or QOI
     (:func:`decode_qoi_rgb8`). Raises :class:`UnsupportedImage` naming a
     recognised format the port does not decode (PSD, JPEG 2000, AVIF and
-    the others PIL decodes), a TIFF compression or colour space it does not
-    decode (ZSTD, WebP, old-style JPEG, SGILog, ThunderScan, raw-16,
-    YCbCr outside JPEG, CIELab), arithmetic lossless (SOF11) JPEG, or a
-    codec that did not build here; ValueError for bytes that are no image,
+    the others PIL decodes), a TIFF colour space it does not decode
+    (CIELab; YCbCr JPEG or old-style JPEG in separate planes), arithmetic
+    lossless (SOF11) JPEG, or a codec that did not build here; ValueError for bytes that are no image,
     a broken one, or one PIL refuses (12-bit and hierarchical JPEG, JBIG2,
     HEIC and PIL's stub formats among them)."""
     if data.startswith(PNG_SIGNATURE):

@@ -851,9 +851,12 @@ enum Mode { kLibjpeg = 0, kPil = 1 };
 class Decoder {
  public:
   Decoder(const uint8_t* d, size_t n, int mode = kPil, bool region = false,
-          bool pil_feed = false)
-      : mode_(mode), region_(region), pil_feed_(pil_feed) {
-    if (mode_ == kLibjpeg) {
+          bool pil_feed = false, bool ojpeg = false)
+      : mode_(mode), region_(region), pil_feed_(pil_feed), ojpeg_(ojpeg) {
+    // ojpeg: libtiff's old-style JPEG source, whose data ends without fake
+    // markers; reading past it is libjpeg's fatal error inside the scan,
+    // which ends the decode at the iMCU row it was in (failed_row())
+    if (mode_ == kLibjpeg && !ojpeg) {
       // jpeg_mem_src's fill_input_buffer: past the end, EOI markers
       // without end (enough of them for any one marker segment)
       padded_.reserve(n + kPad);
@@ -881,6 +884,19 @@ class Decoder {
   }
 
   void tiff_color(int c) { tiff_color_ = c; }
+  int failed_row() const { return failed_row_; }
+  int width() const { return W_; }
+  int height() const { return H_; }
+  int h_max() const {
+    int m = 1;
+    for (int i = 0; i < ncomp_; ++i) m = std::max(m, comp_[i].h);
+    return m;
+  }
+  int v_max() const {
+    int m = 1;
+    for (int i = 0; i < ncomp_; ++i) m = std::max(m, comp_[i].v);
+    return m;
+  }
   int components() const { return ncomp_; }
   int h_samp(int i) const { return comp_[i].h; }
   int v_samp(int i) const { return comp_[i].v; }
@@ -923,7 +939,10 @@ class Decoder {
   // Decode (all, or the rows the region needs) and write the region's RGB.
   // A stream with 4 components always decodes as PIL does (the JAX
   // package's binding refuses it and falls back to PIL).
-  void decode(int x0, int y0, int cw, int ch, uint8_t* out) {
+  // out_cap >= 0: the bytes out holds (too few is an error before any is
+  // written)
+  void decode(int x0, int y0, int cw, int ch, uint8_t* out,
+              long out_cap = -1) {
     x0_ = x0;
     y0_ = y0;
     cw_ = cw;
@@ -938,10 +957,15 @@ class Decoder {
       // libtiff reads a strip's scanlines, then calls jpeg_finish_decompress
       // and takes its error for success (CALLJPEG's -1 is true): what
       // follows a sequential image's whole scan cannot fail a TIFF strip
-      if (tiff_color_ < 0 || f.code != -1 || !single_scan_ || !scan_done_)
+      if (ojpeg_ && in_scan_)
+        failed_row_ = cur_row_;
+      else if (tiff_color_ < 0 || f.code != -1 || !single_scan_ ||
+               !scan_done_)
         throw;
     }
     if (!scans_) CORRUPT("JPEG: no image data");
+    if (out_cap >= 0 && output_size() > out_cap)
+      CORRUPT("JPEG: output buffer too small");
     output(out);
   }
 
@@ -979,6 +1003,7 @@ class Decoder {
         restart_ = (s[0] << 8) | s[1];
       } else if (m == 0xDA) {
         pos = scan(s, sl, pos + len);
+        in_scan_ = false;
         scan_done_ = true;
         // libjpeg's region decode of a single-scan image stops reading
         // there (jpeg_abort_decompress): what follows is never parsed
@@ -1031,7 +1056,11 @@ class Decoder {
   // a JPEG strip or tile of a TIFF (fastjpeg_decode_tiff): libtiff forces
   // the colour space and, unless it is YCbCr, asks for the components
   // themselves (JCS_UNKNOWN)
-  int tiff_color_ = -1;  // -1: not a TIFF decode, 0: components, 1: YCbCr
+  // -1: not a TIFF decode, 0: components, 1: YCbCr, 2: each component's
+  // samples before upsampling (jpeg_read_raw_data)
+  int tiff_color_ = -1;
+  bool ojpeg_, in_scan_ = false;
+  int cur_row_ = 0, failed_row_ = -1;
   bool allocated_ = false, single_scan_ = false;
   bool scan_done_ = false;  // a scan has been decoded to its end
   int scans_ = 0;
@@ -1364,6 +1393,9 @@ class Decoder {
     *held = false;
     for (;;) {
       if (m == 0xD0 + want) return p;
+      // libtiff's old-style JPEG source has no resync: its
+      // resync_to_restart is a fatal error ("Unexpected error")
+      if (ojpeg_) CORRUPT("JPEG: restart marker out of order");
       int action;
       if (m < 0xC0) {
         action = 2;  // not a valid marker
@@ -1488,6 +1520,8 @@ class Decoder {
     if (seq && pil_feed_) br.events = &events;
     int togo = restart_, next_rst = 0, eobrun = 0;
     for_mcus(sc, [&](int row, int16_t** blk, const int* si, int nb) {
+      cur_row_ = row;
+      in_scan_ = true;  // the scan's header was good
       if (restart_) {
         if (togo == 0) {  // process_restart
           bool held;
@@ -1648,6 +1682,8 @@ class Decoder {
     if (pil()) ar.fed = fed_;
     int togo = restart_, next_rst = 0;
     for_mcus(sc, [&](int row, int16_t** blk, const int* si, int nb) {
+      cur_row_ = row;
+      in_scan_ = true;  // the scan's header was good
       if (restart_) {
         if (togo == 0) {  // process_restart: statistics and registers reset
           bool held;
@@ -2101,7 +2137,29 @@ class Decoder {
     return (mx0 / align) * align * hsf / align;
   }
 
+  // what output() writes
+  long output_size() const {
+    long blocks = 0;
+    for (int i = 0; i < ncomp_; ++i) blocks += 1L * comp_[i].bw * comp_[i].bh;
+    if (tiff_color_ == 2) return 64 * blocks;
+    const bool planes = tiff_color_ == 0 || (tiff_color_ == 1 && ncomp_ != 3);
+    return static_cast<long>(cw_) * ch_ * (planes ? ncomp_ : 3);
+  }
+
   void output(uint8_t* out) {
+    if (tiff_color_ == 2) {  // each component's blocks, in turn
+      for (int i = 0; i < ncomp_; ++i) {
+        Comp& c = comp_[i];
+        const int stride = c.bw * 8;
+        for (int by = 0; by < c.bh; ++by)
+          for (int bx = 0; bx < c.bw; ++bx)
+            idct_islow(block(c, by, bx), c.quant,
+                       out + static_cast<size_t>(by) * 8 * stride + bx * 8,
+                       stride);
+        out += static_cast<size_t>(c.bh) * 8 * stride;
+      }
+      return;
+    }
     const bool smooth = !lossless_ && smoothing_ok();
     Plane pl[4];
     for (int i = 0; i < ncomp_; ++i)
@@ -2674,6 +2732,43 @@ int fastjpeg_decode_tiff(const unsigned char* buf, long len, int color,
     if (static_cast<long>(W) * H * nc > out_cap)
       CORRUPT("JPEG: output buffer too small");
     d.decode(0, 0, W, H, out);
+  });
+}
+
+// An old-style JPEG TIFF's stream, as libtiff's tif_ojpeg.c has libjpeg
+// read it (the stream is libtiff's own: its tables, frame and scan headers
+// before the strips' data, restart markers between strips, an EOI after
+// the last): raw 1 gives each component's samples before upsampling
+// (jpeg_read_raw_data: width_in_blocks x height_in_blocks blocks each, the
+// components in turn), 0 the components upsampled (JCS_UNKNOWN
+// scanlines). The data ends where libtiff's source does: reading past it
+// is libjpeg's fatal error, which leaves the iMCU rows from the one being
+// decoded on undecoded. Probe with out == NULL: the headers only, into
+// info: W, H, components, max h, max v, -1, then each component's h, v.
+// Then decode with the probe's info and out sized from it: info[5] becomes
+// the iMCU row the data ran out in (-1 for none). 0 on success, -1 or -2
+// for a stream libjpeg refuses before its scan.
+int fastjpeg_decode_ojpeg(const unsigned char* buf, long len, int raw,
+                          unsigned char* out, long out_cap, int* info) {
+  return guarded([&] {
+    Decoder d(buf, static_cast<size_t>(len), kLibjpeg, false, false, true);
+    d.tiff_color(raw ? 2 : 0);
+    if (out) {
+      d.decode(0, 0, info[0], info[1], out, out_cap);
+      info[5] = d.failed_row();
+      return;
+    }
+    d.header_only();
+    info[0] = d.width();
+    info[1] = d.height();
+    info[2] = d.components();
+    info[3] = d.h_max();
+    info[4] = d.v_max();
+    info[5] = -1;
+    for (int i = 0; i < d.components(); ++i) {
+      info[6 + 2 * i] = d.h_samp(i);
+      info[7 + 2 * i] = d.v_samp(i);
+    }
   });
 }
 

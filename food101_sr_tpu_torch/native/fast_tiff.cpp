@@ -19,6 +19,9 @@
 //     data read as zeros, and data that ends early ends the strip as
 //     libtiff 4.7 does (Fax below: Modified Huffman fails, T.4 1-D
 //     succeeds, T.4 2-D and T.6 succeed in some places past the first row).
+//   - raw-16 (compression 32771, Fax3DecodeRLE with FAXMODE_WORDALIGN):
+//     Modified Huffman rows that start on 16-bit boundaries.
+//   - ThunderScan (tif_thunder.c): 4-bit runs, deltas and raw pixels.
 //   - QOI (PIL's QoiDecoder): the six ops over RGBA with PIL's index hash
 //     and its (0, 0, 0, 0) for an index never written; data that ends
 //     before the image is full is an error.
@@ -220,9 +223,12 @@ class Fax {
     return 2 * (refline ? 2 * n : n);
   }
 
-  // Compression 2: 1-D rows, each starting on a byte boundary. Data that
-  // ends before the strip is full fails it.
-  int rle(uint8_t* buf, int rows, int rowbytes) {
+  // Compressions 2 and 32771 (Fax3DecodeRLE): 1-D rows, each starting on
+  // a byte boundary, or for 32771 (FAXMODE_WORDALIGN) on a 16-bit one:
+  // the bits held are cut to a multiple of 16, and with none held the
+  // pointer steps to an even address (odd: the data starts at an odd
+  // one). Data that ends before the strip is full fails it.
+  int rle(uint8_t* buf, int rows, int rowbytes, bool word, bool odd) {
     for (int line = 0; line < rows; ++line) {
       start_row();
       try {
@@ -232,7 +238,12 @@ class Fax {
         return -1;
       }
       fillruns(buf + static_cast<long>(line) * rowbytes);
-      clr(avail_ - (avail_ & ~7));  // FAXMODE_BYTEALIGN
+      if (!word) {
+        clr(avail_ - (avail_ & ~7));  // FAXMODE_BYTEALIGN
+      } else {
+        clr(avail_ - (avail_ & ~15));
+        if (avail_ == 0 && ((cp_ - start_) + odd) & 1) ++cp_;
+      }
     }
     return rows;
   }
@@ -725,16 +736,18 @@ int f101tiff_lzw(const uint8_t* src, long n, uint8_t* dst, long occ,
   return occ > 0 ? -1 - static_cast<int>(op - dst) : 0;
 }
 
-// CCITT (2, 3, 4): rows x width bilevel pixels, 1 = black, MSB first, rows
-// of rowbytes. kind is the compression, twod T4Options' 2-D bit,
-// msb_first FillOrder 1; *noeol is libtiff's "without EOL" mode of the
+// CCITT (2, 3, 4, 32771): rows x width bilevel pixels, 1 = black, MSB
+// first, rows of rowbytes. kind is the compression, twod T4Options' 2-D
+// bit, msb_first FillOrder 1, odd whether src lies at an odd address in
+// libtiff's view (32771's word alignment); *noeol is libtiff's "without
+// EOL" mode of the
 // image (Fax::g3), read and updated, and runs its run arrays
 // (f101tiff_fax_runs entries). 0 on success, -1 when the data ends
 // where libtiff fails the strip, -2 when the runs overflow libtiff's run
 // arrays (it fails the strip), else the rows decoded when the data ended
 // early and libtiff succeeds (the rows after those keep what dst held).
 int f101tiff_fax(const uint8_t* src, long n, int kind, int twod,
-                 int msb_first, int width, int rows, uint8_t* dst,
+                 int msb_first, int odd, int width, int rows, uint8_t* dst,
                  int* noeol, uint32_t* runs) {
   if (width <= 0 || rows <= 0) return -1;
   const int rowbytes = (width + 7) / 8;
@@ -742,7 +755,8 @@ int f101tiff_fax(const uint8_t* src, long n, int kind, int twod,
           kind == 4 || (kind == 3 && twod), runs);
   int got;
   try {
-    got = kind == 2   ? fax.rle(dst, rows, rowbytes)
+    got = kind == 2 || kind == 32771
+              ? fax.rle(dst, rows, rowbytes, kind == 32771, odd != 0)
           : kind == 3 ? fax.g3(dst, rows, rowbytes, twod != 0)
                       : fax.g4(dst, rows, rowbytes);
   } catch (const Overflow&) {
@@ -750,6 +764,76 @@ int f101tiff_fax(const uint8_t* src, long n, int kind, int twod,
   }
   *noeol = fax.noeol();
   return got == rows ? 0 : got;
+}
+
+// ThunderScan (32809, tif_thunder.c ThunderDecodeRow): rows of width
+// 4-bit pixels, (width + 1) / 2 bytes each, from one strip's codes (the
+// data runs on from row to row): a run of the last pixel, three 2-bit
+// or two 3-bit deltas (the "no delta" values skipped), a raw pixel.
+// 0 on success, -1 where a row gets too few or too many pixels (libtiff
+// fails the strip; the rest of that row is zeroed).
+int f101tiff_thunder(const uint8_t* src, long n, uint8_t* dst, int width,
+                     int rows) {
+  static const int kTwo[4] = {0, 1, 0, -1};
+  static const int kThree[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const long maxpixels = width, rowbytes = (maxpixels + 1) / 2;
+  const uint8_t* bp = src;
+  long cc = n;
+  for (int r = 0; r < rows; ++r) {
+    uint8_t* const op0 = dst + r * rowbytes;
+    uint8_t* op = op0;
+    unsigned lastpixel = 0;
+    long npixels = 0;
+    auto set = [&](unsigned v) {  // SETPIXEL
+      lastpixel = v & 0xf;
+      if (npixels < maxpixels) {
+        if (npixels++ & 1)
+          *op++ |= static_cast<uint8_t>(lastpixel);
+        else
+          op[0] = static_cast<uint8_t>(lastpixel << 4);
+      }
+    };
+    while (cc > 0 && npixels < maxpixels) {
+      int c = *bp++;
+      cc--;
+      int delta;
+      switch (c & 0xc0) {
+        case 0x00:  // a run of the last pixel, c times
+          if (npixels & 1) {
+            op[0] |= static_cast<uint8_t>(lastpixel);
+            lastpixel = *op++;
+            npixels++;
+            c--;
+          } else {
+            lastpixel |= lastpixel << 4;
+          }
+          npixels += c;
+          if (npixels <= maxpixels)  // a run may end the row
+            for (; c > 0; c -= 2) *op++ = static_cast<uint8_t>(lastpixel);
+          if (c == -1) *--op &= 0xf0;
+          lastpixel &= 0xf;
+          break;
+        case 0x40:  // three 2-bit deltas
+          if ((delta = (c >> 4) & 3) != 2) set(lastpixel + kTwo[delta]);
+          if ((delta = (c >> 2) & 3) != 2) set(lastpixel + kTwo[delta]);
+          if ((delta = c & 3) != 2) set(lastpixel + kTwo[delta]);
+          break;
+        case 0x80:  // two 3-bit deltas
+          if ((delta = (c >> 3) & 7) != 4) set(lastpixel + kThree[delta]);
+          if ((delta = c & 7) != 4) set(lastpixel + kThree[delta]);
+          break;
+        default:  // a raw pixel
+          set(static_cast<unsigned>(c));
+          break;
+      }
+    }
+    if (npixels != maxpixels) {
+      uint8_t* const op_end = op0 + rowbytes;
+      if (op < op_end) std::memset(op, 0, static_cast<size_t>(op_end - op));
+      return -1;
+    }
+  }
+  return 0;
 }
 
 // The entries of the run arrays f101tiff_fax takes for a row of width

@@ -15,21 +15,29 @@ What is replicated, and where:
   from its offset, StripByteCounts unused) and ``RawDecode``'s rows;
 - compressed images, libtiff 4.7 as PIL's TiffDecode drives it: each strip
   or tile read by its byte count, bits reversed for ``FillOrder`` 2 except
-  where the codec reads them itself, decompressed (PackBits, LZW and CCITT
-  in ``fast_tiff.cpp``; Deflate with the stdlib ``zlib``, LZMA with
-  ``lzma``; JPEG with ``JPEGTables`` through ``fast_jpeg.cpp`` as libtiff's
-  JPEG codec drives libjpeg), the predictors undone, samples in native
+  where the codec reads them itself, decompressed (PackBits, LZW, CCITT,
+  raw-16 and ThunderScan in ``fast_tiff.cpp``; ZSTD in ``fast_zstd.cpp``;
+  Deflate with the stdlib ``zlib``, LZMA with ``lzma``; JPEG with
+  ``JPEGTables`` through ``fast_jpeg.cpp`` as libtiff's JPEG codec drives
+  libjpeg), the predictors undone, samples in native
   order, then PIL's unpacker per row (per plane for ``PlanarConfiguration``
   2, as its libtiff decoder copies planes);
 - PIL's unpackers (``Unpack.c``) for every raw mode the table names,
   ``ImageOps.exif_transpose`` for the Orientation tag, and
   ``convert("RGB")`` for each mode (``I``/``I;16``/``F`` clip to 0..255).
 
-Refused by name (:class:`UnsupportedImage`, 415): the compressions libtiff
-decodes with code the port does not have (ZSTD, WebP, old-style JPEG,
-SGILog, ThunderScan, raw-16), YCbCr images libtiff reads through its RGBA
-interface (any compression but contiguous JPEG), and CIELab, which PIL
-converts through LittleCMS. Everything PIL refuses raises ValueError.
+The compressions libtiff decodes with code of its own or libzstd's are
+the port's own code too: raw-16 and ThunderScan in ``fast_tiff.cpp``, ZSTD
+in ``fast_zstd.cpp`` (no library; a host where it does not build answers
+415 naming it), old-style JPEG (``_Ojpeg``: tif_ojpeg.c's header parse,
+the stream it hands libjpeg, decoded by ``fast_jpeg.cpp`` to raw YCbCr)
+through libtiff's RGBA reader (``ycbcr_rgba``), as PIL reads YCbCr that is
+not contiguous JPEG.
+
+Refused by name (:class:`UnsupportedImage`, 415): CIELab, which PIL
+converts through LittleCMS, and YCbCr JPEG or old-style JPEG in separate
+planes whose headers libtiff accepts. Everything PIL refuses (WebP and
+SGILog TIFFs among them) raises ValueError.
 """
 from __future__ import annotations
 
@@ -136,10 +144,11 @@ COMPRESSIONS = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
                 32946: "tiff_deflate", 34676: "tiff_sgilog",
                 34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
                 50001: "webp"}
-# the ones libtiff decodes with code the port does not have
-_NOT_PORTED = {6: "old-style JPEG (6)", 32771: "raw-16 (32771)",
-               32809: "ThunderScan (32809)", 50000: "ZSTD (50000)"}
-# and the ones PIL never decodes: its libtiff is built without WebP, and
+# the CCITT codecs (they read FillOrder themselves), and the ones
+# PredictorSetup runs for
+_FAX = (2, 3, 4, 32771)
+_PREDICTED = (5, 8, 32946, 34925, 50000)
+# the ones PIL never decodes: its libtiff is built without WebP, and
 # SGILog needs a LogLuv photometric, which OPEN_INFO does not hold (its
 # libtiff refuses SGILog data under any photometric OPEN_INFO holds)
 _PIL_REFUSES = {34676: "SGILog (34676)", 34677: "SGILog24 (34677)",
@@ -171,9 +180,11 @@ def _register(lib):
     lib.f101tiff_packbits.restype = i
     lib.f101tiff_lzw.argtypes = [cp, ll, p, ll, i]
     lib.f101tiff_lzw.restype = i
-    lib.f101tiff_fax.argtypes = [cp, ll, i, i, i, i, i, p,
+    lib.f101tiff_fax.argtypes = [cp, ll, i, i, i, i, i, i, p,
                                  ctypes.POINTER(i), p]
     lib.f101tiff_fax.restype = i
+    lib.f101tiff_thunder.argtypes = [cp, ll, p, i, i]
+    lib.f101tiff_thunder.restype = i
     lib.f101tiff_fax_runs.argtypes = [i, i]
     lib.f101tiff_fax_runs.restype = ll
     lib.f101qoi_decode.argtypes = [cp, ll, i, i, i, p]
@@ -186,6 +197,23 @@ def tiff_lib() -> ctypes.CDLL:
         raise UnsupportedImage("the TIFF/QOI unit (native/fast_tiff.cpp, no "
                                "library needed) did not build here: "
                                f"{build_error('fast_tiff')}")
+    return lib
+
+
+def _register_zstd(lib):
+    lib.f101zstd_tiff.argtypes = [ctypes.c_char_p, ctypes.c_long,
+                                  ctypes.c_void_p, ctypes.c_long,
+                                  ctypes.POINTER(ctypes.c_long)]
+    lib.f101zstd_tiff.restype = ctypes.c_int
+    lib.f101zstd_error.restype = ctypes.c_char_p
+
+
+def zstd_lib() -> ctypes.CDLL:
+    lib = _load("fast_zstd", (), _register_zstd)
+    if lib is None:
+        raise UnsupportedImage("the ZSTD unit (native/fast_zstd.cpp, no "
+                               "library needed) did not build here: "
+                               f"{build_error('fast_zstd')}")
     return lib
 
 
@@ -682,10 +710,18 @@ def _inflate(raw: bytes, occ: int, what: str, partial: bool = False) -> bytes:
     return out
 
 
+# xz filter IDs liblzma decodes before LZMA2 (lzma_filter_flags_decode):
+# delta, and the branch converters Python's lzma module names
+_XZ_BCJ = {4: lzma.FILTER_X86, 5: lzma.FILTER_POWERPC, 6: lzma.FILTER_IA64,
+           7: lzma.FILTER_ARM, 8: lzma.FILTER_ARMTHUMB, 9: lzma.FILTER_SPARC}
+
+
 def _xz_block(raw: bytes) -> tuple:
-    """The LZMA2 data of an xz stream's first block and its filter, with
-    the header checks liblzma makes before it decodes (stream header,
-    block header and their CRC32s)."""
+    """The LZMA2 data of an xz stream's first block, its filter chain
+    (libtiff's encoder writes delta, then LZMA2), LZMA2's dictionary size
+    and the delta distance (0 for none), with the header checks liblzma
+    makes before it decodes (stream header, block header and their
+    CRC32s, lzma_block_header_decode's flags, filter flags and padding)."""
     if len(raw) < 13 or raw[:6] != b"\xfd7zXZ\x00" or \
             zlib.crc32(raw[6:8]) != struct.unpack_from("<I", raw, 8)[0] \
             or raw[6] or raw[7] & 0xF0 or raw[12] == 0:
@@ -708,16 +744,35 @@ def _xz_block(raw: bytes) -> tuple:
             if not b & 0x80:
                 return v
         raise ValueError("TIFF: bad xz block header")
+    if flags & 0x3C:
+        raise ValueError("TIFF: xz block header with reserved flags")
     for bit in (0x40, 0x80):  # compressed and uncompressed sizes
         if flags & bit:
             varint()
-    if flags & 3 or varint() != 0x21 or varint() != 1 or pos >= size - 4 \
-            or hdr[pos] > 40:
-        raise ValueError("TIFF: xz filters other than LZMA2")
-    d = hdr[pos]
-    dict_size = 0xFFFFFFFF if d == 40 else (2 | (d & 1)) << (d // 2 + 11)
-    return raw[12 + size:], [{"id": lzma.FILTER_LZMA2,
-                              "dict_size": dict_size}]
+    chain, dict_size, delta = [], 0, 0
+    for k in range((flags & 3) + 1):
+        fid, n = varint(), varint()
+        if n > size - 4 - pos:
+            raise ValueError("TIFF: bad xz filter flags")
+        props = hdr[pos:pos + n]
+        pos += n
+        last = k == flags & 3
+        if fid == 0x21 and last and n == 1 and props[0] <= 40:
+            d = props[0]
+            dict_size = 0xFFFFFFFF if d == 40 else \
+                (2 | (d & 1)) << (d // 2 + 11)
+            chain.append({"id": lzma.FILTER_LZMA2, "dict_size": dict_size})
+        elif fid == 3 and not last and n == 1:
+            delta = props[0] + 1
+            chain.append({"id": lzma.FILTER_DELTA, "dist": delta})
+        elif fid in _XZ_BCJ and not last and n in (0, 4):
+            chain.append({"id": _XZ_BCJ[fid], "start_offset":
+                          int.from_bytes(props, "little")})
+        else:
+            raise ValueError(f"TIFF: xz filter {fid:#x} liblzma refuses here")
+    if any(hdr[pos:size - 4]):
+        raise ValueError("TIFF: xz block header padding")
+    return raw[12 + size:], chain, dict_size, delta
 
 
 def _lzma2_through(payload: bytes, occ: int) -> bytes:
@@ -738,13 +793,15 @@ def _lzma2_through(payload: bytes, occ: int) -> bytes:
     return payload[:pos]
 
 
-def _lzma2_first_chunk(payload: bytes, dict_size: int, occ: int):
+def _lzma2_first_chunk(payload: bytes, dict_size: int, delta: int,
+                       occ: int):
     """The first ``occ`` bytes of LZMA2 data whose first chunk holds them,
     decoded as the raw LZMA1 data of that chunk: liblzma checks a chunk's
     range coder as its last byte is written, and an error there, with the
     strip already full, does not fail libtiff's decode, while Python's
     decoder raises it and loses the call's output. None where the strip
-    spans chunks or the first is not LZMA-coded with its properties."""
+    spans chunks or the first is not LZMA-coded with its properties.
+    ``delta`` (a distance, 0 for none) undoes the delta filter after it."""
     if len(payload) < 6 or payload[0] < 0xE0:
         return None
     unpacked = ((payload[0] & 0x1F) << 16 |
@@ -755,12 +812,18 @@ def _lzma2_first_chunk(payload: bytes, dict_size: int, occ: int):
         return None
     lc, lp, pb = props % 9, props // 9 % 5, props // 45
     try:  # a range coder at the chunk's end reads zeros, as liblzma's
-        return lzma.LZMADecompressor(lzma.FORMAT_RAW, filters=[{
+        out = lzma.LZMADecompressor(lzma.FORMAT_RAW, filters=[{
             "id": lzma.FILTER_LZMA1, "lc": lc, "lp": lp, "pb": pb,
             "dict_size": dict_size}]).decompress(
                 payload[6:6 + packed] + bytes(8), occ)
     except lzma.LZMAError:
         return None
+    if delta:  # delta.c: each byte plus the one `delta` before it
+        a = bytearray(out)
+        for i in range(delta, len(a)):
+            a[i] = (a[i] + a[i - delta]) & 0xFF
+        out = bytes(a)
+    return out
 
 
 def _unlzma(raw: bytes, occ: int) -> bytes:
@@ -772,14 +835,23 @@ def _unlzma(raw: bytes, occ: int) -> bytes:
     try:
         out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(raw, occ)
     except lzma.LZMAError as e:
-        payload, filters = _xz_block(raw)
-        try:  # without the block's check and sizes
-            out = lzma.LZMADecompressor(lzma.FORMAT_RAW, filters=filters) \
-                .decompress(_lzma2_through(payload, occ), occ)
-        except lzma.LZMAError:
-            out = None
-        if out is None or len(out) < occ:  # a chunk's end: that of the first
-            first = _lzma2_first_chunk(payload, filters[0]["dict_size"], occ)
+        payload, chain, dict_size, delta = _xz_block(raw)
+        out = None
+        # without the block's check and sizes: the chunks up to the strip's
+        # end, or all of them where a branch filter holds bytes back until
+        # it sees the ones after them
+        for data in ((_lzma2_through(payload, occ),) if len(chain) - (
+                delta > 0) == 1 else (payload, _lzma2_through(payload, occ))):
+            try:
+                out = lzma.LZMADecompressor(lzma.FORMAT_RAW, filters=chain) \
+                    .decompress(data, occ)
+            except lzma.LZMAError:
+                continue
+            if len(out) >= occ:
+                break
+        if (out is None or len(out) < occ) and len(chain) - (delta > 0) == 1:
+            # a chunk's end: that of the first
+            first = _lzma2_first_chunk(payload, dict_size, delta, occ)
             out = first if first is not None else out
         if out is None:
             raise ValueError(f"TIFF: LZMA decoding error ({e})") from None
@@ -883,31 +955,99 @@ class _LtDir:
         return v[0]
 
 
-def _jpeg_tables(stream: bytes, tables: dict) -> None:
-    """Add the quantization and Huffman tables a JPEG stream defines
-    before its first SOS to ``tables`` ((marker, table id) -> a segment
-    defining that one table): libjpeg keeps each table until another
-    stream redefines it."""
+def _jpeg_tables(stream: bytes, tables: dict, strip: bool = False) -> None:
+    """Add the quantization and Huffman tables a JPEG stream defines to
+    ``tables`` ((marker, table id) -> a segment defining that one table):
+    libjpeg keeps each table until another stream redefines it. The stream
+    is read as libjpeg's jdmarker.c reads it (its source ends in fake EOI
+    markers). JPEGTables (tif_jpeg.c JPEGSetupDecode: jpeg_read_header
+    (FALSE)): SOI first, then DQT, DHT, DRI, DAC, APPn, COM, RSTn, TEM and
+    DNL until EOI; a frame or scan header, another marker, or a table
+    segment whose lengths or table numbers libjpeg refuses is "Bogus
+    JPEGTables field", and the file does not decode. A ``strip``, once it
+    has decoded: its tables up to its first SOS, other segments passed
+    over."""
+    n = len(stream)
+
+    def at(i: int) -> int:
+        return stream[i] if i < n else (0xFF, 0xD9)[(i - n) & 1]
+
+    def u16(i: int) -> int:
+        return at(i) << 8 | at(i + 1)
+
+    def bogus(why: str):
+        raise ValueError(f"TIFF: bogus JPEGTables field ({why})")
+    if at(0) != 0xFF or at(1) != 0xD8:
+        bogus("no SOI")
     pos = 2
-    while pos + 4 <= len(stream) and stream[pos] == 0xFF:
-        m = stream[pos + 1]
-        if m in (0xDA, 0xD9):
-            break
-        if 0xD0 <= m <= 0xD7 or m == 0x01 or m == 0xFF:
-            pos += 1 if m == 0xFF else 2
+    while True:
+        while at(pos) != 0xFF:  # next_marker: garbage, fill, FF 00
+            pos += 1
+        while at(pos) == 0xFF:
+            pos += 1
+        m = at(pos)
+        pos += 1
+        if m == 0:
             continue
-        n = struct.unpack_from(">H", stream, pos + 2)[0]
-        body, q = stream[pos + 4:pos + 2 + n], 0
-        while m in (0xDB, 0xC4) and q < len(body):
-            if m == 0xDB:  # 64 entries of 8 or 16 bits
-                size = 1 + 64 * (2 if body[q] >> 4 else 1)
-            else:  # 16 counts, then the values
-                size = 17 + sum(body[q + 1:q + 17])
-            one = body[q:q + size]
-            tables[(m, body[q] & (0xFF if m == 0xC4 else 0x0F))] = \
-                bytes([0xFF, m]) + struct.pack(">H", len(one) + 2) + one
-            q += size
-        pos += 2 + n
+        if m == 0xD9 or (strip and m == 0xDA):
+            return
+        if 0xD0 <= m <= 0xD7 or m == 0x01:
+            continue
+        if not strip and (m == 0xD8 or m == 0xDA or (
+                0xC0 <= m <= 0xCF and m not in (0xC4, 0xCC))):
+            bogus(f"marker {m:#04x}")
+        length = u16(pos) - 2
+        body = pos + 2
+        if m == 0xC4:  # get_dht
+            q = body
+            while length > 16:
+                index, count = at(q), sum(at(q + 1 + i) for i in range(16))
+                length -= 17
+                if count > 256 or count > length:
+                    bogus("Huffman table")
+                if (index & ~0x10) >= 4:
+                    bogus("Huffman table number")
+                one = bytes(at(q + i) for i in range(17 + count))
+                tables[(0xC4, index)] = b"\xff\xc4" + struct.pack(
+                    ">H", len(one) + 2) + one
+                q += 17 + count
+                length -= count
+            if length != 0:
+                bogus("DHT length")
+            pos = q
+        elif m == 0xDB:  # get_dqt
+            q = body
+            while length > 0:
+                size = 1 + 64 * (2 if at(q) >> 4 else 1)
+                if at(q) & 0x0F >= 4:
+                    bogus("quantization table number")
+                one = bytes(at(q + i) for i in range(size))
+                tables[(0xDB, at(q) & 0x0F)] = b"\xff\xdb" + struct.pack(
+                    ">H", len(one) + 2) + one
+                q += size
+                length -= size
+            if length != 0:
+                bogus("DQT length")
+            pos = q
+        elif m == 0xDD:  # get_dri
+            if length != 2:
+                bogus("DRI length")
+            pos = body + 2
+        elif m == 0xCC:  # get_dac
+            q = body
+            while length > 0:
+                index, val = at(q), at(q + 1)
+                q += 2
+                length -= 2
+                if index >= 32 or (index < 16 and val & 15 > val >> 4):
+                    bogus("arithmetic conditioning")
+            if length != 0:
+                bogus("DAC length")
+            pos = q
+        elif strip or 0xE0 <= m <= 0xEF or m in (0xFE, 0xDC):  # by length
+            pos = body + max(length, 0)
+        else:
+            bogus(f"marker {m:#04x}")
 
 
 class _Unreadable(ValueError):
@@ -928,8 +1068,7 @@ class _Libtiff:
         # libtiff's compression (the first of duplicate tags), which can
         # differ from PIL's (the last)
         comp = self.comp = lt.per_sample(COMPRESSION, 1, 1)
-        if comp in _NOT_PORTED or comp in _PIL_REFUSES or \
-                comp not in COMPRESSIONS:
+        if comp in _PIL_REFUSES or comp not in COMPRESSIONS:
             raise ValueError(f"TIFF: libtiff reads compression {comp}")
         width = lt.one(WIDTH, None)
         length = lt.one(LENGTH, None)
@@ -938,20 +1077,30 @@ class _Libtiff:
         if (width, length) != (im.xsize, im.ysize):
             raise ValueError("TIFF: libtiff reads other dimensions")
         self.spp = lt.one(SAMPLES, 1, 0xFFFF)
+        if comp == 6:  # TIFFReadDirectory's fixes for old-style JPEG
+            photo = lt.one(PHOTOMETRIC, None, 0xFFFF, essential=False)
+            if photo in (None, 2):
+                photo = 6
+            if SAMPLES not in lt.entries and photo == 6:
+                self.spp = 3
         if self.spp == 0:
             raise ValueError("TIFF: zero samples per pixel")
-        self.bits = lt.per_sample(BITS, 1, self.spp)
+        self.bits = lt.per_sample(BITS, 8 if comp == 6 else 1, self.spp)
         self.fmt = lt.per_sample(SAMPLEFORMAT, 1, self.spp)
         if not 1 <= self.fmt <= 6:  # TIFFSetField refuses it: no directory
             raise ValueError(f"TIFF: sample format {self.fmt}")
         self.planar = lt.one(PLANAR, 1, 0xFFFF)
         if self.planar not in (1, 2):
             raise ValueError("TIFF: bad PlanarConfiguration")
+        if comp == 6 and self.planar == 2 and all(
+                t in lt.entries and lt.entries[t][1] == 1
+                for t in (STRIPOFFSETS, STRIPBYTECOUNTS)):
+            self.planar = 1  # one strip's offset and count: contiguous
         ex = lt.ints(EXTRASAMPLES)
         self.extra = tuple(ex) if ex is not None else None
         self.fillorder = lt.one(FILLORDER, 1, 0xFFFF, essential=False)
         self.predictor = lt.one(PREDICTOR, 1, 0xFFFF, essential=False)
-        if comp in (5, 8, 32946, 34925) and self.predictor not in (1, 2, 3):
+        if comp in _PREDICTED and self.predictor not in (1, 2, 3):
             # PredictorSetup fails the codec's setup, so every read
             raise ValueError(f"TIFF: predictor {self.predictor}")
         self.t4 = lt.one(T4OPTIONS, 0, essential=False)
@@ -961,8 +1110,10 @@ class _Libtiff:
         self.runs = None
         self.photometric = lt.one(PHOTOMETRIC, None, 0xFFFF,
                                   essential=False)
+        if comp == 6:
+            self.photometric = photo
         if self.photometric is None:  # libtiff's guess for a missing tag
-            self.photometric = 0 if comp in (2, 3, 4) or self.bits == 1 \
+            self.photometric = 0 if comp in _FAX or self.bits == 1 \
                 else 2 if self.spp == 3 else 1
         if self.photometric == 3 and self.bits < 8:
             # a ColorMap of another count than 3 << bits is ignored, and a
@@ -993,31 +1144,75 @@ class _Libtiff:
                 raise ValueError("TIFF: zero rows per strip")
             nchunks = -(-length // min(self.th, length)) * planes
             otag, ctag = STRIPOFFSETS, STRIPBYTECOUNTS
+        self.pspp = 1 if self.planar == 2 else self.spp  # samples a plane
         offs = lt.ints(otag, nchunks)
+        # an old-style JPEG of one strip may do without its offset and
+        # count: its data can all lie in JPEGInterchangeFormat
+        one_oj = comp == 6 and not self.tiled and nchunks == 1
+        if offs is None and one_oj:
+            offs = (0,)
         if offs is None:
             raise ValueError("TIFF: missing required strip or tile offsets")
         counts = lt.ints(ctag, nchunks)
-        if counts is None:  # TIFFReadDirectory's rule for estimating them
+        if comp == 6:  # libtiff leaves an old-style JPEG's counts alone
+            counts = () if counts is None else counts
+        elif counts is None:  # TIFFReadDirectory's rules for estimating them
             if (self.planar == 1 and nchunks > 1) or (
                     self.planar == 2 and nchunks != self.spp):
                 raise ValueError("TIFF: missing required byte counts")
+            counts = self.estimate(offs, nchunks)
+        elif not self.tiled and nchunks == 1 and self.count_looks_bad(
+                offs, counts):
+            counts = self.estimate(offs, nchunks)
+        elif self.planar == 1 and nchunks > 2 and comp == 1 and \
+                len(counts) > 1 and counts[0] != counts[1] and \
+                counts[0] and counts[1]:
             counts = self.estimate(offs, nchunks)
         if min(offs, default=0) < 0 or min(counts, default=0) < 0:
             raise ValueError("TIFF: negative strip offset or byte count")
         self.offs = tuple(offs) + (0,) * (nchunks - len(offs))
         self.counts = tuple(counts) + (0,) * (nchunks - len(counts))
-        self.pspp = 1 if self.planar == 2 else self.spp  # samples a plane
         self.swab = d.prefix == MM
         self.buffer = None  # PIL's strip or tile buffer (pil_buffer)
         self.rgba_buffers: dict = {}  # libtiff's, a plane each (rgba_buffer)
         self.rgba_allocated = False  # libtiff allocates it at a read strip
         self.jpeg_tables = None  # the JPEG tables libjpeg holds so far
         self.row0 = 0  # the first row of the strip being read
+        self.oj = None  # the old-style JPEG session (_Ojpeg)
+        self.oj_force = False
+        if comp == 6:
+            if sub is not None and len(sub) == 2 and max(sub) <= 0xFFFF:
+                self.subsampling = (sub[0] & 0xFF, sub[1] & 0xFF)
+            hs, vs, self.oj_force = _oj_subsampling(self)
+            self.subsampling = (hs, vs)
+
+    def count_looks_bad(self, offs, counts) -> bool:
+        """ByteCountLooksBad, for one strip: a count of 0, or for an
+        uncompressed one a count past the end of the file or short of the
+        image."""
+        off = offs[0] if offs else 0
+        cnt = counts[0] if counts else 0
+        if off == 0:
+            return False
+        if cnt == 0:
+            return True
+        if self.comp != 1:
+            return False
+        size = len(self.data)
+        return (off <= size and cnt > size - off) or \
+            cnt < self.row_bytes(self.im.xsize) * self.im.ysize
 
     def estimate(self, offs, nchunks) -> tuple:
-        """EstimateStripByteCounts for a compressed image: the file less
-        the header, the directory and its values, shared by every strip
-        (per plane), the last cut at the end of the file."""
+        """EstimateStripByteCounts: for an uncompressed image a strip's
+        rows (the image's height over the strips) or a tile; else the file
+        less the header, the directory and its values, shared by every
+        strip (per plane), the last cut at the end of the file."""
+        if self.comp == 1:
+            if self.tiled:
+                return (self.row_bytes(self.tw) * self.th,) * nchunks
+            per = nchunks // (self.spp if self.planar == 2 else 1)
+            return (self.row_bytes(self.im.xsize) * (
+                self.im.ysize // max(per, 1)),) * nchunks
         big = self.im.d.big
         space = (16 + 8 + 20 * len(self.lt.entries) + 8) if big else \
             (8 + 2 + 12 * len(self.lt.entries) + 4)
@@ -1051,6 +1246,10 @@ class _Libtiff:
         im = self.im
         if occ is None:
             occ = self.row_bytes(width) * rows
+        if self.comp == 6:  # the codec reads the file itself
+            if self.oj is None:
+                self.oj = _Ojpeg(self)
+            return self.oj.strip(index, occ, partial)
         off = self.offs[index] if index < len(self.offs) else 0
         cnt = self.counts[index] if index < len(self.counts) else 0
         if cnt <= 0 or off + cnt > len(self.data):
@@ -1058,17 +1257,23 @@ class _Libtiff:
                               "the file")
         raw = self.data[off:off + cnt]
         comp = self.comp
-        if comp == 1:  # TIFFReadRawStrip1: the strip's size from its offset
-            if off + occ > len(self.data):
-                raise ValueError("TIFF: not enough uncompressed data")
-            return self.postdecode(self.data[off:off + occ], width, rows)
         if comp == 7:
             return self.jpeg(raw, width, rows, plane)
-        if self.fillorder == 2 and comp not in (2, 3, 4):
+        if self.fillorder == 2 and comp not in _FAX:
             raw = _REV[np.frombuffer(raw, np.uint8)].tobytes()
+        if comp == 1:  # DumpModeDecode: the strip holds the bytes or fails
+            if len(raw) < occ:
+                if not partial:
+                    raise ValueError("TIFF: not enough uncompressed data")
+                return b""
+            return self.postdecode(raw[:occ], width, rows)
+        if comp == 50000:
+            return self.zstd(raw, width, rows, occ, partial)
         lib = tiff_lib()
-        if comp in (2, 3, 4):
-            return self.fax(lib, raw, width, rows)
+        if comp in _FAX:
+            return self.fax(lib, raw, width, rows, off)
+        if comp == 32809:
+            return self.thunder(lib, raw, width, rows)
         if comp == 32773:
             out = np.empty(occ, np.uint8)
             if lib.f101tiff_packbits(raw, len(raw), out.ctypes.data, occ):
@@ -1103,7 +1308,7 @@ class _Libtiff:
     def postdecode(self, out: bytes, width: int, rows: int) -> bytes:
         """The predictor (tif_predict.c) and the byte swap to native order."""
         bits, pred = self.bits, self.predictor
-        if pred == 2 and self.comp in (5, 8, 32946, 34925):
+        if pred == 2 and self.comp in _PREDICTED:
             if bits not in (8, 16, 32, 64):
                 raise ValueError("TIFF: horizontal differencing with "
                                  f"{bits}-bit samples")
@@ -1113,7 +1318,7 @@ class _Libtiff:
             a = np.cumsum(a.astype(dt.newbyteorder("<")), axis=1,
                           dtype=dt.newbyteorder("<"))
             return a.tobytes()
-        if pred == 3 and self.comp in (5, 8, 32946, 34925):
+        if pred == 3 and self.comp in _PREDICTED:
             if self.fmt != 3 or bits not in (16, 24, 32, 64):
                 raise ValueError("TIFF: floating point predictor on "
                                  f"{bits}-bit samples of format {self.fmt}")
@@ -1133,10 +1338,44 @@ class _Libtiff:
                 .tobytes()
         return out
 
-    def fax(self, lib, raw: bytes, width: int, rows: int) -> bytes:
+    def zstd(self, raw: bytes, width: int, rows: int, occ: int,
+             partial: bool) -> bytes:
+        """tif_zstd.c ZSTDDecode (fast_zstd.cpp): a strip the data does not
+        fill is an error that keeps what was decoded; any other error
+        zeroes the strip."""
+        lib = zstd_lib()
+        out = np.empty(occ, np.uint8)
+        got = ctypes.c_long(0)
+        rc = lib.f101zstd_tiff(raw, len(raw), out.ctypes.data, occ,
+                               ctypes.byref(got))
+        if rc:
+            if not partial:
+                raise ValueError("TIFF: ZSTD data does not fill the strip"
+                                 if rc == 1 else "TIFF: ZSTD decoding error "
+                                 f"({lib.f101zstd_error().decode()})")
+            return out[:got.value].tobytes()
+        return self.postdecode(out.tobytes(), width, rows)
+
+    def thunder(self, lib, raw: bytes, width: int, rows: int) -> bytes:
+        """tif_thunder.c ThunderDecodeRow (fast_tiff.cpp): 4-bit samples
+        only, no tiles; a row of too few or too many pixels fails."""
+        if self.bits != 4:
+            raise ValueError("TIFF: ThunderScan with other than 4 bits")
+        if self.tiled:
+            raise ValueError("TIFF: ThunderScan tiles")
+        out = np.zeros(self.row_bytes(width) * rows, np.uint8)
+        if self.row_bytes(width) != (width + 1) // 2 or lib.f101tiff_thunder(
+                raw, len(raw), out.ctypes.data, width, rows):
+            raise ValueError("TIFF: ThunderScan data at a scanline")
+        return out.tobytes()
+
+    def fax(self, lib, raw: bytes, width: int, rows: int, off: int) -> bytes:
         """A CCITT strip or tile into PIL's one buffer, which it reuses
         for every strip (or tile): the rows a strip cut short leaves
-        undecoded keep the previous strip's (zeros before the first)."""
+        undecoded keep the previous strip's (zeros before the first).
+        ``off``: where the strip lies in the file, whose parity decides
+        raw-16's word alignment (libtiff reads it in place: PIL maps the
+        file into memory)."""
         im = self.im
         if self.bits != 1 or self.pspp != 1:
             raise ValueError("TIFF: CCITT coding of a non-bilevel image")
@@ -1147,7 +1386,7 @@ class _Libtiff:
                 width, int(self.comp == 4 or (self.comp == 3 and twod))),
                 np.uint32)
         rc = lib.f101tiff_fax(raw, len(raw), self.comp, twod,
-                              int(self.fillorder != 2), width, rows,
+                              int(self.fillorder != 2), off & 1, width, rows,
                               out.ctypes.data, ctypes.byref(self.noeol),
                               self.runs.ctypes.data)
         if rc < 0:
@@ -1168,9 +1407,7 @@ class _Libtiff:
             t = self.lt.raw(JPEGTABLES)
             tables = t[2] if t is not None and t[0] in (1, 6, 7) else None
             self.jpeg_tables = {}
-            if tables is not None and len(tables) >= 4:
-                if tables[:2] != b"\xff\xd8":
-                    raise ValueError("TIFF: bogus JPEGTables")
+            if tables:
                 _jpeg_tables(tables, self.jpeg_tables)
         if raw[:2] != b"\xff\xd8":
             raise ValueError("TIFF: a JPEG strip without SOI")
@@ -1212,7 +1449,7 @@ class _Libtiff:
         if rc != 0:
             raise ValueError(f"TIFF: JPEG strip does not decode "
                              f"({lib.fastjpeg_error().decode()})")
-        _jpeg_tables(raw, self.jpeg_tables)
+        _jpeg_tables(raw, self.jpeg_tables, strip=True)
         rb = width * out_nc
         buf = self.pil_buffer(rb * rows)
         px = out.reshape(jh, jw * out_nc)[:jh_out]
@@ -1346,7 +1583,9 @@ class _Libtiff:
         else:
             rps = min(self.th, im.ysize)
             strip = self.row_bytes(im.xsize) * rps
-            if strip > per * rps:
+            # PIL's buffer holds its RowsPerStrip rows (the image's where
+            # the tag is missing), which may be more than the image has
+            if strip > per * (im.ysize if self.th == 2 ** 32 - 1 else self.th):
                 raise ValueError("TIFF: strip size larger than PIL expects")
             if 2 ** 31 <= self.th < 2 ** 32 - 1:  # past PIL's int rows
                 raise ValueError(f"TIFF: {self.th} rows per strip")
@@ -1451,6 +1690,467 @@ class _Libtiff:
         return out
 
 
+# ---------------------------------------------------------------------------
+# old-style JPEG (compression 6): libtiff's tif_ojpeg.c
+# ---------------------------------------------------------------------------
+
+class _OjFail(ValueError):
+    """What tif_ojpeg.c fails before a strip's data: the header parse, or
+    libjpeg's jpeg_read_header / jpeg_start_decompress and libtiff's checks
+    after them."""
+
+
+class _OjReader:
+    """OJPEGReadByte and its kin over OJPEGReadBufferFill's input: the
+    JPEGInterchangeFormat stream, then each strip or tile with data in
+    turn. Reading past the last is a failure."""
+
+    def __init__(self, fills: list):
+        self.fills, self.i, self.j = fills, 0, 0
+
+    def peek(self) -> int:
+        fills = self.fills
+        while self.i < len(fills) and self.j >= len(fills[self.i][1]):
+            self.i, self.j = self.i + 1, 0
+        if self.i >= len(self.fills):
+            raise _OjFail("TIFF: old-style JPEG data ends in its header")
+        return self.fills[self.i][1][self.j]
+
+    def byte(self) -> int:
+        v = self.peek()
+        self.j += 1
+        return v
+
+    def word(self) -> int:
+        return self.byte() << 8 | self.byte()
+
+    def block(self, n: int) -> bytes:
+        return bytes(self.byte() for _ in range(n))
+
+    def skip(self, n: int) -> None:  # OJPEGReadSkip: quietly to the end
+        while n > 0 and self.i < len(self.fills):
+            k = min(n, len(self.fills[self.i][1]) - self.j)
+            self.j += k
+            n -= k
+            if n:
+                self.i, self.j = self.i + 1, 0
+
+
+class _Ojpeg:
+    """One image's libjpeg session as tif_ojpeg.c runs it for PIL's reads:
+    OJPEGSubsamplingCorrect (the JPEG's own subsampling), OJPEGReadHeaderInfo
+    (the JPEG header from JPEGInterchangeFormat or the strips' own bytes, or
+    rebuilt from JPEGQTables, JPEGDCTables and JPEGACTables), the stream
+    libtiff writes for libjpeg (its tables, DRI, frame and scan headers,
+    the data with restart markers between strips and an EOI after the
+    last) decoded by fast_jpeg.cpp, then OJPEGDecodeRaw's packed YCbCr
+    lines (raw data: hs x vs Y samples, Cb, Cr; for 3 samples a pixel) or
+    the components' scanlines (one sample), handed out strip by strip."""
+
+    def __init__(self, lt: "_Libtiff"):
+        d = lt.lt
+        self.lt = lt
+        h = lt.im.ysize
+        if lt.tiled:
+            self.sw, self.sl = lt.tw, lt.th
+            self.sl_total = -(-h // lt.th) * lt.th
+        else:
+            self.sw = lt.im.xsize
+            self.sl = h if lt.th == 2 ** 32 - 1 else lt.th
+            self.sl_total = h
+        self.fills, self.count = _oj_fills(lt), len(lt.offs)
+        self.hs, self.vs = lt.subsampling
+        self.force = lt.oj_force
+        self.restart = d.one(515, 0, 0xFFFF, essential=False)
+        self.tables = {}
+        for tag in (519, 520, 521):
+            try:
+                v = d.ints(tag)
+            except ValueError:
+                v = None
+            v = tuple(v) if v is not None and 0 < len(v) <= 3 else ()
+            self.tables[tag] = v + (0,) * (3 - len(v))
+        self.header()
+        self.stream = self.write_stream()
+        self.decode()
+        self.cursor = self.curstrile = 0
+        self.fatal = False  # libjpeg's source ran dry in a strip
+
+    # -- OJPEGReadHeaderInfo ------------------------------------------------
+
+    def header(self) -> None:
+        lt = self.lt
+        if lt.spp == 1:
+            self.spp = self.per_plane = 1
+            self.hs = self.vs = 1
+        elif lt.spp != 3:
+            raise _OjFail("TIFF: old-style JPEG with other than 1 or 3 "
+                          "samples a pixel")
+        else:
+            self.spp, self.per_plane = 3, 1 if lt.planar == 2 else 3
+        hs, vs = self.hs, self.vs
+        if self.sl < lt.im.ysize:
+            if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+                raise _OjFail("TIFF: invalid old-style JPEG subsampling")
+            if self.sl % (vs * 8):
+                raise _OjFail("TIFF: old-style JPEG strips of rows other "
+                              "than a multiple of the subsampling")
+            self.restart = (-(-self.sw // (hs * 8)) *
+                            (self.sl // (vs * 8))) & 0xFFFF
+        self.q, self.dc, self.ac = {}, {}, {}
+        self.sof = None
+        self.sos_cs, self.sos_tda = [0] * 3, [0] * 3
+        r = _OjReader(self.fills)
+        m = 0
+        while m != 0xDA:
+            if r.peek() != 0xFF:
+                break
+            r.byte()
+            m = r.byte()
+            while m == 0xFF:
+                m = r.byte()
+            if m == 0xD8:
+                continue
+            if m == 0xFE or 0xE0 <= m <= 0xEF:
+                n = r.word()
+                if n < 2:
+                    raise _OjFail("TIFF: corrupt old-style JPEG data")
+                r.skip(n - 2)
+            elif m == 0xDD:
+                if r.word() != 4:
+                    raise _OjFail("TIFF: corrupt DRI marker")
+                self.restart = r.word()
+            elif m == 0xDB:
+                n = r.word()
+                if n <= 2:
+                    raise _OjFail("TIFF: corrupt DQT marker")
+                n -= 2
+                while n > 0:
+                    if n < 65:
+                        raise _OjFail("TIFF: corrupt DQT marker")
+                    b = r.block(65)
+                    if b[0] & 15 > 3:
+                        raise _OjFail("TIFF: corrupt DQT marker")
+                    self.q[b[0] & 15] = b"\xff\xdb\x00\x43" + b
+                    n -= 65
+            elif m == 0xC4:
+                n = r.word()
+                if n <= 2:
+                    raise _OjFail("TIFF: corrupt DHT marker")
+                b = r.block(n - 2)
+                o = b[0]
+                if o & 0xF0 not in (0, 0x10) or o & 15 > 3:
+                    raise _OjFail("TIFF: corrupt DHT marker")
+                (self.ac if o & 0x10 else self.dc)[o & 15] = \
+                    b"\xff\xc4" + struct.pack(">H", n) + b
+            elif m in (0xC0, 0xC1, 0xC3):
+                self.read_sof(r, m)
+            elif m == 0xDA:
+                if self.sof is None:
+                    raise _OjFail("TIFF: corrupt SOS marker")
+                if r.word() != 6 + 2 * self.per_plane or \
+                        r.byte() != self.per_plane:
+                    raise _OjFail("TIFF: corrupt SOS marker")
+                for o in range(self.per_plane):
+                    self.sos_cs[o] = r.byte()
+                    self.sos_tda[o] = r.byte()
+                r.skip(3)
+            else:
+                raise _OjFail(f"TIFF: unknown marker {m:#04x} in old-style "
+                              "JPEG data")
+        self.data_at = (r.i, r.j)
+        if self.sof is None:
+            self.tables_from_tags()
+        if lt.planar == 2:  # each plane's own scan (OJPEGReadSecondarySos)
+            raise UnsupportedImage("TIFF: separate-plane old-style JPEG is "
+                                   "not supported")
+
+    def read_sof(self, r: _OjReader, marker: int) -> None:
+        if self.sof is not None:
+            raise _OjFail("TIFF: corrupt old-style JPEG data")
+        m = r.word()
+        if m < 11 or (m - 8) % 3:
+            raise _OjFail("TIFF: corrupt SOF marker")
+        n = (m - 8) // 3
+        if n != self.spp or r.byte() != 8:
+            raise _OjFail("TIFF: old-style JPEG frame of another kind")
+        y = r.word()
+        if y < self.lt.im.ysize and y < self.sl_total:
+            raise _OjFail("TIFF: old-style JPEG of unexpected height")
+        x = r.word()
+        if (x < self.lt.im.xsize and x < self.sw) or x > self.sw:
+            raise _OjFail("TIFF: old-style JPEG of unexpected width")
+        if r.byte() != n:
+            raise _OjFail("TIFF: corrupt SOF marker")
+        comps = []
+        for q in range(n):
+            c, hv, tq = r.byte(), r.byte(), r.byte()
+            if not self.force and hv != (
+                    (self.hs << 4 | self.vs) if q == 0 else 17):
+                raise _OjFail("TIFF: old-style JPEG of unexpected "
+                              "subsampling")
+            comps.append((c, hv, tq))
+        self.sof = (marker, y, x, comps)
+
+    def tables_from_tags(self) -> None:
+        """OJPEGReadHeaderInfoSecTables{QTable,DcTable,AcTable}: each
+        sample's table at its offset (one equal to the previous sample's is
+        shared), the frame and scan headers built from the directory."""
+        data, spp = self.lt.data, self.spp
+        qo, dco, aco = (self.tables[t] for t in (519, 520, 521))
+        tq, tda = [0] * 3, [0] * 3
+        for offs, kind in ((qo, "q"), (dco, "dc"), (aco, "ac")):
+            if offs[0] == 0:
+                raise _OjFail("TIFF: missing old-style JPEG tables")
+            for m in range(spp):
+                if offs[m] and (m == 0 or offs[m] != offs[m - 1]):
+                    if any(offs[m] == offs[k] for k in range(m - 1)):
+                        raise _OjFail("TIFF: corrupt old-style JPEG table "
+                                      "offsets")
+                    at = offs[m]
+                    if kind == "q":
+                        b = data[at:at + 64]
+                        if len(b) != 64:
+                            raise _OjFail("TIFF: old-style JPEG table past "
+                                          "the end of the file")
+                        self.q[m] = b"\xff\xdb\x00\x43" + bytes([m]) + b
+                        tq[m] = m
+                        continue
+                    counts = data[at:at + 16]
+                    total = sum(counts)
+                    vals = data[at + 16:at + 16 + total]
+                    if len(counts) != 16 or len(vals) != total:
+                        raise _OjFail("TIFF: old-style JPEG table past the "
+                                      "end of the file")
+                    cls = 0 if kind == "dc" else 16
+                    seg = b"\xff\xc4" + struct.pack(">H", 19 + total) + \
+                        bytes([cls | m]) + counts + vals
+                    if kind == "dc":
+                        self.dc[m] = seg
+                        tda[m] = m << 4
+                    else:
+                        self.ac[m] = seg
+                        tda[m] |= m
+                elif kind == "q":
+                    tq[m] = tq[m - 1]
+                elif kind == "dc":
+                    tda[m] = tda[m - 1]
+                else:
+                    tda[m] |= tda[m - 1] & 15
+        comps = [(o, (self.hs << 4 | self.vs) if o == 0 else 17, tq[o])
+                 for o in range(spp)]
+        self.sof = (0xC0, self.sl_total, self.sw, comps)
+        self.sos_cs = [0, 1, 2]
+        self.sos_tda = tda
+
+    # -- the stream libtiff hands libjpeg (OJPEGWriteStream) ---------------
+
+    def write_stream(self) -> bytes:
+        marker, y, x, comps = self.sof
+        out = bytearray(b"\xff\xd8")
+        for tab in (self.q, self.dc, self.ac):
+            for k in range(4):
+                out += tab.get(k, b"")
+        if self.restart:
+            out += b"\xff\xdd\x00\x04" + struct.pack(">H", self.restart)
+        pp = self.per_plane
+        out += bytes([0xFF, marker, 0, 8 + 3 * pp, 8]) + struct.pack(
+            ">HH", y & 0xFFFF, x & 0xFFFF) + bytes([pp])
+        for c, hv, tq in comps[:pp]:
+            out += bytes([c & 0xFF, hv, tq])
+        out += bytes([0xFF, 0xDA, 0, 6 + 2 * pp, pp])
+        for o in range(pp):
+            out += bytes([self.sos_cs[o], self.sos_tda[o]])
+        out += b"\x00\x3f\x00"
+        i, j = self.data_at
+        rst = 0
+        while i < len(self.fills):
+            kind, b, nxt = self.fills[i]
+            out += b[j:]
+            if kind == "strile" and len(b) > j:
+                if nxt < self.count:
+                    out += bytes([0xFF, 0xD0 + rst])
+                    rst = (rst + 1) & 7
+                else:  # libtiff's EOI; without it libjpeg reads past the end
+                    out += b"\xff\xd9"
+                    break
+            i, j = i + 1, 0
+        return bytes(out)
+
+    # -- libjpeg's decode, and libtiff's checks after jpeg_start_decompress -
+
+    def decode(self) -> None:
+        lib = _jpeg_lib()
+        raw = self.per_plane > 1 and not self.force
+        info = (ctypes.c_int * 14)()
+        s = self.stream
+        if lib.fastjpeg_decode_ojpeg(s, len(s), int(raw), None, 0, info):
+            raise _OjFail("TIFF: libjpeg refuses the old-style JPEG stream "
+                          f"({lib.fastjpeg_error().decode()})")
+        w, h, nc = info[0], info[1], info[2]
+        samp = [(info[6 + 2 * k], info[7 + 2 * k]) for k in range(nc)]
+        if raw:
+            size = sum(-(-(-(-w * hh // info[3])) // 8) * 8 *
+                       -(-(-(-h * vv // info[4])) // 8) * 8
+                       for hh, vv in samp)
+        else:
+            size = w * h * nc
+        out = np.zeros(max(size, 1), np.uint8)
+        if lib.fastjpeg_decode_ojpeg(s, len(s), int(raw), out.ctypes.data,
+                                     out.nbytes, info):
+            raise _OjFail("TIFF: libjpeg refuses the old-style JPEG stream "
+                          f"({lib.fastjpeg_error().decode()})")
+        if w != self.sw or (info[3], info[4]) != (self.hs, self.vs):
+            raise _OjFail("TIFF: old-style JPEG frame disagrees with the "
+                          "image")
+        hmax, vmax = info[3], info[4]
+        failed_row = info[5]
+        if not raw:  # scanlines of the components
+            self.bpl = self.per_plane * self.sw
+            self.per_strile = self.sl
+            self.lines = out[:size].reshape(h, w * nc)[:, :self.bpl]
+            self.fail_line = 2 ** 62 if failed_row < 0 else \
+                failed_row * 8 * vmax
+            return
+        hs, vs = self.hs, self.vs
+        ylen = -(-self.sw // (hs * 8)) * hs * 8
+        clen = ylen // hs
+        planes, at = [], 0
+        for hh, vv in samp:
+            bw = -(-(-(-w * hh // hmax)) // 8)
+            bh = -(-(-(-h * vv // vmax)) // 8)
+            planes.append(out[at:at + bw * bh * 64].reshape(bh * 8, bw * 8))
+            at += bw * bh * 64
+        n_imcu = -(-planes[0].shape[0] // (vs * 8))
+        cout = -(-self.sw // hs)
+        self.bpl = cout * (hs * vs + 2)
+        self.per_strile = -(-self.sl // vs)
+        # libtiff's buffers of one iMCU row: rows libjpeg does not write in
+        # the last one keep the row before's (zeros for the first)
+        yb = np.zeros((vs * 8, ylen), np.uint8)
+        cb = np.zeros((2, 8, clen), np.uint8)
+        lines = np.zeros((n_imcu * 8, self.bpl), np.uint8)
+        for r in range(n_imcu):
+            part = planes[0][r * vs * 8:(r + 1) * vs * 8, :ylen]
+            yb[:part.shape[0], :part.shape[1]] = part
+            for k in (1, 2):
+                part = planes[k][r * 8:(r + 1) * 8, :clen]
+                cb[k - 1, :part.shape[0], :part.shape[1]] = part
+            y4 = yb[:, :cout * hs].reshape(8, vs, cout, hs).transpose(
+                0, 2, 1, 3).reshape(8, cout, hs * vs)
+            blk = np.concatenate([y4, cb[0][:, :cout, None],
+                                  cb[1][:, :cout, None]], 2)
+            lines[r * 8:(r + 1) * 8] = blk.reshape(8, self.bpl)
+        self.lines = lines
+        self.fail_line = 2 ** 62 if failed_row < 0 else failed_row * 8
+
+    # -- OJPEGPreDecode, OJPEGDecode, OJPEGPostDecode ----------------------
+
+    def strip(self, index: int, cc: int, partial: bool) -> bytes:
+        """The bytes of strip (or tile) ``index`` PIL asked cc of."""
+        if self.curstrile > index:  # a new session from the first strip
+            self.cursor = self.curstrile = 0
+            self.fatal = False
+        while self.curstrile < index:
+            # OJPEGPreDecodeSkip*: the lines of a strip that failed are read
+            # past; libjpeg failing there fails the strip before PIL's
+            # buffer exists, and so the image
+            if self.fatal or self.cursor + self.per_strile > self.fail_line:
+                raise ValueError("TIFF: old-style JPEG data ends")
+            self.cursor += self.per_strile
+            self.curstrile += 1
+        bad = cc % self.bpl
+        lines = cc // self.bpl
+        if not bad and self.cursor + lines > self.fail_line:
+            self.fatal = bad = True
+        if bad:
+            if not partial:
+                raise ValueError("TIFF: old-style JPEG strip does not decode")
+            return bytes(cc)
+        got = self.lines[self.cursor:self.cursor + lines]
+        out = np.zeros((lines, self.bpl), np.uint8)
+        out[:len(got)] = got
+        self.cursor += lines
+        self.curstrile += 1
+        if self.curstrile % max(1, len(self.lt.offs)) == 0:
+            self.cursor = self.curstrile = 0
+        return out.tobytes()
+
+
+def _oj_fills(lt: "_Libtiff") -> list:
+    """OJPEGReadBufferFill's input in turn: (kind, bytes, the strips read
+    after it) for JPEGInterchangeFormat (its length cut at the end of the
+    file, or running to it where it is 0) and each strip or tile with data
+    (offsets of 0 or past the end skipped, a count of 0 meaning up to the
+    end of the file)."""
+    data, size = lt.data, len(lt.data)
+    jif = lt.lt.one(513, 0, 2 ** 64 - 1, essential=False)
+    jlen = lt.lt.one(514, 0, 2 ** 64 - 1, essential=False)
+    if jif >= size:
+        jif = 0
+    elif jif and (jlen == 0 or jif + jlen > size):
+        jlen = size - jif
+    fills = [("jif", data[jif:jif + jlen], 0)] if jif else []
+    for k, (off, cnt) in enumerate(zip(lt.offs, lt.counts)):
+        if off and off < size:
+            togo = size - off if cnt == 0 else min(cnt, size - off)
+            fills.append(("strile", data[off:off + togo], k + 1))
+    return fills
+
+
+def _oj_subsampling(lt: "_Libtiff") -> tuple:
+    """OJPEGSubsamplingCorrect: for 3 YCbCr samples the first frame
+    header's subsampling (hs, vs, forced): factors TIFF has none for are
+    left to libjpeg (forced, then 1 x 1). The tag's (or 2 x 2) where no
+    frame header comes before the data; 1 x 1 for another image."""
+    if lt.spp != 3 or lt.photometric not in (6, 10):
+        return 1, 1, False
+    hs, vs = lt.subsampling
+    r = _OjReader(_oj_fills(lt))
+    force = False
+    try:
+        while True:
+            if r.peek() != 0xFF:
+                break
+            r.byte()
+            m = r.byte()
+            while m == 0xFF:
+                m = r.byte()
+            if m == 0xD8:
+                continue
+            if m in (0xFE, 0xDB, 0xC4) or 0xE0 <= m <= 0xEF:
+                n = r.word()
+                if n < 2 or (n == 2 and m in (0xDB, 0xC4)):
+                    break
+                r.skip(n - 2)
+            elif m == 0xDD:
+                if r.word() != 4:
+                    break
+                r.word()
+            elif m in (0xC0, 0xC1, 0xC3):
+                n = r.word()
+                if n < 11 or (n - 8) % 3 or r.byte() != 8:
+                    break
+                r.skip(4)
+                if r.byte() != (n - 8) // 3:
+                    break
+                for q in range((n - 8) // 3):
+                    r.byte()
+                    o = r.byte()
+                    if q == 0:
+                        hs, vs = o >> 4, o & 15
+                        force |= hs not in (1, 2, 4) or vs not in (1, 2, 4)
+                    else:
+                        force |= o != 17
+                    r.byte()
+                break
+            else:  # SOS, or a marker the parse refuses
+                break
+    except _OjFail:
+        pass
+    return (1, 1, True) if force else (hs, vs, False)
+
+
 def _ycbcr_tables(d: _Dir):
     """tif_color.c TIFFYCbCrToRGBInit with the file's (or libtiff's
     default) YCbCrCoefficients and ReferenceBlackWhite, in C's float and
@@ -1547,7 +2247,8 @@ def decode_tiff_rgb8(data: bytes) -> np.ndarray:
     """TIFF bytes -> uint8 HxWx3, as PIL's ``Image.open(...).convert(
     "RGB")`` gives them (module docstring). Raises ValueError where PIL
     raises, :class:`UnsupportedImage` naming what the port does not
-    decode."""
+    decode: CIELab, YCbCr (old-style) JPEG in separate planes, or a unit
+    that did not build."""
     if data[:4] not in (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*",
                         b"MM\x00+", b"II+\x00"):
         raise ValueError("not a TIFF")
@@ -1555,10 +2256,6 @@ def decode_tiff_rgb8(data: bytes) -> np.ndarray:
     if im.compression in _PIL_REFUSES:
         raise ValueError(f"TIFF compression {_PIL_REFUSES[im.compression]}:"
                          " PIL refuses it too")
-    if im.compression in _NOT_PORTED:
-        raise UnsupportedImage("TIFF compression "
-                               f"{_NOT_PORTED[im.compression]} is not "
-                               "supported")
     if im.compression == 1:
         img = _decode_raw(im, data)
     else:

@@ -182,6 +182,28 @@ def test_tiff_codec_uses_no_library():
     assert "tiff" not in deps.replace(so, "").lower()
 
 
+def test_zstd_codec_uses_no_library():
+    """The ZSTD decoder is the port's own: no source includes zstd's
+    headers, no build command or script names -lzstd, no module of the
+    port or chip_smoke.py imports the zstandard module (the card's host has
+    none), and the library fast_zstd.cpp builds into depends on no
+    libzstd."""
+    pkg = ROOT / "food101_sr_tpu_torch"
+    for src in sorted(pkg.rglob("*.cpp")) + sorted(pkg.rglob("*.h")):
+        assert not any("zstd" in ln.lower() for ln in src.read_text()
+                       .splitlines() if ln.lstrip().startswith("#include")), src
+    for py in sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        text = py.read_text()
+        assert "-lzstd" not in text, py
+        assert not any(ln.lstrip().startswith(("import zstandard",
+                                               "from zstandard"))
+                       for ln in text.splitlines()), py
+    from food101_sr_tpu_torch.native import tiff
+    so = tiff.zstd_lib()._name
+    deps = subprocess.run(["ldd", so], capture_output=True, text=True).stdout
+    assert "zstd" not in deps.replace(so, "").lower()
+
+
 # mean_kernel dispatches by layout to two counted entry points
 @pytest.mark.parametrize("wrapper,counted", [
     pytest.param(blur_kernel, [blur_kernel], id="blur_kernel"),

@@ -1,5 +1,6 @@
-"""The port's TIFF decoder (food101_sr_tpu_torch/native/tiff.py and the
-PackBits, LZW and CCITT decoders of native/fast_tiff.cpp) against PIL,
+"""The port's TIFF decoder (food101_sr_tpu_torch/native/tiff.py, the
+PackBits, LZW, CCITT and ThunderScan decoders of native/fast_tiff.cpp, the
+ZSTD decoder of native/fast_zstd.cpp) against PIL,
 which the JAX package's server decodes uploads with (Pillow 12.1: its own
 raw decoder for uncompressed files, libtiff 4.7 for the rest): every
 committed stream pixel-equal to PIL live and to its golden; every
@@ -8,15 +9,19 @@ PIL's pixel table in both byte orders, uncompressed and compressed, in
 strips, tiles and separate planes; each compression, both predictors,
 BigTIFF, the Orientation tag; JPEG strips and tiles with YCbCr
 subsampling and shared tables; CCITT at odd widths; YCbCr through
-libtiff's RGBA reader; the compressions refused by name; seeded
-truncations and bit flips refused exactly where PIL refuses them; a TIFF
-upload answered alike by the port's and the JAX package's servers; and a
-.tif through the port's predict."""
+libtiff's RGBA reader; ZSTD strips as libtiff reads them through libzstd,
+raw-16 rows, ThunderScan codes and old-style JPEG in each layout libtiff
+reads; the compressions PIL refuses and CIELab refused as on the JAX
+server; seeded truncations and bit flips refused exactly where PIL refuses
+them; TIFF uploads answered alike by the port's and the JAX package's
+servers; and a .tif through the port's predict."""
 import io
 import json
+import lzma
 import struct
 import sys
 import threading
+import time
 import zlib
 from pathlib import Path
 
@@ -36,7 +41,8 @@ sys.path.insert(0, str(ROOT))
 import serve as jax_serve  # noqa: E402
 from chip_smoke import sha256  # noqa: E402
 from tools.raster_writers import (jpeg_strip, jpeg_tables, lzw,  # noqa: E402
-                                  packbits, pil_tiff, tiff_file, tiff_image)
+                                  ojpeg, packbits, pil_tiff, raw16,
+                                  thunderscan, tiff_file, tiff_image, zstd)
 
 JPEG_ASSETS = ROOT / "food101_sr_tpu_torch" / "assets" / "jpeg"
 ALL = json.loads((JPEG_ASSETS / "goldens.json").read_text())
@@ -90,9 +96,12 @@ def test_committed_stream_matches_pil_and_its_golden(name):
 
 
 def test_the_zstd_stream_is_refused_by_name():
-    """PIL decodes a ZSTD TIFF; the port has no ZSTD decoder and answers
-    415 naming it (goldens' port_refused)."""
-    g = ALL["port_refused"]["tiff_zstd"]
+    """The stream the port refuses by name (goldens' port_refused): a
+    CIELab TIFF, which PIL decodes and converts through LittleCMS, answered
+    415 naming CIELab. (The ZSTD stream this once held decodes now, among
+    the committed streams above.)"""
+    assert "tiff_zstd" in GOLDENS
+    g = ALL["port_refused"]["tiff_cielab"]
     data = (JPEG_ASSETS / g["file"]).read_bytes()
     assert sha256(_pil(data)) == g["served_sha256"]
     with pytest.raises(native.UnsupportedImage, match=g["refusal"]):
@@ -378,25 +387,22 @@ def test_ycbcr_rgba_reader(hs, vs):
 # --- refusals ---
 
 @pytest.mark.parametrize("comp,name,status", [
-    (6, "old-style JPEG", "415"), (32771, "raw-16", "415"),
-    (32809, "ThunderScan", "415"), (50000, "ZSTD", "415"),
+    (6, "old-style JPEG", "raises"), (32771, "raw-16", "raises"),
+    (32809, "ThunderScan", "raises"), (50000, "ZSTD", "raises"),
     (34676, "SGILog", "raises"), (34677, "SGILog24", "raises"),
     (50001, "WebP", "raises"), (32766, None, "raises")])
 def test_compressions_the_port_refuses(comp, name, status):
-    """ZSTD, old-style JPEG, ThunderScan and raw-16 are decoded by PIL's
-    libtiff and not by the port: 415 naming the compression. PIL's libtiff
-    is built without WebP and refuses SGILog under every photometric PIL
-    opens, so those are 400 on both servers, as is a compression PIL does
-    not know."""
+    """Uncompressed 8-bit RGB strips under another compression's tag: the
+    port decodes ZSTD, old-style JPEG, ThunderScan and raw-16 as PIL's
+    libtiff does, so these bytes fail on both servers (400), none is a 415.
+    PIL's libtiff is built without WebP and refuses SGILog under every
+    photometric PIL opens, so those are 400 on both servers, as is a
+    compression PIL does not know."""
     data = tiff_image(_photo(8, 8, 1), 8, 2,
                       extra_tags={259: (3, (comp,))})
     got = _outcome(native.decode_image, data)
-    assert got == status
-    if status == "415":
-        with pytest.raises(native.UnsupportedImage, match=name):
-            native.decode_image(data)
-    else:
-        assert _pil(data) == "raises"
+    assert got == status, name
+    assert _pil(data) == "raises"
 
 
 # --- truncations and bit flips ---
@@ -412,9 +418,15 @@ def _ccitt(compression, info=None):
         TiffImagePlugin.STRIP_SIZE = old
 
 
+def _gray4(img):
+    return np.asarray(Image.fromarray(img).convert("L")) >> 4
+
+
 @pytest.mark.parametrize("kind", ["raw", "raw_tiles", "lzw", "packbits",
                                   "deflate_tiles", "lzma", "jpeg", "g3",
-                                  "g3_2d", "g4", "mh"])
+                                  "g3_2d", "g4", "mh", "zstd", "zstd_pred2",
+                                  "raw16", "thunderscan", "ojpeg_jif",
+                                  "ojpeg_header", "ojpeg_tables"])
 def test_truncations_and_bit_flips_refused_where_pil_refuses(kind):
     """Seeded cuts and bit flips (the strips and the directory): the port
     raises ValueError exactly where PIL raises, never crashes, and decodes
@@ -444,7 +456,18 @@ def test_truncations_and_bit_flips_refused_where_pil_refuses(kind):
         "g3": lambda: _ccitt("group3"),
         "g3_2d": lambda: _ccitt("group3", {292: 1}),
         "g4": lambda: _ccitt("group4"),
-        "mh": lambda: _ccitt("tiff_ccitt")}[kind]()
+        "mh": lambda: _ccitt("tiff_ccitt"),
+        "zstd": lambda: tiff_image(img, 8, 2, compression=50000,
+                                   rows_per_strip=8),
+        "zstd_pred2": lambda: tiff_image(img, 8, 2, compression=50000,
+                                         predictor=2, rows_per_strip=8),
+        "raw16": lambda: _raw16_file(Image.fromarray(img).convert("1"), 8),
+        "thunderscan": lambda: _thunder_file(_gray4(img), 8),
+        "ojpeg_jif": lambda: ojpeg(img, "jif", 2),
+        "ojpeg_header": lambda: ojpeg(img, "jif_header", 2,
+                                      rows_per_strip=16),
+        "ojpeg_tables": lambda: ojpeg(img, "tables", 1,
+                                      rows_per_strip=8)}[kind]()
     ccitt = kind in ("g3", "g3_2d", "g4", "mh")
     directory = int.from_bytes(data[4:8], "little")  # after the strips
     rng = np.random.default_rng(len(kind))
@@ -666,6 +689,405 @@ def test_duplicate_tags_as_each_reader_takes_them():
         assert _same_as_pil(bytes(patched)), (donor, dup)
 
 
+# --- ZSTD, raw-16, ThunderScan, old-style JPEG ---
+
+def _zstd_file(chunks, h=16, w=20, rows=16, **tags):
+    return tiff_file({256: (4, (w,)), 257: (4, (h,)), 258: (3, (8, 8, 8)),
+                      259: (3, (50000,)), 262: (3, (2,)), 277: (3, (3,)),
+                      278: (4, (rows,)), 284: (3, (1,)), **tags}, chunks)
+
+
+def _window(frame: bytes, descriptor: int) -> bytes:
+    """A frame without a content size given another Window_Descriptor."""
+    assert frame[4] & 0xE0 == 0  # not single-segment, no content size
+    return frame[:5] + bytes([descriptor]) + frame[6:]
+
+
+@pytest.mark.parametrize("case", ["levels", "frames", "checksum", "window",
+                                  "blocks", "predictors"])
+def test_zstd_strips_as_libtiff_reads_them(case):
+    """libtiff's ZSTDDecode over libzstd's streaming decoder, against PIL:
+    every level; one frame a strip (a strip the first frame leaves short
+    fails: a second frame, or one after a skippable frame, is never read;
+    bytes after a full strip are never read); the checksum checked where
+    the data holds it; the 2^27-byte window limit, which the single-pass
+    shortcut for a frame that fits the strip does not apply; raw, RLE and
+    several compressed blocks; predictors 2 and 3 in both byte orders."""
+    img = _photo(16, 20, 12)
+    raw = img.tobytes()
+    files = []
+    if case == "levels":
+        for level in (-5, 1, 3, 9, 19, 22):
+            for size in (True, False):
+                files.append(_zstd_file([zstd(raw, level,
+                                              write_content_size=size)]))
+    elif case == "frames":
+        half = len(raw) // 2
+        skip = struct.pack("<II", 0x184D2A50, 3) + b"abc"
+        for chunk in (zstd(raw[:half]) + zstd(raw[half:]),
+                      zstd(raw) + zstd(raw[::-1]), skip + zstd(raw),
+                      zstd(raw) + skip, zstd(raw) + b"garbage",
+                      zstd(raw)[:3], skip[:6], b"\x28\xb5\x2f"):
+            files.append(_zstd_file([chunk]))
+    elif case == "checksum":
+        for size in (True, False):
+            good = zstd(raw, write_checksum=True, write_content_size=size)
+            bad = good[:-1] + bytes([good[-1] ^ 1])
+            files += [_zstd_file([c]) for c in (good, bad, good[:-2])]
+    elif case == "window":
+        frame = zstd(raw, write_content_size=False)
+        for descriptor in (0x88, 0x89, 0x90, 0xF8):
+            files.append(_zstd_file([_window(frame, descriptor)]))
+        big = zstd(raw, write_content_size=True)
+        files.append(_zstd_file([big]))
+    elif case == "blocks":
+        rng = np.random.default_rng(5)
+        flat = np.full((16, 20, 3), 77, np.uint8)
+        noise = rng.integers(0, 256, (16, 20, 3), np.uint8)
+        files += [_zstd_file([zstd(flat.tobytes())]),
+                  _zstd_file([zstd(noise.tobytes())])]
+        wide = _photo(150, 120, 13)  # 54,000 bytes: several blocks
+        files.append(_zstd_file([zstd(wide.tobytes(), 19)], h=150, w=120,
+                                rows=150))
+    else:
+        rng = np.random.default_rng(6)
+        for order in ("<", ">"):
+            files.append(tiff_image(img, 8, 2, compression=50000,
+                                    predictor=2, rows_per_strip=5,
+                                    order=order))
+            files.append(tiff_image(rng.integers(0, 65536, (16, 20, 1)), 16,
+                                    1, compression=50000, predictor=2,
+                                    tile=(16, 16), order=order))
+            files.append(tiff_image(rng.normal(0, 50, (16, 20, 1)).astype(
+                np.float32), 32, 1, compression=50000, predictor=3,
+                sampleformat=3, rows_per_strip=8, order=order))
+    for k, data in enumerate(files):
+        assert _same_as_pil(data), (case, k)
+
+
+@pytest.mark.parametrize("descriptor", [0x40, 0x88])
+def test_a_zstd_block_past_its_maximum_fails_at_once(descriptor):
+    """A frame without a content size whose one compressed block asks for
+    ~8.5 GB: 65,000 sequences of RLE codes, match-length code 52 with all 16
+    extra bits set (131,074 bytes each). libzstd's streaming decoder holds
+    a block to its maximum (128 KiB here) and fails; so does the port, as
+    soon as a sequence passes it, without writing the rest."""
+    nseq = 65000
+    seqs = (b"\x00"  # raw literals, none
+            + bytes([0xFF]) + struct.pack("<H", nseq - 0x7F00)
+            + b"\x54" + bytes([0, 0, 52])  # RLE codes: ll 0, of 0, ml 52
+            + b"\xff" * (2 * nseq) + b"\x01")
+    frame = (b"\x28\xb5\x2f\xfd\x00" + bytes([descriptor])
+             + struct.pack("<I", 8 << 3)[:3] + bytes(range(8))  # raw block
+             + struct.pack("<I", len(seqs) << 3 | 2 << 1 | 1)[:3] + seqs)
+    data = _zstd_file([frame])
+    t0 = time.perf_counter()
+    assert _outcome(native.decode_image, data) == "raises"
+    assert time.perf_counter() - t0 < 5.0
+    assert _same_as_pil(data)
+
+
+def _long_matches(mls, tail, literals=b"", content_size=True):
+    """A frame of 8 raw bytes, one compressed block of match-length code 52
+    sequences (lengths ``mls``, then ``literals``), and ``tail`` zeros in
+    a raw block; as a 1-pixel-wide gray strip that it fills."""
+    v = 0
+    for ml in mls:  # read back to front: the first sequence's bits on top
+        v = v << 16 | (ml - 65539)
+    bits = (v | 1 << 16 * len(mls)).to_bytes(2 * len(mls) + 1, "little")
+    seqs = (bytes([len(literals) << 3]) + literals + bytes([len(mls)])
+            + b"\x54" + bytes([0, 0, 52]) + bits)
+    n = 8 + sum(mls) + len(literals) + tail
+    head = struct.pack("<I", n) if content_size else b""
+    frame = (b"\x28\xb5\x2f\xfd" + (b"\xa0" if content_size else b"\x00\x58")
+             + head + struct.pack("<I", 8 << 3)[:3] + bytes(range(8))
+             + struct.pack("<I", len(seqs) << 3 | 4 | (tail == 0))[:3] + seqs
+             + (struct.pack("<I", tail << 3 | 1)[:3] + bytes(tail)
+                if tail else b""))
+    return tiff_file({256: (4, (1,)), 257: (4, (n,)), 258: (3, (8,)),
+                      259: (3, (50000,)), 262: (3, (1,)), 277: (3, (1,)),
+                      278: (4, (n,))}, [frame])
+
+
+@pytest.mark.parametrize("mls,tail,literals", [
+    ((65552, 65552), 100, b""), ((65552, 65553), 100, b""),
+    ((65552, 65553), 31, b""), ((65552, 65553), 32, b""),
+    ((65539, 65539), 0, b""), ((65539,) * 3, 0, b""),
+    ((65547, 65548), 41, bytes(range(10))),
+    ((65547, 65548), 42, bytes(range(10)))],
+    ids=["at_limit", "past_limit", "past_no_park", "past_parked",
+         "two_fit", "three", "lits_no_park", "lits_parked"])
+def test_a_zstd_block_ends_where_libzstd_bounds_it(mls, tail, literals):
+    """How far one compressed block may write, as libzstd 1.5.7 bounds it
+    (a 128 KiB block maximum here). A frame that fits the strip is decoded
+    in one pass, with the literals parked in the strip block_max + 32
+    bytes on where the strip has more than block_max + 64 + their size
+    left: past them the block fails, short of it the block may pass
+    block_max. Without a content size the frame streams, and a block past
+    block_max fails."""
+    for content_size in (True, False):
+        assert _same_as_pil(_long_matches(mls, tail, literals,
+                                          content_size)), content_size
+
+
+def _raw16_file(bw, rows, fill=1, odd=False):
+    h, w = bw.size[1], bw.size[0]
+    chunks = [raw16(bw.crop((0, y, w, min(y + rows, h))))
+              for y in range(0, h, rows)]
+    if fill == 2:
+        chunks = [port_tiff._REV[np.frombuffer(c, np.uint8)].tobytes()
+                  for c in chunks]
+    tags = {256: (4, (w,)), 257: (4, (h,)), 258: (3, (1,)),
+            259: (3, (32771,)), 262: (3, (1,)), 266: (3, (fill,)),
+            277: (3, (1,)), 278: (4, (rows,))}
+    if not odd:
+        return tiff_file(tags, chunks)
+    # each strip one byte on: at an odd offset in the file
+    data = tiff_file(tags, [b"\0" + c for c in chunks])
+    t = Image.open(io.BytesIO(data)).tag_v2
+    offs = struct.pack(f"<{len(chunks)}L", *t[273])
+    return data.replace(offs, struct.pack(f"<{len(chunks)}L",
+                                          *(o + 1 for o in t[273])), 1)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 40])
+def test_raw16_rows_as_libtiff_aligns_them(rows):
+    """Compression 32771 (Fax3DecodeRLE, FAXMODE_WORDALIGN): Modified
+    Huffman rows on 16-bit boundaries. libtiff's reader reads ahead while
+    it looks up a row's last code, then drops the bits held to a multiple
+    of 16 and steps to an even address, so rows that end near a boundary
+    are read from elsewhere: PIL's pixels either way, in both fill orders,
+    for strips at even and odd offsets, at several widths."""
+    for h, w, kind in ((40, 48, "random"), (33, 97, "text"),
+                       (12, 1900, "random")):
+        bw = Image.fromarray(_bilevel(h, w, h + w, kind).astype(np.uint8)
+                             * 255).convert("1")
+        for fill in (1, 2):
+            for odd in (False, True):
+                data = _raw16_file(bw, rows, fill, odd)
+                assert _same_as_pil(data), (h, w, fill, odd)
+        if rows == 1:  # one row a strip: nothing read ahead, the image
+            got = native.decode_image(_raw16_file(bw, 1))
+            assert np.array_equal(got[..., 0] > 0, np.asarray(bw))
+
+
+def _thunder_file(g4, rows, bits=4, tile=None):
+    h, w = g4.shape
+    tags = {256: (4, (w,)), 257: (4, (h,)), 258: (3, (bits,)),
+            259: (3, (32809,)), 262: (3, (1,)), 277: (3, (1,))}
+    if tile:
+        tags.update({322: (4, (tile,)), 323: (4, (tile,))})
+        return tiff_file(tags, [thunderscan(g4[:tile, :tile])] * (
+            -(-h // tile) * -(-w // tile)), tiled=True)
+    tags[278] = (4, (rows,))
+    return tiff_file(tags, [thunderscan(g4[y:y + rows])
+                            for y in range(0, h, rows)])
+
+
+def test_thunderscan_codes_as_libtiff_decodes_them():
+    """ThunderScan (tif_thunder.c ThunderDecodeRow): runs (odd and even,
+    ending the row), 2- and 3-bit deltas with their "no delta" entries,
+    raw pixels, rows of too many or too few pixels (the strip fails),
+    BitsPerSample other than 4 and tiles (refused by libtiff), against
+    PIL; the writer's codes decode to its image."""
+    rng = np.random.default_rng(7)
+    for h, w in ((13, 21), (16, 16), (7, 50), (5, 1)):
+        g = np.clip(np.cumsum(rng.integers(-3, 4, (h, w)), 1) + 8, 0,
+                    15).astype(np.uint8)
+        g[:, w // 3:w // 2] = g[:, w // 3:w // 3 + 1]
+        for rows in (h, 3):
+            data = _thunder_file(g, rows)
+            assert _same_as_pil(data), (h, w, rows)
+            assert np.array_equal(native.decode_image(data)[..., 0],
+                                  g * 17)
+    tags = {256: (4, (9,)), 257: (4, (1,)), 258: (3, (4,)),
+            259: (3, (32809,)), 262: (3, (1,)), 277: (3, (1,)),
+            278: (4, (1,))}
+    for codes in (b"\xc5\x08", b"\xc5\x09", b"\xc5\x07", b"\xc5\x01\x07",
+                  b"\xc5\x00\x08", b"\xcf\x5f\x5f\xc1\x00\x02",
+                  b"\xc3\xb8\x9f\xc0\x24", b"\x09", b"\xc1\x3f"):
+        assert _same_as_pil(tiff_file(tags, [codes])), codes
+    g = rng.integers(0, 16, (16, 16)).astype(np.uint8)
+    for data in (_thunder_file(g, 8, bits=8), _thunder_file(g, 8, tile=16)):
+        assert _pil(data) == "raises" and _outcome(
+            native.decode_image, data) == "raises"
+
+
+@pytest.mark.parametrize("sub", [0, 1, 2], ids=["444", "422", "420"])
+def test_old_style_jpeg_layouts(sub):
+    """libtiff's tif_ojpeg.c as PIL's RGBA reader drives it: the JPEG
+    header from JPEGInterchangeFormat (the whole stream, or its header
+    with a strip a restart interval), from the first strip, or rebuilt
+    from JPEGQTables, JPEGDCTables and JPEGACTables; libjpeg's raw YCbCr
+    lines, libtiff's chroma replication and TIFFYCbCrToRGB; images whose
+    widths do not fill their MCUs. At 4:2:0 the pixels are not the JPEG's
+    own decode (they differ from it by up to 64 levels)."""
+    vs = 2 if sub == 2 else 1
+    for h, w in ((40, 48), (13, 21), (33, 50)):
+        img = _photo(h, w, h * w + sub)
+        for layout in ("jif", "jif_header", "tables", "stream"):
+            for rps in (None, 8 * vs, 16):
+                if layout != "jif" and rps is None and h > 16:
+                    continue
+                assert _same_as_pil(ojpeg(img, layout, sub, rps)), (
+                    h, w, layout, rps)
+
+
+def test_old_style_jpeg_directories():
+    """What TIFFReadDirectory and OJPEGSubsamplingCorrect make of an
+    old-style JPEG's directory, against PIL: Photometric RGB or missing
+    (read as YCbCr), BitsPerSample, SamplesPerPixel or YCbCrSubSampling
+    missing, a subsampling tag the JPEG's frame overrides, one gray sample
+    (libjpeg's scanlines), strips not a multiple of the MCU height (libtiff
+    refuses them), separate planes with one strip (read as contiguous),
+    JPEGInterchangeFormat past the end of the file."""
+    img = _photo(32, 40, 21)
+    cases = [ojpeg(img, "jif_header", 2, 16, photometric=2),
+             ojpeg(img, "jif_header", 2, 16, drop_tags=(262,)),
+             ojpeg(img, "jif_header", 1, 8, drop_tags=(258,)),
+             ojpeg(img, "jif_header", 2, 16, drop_tags=(277,)),
+             ojpeg(img, "jif", 0, drop_tags=(530,)),
+             ojpeg(img, "tables", 2, 16, drop_tags=(530,)),
+             ojpeg(img[..., 0], "tables", 0, 8),
+             ojpeg(img[..., 0], "jif", 0)]
+    sub = ojpeg(img, "jif", 1)
+    cases.append(sub.replace(struct.pack("<HHLHH", 530, 3, 2, 2, 1),
+                             struct.pack("<HHLHH", 530, 3, 2, 2, 2), 1))
+    rows = ojpeg(img, "jif_header", 2, 16)
+    cases.append(rows.replace(struct.pack("<HHLL", 278, 4, 1, 16),
+                              struct.pack("<HHLL", 278, 4, 1, 12), 1))
+    one = ojpeg(img, "jif", 0)
+    cases.append(one.replace(struct.pack("<HHLL", 284, 3, 1, 1),
+                             struct.pack("<HHLL", 284, 3, 1, 2), 1))
+    at = one.index(struct.pack("<HHL", 513, 4, 1)) + 8
+    cases.append(one[:at] + struct.pack("<L", len(one) + 9) + one[at + 4:])
+    for k, data in enumerate(cases):
+        assert _same_as_pil(data), k
+
+
+def test_xz_filter_chain_as_liblzma_reads_it():
+    """Repair A: the xz block header libtiff's own LZMA writer makes holds
+    a delta filter before LZMA2 (PIL's lzma TIFFs). Where Python's decoder
+    refuses the block's check or index after a full strip, the port decodes
+    the block without them through that chain, as liblzma stops once the
+    strip is full. A chain with a branch converter, reserved flags and
+    non-zero header padding answer as PIL does."""
+    img = np.clip(np.cumsum(_photo(20, 24, 9), 1) // 8, 0, 255).astype(
+        np.uint8)
+    data = pil_tiff(Image.fromarray(img), compression="lzma")
+    t = Image.open(io.BytesIO(data)).tag_v2
+    off, cnt = t[273][0], t[279][0]
+    assert data[off + 13] & 3 == 1 and data[off + 14] == 3  # delta, LZMA2
+    for pos in (cnt - 1, cnt - 5, cnt - 13, cnt - 30):
+        bad = bytearray(data)
+        bad[off + pos] ^= 0x10
+        assert _same_as_pil(bytes(bad)), pos - cnt
+    raw = img.tobytes()
+
+    def header(blob, fn):
+        size = (blob[12] + 1) * 4
+        h = fn(bytearray(blob[12:12 + size - 4]))
+        return blob[:12] + bytes(h) + struct.pack("<I", zlib.crc32(
+            bytes(h))) + blob[12 + size:]
+    for filters in ([{"id": lzma.FILTER_X86}, {"id": lzma.FILTER_LZMA2}],
+                    [{"id": lzma.FILTER_DELTA, "dist": 4},
+                     {"id": lzma.FILTER_LZMA2}]):
+        blob = lzma.compress(raw, lzma.FORMAT_XZ, filters=filters)
+        for variant in (blob, header(blob, lambda h: h[:1] + bytes(
+                [h[1] | 4]) + h[2:]), header(blob, lambda h: h[:-1] + b"\1")):
+            assert _same_as_pil(tiff_image(img, 8, 2, extra_tags={
+                259: (3, (34925,))}, chunk_codec=lambda b, v=variant: v))
+
+
+def test_jpeg_tables_as_libjpeg_reads_them():
+    """Repair B: JPEGTables goes through libjpeg's jpeg_read_header before
+    any strip, which refuses a marker it does not know, a frame or scan
+    header, a second SOI, table numbers past 3 and segments whose lengths
+    disagree ("Bogus JPEGTables field": the file fails); COM, APPn, DRI,
+    RSTn and garbage between markers pass, and a missing EOI is libjpeg's
+    fake one. Each as the JAX server's PIL answers."""
+    img = np.clip(np.cumsum(_photo(16, 20, 4), 1) // 6, 0, 255).astype(
+        np.uint8)
+    strips = [jpeg_strip(2)(img[y:y + 8]) for y in range(0, 16, 8)]
+    tables, short = jpeg_tables(strips)
+    tags = {256: (4, (20,)), 257: (4, (16,)), 258: (3, (8, 8, 8)),
+            259: (3, (7,)), 262: (3, (6,)), 277: (3, (3,)),
+            278: (4, (8,)), 284: (3, (1,)), 530: (3, (2, 2))}
+    i = tables.index(b"\xff\xc4")
+    variants = [
+        tables, tables[:i + 1] + b"\x84" + tables[i + 2:],
+        tables[:i + 4] + b"\x20" + tables[i + 5:],
+        tables[:i + 4] + b"\x14" + tables[i + 5:],
+        tables[:6] + b"\x05" + tables[7:], tables[:4] + b"\x44" + tables[5:],
+        tables[:-2], tables[2:], tables[:2] + b"\xff\xfe\x00\x05abc" +
+        tables[2:], tables[:i] + b"\x12\x34" + tables[i:],
+        tables[:-2] + b"\xff\xc0\x00\x0b\x08\x00\x10\x00\x14\x01\x01\x11"
+        b"\x00\xff\xd9", tables[:2] + b"\xff\xdd\x00\x04\x00\x01" +
+        tables[2:], tables[:2] + b"\xff\xdd\x00\x05\x00\x01\x00" +
+        tables[2:], tables[:2] + b"\xff\xd3" + tables[2:],
+        tables[:2] + b"\xff\xd8" + tables[2:], b"\xff\xd8", b"\xff"]
+    refused = 0
+    for k, t in enumerate(variants):
+        data = tiff_file({**tags, 347: (7, t)}, short)
+        assert _same_as_pil(data), k
+        refused += isinstance(_pil(data), str)
+    assert 0 < refused < len(variants)
+
+
+def _renamed(data, tag, new_tag):
+    """``data`` (little-endian) with the first entry of ``tag`` renamed."""
+    b = bytearray(data)
+    struct.pack_into("<H", b, _entry(data, tag), new_tag)
+    return bytes(b)
+
+
+def test_a_duplicate_compression_read_as_none_by_libtiff():
+    """Repair C: a BitsPerSample of 1 renamed Compression before the real
+    Compression entry. PIL keeps the last (CCITT or LZW: its libtiff
+    decoder), libtiff the first (1, none): DumpModeDecode then reads each
+    strip's bytes as pixels, and fails a strip whose byte count (for more
+    than two strips of unequal counts, libtiff's estimate from the image
+    height) is short of it. The port answers as PIL does, its pixels
+    included."""
+    bw = Image.fromarray(_bilevel(40, 48, 3, "random").astype(np.uint8)
+                         * 255).convert("1")
+    old = TiffImagePlugin.STRIP_SIZE
+    TiffImagePlugin.STRIP_SIZE = 12 * 6
+    try:
+        g3 = pil_tiff(bw, compression="group3")
+    finally:
+        TiffImagePlugin.STRIP_SIZE = old
+    noise = np.random.default_rng(8).integers(0, 2, (24, 64, 1))
+    for base in (g3, tiff_image(noise, 1, 0, compression=5,
+                                rows_per_strip=24),
+                 tiff_image(noise, 1, 0, compression=5, rows_per_strip=8)):
+        data = _renamed(base, 258, 259)
+        assert _same_as_pil(data)
+    assert _pil(_renamed(g3, 258, 259)) == "raises"
+
+
+def test_byte_counts_libtiff_estimates():
+    """TIFFReadDirectory's estimates: one strip whose byte count is 0 (its
+    size from the file), and an image whose StripByteCounts PIL's parse
+    never reaches; RowsPerStrip past the image (PIL's strip buffer holds
+    that many rows)."""
+    img = _photo(16, 20, 14)
+    one = _zstd_file([zstd(img.tobytes())])
+    at = one.index(struct.pack("<HHL", 279, 4, 1))
+    cases = [one[:at + 4] + b"\0\0\0\0" + one[at + 8:],
+             one.replace(struct.pack("<HHLL", 278, 4, 1, 16),
+                         struct.pack("<HHLL", 278, 4, 1, 4136), 1)]
+    data = tiff_image(img, 8, 2, compression=8, rows_per_strip=16)
+    at = data.index(struct.pack("<HHL", 279, 4, 1))
+    cases.append(data[:at + 4] + b"\0\0\0\0" + data[at + 8:])
+    photo_at = _entry(cases[1], 262)
+    b = bytearray(cases[1])
+    struct.pack_into("<L", b, photo_at + 4, 8193)  # PIL's parse stops here
+    cases.append(bytes(b))
+    for k, data in enumerate(cases):
+        assert _same_as_pil(data), k
+
+
 def test_packbits_and_lzw_encoders_round_trip():
     """The writers the tests build layouts with: PackBits and LZW (with a
     table reset past 4093 entries) decode to their input through the
@@ -721,9 +1143,9 @@ def test_tiff_upload_answered_as_the_jax_server(srcnn_servers, name):
     """Both servers answer 200; the port's body is the PNG of its engine's
     upscale of PIL's pixels, byte for byte, and the two bodies decode
     within 1 level of each other (the float32 SRCNN forward rounds a few
-    values differently in XLA and PyTorch); a cut TIFF is a 400 on both,
-    and a ZSTD one 200 from the JAX server and 415 naming ZSTD from the
-    port."""
+    values differently in XLA and PyTorch); a cut TIFF is a 400 on both; a
+    ZSTD one 200 from both, within 1 level; a CIELab one 200 from the JAX
+    server and 415 naming CIELab from the port."""
     jport, pport, psrv = srcnn_servers
     data = (JPEG_ASSETS / GOLDENS[name]["file"]).read_bytes()
     (jcode, jbody), (pcode, pbody) = _post(jport, data), _post(pport, data)
@@ -735,11 +1157,55 @@ def test_tiff_upload_answered_as_the_jax_server(srcnn_servers, name):
     assert jpx.shape == ppx.shape and np.abs(jpx - ppx).max() <= 1
     cut = data[:len(data) // 3]
     assert _post(jport, cut)[0] == _post(pport, cut)[0] == 400
-    zstd = (JPEG_ASSETS / ALL["port_refused"]["tiff_zstd"]["file"]) \
+    zstd_tiff = (JPEG_ASSETS / GOLDENS["tiff_zstd"]["file"]).read_bytes()
+    (jcode, jbody), (pcode, pbody) = _post(jport, zstd_tiff), \
+        _post(pport, zstd_tiff)
+    assert jcode == pcode == 200
+    assert np.abs(native.decode_image(jbody).astype(np.int16)
+                  - native.decode_image(pbody)).max() <= 1
+    lab = (JPEG_ASSETS / ALL["port_refused"]["tiff_cielab"]["file"]) \
         .read_bytes()
-    assert _post(jport, zstd)[0] == 200
-    code, body = _post(pport, zstd)
-    assert code == 415 and b"ZSTD" in body
+    assert _post(jport, lab)[0] == 200
+    code, body = _post(pport, lab)
+    assert code == 415 and b"CIELab" in body
+
+
+@pytest.mark.parametrize("family", ["tiff_zstd", "tiff_raw16",
+                                    "tiff_thunderscan", "tiff_ojpeg"])
+def test_new_compression_uploads_answered_as_the_jax_server(srcnn_servers,
+                                                            family):
+    """Each committed ZSTD, raw-16, ThunderScan and old-style JPEG TIFF
+    (posted at once): 200 from both servers, the two bodies within 1 level
+    of each other (the decode is held to PIL's above, and the body to the
+    engine's upscale by test_tiff_upload_answered_as_the_jax_server)."""
+    from concurrent.futures import ThreadPoolExecutor
+    jport, pport, _ = srcnn_servers
+    names = [n for n in TIFF if n.startswith(family)]
+    bodies = [(JPEG_ASSETS / GOLDENS[n]["file"]).read_bytes() for n in names]
+    with ThreadPoolExecutor(2 * len(bodies)) as pool:
+        jobs = [(pool.submit(_post, jport, b), pool.submit(_post, pport, b))
+                for b in bodies]
+        answers = [(j.result(), p.result()) for j, p in jobs]
+    for name, ((jcode, jbody), (pcode, pbody)) in zip(names, answers):
+        assert jcode == pcode == 200, name
+        jpx = native.decode_image(jbody).astype(np.int16)
+        assert np.abs(jpx - native.decode_image(pbody)).max() <= 1, name
+
+
+def test_a_zstd_unit_that_does_not_build_is_415_naming_it(srcnn_servers,
+                                                          monkeypatch):
+    """No fallback: where g++ cannot build fast_zstd.cpp, a ZSTD TIFF is a
+    415 naming the ZSTD unit and the build failure; the other TIFF codecs
+    (fast_tiff.cpp) still decode."""
+    monkeypatch.setitem(native._libs, "fast_zstd", None)
+    monkeypatch.setitem(native._errors, "fast_zstd", "g++: not found")
+    data = (JPEG_ASSETS / GOLDENS["tiff_zstd"]["file"]).read_bytes()
+    with pytest.raises(native.UnsupportedImage, match="ZSTD unit"):
+        native.decode_image(data)
+    code, body = _post(srcnn_servers[1], data)
+    assert code == 415 and b"ZSTD" in body and b"g++" in body
+    lzw_tiff = (JPEG_ASSETS / GOLDENS["tiff_lzw_pred2"]["file"]).read_bytes()
+    assert _post(srcnn_servers[1], lzw_tiff)[0] == 200
 
 
 def test_a_tiff_unit_that_does_not_build_is_415_naming_it(srcnn_servers,

@@ -112,9 +112,16 @@ under 600 KB:
   Orientation tag; PIL's own JPEG RGB, CMYK, LZMA and CCITT (G3 1-D and
   2-D, G4, Modified Huffman) TIFFs; binary and plain PPM, 16-bit and
   maxval-100 PGM, plain and binary PBM, PFM; ICO with PNG and BMP
-  entries, a CUR; QOI RGB and RGBA. A ZSTD TIFF, which PIL decodes and
-  the port refuses by name, is in ``streams/`` too but listed under
-  ``port_refused`` in the goldens, not ``streams``;
+  entries, a CUR; QOI RGB and RGBA. The last TIFF compressions PIL's
+  libtiff decodes: ZSTD (PIL's own; the ``zstandard`` module's at levels
+  1 and 19, with a checksum, a second frame after a full first one, a
+  skippable frame after the data, predictor 2), raw-16 with FillOrder 2
+  (a row a strip), ThunderScan with every code, and old-style JPEG
+  (4:4:4 in JPEGInterchangeFormat, 4:2:0 with a strip a restart interval,
+  4:2:2 rebuilt from JPEGQTables, JPEGDCTables and JPEGACTables). A
+  CIELab TIFF, which PIL decodes and the port refuses by name, is in
+  ``streams/`` too but listed under ``port_refused`` in the goldens, not
+  ``streams``;
 - ``goldens.json``: sha256 digests (not pixels, to stay small) of, for
   each stream, the JAX package's ``decode_jpeg_rgb8`` (``sha256``; for
   PNG, GIF, BMP and WebP PIL's decode; ``binding_refused`` where it
@@ -173,8 +180,9 @@ from food101_sr_tpu_torch.training.packed import (  # noqa: E402
 from tools.export_sr_checkpoint import export_state_dict  # noqa: E402
 from tools.make_fake_food101 import CLASSES, make_image  # noqa: E402
 from tools.raster_writers import (dib, ico, jpeg_strip,  # noqa: E402
-                                  jpeg_tables, lzw, netpbm, pfm, pil_tiff,
-                                  qoi, tiff_file, tiff_image)
+                                  jpeg_tables, lzw, netpbm, ojpeg, pfm,
+                                  pil_tiff, qoi, raw16, thunderscan,
+                                  tiff_file, tiff_image, zstd)
 
 CHECKPOINT = os.path.join(ROOT, "weights", "winner_srcnn_best")
 ASSETS = os.path.join(ROOT, "food101_sr_tpu_torch", "assets")
@@ -1069,7 +1077,7 @@ def _streams() -> dict:
         out[name] = out[src][:len(out[src]) * 2 // 3]
     out.update(_pil_feed_streams(enc))
     return ({f"{k}.jpg": v for k, v in out.items()} | _other_streams(rng)
-            | _webp_streams() | _raster_streams())
+            | _webp_streams() | _raster_streams() | _tiff_codec_streams())
 
 
 def _pil_ccitt(img: Image.Image, compression: str, rows: int, **kw) -> bytes:
@@ -1160,12 +1168,57 @@ def _raster_streams() -> dict:
     return out
 
 
+def _tiff_codec_streams() -> dict:
+    """name -> bytes of TIFFs in the compressions libtiff decodes with code
+    of its own or libzstd's: ZSTD, raw-16, ThunderScan, old-style JPEG."""
+    rng = np.random.default_rng(31)
+    photo = make_image(rng, 40, 48)
+    pil = Image.fromarray(photo)
+    out = {"tiff_zstd.tif": pil_tiff(pil, compression="zstd")}
+    raw = photo.tobytes()
+    tags = {256: (4, (48,)), 257: (4, (40,)), 258: (3, (8, 8, 8)),
+            259: (3, (50000,)), 262: (3, (2,)), 277: (3, (3,)),
+            278: (4, (40,)), 284: (3, (1,))}
+    out["tiff_zstd_l1.tif"] = tiff_file(tags, [zstd(raw, 1)])
+    out["tiff_zstd_l19.tif"] = tiff_file(tags, [zstd(raw, 19)])
+    out["tiff_zstd_checksum.tif"] = tiff_file(tags, [zstd(
+        raw, 3, write_checksum=True, write_content_size=False)])
+    # libtiff reads one frame a strip: a second one is never read
+    out["tiff_zstd_two_frames.tif"] = tiff_file(tags, [
+        zstd(raw, 3) + zstd(raw[::-1], 3)])
+    skippable = struct.pack("<II", 0x184D2A53, 6) + b"f101sr"
+    out["tiff_zstd_skippable.tif"] = tiff_file(tags, [zstd(raw, 3)
+                                                      + skippable])
+    out["tiff_zstd_pred2.tif"] = tiff_image(photo, 8, 2, compression=50000,
+                                            predictor=2, rows_per_strip=16)
+    bw = pil.convert("1")
+    rows = [raw16(bw.crop((0, y, 48, y + 1))) for y in range(40)]
+    out["tiff_raw16_fill2.tif"] = tiff_file(
+        {256: (4, (48,)), 257: (4, (40,)), 258: (3, (1,)),
+         259: (3, (32771,)), 262: (3, (1,)), 266: (3, (2,)),
+         277: (3, (1,)), 278: (4, (1,))},
+        [bytes(int(f"{b:08b}"[::-1], 2) for b in r) for r in rows])
+    g4 = np.asarray(pil.convert("L")) >> 4
+    g4[:, 20:30] = g4[:, 20:21]  # a run of one value
+    out["tiff_thunderscan.tif"] = tiff_file(
+        {256: (4, (48,)), 257: (4, (40,)), 258: (3, (4,)),
+         259: (3, (32809,)), 262: (3, (1,)), 277: (3, (1,)),
+         278: (4, (20,))},
+        [thunderscan(g4[:20]), thunderscan(g4[20:])])
+    out["tiff_ojpeg_444.tif"] = ojpeg(photo, "jif", 0)
+    out["tiff_ojpeg_420.tif"] = ojpeg(photo, "jif_header", 2,
+                                      rows_per_strip=16)
+    out["tiff_ojpeg_tables.tif"] = ojpeg(photo, "tables", 1,
+                                         rows_per_strip=8)
+    return out
+
+
 def _port_refused_streams() -> dict:
     """name -> (bytes, the refusal's name) of streams the JAX server
     decodes and the port answers 415 naming what it lacks."""
-    rng = np.random.default_rng(31)
-    pil = Image.fromarray(make_image(rng, 40, 48))
-    return {"tiff_zstd.tif": (pil_tiff(pil, compression="zstd"), "ZSTD")}
+    rng = np.random.default_rng(37)
+    lab = make_image(rng, 40, 48)
+    return {"tiff_cielab.tif": (tiff_image(lab, 8, 8), "CIELab")}
 
 
 def _pil_feed_streams(enc) -> dict:

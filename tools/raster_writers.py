@@ -3,11 +3,12 @@ decoders are held against: layouts PIL's own writers do not make (tiles,
 ``PlanarConfiguration`` 2, predictors, BigTIFF, every bit depth and sample
 format of TIFF's pixel table, fill order 2, JPEG strips with and without
 ``JPEGTables``, ICO/CUR with BMP payloads) assembled with ``struct``,
-payloads from ``zlib``, ``lzma``, PIL's encoders or the small PackBits and
-LZW encoders here. The goldens are always PIL's decode of the result.
+payloads from ``zlib``, ``lzma``, ``zstandard``, PIL's encoders or the
+small PackBits, LZW and ThunderScan encoders here. The goldens are always
+PIL's decode of the result.
 
 Used by ``tools/export_port_assets.py --what jpeg`` and the port's tests;
-needs numpy and PIL, not JAX.
+needs numpy and PIL (and ``zstandard`` for ZSTD), not JAX.
 """
 from __future__ import annotations
 
@@ -25,10 +26,14 @@ _CODES = {1: "B", 3: "H", 4: "L", 6: "b", 8: "h", 9: "l", 11: "f", 12: "d",
 
 
 def tiff_file(tags: dict, chunks: list, order: str = "<", big: bool = False,
-              tiled: bool = False) -> bytes:
+              tiled: bool = False, skip_first: bool = False,
+              extra_offsets=None) -> bytes:
     """A TIFF whose first directory holds ``tags`` (tag -> (type, values),
     values a tuple of numbers, or bytes for types 1, 2 and 7) and the
-    strips (or tiles) ``chunks``, their offsets and byte counts filled in."""
+    strips (or tiles) ``chunks``, their offsets and byte counts filled in.
+    ``skip_first`` writes the first chunk but lists only the others;
+    ``extra_offsets`` replaces the offsets (the counts then run to the end
+    of the first chunk)."""
     e = order
     magic = (b"II" if e == "<" else b"MM") + struct.pack(e + "H",
                                                          43 if big else 42)
@@ -43,8 +48,15 @@ def tiff_file(tags: dict, chunks: list, order: str = "<", big: bool = False,
     tags = dict(tags)
     wide = 16 if big else 4
     off_tag, cnt_tag = (324, 325) if tiled else (273, 279)
+    counts = [len(c) for c in chunks]
+    if skip_first:
+        offsets, counts = offsets[1:], counts[1:]
+    if extra_offsets is not None:
+        end = offsets[0] + counts[0]
+        offsets = list(extra_offsets)
+        counts = [end - o for o in offsets]
     tags[off_tag] = (wide, tuple(offsets))
-    tags[cnt_tag] = (wide, tuple(len(c) for c in chunks))
+    tags[cnt_tag] = (wide, tuple(counts))
     ifd_pos = len(data)
     n = len(tags)
     inline, ent = (8, 20) if big else (4, 12)
@@ -185,9 +197,94 @@ def _predict(rows: np.ndarray, pred: int, bits: int, spp: int, order: str,
     return rows
 
 
+def zstd(raw: bytes, level: int = 9, **kw) -> bytes:
+    """A Zstandard frame from the ``zstandard`` module (libzstd): ``kw``
+    takes ZstdCompressor's write_checksum and write_content_size."""
+    import zstandard  # only the writers need it
+    return zstandard.ZstdCompressor(level=level, **kw).compress(raw)
+
+
+def thunderscan(samples: np.ndarray) -> bytes:
+    """(h, w) 4-bit samples as ThunderScan (32809) codes, every kind used:
+    runs of the last pixel, three 2-bit deltas (a "no delta" entry where
+    fewer are left), two 3-bit deltas, raw pixels. Each row starts from
+    pixel 0, as libtiff's decoder does."""
+    out = bytearray()
+    for row in samples.astype(int):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            run = 0
+            while i + run < w and row[i + run] == last and run < 63:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                i += run
+                continue
+            two = {0: 0, 1: 1, -1: 3}
+            d2, p = [], last
+            for v in row[i:i + 3]:
+                if (int(v) - p) not in two:
+                    break
+                d2.append(two[int(v) - p])
+                p = int(v)
+            if len(d2) >= 2 or (d2 and i + 1 == w):
+                codes = d2 + [2] * (3 - len(d2))
+                out.append(0x40 | codes[0] << 4 | codes[1] << 2 | codes[2])
+                last, i = p, i + len(d2)
+                continue
+            three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+            d3, p = [], last
+            for v in row[i:i + 2]:
+                if (int(v) - p) not in three:
+                    break
+                d3.append(three[int(v) - p])
+                p = int(v)
+            if d3:
+                codes = d3 + [4] * (2 - len(d3))
+                out.append(0x80 | codes[0] << 3 | codes[1])
+                last, i = p, i + len(d3)
+                continue
+            out.append(0xC0 | int(row[i]))
+            last, i = int(row[i]), i + 1
+    return bytes(out)
+
+
+def raw16(img: Image.Image) -> bytes:
+    """A bilevel image as raw-16 (32771) data: each row's Modified Huffman
+    codes padded to a 16-bit boundary. PIL's libtiff writer codes each row
+    alone (compression 2); its strip is cut to the fewest bytes PIL still
+    decodes to the row, as its encoder may flush bytes past the codes."""
+    bw = img.convert("1")
+    w = bw.size[0]
+    out = bytearray()
+    for y in range(bw.size[1]):
+        one = bw.crop((0, y, w, y + 1))
+        t = Image.open(io.BytesIO(pil_tiff(one, compression="tiff_ccitt")))
+        off, cnt = t.tag_v2[273][0], t.tag_v2[279][0]
+        t.fp.seek(off)
+        row = t.fp.read(cnt)
+        want = np.asarray(one)
+        tags = {256: (4, (w,)), 257: (4, (1,)), 258: (3, (1,)),
+                259: (3, (2,)), 262: (3, (t.tag_v2[262],)), 277: (3, (1,)),
+                278: (4, (1,))}
+        while len(row) > 1:
+            try:
+                got = np.asarray(Image.open(io.BytesIO(tiff_file(
+                    tags, [row[:-1]]))).convert("1"))
+            except OSError:
+                break
+            if not np.array_equal(got, want):
+                break
+            row = row[:-1]
+        out += row + b"\0" * (len(row) & 1)
+    return bytes(out)
+
+
 def compress(raw: bytes, compression: int) -> bytes:
     if compression == 1:
         return raw
+    if compression == 50000:
+        return zstd(raw)
     if compression == 32773:
         return packbits(raw)
     if compression == 5:
@@ -290,6 +387,104 @@ def jpeg_tables(strips: list) -> tuple:
                                     if m not in (0xDB, 0xC4, 0xE0))
              for s in strips]
     return tables, short
+
+
+def ojpeg(img: np.ndarray, layout: str = "jif", subsampling: int = 2,
+          rows_per_strip: int | None = None, quality: int = 85,
+          photometric: int = 6, drop_tags=()) -> bytes:
+    """An old-style JPEG (compression 6) TIFF of ``img`` (h, w, 3 uint8,
+    or (h, w) for one sample) from PIL's JPEG at ``subsampling``, with a
+    restart marker after each strip's MCU rows where there are several
+    strips. ``layout``:
+
+    * ``jif``: JPEGInterchangeFormat (513/514) points at the whole JPEG
+      stream, and StripOffsets at its scan data;
+    * ``jif_header``: JPEGInterchangeFormat holds the stream up to its
+      scan header, each strip the data of its restart interval;
+    * ``tables``: no stream header at all: the tables at JPEGQTables,
+      JPEGDCTables and JPEGACTables (one per sample, shared where the
+      offsets repeat), JPEGProc 1, and the strips' data as for
+      ``jif_header`` (libtiff rebuilds the frame from the directory);
+    * ``stream``: no JPEGInterchangeFormat; the first strip starts with the
+      stream's header.
+
+    ``drop_tags`` leaves those tags out (libtiff's defaults stand)."""
+    h, w = img.shape[:2]
+    gray = img.ndim == 2
+    vs = 1 if gray or subsampling == 0 else (1 if subsampling == 1 else 2)
+    rps = rows_per_strip or h
+    kw = {}
+    if rps < h:
+        if rps % (8 * vs):
+            raise ValueError("strips must hold whole MCU rows")
+        kw["restart_marker_rows"] = rps // (8 * vs)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=quality,
+                              subsampling=subsampling, **kw)
+    jpg = buf.getvalue()
+    sos = jpg.index(b"\xff\xda")
+    head_end = sos + 2 + struct.unpack_from(">H", jpg, sos + 2)[0]
+    scan = jpg[head_end:jpg.rindex(b"\xff\xd9")]
+    # the restart intervals' data, without their RSTn markers
+    parts, start = [], 0
+    for k in range(len(scan) - 1):
+        if scan[k] == 0xFF and 0xD0 <= scan[k + 1] <= 0xD7:
+            parts.append(scan[start:k])
+            start = k + 2
+    parts.append(scan[start:])
+    spp = 1 if gray else 3
+    tags = {256: (4, (w,)), 257: (4, (h,)), 258: (3, (8,) * spp),
+            259: (3, (6,)), 262: (3, (1 if gray else photometric,)),
+            277: (3, (spp,)), 278: (4, (rps,)), 284: (3, (1,))}
+    if not gray:
+        tags[530] = (3, (1 if subsampling == 0 else 2,
+                         1 if subsampling in (0, 1) else 2))
+    for t in drop_tags:
+        tags.pop(t, None)
+    if layout == "jif":
+        data = tiff_file({**tags, 513: (4, (0,)), 514: (4, (len(jpg),))},
+                         [jpg])
+        at = data.index(jpg)
+        return tiff_file({**tags, 513: (4, (at,)), 514: (4, (len(jpg),))},
+                         [jpg], extra_offsets=[at + head_end])
+    if layout == "jif_header":
+        head = jpg[:head_end]
+        data = tiff_file({**tags, 513: (4, (0,)), 514: (4, (len(head),))},
+                         [head] + parts)
+        at = data.index(head)
+        return tiff_file({**tags, 513: (4, (at,)), 514: (4, (len(head),))},
+                         [head] + parts, skip_first=True)
+    if layout == "stream":
+        return tiff_file(tags, [jpg[:head_end] + parts[0]] + parts[1:])
+    if layout != "tables":
+        raise ValueError(layout)
+    segs = {}
+    pos = 2
+    while pos < head_end:
+        m = jpg[pos + 1]
+        n = struct.unpack_from(">H", jpg, pos + 2)[0]
+        body, q = jpg[pos + 4:pos + 2 + n], 0
+        while m in (0xDB, 0xC4) and q < len(body):
+            size = 65 if m == 0xDB else 17 + sum(body[q + 1:q + 17])
+            segs[(m, body[q])] = body[q + 1:q + size]
+            q += size
+        pos += 2 + n
+    qt = [segs[(0xDB, 0)], segs[(0xDB, 1 if not gray else 0)]]
+    dc = [segs[(0xC4, 0x00)], segs[(0xC4, 0x01 if not gray else 0x00)]]
+    ac = [segs[(0xC4, 0x10)], segs[(0xC4, 0x11 if not gray else 0x10)]]
+    blob = b"".join(qt + dc + ac)
+    pre = [0, len(qt[0]), len(qt[0]) + len(qt[1])]
+    pre += [pre[2] + len(dc[0]), pre[2] + len(dc[0]) + len(dc[1])]
+    pre += [pre[4] + len(ac[0])]
+    data = tiff_file({**tags, 512: (3, (1,))}, [blob] + parts,
+                     skip_first=True)
+    at = data.index(blob)
+    idx = (0,) if gray else (0, 1, 1)
+    return tiff_file({**tags, 512: (3, (1,)),
+                      519: (4, tuple(at + pre[i] for i in idx)),
+                      520: (4, tuple(at + pre[2 + i] for i in idx)),
+                      521: (4, tuple(at + pre[4 + i] for i in idx))},
+                     [blob] + parts, skip_first=True)
 
 
 def pil_tiff(img: Image.Image, **kw) -> bytes:

@@ -4,16 +4,22 @@ server's decoder), on the CPU: where does ``native.decode_image`` answer
 otherwise than ``Image.open(...).convert("RGB")``?
 
     python3 tools/tiff_differential.py [--what cuts,flips,dirs] \\
-        [--seeds 21,22,...] [--files_per_seed 400]
+        [--seeds 21,22,...] [--files_per_seed 400] [--streams a,b,...]
 
 * ``cuts``: CCITT T.4 (1-D and 2-D) files PIL writes, 8 seeded bilevel
-  images (random and text-like, one strip and several), the first and
-  the second strip's byte count cut at every length;
+  images (random and text-like, one strip and several), and ZSTD,
+  raw-16, ThunderScan and old-style JPEG files (4 seeded images each,
+  several strips), the first and the second strip's byte count cut at
+  every length;
 * ``flips``: 1-3 seeded bit flips in the strips of multi-strip T.4 1-D,
-  T.4 2-D, T.6 and Modified Huffman files, 720 files a compression;
+  T.4 2-D, T.6 and Modified Huffman files, 720 files a compression, and
+  of the ZSTD (with and without predictor 2), raw-16, ThunderScan and
+  old-style JPEG files (three layouts) and PIL's LZMA files, 240 files
+  each;
 * ``dirs``: 1-3 seeded bit flips of the committed TIFF streams
-  (``food101_sr_tpu_torch/assets/jpeg/``), 70% of them in the first
-  directory, ``--files_per_seed`` files a seed.
+  (``food101_sr_tpu_torch/assets/jpeg/``; ``--streams`` names which, all
+  by default), 70% of them in the first directory, ``--files_per_seed``
+  files a seed.
 
 A file differs in outcome where one side decodes and the other raises
 (or answers 415), in pixels where both decode to other pixels. Prints one
@@ -36,7 +42,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from food101_sr_tpu_torch import native  # noqa: E402
-from tools.raster_writers import pil_tiff  # noqa: E402
+from tools.raster_writers import (ojpeg, pil_tiff, raw16,  # noqa: E402
+                                  thunderscan, tiff_file, tiff_image)
 
 JPEG_ASSETS = os.path.join(ROOT, "food101_sr_tpu_torch", "assets", "jpeg")
 CUT_IMAGES = [(24, 45, "random", 6), (40, 61, "random", 8),
@@ -91,6 +98,78 @@ def ccitt(h, w, seed, kind, rows, compression, info) -> bytes:
         TiffImagePlugin.STRIP_SIZE = old
 
 
+def photo(h, w, seed) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([np.sin(xx / 5.0 + c) * 60 + np.cos(yy / 7.0 - c) * 50
+                     + 128 for c in range(3)], 2)
+    return np.clip(base + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(
+        np.uint8)
+
+
+def codec_file(kind, seed) -> bytes:
+    """A seeded 40x48 TIFF of several strips in one of the compressions
+    libtiff decodes with its own code or libzstd's (or PIL's LZMA TIFF,
+    one strip)."""
+    img = photo(40, 48, seed)
+    if kind == "lzma":  # PIL's writer: libtiff's delta + LZMA2 chain
+        return pil_tiff(Image.fromarray(img), compression="lzma")
+    if kind in ("zstd", "zstd_pred2"):
+        return tiff_image(img, 8, 2, compression=50000, rows_per_strip=8,
+                          predictor=2 if kind == "zstd_pred2" else 1)
+    if kind == "raw16":
+        bw = Image.fromarray(img).convert("1")
+        return tiff_file({256: (4, (48,)), 257: (4, (40,)), 258: (3, (1,)),
+                          259: (3, (32771,)), 262: (3, (1,)), 277: (3, (1,)),
+                          278: (4, (8,))},
+                         [raw16(bw.crop((0, y, 48, y + 8)))
+                          for y in range(0, 40, 8)])
+    if kind == "thunderscan":
+        g = np.asarray(Image.fromarray(img).convert("L")) >> 4
+        return tiff_file({256: (4, (48,)), 257: (4, (40,)), 258: (3, (4,)),
+                          259: (3, (32809,)), 262: (3, (1,)), 277: (3, (1,)),
+                          278: (4, (8,))},
+                         [thunderscan(g[y:y + 8]) for y in range(0, 40, 8)])
+    layout, sub = {"ojpeg_tables": ("tables", 2),
+                   "ojpeg_header": ("jif_header", 1),
+                   "ojpeg_stream": ("stream", 0)}[kind]
+    return ojpeg(img, layout, sub, rows_per_strip=16 if sub == 2 else 8)
+
+
+CODECS = ("zstd", "raw16", "thunderscan", "ojpeg_tables")
+FLIP_CODECS = ("zstd", "zstd_pred2", "raw16", "thunderscan", "ojpeg_tables",
+               "ojpeg_header", "ojpeg_stream", "lzma")
+
+
+def codec_cuts(kind):
+    for s in range(4):
+        data = codec_file(kind, s)
+        counts = Image.open(io.BytesIO(data)).tag_v2[279]
+        packed = struct.pack(f"<{len(counts)}L", *counts)
+        at = data.index(packed)
+        for strip in (0, 1):
+            for n in range(1, counts[strip] + 1):
+                c = list(counts)
+                c[strip] = n
+                yield ([kind, s, strip, n],
+                       data[:at] + struct.pack(f"<{len(c)}L", *c)
+                       + data[at + len(packed):])
+
+
+def codec_flips(kind):
+    for s in range(4):
+        data = codec_file(kind, s)
+        t = Image.open(io.BytesIO(data)).tag_v2
+        lo = min(t[273])
+        hi = max(o + c for o, c in zip(t[273], t[279]))
+        rng = np.random.default_rng(s)
+        for k in range(60):
+            b = bytearray(data)
+            for _ in range(1 + k % 3):
+                b[int(rng.integers(lo, hi))] ^= 1 << int(rng.integers(0, 8))
+            yield [kind, s, k], bytes(b)
+
+
 def tally(name, cases) -> dict:
     out = {"sweep": name, "files": 0, "outcome": 0, "pixels": 0,
            "first": []}
@@ -137,11 +216,12 @@ def flips(compression, info):
                 yield [h, w, s, k], bytes(b)
 
 
-def dirs(seeds, per_seed):
+def dirs(seeds, per_seed, streams=None):
     with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
         goldens = json.load(f)["streams"]
     names = sorted(n for n, g in goldens.items()
-                   if g["file"].endswith(".tif"))
+                   if g["file"].endswith(".tif")
+                   and (streams is None or n in streams))
     for sd in seeds:
         rng = np.random.default_rng(sd)
         for k in range(per_seed):
@@ -166,12 +246,17 @@ def main(argv=None) -> int:
     p.add_argument("--what", default="cuts,flips,dirs")
     p.add_argument("--seeds", default="21,22,23,24,25,26,27,28")
     p.add_argument("--files_per_seed", type=int, default=400)
+    p.add_argument("--streams", default=None,
+                   help="the committed TIFF streams the dirs sweep flips")
     a = p.parse_args(argv)
     what = a.what.split(",")
     if "cuts" in what:
         for twod in (False, True):
             print(json.dumps(tally(f"T.4 {'2' if twod else '1'}-D cuts",
                                    cuts(twod))), flush=True)
+        for kind in CODECS:
+            print(json.dumps(tally(f"{kind} cuts", codec_cuts(kind))),
+                  flush=True)
     if "flips" in what:
         for comp, info, name in (("group3", {}, "T.4 1-D"),
                                  ("group3", {292: 1}, "T.4 2-D"),
@@ -179,10 +264,15 @@ def main(argv=None) -> int:
                                  ("tiff_ccitt", {}, "MH")):
             print(json.dumps(tally(f"{name} flips", flips(comp, info))),
                   flush=True)
+        for kind in FLIP_CODECS:
+            print(json.dumps(tally(f"{kind} flips", codec_flips(kind))),
+                  flush=True)
     if "dirs" in what:
         seeds = [int(x) for x in a.seeds.split(",")]
+        streams = a.streams.split(",") if a.streams else None
         print(json.dumps(tally("directory flips",
-                               dirs(seeds, a.files_per_seed))), flush=True)
+                               dirs(seeds, a.files_per_seed, streams))),
+              flush=True)
     return 0
 
 
