@@ -57,11 +57,19 @@ Phases, one short line each; any failure raises and the exit code is 1:
           skippable frame, predictor 2), raw-16, ThunderScan, old-style
           JPEG (4:4:4, 4:2:0 in restart strips, rebuilt tables);
           binary and plain PPM, 16-bit PGM, PFM, ICO with PNG and with
-          BMP entries, CUR, QOI: assets/jpeg/streams/), each 200, one device batch
+          BMP entries, CUR, QOI; and what PIL's opener walk reaches past
+          those: TGA (the uncompressed RGB PIL writes, whose first bytes
+          are CUR's signature, RGBA, RLE, grey, palette, LA, 16-bit,
+          mirrored RLE, literals across rows, a 16-bit colour map), DIB,
+          PCX (RGB, palette, grey, 1-bit, 2 and 4 bit planes), DCX, SGI
+          (raw 8- and 16-bit, RLE), Sun raster (types 1-3, 1- and
+          32-bit), IM, IMT, IPTC, SPIDER: assets/jpeg/streams/), each 200, one device batch
           (K2 NHWC launched once per block), decoded to the JAX server's
           digest and answered with the PNG of SRServer.upscale byte for
           byte, with each class's decode ms on the host ("codec
-          numbers:" line); /healthz
+          numbers:" line, which also times a PhotoCD built here
+          (768 x 512, held to its golden) and an 800 x 608 uncompressed
+          TGA built from a seeded array, held to that array); /healthz
           "jpeg": true; the SRCNN asset's responses (TF32 off) within 1 level of the
           JAX package's goldens, and its bf16 distance; a --tta server's
           responses within 1 level of the eight dihedral forwards averaged
@@ -710,6 +718,33 @@ def jpeg_test_image(h: int, w: int, seed: int, noise: int = 24) -> np.ndarray:
     blocks = ((xx // 37 + yy // 29) % 3)[..., None] * 40
     noise = rng.integers(-noise, noise + 1, (h, w, 3))
     return np.clip(ramp // 2 + blocks + noise + 20, 0, 255).astype(np.uint8)
+
+
+def pcd_stream(orientation: int = 1) -> bytes:
+    """A Kodak PhotoCD holding what PIL reads of one ("PCD_" at 2048, the
+    orientation byte, the 768 x 512 base image at 96 x 2048 in chunks of
+    two luma rows and a half-width row each of C1 and C2), its samples
+    integer patterns, so every host makes the same bytes (its golden is
+    PIL's decode)."""
+    yy, xx = np.mgrid[0:512, 0:768]
+    luma = (3 * yy + 5 * xx + (xx // 64) * 29) % 256
+    cy, cx = np.mgrid[0:256, 0:384]
+    c1, c2 = (7 * cy + cx) % 256, (cy + 11 * cx) % 256
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    body = np.concatenate([luma.reshape(256, 2 * 768), c1, c2], axis=1)
+    return bytes(head) + body.astype(np.uint8).tobytes()
+
+
+def tga_photo(h: int = 608, w: int = 800, seed: int = 5) -> tuple:
+    """(an uncompressed bottom-up true-colour TGA of a seeded (h, w, 3)
+    image, that image): an 18-byte header and BGR rows, the upload size
+    of the JPEG encode numbers."""
+    img = jpeg_test_image(h, w, seed)
+    head = bytes([0, 0, 2]) + bytes(9) + np.array([w, h], "<u2").tobytes() \
+        + bytes([24, 0])
+    return head + img[::-1, :, ::-1].tobytes(), img
 
 
 def sha256(a) -> str:
@@ -2639,7 +2674,35 @@ CODEC_UPLOADS = {"arithmetic JPEG": "arith.jpg",
                  "16-bit PGM": "pgm16.pgm", "PFM": "pfm.pfm",
                  "ICO with a PNG": "ico_png.ico",
                  "ICO with BMPs": "ico_bmp.ico",
-                 "CUR with a BMP": "cur_bmp.cur", "QOI RGBA": "qoi_rgba.qoi"}
+                 "CUR with a BMP": "cur_bmp.cur", "QOI RGBA": "qoi_rgba.qoi",
+                 "TGA RGB (CUR's signature)": "tga_rgb.tga",
+                 "TGA RGBA": "tga_rgba.tga", "TGA RLE RGB": "tga_rle_rgb.tga",
+                 "TGA grey": "tga_gray.tga", "TGA palette": "tga_palette.tga",
+                 "TGA RLE palette": "tga_rle_palette.tga",
+                 "TGA LA with an ID": "tga_la.tga", "TGA 16-bit": "tga_16.tga",
+                 "TGA RLE, mirrored": "tga_rle_crossing.tga",
+                 "TGA RLE, literals across rows": "tga_rle_literals.tga",
+                 "TGA 16-bit colour map after a start":
+                     "tga_map16_start.tga",
+                 "DIB RGB": "dib_rgb.dib", "DIB palette": "dib_palette.dib",
+                 "PCX RGB": "pcx_rgb.pcx", "PCX palette": "pcx_palette.pcx",
+                 "PCX grey": "pcx_gray.pcx", "PCX 1-bit": "pcx_1bit.pcx",
+                 "PCX 4 bit planes": "pcx_4plane.pcx",
+                 "PCX 2 bit planes": "pcx_2plane.pcx", "DCX": "dcx.dcx",
+                 "SGI RGB": "sgi_rgb.sgi", "SGI grey": "sgi_gray.sgi",
+                 "SGI RGBA 16-bit": "sgi_rgba16.sgi",
+                 "SGI RLE RGB": "sgi_rle_rgb.sgi",
+                 "SGI RLE grey 16-bit": "sgi_rle_gray16.sgi",
+                 "Sun raster 24-bit": "sun_rgb.ras",
+                 "Sun raster RGB (type 3)": "sun_rgb_type3.ras",
+                 "Sun raster RLE, colour map": "sun_rle_palette.ras",
+                 "Sun raster 1-bit": "sun_1bit.ras",
+                 "Sun raster 32-bit": "sun_32.ras", "IM RGB": "im_rgb.im",
+                 "IM palette": "im_palette.im", "IMT": "imt.imt",
+                 "IPTC raw": "iptc_raw.iptc",
+                 "IPTC JPEG in one band": "iptc_jpeg_band.iptc",
+                 "SPIDER": "spider.spider",
+                 "SPIDER little-endian": "spider_le.spider"}
 
 
 def _codec_uploads() -> dict:
@@ -2734,6 +2797,8 @@ def phase_http(rates) -> tuple[dict, dict]:
         native._webp_lib()
         native.tiff_lib()
         native.tiff.zstd_lib()
+        from food101_sr_tpu_torch.native.legacy import legacy_lib
+        legacy_lib()
         jpeg_body = native.encode_jpeg_rgb8(small[0], 95)
         jpeg_imgs = [rng.integers(0, 256, (64, 64, 3), np.uint8)
                      for _ in range(JPEG_ROUND)]
@@ -2856,9 +2921,25 @@ def phase_http(rates) -> tuple[dict, dict]:
                                      1, 20) / 1e3
         shapes = {n: list(native.decode_image(b).shape[:2])
                   for n, (b, _) in uploads.items()}
+        sizes = {n: len(b) for n, (b, _) in uploads.items()}
+        # decoded only (a 768 x 512 or 800 x 608 upload is many batches)
+        with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
+            pcd_gold = json.load(f)["generated"]["pcd"]
+        tga_body, tga_img = tga_photo()
+        for name, body, ok in (
+                ("PhotoCD (built here)", pcd_stream(),
+                 lambda px: sha256(px) == pcd_gold["served_sha256"]),
+                ("TGA 800x608 uncompressed (built here)", tga_body,
+                 lambda px: np.array_equal(px, tga_img))):
+            px = native.decode_image(body)
+            if not ok(px):
+                raise AssertionError(f"{name}: decode differs from the JAX "
+                                     "server's")
+            codec_ms[name] = host_us(lambda b=body: native.decode_image(b),
+                                     1, 20) / 1e3
+            shapes[name], sizes[name] = list(px.shape[:2]), len(body)
         print("codec numbers: " + json.dumps(
-            {"decode_ms": codec_ms, "shape": shapes,
-             "bytes": {n: len(b) for n, (b, _) in uploads.items()}}),
+            {"decode_ms": codec_ms, "shape": shapes, "bytes": sizes}),
               flush=True)
 
         # the SRCNN asset in f32 against the JAX package's goldens

@@ -45,6 +45,13 @@ one codec for another:
   stdlib, JPEG and old-style JPEG with ``fast_jpeg.cpp``), Netpbm, ICO,
   CUR and QOI (``rasters.py``; QOI's ops in ``fast_tiff.cpp``), decoded as
   PIL's ``convert("RGB")``.
+- The request decoder :func:`decode_image` is PIL's ``Image.open`` walk
+  (``openers.py``): each format in Pillow 12.1's ``Image.ID`` order by
+  its test of the first 16 bytes, a header that PIL's plugin rejects
+  falling through to the next (:class:`NotThisFormat`). It reaches DIB,
+  TGA, IM, IMT, IPTC, PhotoCD, SPIDER, PCX/DCX, SGI and Sun raster too
+  (``legacy.py``; run-length loops and PhotoCD's YCC conversion in
+  ``fast_legacy.cpp``).
 - The other formats PIL opens, and the TIFF colour spaces ``tiff.py``
   names (CIELab), raise :class:`UnsupportedImage` naming them.
 
@@ -82,6 +89,13 @@ MAX_PIXELS = 178_956_970
 class UnsupportedImage(ValueError):
     """An image in a format, variant or codec this host cannot decode or
     encode (the HTTP server answers 415 with the message)."""
+
+
+class NotThisFormat(ValueError):
+    """Bytes a format's header parse rejects where PIL's ``_open`` raises
+    an exception that ``Image.open`` catches: the request decoder's walk
+    (``openers.py``) goes on to the next format; called alone, a decoder
+    that raises it has refused the bytes like any ValueError."""
 
 
 def _load(stem: str, link: tuple, register) -> Optional[ctypes.CDLL]:
@@ -192,18 +206,18 @@ def _png_parts(data: bytes) -> tuple:
     ihdr = plte = None
     while True:
         if pos + 8 > len(data):
-            raise ValueError("PNG: truncated before the image data")
+            raise NotThisFormat("PNG: truncated before the image data")
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         if ctype == b"IDAT":
             break
         end = pos + 8 + length
         if end + 4 > len(data):
-            raise ValueError(f"PNG: truncated {ctype!r} chunk")
+            raise NotThisFormat(f"PNG: truncated {ctype!r} chunk")
         body = data[pos + 8:end]
         if zlib.crc32(ctype + body) != struct.unpack(">I", data[end:end + 4])[0]:
-            raise ValueError(f"PNG: bad CRC in {ctype!r} chunk")
+            raise NotThisFormat(f"PNG: bad CRC in {ctype!r} chunk")
         if ctype == b"IEND":
-            raise ValueError("PNG: no image data")
+            raise NotThisFormat("PNG: no image data")
         if ctype == b"IHDR":
             ihdr = body
         elif ctype == b"PLTE":
@@ -287,15 +301,18 @@ def decode_png_rgb8(data: bytes) -> np.ndarray:
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG")
     ihdr, plte, idat = _png_parts(data)
-    if ihdr is None or len(ihdr) != 13:
-        raise ValueError("PNG: no IHDR, or a bad one")
+    if ihdr is None:  # PIL's plugin leaves no mode: not identified
+        raise NotThisFormat("PNG: no IHDR")
+    if len(ihdr) != 13:
+        raise ValueError("PNG: a bad IHDR")
     if plte is not None:
         plte = np.frombuffer(plte, np.uint8)
     w, h, depth, color, comp, filt, interlace = struct.unpack(">IIBBBBB", ihdr)
     if color not in _PNG_TYPES or depth not in _PNG_TYPES[color][1]:
-        raise ValueError(f"PNG: invalid color type {color} at depth {depth}")
+        raise NotThisFormat(f"PNG: invalid color type {color} at depth "
+                            f"{depth}")
     if comp or filt or interlace > 1 or w == 0 or h == 0:
-        raise ValueError("PNG: bad IHDR")
+        raise NotThisFormat("PNG: bad IHDR")
     if w * h > MAX_PIXELS:
         raise ValueError(f"PNG: {w}x{h} exceeds {MAX_PIXELS} pixels")
     channels = _PNG_TYPES[color][0]
@@ -395,9 +412,9 @@ def decode_jpeg_rgb8(data: bytes, *, strict: bool = False) -> np.ndarray:
     refuses by name, ValueError for a broken one."""
     lib = _jpeg_lib()
     dims = jpeg_dims(data)
-    if dims is None:
-        raise ValueError(f"JPEG: header does not parse "
-                         f"({lib.fastjpeg_error().decode()})")
+    if dims is None:  # PIL's marker walk fails there too ("no marker")
+        raise NotThisFormat(f"JPEG: header does not parse "
+                            f"({lib.fastjpeg_error().decode()})")
     w, h = dims
     if w * h > MAX_PIXELS:
         raise ValueError(f"JPEG: {w}x{h} exceeds {MAX_PIXELS} pixels")
@@ -532,7 +549,7 @@ def decode_gif_rgb8(data: bytes) -> np.ndarray:
     transparency = None
     while True:
         if pos >= len(data) or data[pos] == 0x3B:
-            raise ValueError("GIF: no image in the file")
+            raise NotThisFormat("GIF: no image in the file")
         b = data[pos]
         pos += 1
         if b == 0x21:  # extension: the graphic control one has transparency
@@ -1056,76 +1073,33 @@ def decode_webp_rgb8(data: bytes) -> np.ndarray:
 # the request decoder
 # ---------------------------------------------------------------------------
 
-# formats PIL decodes that are recognised by their first bytes but not
-# decoded here (answered 415). Bytes no PIL plugin with a signature
-# accepts (JBIG2, HEIC) and the formats PIL identifies but cannot load
-# (its BUFR, GRIB, HDF5 and WMF stubs, MPEG, EPS without Ghostscript) are
-# ValueError (400): PIL's failure is the JAX server's 400
-_OTHER_FORMATS = ((b"8BPS", "PSD"), (b"DDS ", "DDS"),
-                  (b"\xffO\xffQ", "JPEG 2000"),
-                  (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-                  (b"icns", "ICNS"))
-# the ISO-BMFF brands PIL's AVIF plugin accepts
-_AVIF_BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
-_TIFF_PREFIXES = (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*",
-                  b"MM\x00+", b"II+\x00")
-_DECODED = "PNG, JPEG, GIF, BMP, WebP, TIFF, Netpbm, ICO, CUR and QOI"
-
-
 def decode_image(data: bytes) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, as PIL's ``Image.open(...)
     .convert("RGB")`` gives them (how the JAX package's server decodes an
-    upload), by the format's signature: PNG (:func:`decode_png_rgb8`),
-    JPEG (:func:`decode_jpeg_rgb8` with ``strict``: a stream cut short or
-    an arithmetic-coded scan past PIL's 64 KiB read block raises where
-    PIL's ``load()`` does), GIF (:func:`decode_gif_rgb8`), BMP
-    (:func:`decode_bmp_rgb8`), WebP (:func:`decode_webp_rgb8`), TIFF
-    (:func:`decode_tiff_rgb8`), Netpbm (:func:`decode_netpbm_rgb8`), ICO
-    (:func:`decode_ico_rgb8`), CUR (:func:`decode_cur_rgb8`) or QOI
-    (:func:`decode_qoi_rgb8`). Raises :class:`UnsupportedImage` naming a
-    recognised format the port does not decode (PSD, JPEG 2000, AVIF and
-    the others PIL decodes), a TIFF colour space it does not decode
-    (CIELab; YCbCr JPEG or old-style JPEG in separate planes), arithmetic
-    lossless (SOF11) JPEG, or a codec that did not build here; ValueError for bytes that are no image,
-    a broken one, or one PIL refuses (12-bit and hierarchical JPEG, JBIG2,
-    HEIC and PIL's stub formats among them)."""
-    if data.startswith(PNG_SIGNATURE):
-        return decode_png_rgb8(data)
-    if data.startswith(b"\xff\xd8\xff"):
-        _jpeg_lib()  # a codec that did not build stays 415, named
-        try:
-            return decode_jpeg_rgb8(data, strict=True)
-        except UnsupportedImage as e:
-            if "SOF11" in str(e):  # no tool writes one: PIL's answer unknown
-                raise
-            raise ValueError(f"{e} (PIL refuses it too)") from None
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return decode_gif_rgb8(data)
-    if data.startswith(b"BM"):
-        return decode_bmp_rgb8(data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return decode_webp_rgb8(data)
-    if data[:4] in _TIFF_PREFIXES:
-        tiff_lib()  # a unit that did not build stays 415, named
-        return decode_tiff_rgb8(data)
-    if is_netpbm(data):
-        return decode_netpbm_rgb8(data)
-    if data.startswith(b"\x00\x00\x01\x00"):
-        return decode_ico_rgb8(data)
-    if data.startswith(b"\x00\x00\x02\x00"):
-        return decode_cur_rgb8(data)
-    if data.startswith(b"qoif"):
-        tiff_lib()
-        return decode_qoi_rgb8(data)
-    name = next((n for m, n in _OTHER_FORMATS if data.startswith(m)), None)
-    if name is None and data[4:8] == b"ftyp" and data[8:12] in _AVIF_BRANDS:
-        name = "AVIF/HEIF"
-    if name is not None:
-        raise UnsupportedImage(f"{name} is not supported ({_DECODED} only)")
-    raise ValueError(f"not a {_DECODED.replace(' and ', ' or ')} image")
+    upload): PIL's opener walk (``openers.py``: each format's test of the
+    first 16 bytes in ``Image.ID`` order, a header that fails falling
+    through to the next, six formats tried on any bytes), then the load
+    step of the format that opened. Decoded: PNG
+    (:func:`decode_png_rgb8`), JPEG (:func:`decode_jpeg_rgb8` with
+    ``strict``: a stream cut short or an arithmetic-coded scan past PIL's
+    64 KiB read block raises where PIL's ``load()`` does), GIF
+    (:func:`decode_gif_rgb8`), BMP (:func:`decode_bmp_rgb8`) and DIB,
+    WebP (:func:`decode_webp_rgb8`), TIFF (:func:`decode_tiff_rgb8`),
+    Netpbm, ICO, CUR and QOI (``rasters.py``), and TGA, PCX, DCX, SGI, Sun
+    raster, IM, IMT, IPTC, PhotoCD and SPIDER (``legacy.py``). Raises
+    :class:`UnsupportedImage` naming a format PIL decodes and the port
+    does not (PSD, JPEG 2000, AVIF, XBM and the others of the walk), a
+    variant it does not decode (CIELab TIFF; YCbCr JPEG or old-style JPEG
+    TIFF in separate planes; some IM modes), arithmetic lossless (SOF11)
+    JPEG, or a codec that did not build here; ValueError for bytes no
+    opener takes, a broken image, or one PIL refuses (12-bit and
+    hierarchical JPEG, JBIG2, HEIC and PIL's stub formats among them)."""
+    return open_image(data).load()
 
 
-# the TIFF, Netpbm, ICO, CUR and QOI decoders (they use the codecs above)
+# the TIFF, Netpbm, ICO, CUR and QOI decoders and the walk (they use the
+# codecs above)
 from .tiff import decode_tiff_rgb8, tiff_lib  # noqa: E402
 from .rasters import (decode_cur_rgb8, decode_ico_rgb8,  # noqa: E402
                       decode_netpbm_rgb8, decode_qoi_rgb8, is_netpbm)
+from .openers import open_image  # noqa: E402

@@ -21,7 +21,8 @@ import struct
 
 import numpy as np
 
-from . import MAX_PIXELS, PNG_SIGNATURE, decode_bmp_rgb8, decode_png_rgb8
+from . import (MAX_PIXELS, PNG_SIGNATURE, NotThisFormat, decode_bmp_rgb8,
+               decode_png_rgb8)
 from .tiff import tiff_lib, to_rgb, unpacker
 
 # ---------------------------------------------------------------------------
@@ -249,8 +250,8 @@ def _dib_as_bmp(data: bytes, pos: int) -> tuple:
     (the XOR image): (bmp bytes, the pixel data's offset in ``data``, width,
     half height), with PIL's DibImageFile offsets (pixels right after the
     header, its bit masks and palette)."""
-    if pos + 4 > len(data):
-        raise ValueError("ICO/CUR: truncated bitmap header")
+    if pos + 4 > len(data):  # struct.error in PIL's _bitmap
+        raise NotThisFormat("ICO/CUR: truncated bitmap header")
     hsize = struct.unpack_from("<I", data, pos)[0]
     if pos + hsize > len(data) or hsize < 12:
         raise ValueError("ICO/CUR: truncated bitmap header")
@@ -290,7 +291,7 @@ def decode_ico_rgb8(data: bytes) -> np.ndarray:
     for i in range(n):
         s = data[6 + 16 * i:22 + 16 * i]
         if len(s) < 16:
-            raise ValueError("ICO: truncated directory")
+            raise NotThisFormat("ICO: truncated directory")
         colors, bpp = s[2], struct.unpack_from("<H", s, 6)[0]
         depth = bpp or (colors != 0 and math.ceil(math.log(colors, 2))) or 256
         w, h = s[0] or 256, s[1] or 256
@@ -298,7 +299,7 @@ def decode_ico_rgb8(data: bytes) -> np.ndarray:
                             size=struct.unpack_from("<I", s, 8)[0],
                             offset=struct.unpack_from("<I", s, 12)[0]))
     if not entries:
-        raise ValueError("ICO: no images")
+        raise NotThisFormat("ICO: no images")
     entries.sort(key=lambda e: e["depth"])
     entries.sort(key=lambda e: e["square"], reverse=True)
     e = entries[0]
@@ -332,11 +333,11 @@ def decode_cur_rgb8(data: bytes) -> np.ndarray:
         if not m:
             m = s
         elif len(s) < 2:
-            raise ValueError("CUR: truncated directory")
+            raise NotThisFormat("CUR: truncated directory")
         elif s[0] > m[0] and s[1] > m[1]:
             m = s
     if len(m) < 16:
-        raise ValueError("CUR: no cursors, or a truncated directory")
+        raise NotThisFormat("CUR: no cursors, or a truncated directory")
     # offset 0 reads on where the directory ends (PIL does not seek)
     off = struct.unpack_from("<I", m, 12)[0] or min(6 + 16 * n, len(data))
     bmp, _, w, h = _dib_as_bmp(data, off)

@@ -62,6 +62,8 @@ NEW_MODULES = ("food101_sr_tpu_torch.analyze_models",
                "food101_sr_tpu_torch.models.rrdb",
                "food101_sr_tpu_torch.models.srcnn",
                "food101_sr_tpu_torch.native",
+               "food101_sr_tpu_torch.native.legacy",
+               "food101_sr_tpu_torch.native.openers",
                "food101_sr_tpu_torch.ops.pixel_shuffle",
                "food101_sr_tpu_torch.ops.quantize",
                "food101_sr_tpu_torch.ops.subpixel_conv",
@@ -202,6 +204,25 @@ def test_zstd_codec_uses_no_library():
     so = tiff.zstd_lib()._name
     deps = subprocess.run(["ldd", so], capture_output=True, text=True).stdout
     assert "zstd" not in deps.replace(so, "").lower()
+
+
+def test_legacy_raster_codec_uses_no_library():
+    """The TGA, PCX, SGI, Sun and PhotoCD loops are the port's own:
+    fast_legacy.cpp includes only the C++ standard library, its build
+    links nothing, and the walk and the legacy decoders import no image
+    module (PIL's plugins are read, not called)."""
+    src = ROOT / "food101_sr_tpu_torch" / "native" / "fast_legacy.cpp"
+    includes = [ln.split()[1] for ln in src.read_text().splitlines()
+                if ln.lstrip().startswith("#include")]
+    assert includes and all(i.startswith("<c") for i in includes), includes
+    from food101_sr_tpu_torch.native import legacy
+    so = legacy.legacy_lib()._name
+    deps = subprocess.run(["ldd", so], capture_output=True, text=True).stdout
+    for lib in ("png", "jpeg", "tiff", "webp", "zstd", "python"):
+        assert lib not in deps.replace(so, "").lower(), deps
+    for name in ("legacy.py", "openers.py"):
+        roots = _imported_roots(src.parent / name)
+        assert not roots & set(FORBIDDEN), (name, roots)
 
 
 # mean_kernel dispatches by layout to two counted entry points

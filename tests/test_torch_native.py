@@ -18,6 +18,7 @@ from PIL import Image
 
 from food101_sr_tpu import native as jax_native
 from food101_sr_tpu_torch import _build, native
+from food101_sr_tpu_torch.native import openers
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools.export_port_assets import _png  # noqa: E402
@@ -253,6 +254,22 @@ _SIGNATURES = {
            b"%%EndComments\nshowpage\n%%EOF\n",
     "WMF": b"\xd7\xcd\xc6\x9a\x00\x00" + struct.pack("<hhhhH", 0, 0, 16,
                                                          16, 72),
+    # formats PIL decodes that the port's opener walk refuses by name
+    "BLP": b"BLP1\x00\x00\x00\x00\x08\x00\x00\x00",
+    "BLP BLP2": b"BLP2\x01\x02\x08\x00\x10\x00\x00\x00",
+    "FITS": b"SIMPLE  =                    T",
+    "FTEX": b"FTEX\x00\x00\x00\x00",
+    "MSP": b"DanM\x10\x00\x10\x00",
+    "MSP LinS": b"LinS\x10\x00\x10\x00",
+    "PIXAR": b"\x80\xe8\x00\x00",
+    "XPM": b"/* XPM */\nstatic char *x[] = {\n",
+    "XV thumbnail": b"P7 332\n#XVVERSION\n",
+    "XBM": b"\n #define im_width 8\n#define im_height 8\n",
+    "GBR": struct.pack(">5I", 28, 2, 4, 4, 1) + b"GIMP" + bytes(4),
+    "FLI": bytes(4) + struct.pack("<HHHH", 0xAF11, 1, 8, 8) + bytes(4)
+           + bytes(108) + bytes(16),
+    "McIdas": bytes(7) + b"\x04" + bytes(24) + struct.pack(">iii", 4, 4, 1)
+              + bytes(220),
 }
 
 
@@ -308,11 +325,13 @@ def test_refusals_follow_pil_plugins(name):
 
 
 def test_refused_signatures_are_all_held_to_pil():
-    """Every signature the port refuses by name is among the headers
-    above, so the test before holds each one to PIL's plugins."""
-    for magic, _ in native._OTHER_FORMATS:
-        assert any(v.startswith(magic) for v in _SIGNATURES.values()), magic
-    for brand in native._AVIF_BRANDS:
+    """Every format the port's opener walk refuses by name takes one of the
+    headers above, so the test before holds each one to PIL's plugins;
+    each AVIF brand is among them."""
+    accepts = {name: accept for name, accept, _ in openers.OPENERS}
+    for name in openers.REFUSED:
+        assert any(accepts[name](v[:16]) for v in _SIGNATURES.values()), name
+    for brand in (b"avif", b"avis", b"mif1", b"msf1"):
         assert _ftyp(brand) in _SIGNATURES.values(), brand
 
 

@@ -121,7 +121,16 @@ under 600 KB:
   4:2:2 rebuilt from JPEGQTables, JPEGDCTables and JPEGACTables). A
   CIELab TIFF, which PIL decodes and the port refuses by name, is in
   ``streams/`` too but listed under ``port_refused`` in the goldens, not
-  ``streams``;
+  ``streams``. The formats PIL's opener walk reaches past those
+  (``raster_writers.legacy_streams``): TGA (PIL's uncompressed RGB, whose
+  first bytes are CUR's signature, RGBA, RLE, grey, palette, LA with an
+  ID; 16-bit, mirrored RLE, literals across rows and a 16-bit colour map
+  after a start offset assembled), a bare DIB, PCX (PIL's RGB, palette,
+  grey and 1-bit; 2 and 4 bit planes assembled), a DCX, SGI (PIL's raw
+  8- and 16-bit; RLE assembled), Sun raster (24-bit of types 1 and 3,
+  RLE with a colour map, 1- and 32-bit), PIL's IM (RGB, palette), IMT,
+  IPTC (raw grey, a grey JPEG in one band of RGB) and SPIDER (PIL's, and
+  little-endian with NaN and infinities);
 - ``goldens.json``: sha256 digests (not pixels, to stay small) of, for
   each stream, the JAX package's ``decode_jpeg_rgb8`` (``sha256``; for
   PNG, GIF, BMP and WebP PIL's decode; ``binding_refused`` where it
@@ -135,7 +144,8 @@ under 600 KB:
   ``encode_jpeg_rgb8`` at q90 on a seeded 256x256 image and at q92 on a
   seeded 800x608 one (``chip_smoke.jpeg_test_image``); and of the first
   two batches of its ``SRDataLoader`` over the mini tree's train split
-  (seed 0, crop 200, batch 8; train and eval).
+  (seed 0, crop 200, batch 8; train and eval); and of PIL's decode of the
+  PhotoCD ``chip_smoke.pcd_stream`` builds (``generated``).
 
     python tools/export_port_assets.py      # JAX_PLATFORMS=cpu is set here
     python tools/export_port_assets.py --what jpeg
@@ -170,7 +180,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from PIL import Image  # noqa: E402
 
-from chip_smoke import jpeg_test_image, sha256  # noqa: E402
+from chip_smoke import jpeg_test_image, pcd_stream, sha256  # noqa: E402
 from food101_sr_tpu import native as jax_native  # noqa: E402
 from food101_sr_tpu.data import (Food101Source, SRDataLoader,  # noqa: E402
                                  prepare_batch)
@@ -180,7 +190,8 @@ from food101_sr_tpu_torch.training.packed import (  # noqa: E402
 from tools.export_sr_checkpoint import export_state_dict  # noqa: E402
 from tools.make_fake_food101 import CLASSES, make_image  # noqa: E402
 from tools.raster_writers import (dib, ico, jpeg_strip,  # noqa: E402
-                                  jpeg_tables, lzw, netpbm, ojpeg, pfm,
+                                  jpeg_tables, legacy_streams, lzw, netpbm,
+                                  ojpeg, pfm,
                                   pil_tiff, qoi, raw16, thunderscan,
                                   tiff_file, tiff_image, zstd)
 
@@ -1077,7 +1088,8 @@ def _streams() -> dict:
         out[name] = out[src][:len(out[src]) * 2 // 3]
     out.update(_pil_feed_streams(enc))
     return ({f"{k}.jpg": v for k, v in out.items()} | _other_streams(rng)
-            | _webp_streams() | _raster_streams() | _tiff_codec_streams())
+            | _webp_streams() | _raster_streams() | _tiff_codec_streams()
+            | legacy_streams())
 
 
 def _pil_ccitt(img: Image.Image, compression: str, rows: int, **kw) -> bytes:
@@ -1320,6 +1332,12 @@ def export_jpeg(out_dir: str) -> dict:
                 got = px[y0:y0 + ch, x0:x0 + cw]
             goldens["crops"].append({"stream": name, "x0": x0, "y0": y0,
                                      "cw": cw, "ch": ch, "sha256": sha256(got)})
+    # built by chip_smoke.py itself rather than committed (PhotoCD's base
+    # image alone is 768 KB)
+    served = _pil_rgb(pcd_stream())
+    goldens["generated"] = {"pcd": {"made_by": "chip_smoke.pcd_stream",
+                                    "shape": list(served.shape),
+                                    "served_sha256": sha256(served)}}
     goldens["port_refused"] = {}
     for fname, (data, refusal) in _port_refused_streams().items():
         with open(os.path.join(root, "streams", fname), "wb") as f:

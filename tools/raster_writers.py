@@ -1,5 +1,6 @@
-"""Writers for the TIFF, Netpbm, ICO, CUR and QOI streams the port's
-decoders are held against: layouts PIL's own writers do not make (tiles,
+"""Writers for the TIFF, Netpbm, ICO, CUR, QOI, TGA, PCX, DCX, SGI, Sun,
+IMT, IPTC, PhotoCD and SPIDER streams the port's decoders are held
+against: layouts PIL's own writers do not make (tiles,
 ``PlanarConfiguration`` 2, predictors, BigTIFF, every bit depth and sample
 format of TIFF's pixel table, fill order 2, JPEG strips with and without
 ``JPEGTables``, ICO/CUR with BMP payloads) assembled with ``struct``,
@@ -568,3 +569,355 @@ def qoi(pixels: np.ndarray) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(pixels).save(buf, "QOI")
     return buf.getvalue()
+
+
+# ---------------------------------------------------------------------------
+# TGA, PCX/DCX, SGI, Sun raster, IMT, IPTC, PhotoCD, SPIDER
+# ---------------------------------------------------------------------------
+
+def pil_save(img: np.ndarray, fmt: str, mode: str | None = None,
+             **kw) -> bytes:
+    """``img`` saved by PIL's own writer for ``fmt`` (in ``mode``)."""
+    im = Image.fromarray(img)
+    if mode is not None:
+        im = im.convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def _tga_rle(rows: list, unit: int, runs_cross: bool = False) -> bytes:
+    """Targa RLE packets over rows of pixels of ``unit`` bytes: runs of
+    equal pixels (up to 128) and literals (up to 128), each row on its
+    own unless ``runs_cross`` codes the image as one stream."""
+    streams = [b"".join(rows)] if runs_cross else rows
+    out = bytearray()
+    for row in streams:
+        px = [row[i:i + unit] for i in range(0, len(row), unit)]
+        i = 0
+        while i < len(px):
+            j = i + 1
+            while j < len(px) and j - i < 128 and px[j] == px[i]:
+                j += 1
+            if j - i > 1:
+                out += bytes([0x80 | (j - i - 1)]) + px[i]
+                i = j
+                continue
+            j = i + 1
+            while (j < len(px) and j - i < 128
+                   and (j + 1 >= len(px) or px[j + 1] != px[j])):
+                j += 1
+            out += bytes([j - i - 1]) + b"".join(px[i:j])
+            i = j
+    return bytes(out)
+
+
+def tga(pixels: np.ndarray, imagetype: int, depth: int, *,
+        cmap: bytes = b"", cmap_start: int = 0, cmap_depth: int = 0,
+        flags: int = 0x20, ident: bytes = b"", rle: bool = False,
+        runs_cross: bool = False) -> bytes:
+    """A Targa file of ``pixels``, already in the file's byte layout: (h,
+    w) for 1 byte a pixel, (h, w, k) for k bytes (BGR, BGRA, or 16-bit
+    little-endian pairs), rows top-down here and written in the order
+    ``flags`` gives (bit 5 clear: bottom-up; bit 4: right to left).
+    ``imagetype`` 9-11 run-length code the rows with ``rle``; 1-bit images
+    pass packed rows. ``cmap`` is the colour map's bytes (entries of
+    ``cmap_depth`` bits) after ``cmap_start``."""
+    h, w = pixels.shape[:2]
+    px = pixels.reshape(h, w, -1)
+    if flags & 0x10:
+        px = px[:, ::-1]
+    if not flags & 0x20:
+        px = px[::-1]
+    unit = px.shape[2] if depth > 1 else 1
+    rows = [r.tobytes() for r in px]
+    if depth == 1:
+        w = int(pixels.shape[1]) * 8 if pixels.ndim == 2 else w
+    n_entries = len(cmap) // max(1, cmap_depth // 8)
+    hdr = struct.pack("<BBBHHBHHHHBB", len(ident), 1 if cmap_depth else 0,
+                      imagetype, cmap_start, n_entries, cmap_depth, 0, 0,
+                      w, h, depth, flags)
+    body = _tga_rle(rows, unit, runs_cross) if rle else b"".join(rows)
+    return hdr + ident + cmap + body
+
+
+def _pcx_rle(row: bytes) -> bytes:
+    out = bytearray()
+    i = 0
+    while i < len(row):
+        j = i + 1
+        while j < len(row) and j - i < 63 and row[j] == row[i]:
+            j += 1
+        if j - i > 1 or row[i] >= 0xC0:
+            out += bytes([0xC0 | (j - i), row[i]])
+        else:
+            out.append(row[i])
+        i = j
+    return bytes(out)
+
+
+def pcx(planes: list, bits: int, *, version: int = 5,
+        palette16: bytes = bytes(48), vga: bytes | None = None,
+        stride: int | None = None) -> bytes:
+    """A PCX of ``planes`` (each (h, w): 0/1 for 1-bit planes, else
+    bytes), rows run-length coded a scan line (all planes) at a time;
+    ``stride`` the header's bytes a plane row (even, as the format wants,
+    unless given); ``vga`` a 256-colour palette appended after 0x0C."""
+    h, w = planes[0].shape
+    row = (w * bits + 7) // 8
+    stride = stride if stride is not None else row + row % 2
+    lines = []
+    for y in range(h):
+        parts = []
+        for p in planes:
+            r = (np.packbits(p[y].astype(np.uint8)).tobytes() if bits == 1
+                 else p[y].astype(np.uint8).tobytes())
+            parts.append(r.ljust(stride, b"\0")[:stride])
+        lines.append(_pcx_rle(b"".join(parts)))
+    hdr = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1,
+                      h - 1, 72, 72) + palette16.ljust(48, b"\0")[:48]
+    hdr += struct.pack("<BBHH", 0, len(planes), stride, 1).ljust(64, b"\0")
+    out = hdr + b"".join(lines)
+    if vga is not None:
+        out += b"\x0c" + vga
+    return out
+
+
+def dcx(frames: list) -> bytes:
+    """An Intel DCX of PCX ``frames``: the magic, the offset table (ended
+    by 0), then the frames."""
+    off = 4 + 4 * (len(frames) + 1)
+    table, body = b"", b""
+    for f in frames:
+        table += struct.pack("<I", off + len(body))
+        body += f
+    return struct.pack("<I", 987654321) + table + b"\0" * 4 + body
+
+
+def _sgi_rle(values: np.ndarray, bpc: int) -> bytes:
+    """SGI RLE of one channel row: copy packets and runs of up to 127."""
+    out = bytearray()
+    v = [int(x) for x in values]
+    pack = (lambda x: bytes([x])) if bpc == 1 else (
+        lambda x: struct.pack(">H", x))
+    i = 0
+    while i < len(v):
+        j = i + 1
+        while j < len(v) and j - i < 127 and v[j] == v[i]:
+            j += 1
+        if j - i > 2:
+            out += pack(j - i) + pack(v[i])
+            i = j
+            continue
+        j = i + 1
+        while j < len(v) and j - i < 127 and not (
+                j + 2 < len(v) and v[j] == v[j + 1] == v[j + 2]):
+            j += 1
+        out += pack(0x80 | (j - i)) + b"".join(pack(x) for x in v[i:j])
+        i = j
+    return bytes(out + pack(0))
+
+
+def sgi(img: np.ndarray, bpc: int = 1, rle: bool = False,
+        dimension: int | None = None) -> bytes:
+    """An SGI image of ``img`` (h, w) or (h, w, z), values of ``bpc``
+    bytes, rows bottom-up; ``rle`` writes the offset and length tables
+    and a run-length coded row per channel."""
+    px = img if img.ndim == 3 else img[..., None]
+    h, w, z = px.shape
+    dim = dimension or (3 if z > 1 else 2)
+    hdr = struct.pack(">HBBHHHH", 474, int(rle), bpc, dim, w, h, z)
+    hdr = hdr.ljust(512, b"\0")
+    rows = px[::-1]
+    if not rle:
+        dt = np.uint8 if bpc == 1 else ">u2"
+        return hdr + b"".join(rows[..., c].astype(dt).tobytes()
+                              for c in range(z))
+    coded = [[_sgi_rle(rows[y, :, c], bpc) for y in range(h)]
+             for c in range(z)]
+    pos = 512 + 8 * h * z
+    starts, lengths, body = [], [], b""
+    for c in range(z):
+        for y in range(h):
+            starts.append(pos + len(body))
+            lengths.append(len(coded[c][y]))
+            body += coded[c][y]
+    return (hdr + struct.pack(f">{h * z}I", *starts)
+            + struct.pack(f">{h * z}I", *lengths) + body)
+
+
+def _sun_rle(data: bytes) -> bytes:
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        j = i + 1
+        while j < len(data) and j - i < 256 and data[j] == data[i]:
+            j += 1
+        n = j - i
+        if n > 2 or data[i] == 0x80:
+            out += bytes([0x80, n - 1, data[i]]) if n > 1 or data[i] != 0x80 \
+                else b"\x80\x00"
+        else:
+            out += data[i:j]
+        i = j
+    return bytes(out)
+
+
+def sun(rows: np.ndarray, depth: int, w: int, *, ftype: int = 1,
+        palette: np.ndarray | None = None) -> bytes:
+    """A Sun raster of ``rows`` (h, bytes a row, each padded to 16 bits
+    already, or unpadded for type 2), ``palette`` (n, 3) written as its
+    red, green and blue planes; type 2 run-length codes the rows."""
+    h = rows.shape[0]
+    pal = b"" if palette is None else palette.T.astype(np.uint8).tobytes()
+    body = rows.astype(np.uint8).tobytes()
+    if ftype == 2:
+        body = _sun_rle(body)
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), ftype,
+                       1 if palette is not None else 0, len(pal)) + pal + body
+
+
+def imt(gray: np.ndarray, comment: bool = True) -> bytes:
+    """An IM Tools (NIH Image) file: ``key value`` lines, a form feed,
+    then 8-bit rows."""
+    h, w = gray.shape
+    head = (b"* written for the port's tests\n" if comment else b"") + \
+        b"width %d\nheight %d\npixel n8\n" % (w, h)
+    return head + b"\x0c" + gray.astype(np.uint8).tobytes()
+
+
+def _iptc_field(rec: int, tag: int, data: bytes) -> bytes:
+    if len(data) < 0x8000:
+        return bytes([0x1C, rec, tag]) + struct.pack(">H", len(data)) + data
+    return bytes([0x1C, rec, tag, 0x84]) + struct.pack(">I", len(data)) + data
+
+
+def iptc(payload: bytes, w: int, h: int, *, layers: int = 1,
+         component: int = 0, band: int | None = None,
+         compression: int = 1, chunk: int = 8000) -> bytes:
+    """An IPTC/NAA stream: the record-3 image fields (size, layers,
+    compression: 1 raw rows, 5 JPEG) and ``payload`` in (8, 10) fields
+    of ``chunk`` bytes."""
+    out = _iptc_field(2, 0, b"\x00\x04")
+    out += _iptc_field(3, 20, struct.pack(">I", w))
+    out += _iptc_field(3, 30, struct.pack(">I", h))
+    out += _iptc_field(3, 60, bytes([layers, component]))
+    if band is not None:
+        out += _iptc_field(3, 65, bytes([band]))
+    out += _iptc_field(3, 120, bytes([compression]))
+    for i in range(0, len(payload), chunk):
+        out += _iptc_field(8, 10, payload[i:i + chunk])
+    return out
+
+
+def pcd(y: np.ndarray, c1: np.ndarray, c2: np.ndarray,
+        orientation: int = 0) -> bytes:
+    """A Kodak PhotoCD holding only what PIL reads: "PCD_" at 2048, the
+    orientation byte, and the 768 x 512 base image at 96 x 2048 as chunks
+    of two luma rows (``y`` (512, 768)) and one row each of the
+    half-width chroma (``c1``, ``c2`` (256, 384))."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    body = np.concatenate([y.reshape(256, 2 * 768), c1, c2], axis=1)
+    return bytes(head) + body.astype(np.uint8).tobytes()
+
+
+def spider(values: np.ndarray, little: bool = False) -> bytes:
+    """A SPIDER 2-D image (iform 1) of float32 ``values``: a header of whole
+    records of the row length, at least 1024 bytes, as PIL writes it."""
+    h, w = values.shape
+    lenbyt = 4 * w
+    labrec = -(-1024 // lenbyt)
+    hdr = np.zeros(labrec * w, np.float32)
+    for k, v in {1: 1, 2: h, 5: 1, 12: w, 13: labrec, 22: labrec * lenbyt,
+                 23: lenbyt}.items():
+        hdr[k - 1] = v
+    e = "<f4" if little else ">f4"
+    return hdr.astype(e).tobytes() + values.astype(e).tobytes()
+
+
+def legacy_streams(seed: int = 41) -> dict:
+    """file name -> bytes of the committed streams of the formats PIL's
+    opener walk reaches past the common ones (each kind once, about 48 x
+    40 and under 8 KB; ``tools/export_port_assets.py --what jpeg`` writes
+    them, the port's tests and ``tools/format_differential.py`` read
+    them). PhotoCD is not among them (its base image alone is 768 KB):
+    ``chip_smoke.pcd_stream`` builds one."""
+    from tools.make_fake_food101 import make_image
+
+    rng = np.random.default_rng(seed)
+    photo = make_image(rng, 40, 48)
+    small = make_image(rng, 24, 32)
+    rgba = np.concatenate([photo, photo[..., 1:2] ^ 0x5A], 2)
+    gray = photo[..., 1]
+    out = {
+        # the uncompressed true-colour TGA PIL writes starts 00 00 02 00,
+        # CUR's signature: CUR's opener fails and TGA's takes it
+        "tga_rgb.tga": pil_save(photo, "TGA"),
+        "tga_rgba.tga": pil_save(rgba, "TGA"),
+        "tga_rle_rgb.tga": pil_save(photo, "TGA", rle=True),
+        "tga_gray.tga": pil_save(photo, "TGA", "L"),
+        "tga_palette.tga": pil_save(photo, "TGA", "P"),
+        "tga_rle_palette.tga": pil_save(photo, "TGA", "P", rle=True),
+        "tga_la.tga": pil_save(small, "TGA", "LA", id_section=b"an id"),
+        "dib_rgb.dib": pil_save(photo, "DIB"),
+        "dib_palette.dib": pil_save(photo, "DIB", "P"),
+        "pcx_rgb.pcx": pil_save(photo, "PCX"),
+        "pcx_palette.pcx": pil_save(photo, "PCX", "P"),
+        "pcx_gray.pcx": pil_save(photo, "PCX", "L"),
+        "pcx_1bit.pcx": pil_save(photo, "PCX", "1"),
+        "sgi_rgb.sgi": pil_save(photo, "SGI"),
+        "sgi_gray.sgi": pil_save(photo, "SGI", "L"),
+        "sgi_rgba16.sgi": pil_save(np.concatenate(
+            [small, small[..., :1]], 2), "SGI", bpc=2),
+        "im_rgb.im": pil_save(photo, "IM"),
+        "im_palette.im": pil_save(photo, "IM", "P"),
+        "spider.spider": pil_save(small, "SPIDER", "F"),
+    }
+    # the layouts PIL does not write
+    bgr = photo[..., ::-1]
+    rgb555 = ((photo[..., 0].astype(np.uint16) >> 3) << 10
+              | (photo[..., 1].astype(np.uint16) >> 3) << 5
+              | photo[..., 2] >> 3 | 0x8000)
+    out["tga_16.tga"] = tga(rgb555.astype("<u2").view(np.uint8).reshape(
+        40, 48, 2), 2, 16, flags=0x00)
+    out["tga_rle_crossing.tga"] = tga(small[..., ::-1], 10, 24, rle=True,
+                                      runs_cross=False, flags=0x10)
+    lit = small[..., ::-1].copy()
+    lit[::2, ::3] ^= 1  # no runs: literals of 128 pixels cross the rows
+    out["tga_rle_literals.tga"] = tga(lit, 10, 24, rle=True,
+                                      runs_cross=True, flags=0x30)
+    idx = (gray // 17).astype(np.uint8)
+    pal16 = rng.integers(0, 1 << 15, 16).astype("<u2").tobytes()
+    out["tga_map16_start.tga"] = tga(idx + 4, 1, 8, cmap=pal16,
+                                     cmap_start=4, cmap_depth=16)
+    four = (gray // 16).astype(np.uint8)
+    ega = rng.integers(0, 256, 48).astype(np.uint8).tobytes()
+    out["pcx_4plane.pcx"] = pcx([(four >> k) & 1 for k in range(4)], 1,
+                                palette16=ega)
+    out["pcx_2plane.pcx"] = pcx([(four >> k) & 1 for k in range(2)], 1,
+                                version=2, palette16=ega)
+    out["dcx.dcx"] = dcx([pil_save(small, "PCX"), pil_save(small[::-1],
+                                                            "PCX")])
+    out["sgi_rle_rgb.sgi"] = sgi(photo, 1, rle=True)
+    out["sgi_rle_gray16.sgi"] = sgi(gray.astype(np.uint16) * 257 + 3, 2,
+                                    rle=True, dimension=2)
+    out["sun_rgb.ras"] = sun(bgr.reshape(40, -1), 24, 48)
+    out["sun_rgb_type3.ras"] = sun(photo.reshape(40, -1), 24, 48, ftype=3)
+    out["sun_rle_palette.ras"] = sun(idx, 8, 48, ftype=2,
+                                     palette=rng.integers(0, 256, (16, 3)))
+    bits = np.packbits(gray > 120, axis=1)
+    out["sun_1bit.ras"] = sun(np.pad(bits, ((0, 0), (0, len(bits[0]) % 2))),
+                              1, 48)
+    out["sun_32.ras"] = sun(np.concatenate(
+        [small[..., ::-1], small[..., :1]], 2).reshape(24, -1), 32, 32)
+    out["imt.imt"] = imt(gray)
+    out["iptc_raw.iptc"] = iptc(gray.tobytes(), 48, 40)
+    out["iptc_jpeg_band.iptc"] = iptc(
+        pil_save(small, "JPEG", "L", quality=85), 32, 24, layers=3,
+        component=1, band=2, compression=5)
+    f = small[..., 0].astype(np.float32) * 1.3 - 40
+    f[0, :3] = (np.nan, np.inf, -np.inf)
+    out["spider_le.spider"] = spider(f, little=True)
+    return out
