@@ -49,11 +49,14 @@ one codec for another:
   (``openers.py``): each format in Pillow 12.1's ``Image.ID`` order by
   its test of the first 16 bytes, a header that PIL's plugin rejects
   falling through to the next (:class:`NotThisFormat`). It reaches DIB,
-  TGA, IM, IMT, IPTC, PhotoCD, SPIDER, PCX/DCX, SGI and Sun raster too
-  (``legacy.py``; run-length loops and PhotoCD's YCC conversion in
-  ``fast_legacy.cpp``).
-- The other formats PIL opens, and the TIFF colour spaces ``tiff.py``
-  names (CIELab), raise :class:`UnsupportedImage` naming them.
+  TGA, IM, IMT, IPTC, PhotoCD, SPIDER, PCX/DCX, SGI, Sun raster and PSD
+  too (``legacy.py``; run-length loops, PSD's PackBits and PhotoCD's YCC
+  conversion in ``fast_legacy.cpp``), and JPEG 2000 (``jpeg2000.py``:
+  PIL's plugin and unpackers over ``fast_j2k.cpp``, OpenJPEG 2.5.4's
+  decoder written out). Lab images (PSD, CIELab TIFF) convert as PIL's
+  LittleCMS transform does (``cielab.py``).
+- The other formats PIL opens raise :class:`UnsupportedImage` naming
+  them.
 
 Each C++ unit is compiled with ``g++`` on first use into the package's
 git-ignored ``_build/`` directory, under a name carrying a hash of its
@@ -1085,11 +1088,12 @@ def decode_image(data: bytes) -> np.ndarray:
     64 KiB read block raises where PIL's ``load()`` does), GIF
     (:func:`decode_gif_rgb8`), BMP (:func:`decode_bmp_rgb8`) and DIB,
     WebP (:func:`decode_webp_rgb8`), TIFF (:func:`decode_tiff_rgb8`),
-    Netpbm, ICO, CUR and QOI (``rasters.py``), and TGA, PCX, DCX, SGI, Sun
-    raster, IM, IMT, IPTC, PhotoCD and SPIDER (``legacy.py``). Raises
+    Netpbm, ICO, CUR and QOI (``rasters.py``), TGA, PCX, DCX, SGI, Sun
+    raster, IM, IMT, IPTC, PhotoCD, SPIDER and PSD (``legacy.py``), and
+    JPEG 2000 (``jpeg2000.py``). Raises
     :class:`UnsupportedImage` naming a format PIL decodes and the port
-    does not (PSD, JPEG 2000, AVIF, XBM and the others of the walk), a
-    variant it does not decode (CIELab TIFF; YCbCr JPEG or old-style JPEG
+    does not (AVIF, XBM and the others of the walk), a variant it does
+    not decode (HTJ2K, JPEG 2000 Part 2; YCbCr JPEG or old-style JPEG
     TIFF in separate planes; some IM modes), arithmetic lossless (SOF11)
     JPEG, or a codec that did not build here; ValueError for bytes no
     opener takes, a broken image, or one PIL refuses (12-bit and

@@ -1,7 +1,8 @@
 // Run-length and colour loops of the legacy raster formats PIL opens,
 // decoded as PIL 12.1's C decoders do (native/legacy.py parses the
 // headers and unpacks the rows): Targa RLE, PCX RLE, SGI RLE, Sun raster
-// RLE and Kodak PhotoCD's YCC base image. No library is needed.
+// RLE, PSD's PackBits and Kodak PhotoCD's YCC base image. No library is
+// needed.
 //
 // Each decoder writes raw rows (the bytes PIL's decoder hands its row
 // unpacker) and returns 0 when the image is whole, -1 where PIL's decoder
@@ -335,6 +336,38 @@ int f101pcd_rgb(const uint8_t* src, long n, uint8_t* out) {
     }
   }
   return 0;
+}
+
+// PackDecode.c over one tile of ``rows`` rows of ``row`` bytes: a single
+// stream from the tile's offset to the end of the data, packets taken
+// whole (0x80 is a no-op), a run or literal cut where its row ends (the
+// rest of it dropped, not carried to the next row).
+int f101packbits(const uint8_t* src, long n, uint8_t* out, long row,
+                 long rows) {
+  long i = 0, x = 0, y = 0;
+  if (rows <= 0 || row <= 0) return 0;
+  for (;;) {
+    if (i >= n) return -2;
+    const uint8_t c = src[i];
+    if (c == 0x80) {
+      ++i;
+      continue;
+    }
+    if (c & 0x80) {
+      if (n - i < 2) return -2;
+      for (int k = 257 - c; k > 0 && x < row; --k) out[y * row + x++] = src[i + 1];
+      i += 2;
+    } else {
+      const long k = c + 2;
+      if (n - i < k) return -2;
+      for (long j = 1; j < k && x < row; ++j) out[y * row + x++] = src[i + j];
+      i += k;
+    }
+    if (x >= row) {
+      x = 0;
+      if (++y >= rows) return 0;
+    }
+  }
 }
 
 }  // extern "C"

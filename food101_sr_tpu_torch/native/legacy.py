@@ -1,6 +1,7 @@
 """The formats PIL's opener walk reaches past the common ones, decoded as
 Pillow 12.1's plugins open them and ``convert("RGB")`` maps them: DIB,
-PCX and DCX, IM, IMT, IPTC, PhotoCD, SGI, SPIDER, Sun raster and TGA.
+PCX and DCX, IM, IMT, IPTC, PhotoCD, PSD, SGI, SPIDER, Sun raster and
+TGA.
 
 Each ``open_<format>(data)`` is the plugin's ``_open``: it raises
 :class:`NotThisFormat` where PIL's raises an exception ``Image.open``
@@ -31,6 +32,10 @@ unpackers do.
   raw data as the PGM PIL writes around it, one band placed as
   ``Image.merge`` places it. PhotoCD: the 768 x 512 base image, turned by
   the orientation byte. SPIDER: float32 in either byte order.
+- PSD: the merged image of each mode PIL's table maps (bitmap, grey,
+  indexed, RGB(A), CMYK, Lab, multichannel and duotone as grey), raw or
+  PackBits (PackDecode.c: one stream a channel, a packet cut at its
+  row's end), Lab through ``cielab.py``.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import numpy as np
 
 from . import (_BMP_MASKS, NotThisFormat, UnsupportedImage, _load,
                build_error, decode_bmp_rgb8)
+from .cielab import lab_to_rgb
 from .tiff import UNPACKERS, _pixels4 as _four, to_rgb
 
 
@@ -69,8 +75,9 @@ def _register(lib):
     lib.f101sun_rle.argtypes = [cp, ll, p, ll, ll]
     lib.f101sgi_rle.argtypes = [cp, ll, p, ll, ll, i, i]
     lib.f101pcd_rgb.argtypes = [cp, ll, p]
+    lib.f101packbits.argtypes = [cp, ll, p, ll, ll]
     for f in (lib.f101tga_rle, lib.f101pcx_rle, lib.f101sun_rle,
-              lib.f101sgi_rle, lib.f101pcd_rgb):
+              lib.f101sgi_rle, lib.f101pcd_rgb, lib.f101packbits):
         f.restype = i
 
 
@@ -1019,3 +1026,112 @@ def open_im(data: bytes) -> Opened:
         return to_rgb({"I;16L": "I;16", "I;16B": "I;16", "PA": "LA"}.get(
             mode, mode), img)
     return Opened(size[:2], load)
+
+
+# ---------------------------------------------------------------------------
+# PSD
+# ---------------------------------------------------------------------------
+
+# (Photoshop colour mode, bits) -> (PIL mode, channels read)
+_PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1),
+              (2, 8): ("P", 1), (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4),
+              (7, 8): ("L", 1), (8, 8): ("L", 1), (9, 8): ("LAB", 3)}
+
+
+def open_psd(data: bytes) -> Opened:
+    """PsdImageFile: the 26-byte header (version 1 only; a (mode, depth)
+    pair outside PIL's table falls through, too few channels ends the
+    walk), the colour mode data (a 768-byte planar palette for P), the
+    image resources and the layer section skipped as PIL walks them, then
+    the merged image: one tile per channel over the whole image, raw or
+    PackBits (a stream from the tile's offset, its rows as PackDecode.c
+    fills them), at offsets summed from the row byte-count table."""
+    try:
+        return _open_psd(data)
+    except (struct.error, IndexError, KeyError) as e:
+        raise NotThisFormat(f"PSD: {e or 'unknown mode'}") from None
+
+
+def _open_psd(data: bytes) -> Opened:
+    r = _Reader(data)
+    s = r.read(26)
+    if not s.startswith(b"8BPS") or _i16(s, 4, ">") != 1:
+        raise NotThisFormat("not a PSD file")
+    bits, nch, psd_mode = (_i16(s, k, ">") for k in (22, 12, 24))
+    mode, channels = _PSD_MODES[(psd_mode, bits)]
+    if channels > nch:
+        raise ValueError("PSD: not enough channels")
+    if mode == "RGB" and nch == 4:
+        mode, channels = "RGBA", 4
+    w, h = _i32(s, 18, ">"), _i32(s, 14, ">")
+    palette = None
+    size = _i32(r.read(4), 0, ">")
+    if size:
+        color = r.read(size)
+        if mode == "P" and size == 768:
+            palette = color
+    size = _i32(r.read(4), 0, ">")
+    if size:  # the image resources, each read as PIL reads them
+        end = r.pos + size
+        while r.pos < end:
+            r.read(4)
+            _i16(r.read(2), 0, ">")
+            name = r.read(r.read(1)[0])
+            if not len(name) & 1:
+                r.read(1)
+            if len(r.read(_i32(r.read(4), 0, ">"))) & 1:
+                r.read(1)
+    size = _i32(r.read(4), 0, ">")
+    if size:  # the layer and mask section: skipped (frame 0 is the merged
+        end = r.pos + size  # image)
+        _i32(r.read(4), 0, ">")
+        r.pos = end
+    compression = _i16(r.read(2), 0, ">")
+    offsets = []
+    if compression == 0:
+        offsets = [r.pos + c * w * h for c in range(channels)]
+    elif compression == 1:
+        counts = r.read(channels * h * 2)
+        offset = r.pos
+        for c in range(channels):
+            offsets.append(offset)
+            offset += sum(_i16(counts, 2 * (c * h + y), ">") for y in range(h))
+    if w <= 0 or h <= 0:
+        raise NotThisFormat("PSD: empty image")
+
+    def load():
+        return _psd_pixels(data, mode, w, h, compression, offsets, palette)
+    return Opened((w, h), load)
+
+
+def _psd_pixels(data, mode, w, h, compression, offsets, palette):
+    if not offsets:  # a compression PIL does not read leaves no tiles
+        raise ValueError(f"PSD: cannot load this image (compression "
+                         f"{compression})")
+    rawmode_bits = 1 if mode == "1" else 8
+    row = _row_bytes(w, rawmode_bits)
+    img = np.zeros((h, w, 4) if len(mode) > 1 else (h, w), np.uint8)
+    # PIL's ImageFile.load decodes the tiles in order of their offsets
+    for c, off in sorted(enumerate(offsets), key=lambda t: t[1]):
+        if compression == 0:
+            rows = _raw(data, off, row, h, "L")
+        else:
+            rows = np.zeros((h, row), np.uint8)
+            src = data[off:] if off <= len(data) else b""
+            _rle_error(legacy_lib().f101packbits(src, len(src),
+                                                 rows.ctypes.data, row, h),
+                       "PSD")
+        if mode == "1":
+            img[:] = _unpack_rows(rows, "1", w)
+        elif img.ndim == 2:
+            img[:] = rows
+        else:
+            img[..., c] = 255 - rows if mode == "CMYK" else rows
+    if len(mode) > 1:
+        img[..., len(mode):] = 255  # PIL's 4-byte storage: alpha/pad 255
+    if mode == "LAB":
+        return lab_to_rgb(img)
+    if mode == "P":
+        return _with_palette("P", img, None if palette is None
+                             else _planar_palette(palette))
+    return to_rgb(mode, img)

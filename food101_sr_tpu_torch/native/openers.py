@@ -31,6 +31,7 @@ import struct
 from . import (MAX_PIXELS, PNG_SIGNATURE, NotThisFormat, UnsupportedImage,
                decode_bmp_rgb8, decode_gif_rgb8, decode_jpeg_rgb8,
                decode_png_rgb8, decode_webp_rgb8, _jpeg_lib, legacy)
+from .jpeg2000 import open_jpeg2000
 from .legacy import Opened, _i16, _i32, pcx_accept
 from .rasters import (decode_cur_rgb8, decode_ico_rgb8, decode_netpbm_rgb8,
                       decode_qoi_rgb8)
@@ -40,8 +41,8 @@ from .tiff import decode_tiff_rgb8, tiff_lib
 # names: each is a 415 naming it once its test takes the bytes
 REFUSED = {"AVIF": "AVIF/HEIF", "BLP": "BLP", "DDS": "DDS", "FITS": "FITS",
            "FLI": "FLI", "FTEX": "FTEX", "GBR": "GBR",
-           "JPEG2000": "JPEG 2000", "ICNS": "ICNS", "MCIDAS": "McIdas",
-           "MSP": "MSP", "PIXAR": "PIXAR", "PSD": "PSD", "XBM": "XBM",
+           "ICNS": "ICNS", "MCIDAS": "McIdas",
+           "MSP": "MSP", "PIXAR": "PIXAR", "XBM": "XBM",
            "XPM": "XPM", "XVTHUMB": "XV thumbnail"}
 
 
@@ -177,8 +178,8 @@ def _open_bmp(data):
 
 
 DECODED = ("PNG, JPEG, GIF, BMP, DIB, WebP, TIFF, Netpbm, ICO, CUR, QOI, "
-           "TGA, PCX, DCX, SGI, Sun raster, IM, IMT, IPTC, PhotoCD and "
-           "SPIDER")
+           "TGA, PCX, DCX, SGI, Sun raster, IM, IMT, IPTC, PhotoCD, "
+           "SPIDER, PSD and JPEG 2000")
 
 # name, accept (None: no test), open
 OPENERS: tuple = (
@@ -206,7 +207,7 @@ OPENERS: tuple = (
     ("HDF5", _prefix(b"\x89HDF\r\n\x1a\n"), _stub("HDF5")),
     ("PNG", _prefix(PNG_SIGNATURE), lambda d: _tried(decode_png_rgb8, d)),
     ("JPEG2000", _prefix(b"\xffO\xffQ", b"\x00\x00\x00\x0cjP  \r\n\x87\n"),
-     _refusing("JPEG2000")),
+     open_jpeg2000),
     ("ICNS", _prefix(b"icns"), _refusing("ICNS")),
     ("ICO", _prefix(b"\x00\x00\x01\x00"),
      lambda d: _tried(decode_ico_rgb8, d)),
@@ -223,7 +224,7 @@ OPENERS: tuple = (
     ("PCD", None, legacy.open_pcd),
     ("PIXAR", _prefix(b"\x80\xe8\x00\x00"), _refusing("PIXAR")),
     ("PPM", _ppm, lambda d: _tried(decode_netpbm_rgb8, d)),
-    ("PSD", _prefix(b"8BPS"), _refusing("PSD")),
+    ("PSD", _prefix(b"8BPS"), legacy.open_psd),
     ("QOI", _prefix(b"qoif"), _open_qoi),
     ("SGI", lambda p: len(p) >= 2 and _i16(p, 0, ">") == 474,
      legacy.open_sgi),

@@ -34,9 +34,9 @@ the stream it hands libjpeg, decoded by ``fast_jpeg.cpp`` to raw YCbCr)
 through libtiff's RGBA reader (``ycbcr_rgba``), as PIL reads YCbCr that is
 not contiguous JPEG.
 
-Refused by name (:class:`UnsupportedImage`, 415): CIELab, which PIL
-converts through LittleCMS, and YCbCr JPEG or old-style JPEG in separate
-planes whose headers libtiff accepts. Everything PIL refuses (WebP and
+CIELab converts to RGB as PIL's LittleCMS transform does (``cielab.py``).
+Refused by name (:class:`UnsupportedImage`, 415): YCbCr JPEG or
+old-style JPEG in separate planes whose headers libtiff accepts. Everything PIL refuses (WebP and
 SGILog TIFFs among them) raises ValueError.
 """
 from __future__ import annotations
@@ -50,6 +50,7 @@ from fractions import Fraction
 import numpy as np
 
 from . import MAX_PIXELS, UnsupportedImage, _jpeg_lib, _load, build_error
+from .cielab import lab_to_rgb
 
 II, MM = b"II", b"MM"
 
@@ -480,7 +481,9 @@ def _make_unpackers() -> dict:
     u["F;32F"] = (32, lambda r, n: r[:, :4 * n].view("<f4").astype(np.float64))
     u["F;32BF"] = (32, lambda r, n: r[:, :4 * n].view(">f4").astype(
         np.float64))
-    u["RGB"] = u["LAB"] = (24, lambda r, n: _rgbx(r, n, 3))
+    u["RGB"] = (24, lambda r, n: _rgbx(r, n, 3))
+    # unpackLAB: a and b are signed in the file, offset by 128 in PIL
+    u["LAB"] = (24, _lab)
     u["RGB;R"] = (24, lambda r, n: _rgbx(_REV[r], n, 3))
     for x in range(4):
         tail = "X" * x
@@ -501,6 +504,12 @@ def _make_unpackers() -> dict:
         u["CMYK" + "X" * x] = (8 * (4 + x), lambda r, n, x=x: _cmyk(
             r, n, 4 + x))
     return u
+
+
+def _lab(rows, n):
+    out = _rgbx(rows, n, 3)
+    out[..., 1:3] ^= 128
+    return out
 
 
 def _cmyk(rows, n, size, hi=None):
@@ -590,9 +599,8 @@ def to_rgb(mode: str, img: np.ndarray, palette=None) -> np.ndarray:
         g = img[..., 0]
     elif mode in ("RGB", "RGBA"):
         return np.ascontiguousarray(img[..., :3])
-    elif mode == "LAB":  # the file decodes; its conversion does not here
-        raise UnsupportedImage("TIFF: CIELab images are not supported (PIL "
-                               "converts them with LittleCMS)")
+    elif mode == "LAB":  # LittleCMS's Lab -> sRGB, as PIL converts it
+        return lab_to_rgb(img)
     elif mode == "CMYK":  # Convert.c cmyk2rgb
         nk = 255 - img[..., 3:4].astype(np.int32)
         tmp = img[..., :3].astype(np.int32) * nk + 128
@@ -2247,7 +2255,7 @@ def decode_tiff_rgb8(data: bytes) -> np.ndarray:
     """TIFF bytes -> uint8 HxWx3, as PIL's ``Image.open(...).convert(
     "RGB")`` gives them (module docstring). Raises ValueError where PIL
     raises, :class:`UnsupportedImage` naming what the port does not
-    decode: CIELab, YCbCr (old-style) JPEG in separate planes, or a unit
+    decode: YCbCr (old-style) JPEG in separate planes, or a unit
     that did not build."""
     if data[:4] not in (b"MM\x00*", b"II*\x00", b"MM*\x00", b"II\x00*",
                         b"MM\x00+", b"II+\x00"):

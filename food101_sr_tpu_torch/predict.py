@@ -12,8 +12,9 @@ halo tiling for large images, optional x8 self-ensemble) without the HTTP
 layer: a pool of submitter threads keeps the micro-batcher full, so
 same-bucket images coalesce into device batches as concurrent requests
 would. Images are read with the port's codecs (``native``, needing no
-library: PNG, JPEG, GIF, BMP, WebP, TIFF, Netpbm, ICO, CUR and QOI, as
-PIL decodes them) and written as PNG or JPEG; a file that does not decode
+library: PNG, JPEG, GIF, BMP, WebP, TIFF, Netpbm, ICO, CUR, QOI, PSD,
+JPEG 2000 and the other formats of PIL's opener walk, as PIL decodes
+them) and written as PNG or JPEG; a file that does not decode
 is a counted failure, reported by name on stderr. A directory is walked
 for the JAX CLI's extensions (``EXTS``: no ``.tif``); other files are
 read when named or globbed.

@@ -17,10 +17,11 @@ first frame of an animation), TIFF (every compression but ZSTD, old-style
 JPEG, ThunderScan and raw-16; strips, tiles, separate planes, BigTIFF),
 Netpbm, ICO, CUR and QOI uploads decode to the pixels the JAX server's
 PIL gives, and a stream PIL refuses (a truncated JPEG, a 12-bit one, a
-broken WebP, a WebP-compressed TIFF) is answered 400 as there. A format
-or variant the codecs do not read (PSD, JPEG 2000, a ZSTD TIFF, a CIELab
-one and the others ``native.decode_image`` names) is answered 415 with
-the reason, never decoded another way.
+broken WebP, a WebP-compressed TIFF) is answered 400 as there; so are
+the formats PIL's opener walk reaches (PSD and JPEG 2000 among them).
+A format or variant the codecs do not read (XBM, AVIF, HTJ2K and the
+others ``native.decode_image`` names) is answered 415 with the reason,
+never decoded another way.
 
 Routes: ``GET /healthz``, ``GET /statz``, ``POST /sr[?model=NAME]
 [&format=png|jpeg][&quality=Q]`` (or ``Accept: image/jpeg``).

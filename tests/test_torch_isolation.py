@@ -62,6 +62,8 @@ NEW_MODULES = ("food101_sr_tpu_torch.analyze_models",
                "food101_sr_tpu_torch.models.rrdb",
                "food101_sr_tpu_torch.models.srcnn",
                "food101_sr_tpu_torch.native",
+               "food101_sr_tpu_torch.native.cielab",
+               "food101_sr_tpu_torch.native.jpeg2000",
                "food101_sr_tpu_torch.native.legacy",
                "food101_sr_tpu_torch.native.openers",
                "food101_sr_tpu_torch.ops.pixel_shuffle",
@@ -221,6 +223,31 @@ def test_legacy_raster_codec_uses_no_library():
     for lib in ("png", "jpeg", "tiff", "webp", "zstd", "python"):
         assert lib not in deps.replace(so, "").lower(), deps
     for name in ("legacy.py", "openers.py"):
+        roots = _imported_roots(src.parent / name)
+        assert not roots & set(FORBIDDEN), (name, roots)
+
+
+def test_jpeg2000_psd_and_lab_use_no_library():
+    """JPEG 2000, PSD and Lab are the port's own: fast_j2k.cpp includes
+    only the C++ standard library and no OpenJPEG header, its build links
+    nothing, no script names -lopenjp2, and jpeg2000.py, cielab.py and
+    legacy.py import no image or colour-management module (PIL's plugins
+    and LittleCMS are read, not called)."""
+    pkg = ROOT / "food101_sr_tpu_torch"
+    src = pkg / "native" / "fast_j2k.cpp"
+    includes = [ln.split()[1] for ln in src.read_text().splitlines()
+                if ln.lstrip().startswith("#include")]
+    assert includes and all(i.startswith("<") and "openjpeg" not in i
+                            for i in includes), includes
+    for py in sorted(pkg.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        text = py.read_text()
+        assert "-lopenjp2" not in text and "-llcms" not in text, py
+    from food101_sr_tpu_torch.native import jpeg2000
+    so = jpeg2000.j2k_lib()._name
+    deps = subprocess.run(["ldd", so], capture_output=True, text=True).stdout
+    for lib in ("openjp", "lcms", "png", "jpeg", "tiff", "python"):
+        assert lib not in deps.replace(so, "").lower(), deps
+    for name in ("jpeg2000.py", "cielab.py", "legacy.py"):
         roots = _imported_roots(src.parent / name)
         assert not roots & set(FORBIDDEN), (name, roots)
 

@@ -437,6 +437,8 @@ def test_committed_fixtures_match_their_goldens():
             with pytest.raises(native.UnsupportedImage):
                 native.decode_jpeg_rgb8(data)
             continue
+        if "sha256" not in g:  # a file of another format PIL refuses
+            continue
         px = native.decode_jpeg_rgb8(data) if g["file"].endswith(".jpg") \
             else native.decode_image(data)
         assert list(px.shape) == g["shape"] and sha256(px) == g["sha256"], name

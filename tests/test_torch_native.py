@@ -24,6 +24,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools.export_port_assets import _png  # noqa: E402
 
 
+def _xbm() -> bytes:
+    b = io.BytesIO()
+    Image.new("1", (8, 4), 1).save(b, "XBM")
+    return b.getvalue()
+
+
+# a format PIL writes and decodes and the port still refuses by name
+XBM = _xbm()
+
+
 def _rgb(h, w, seed):
     return np.random.default_rng(seed).integers(0, 256, (h, w, 3), np.uint8)
 
@@ -214,12 +224,20 @@ def test_broken_pngs_raise_value_error_not_unsupported(damage):
 @pytest.mark.parametrize("data,name", [
     (b"BM" + bytes(60), "BMP"), (b"GIF89a" + bytes(20), "GIF"),
     (b"RIFF\x00\x00\x00\x00WEBPVP8 ", "WebP"), (b"II*\x00" + bytes(8), "TIFF"),
-    (b"8BPS" + bytes(30), "PSD")])
+    (b"8BPS" + bytes(30), "PSD"), (XBM, "XBM")])
 def test_other_formats_are_refused_by_name(data, name):
-    """PSD, which PIL opens and the port does not, is refused naming the
-    format (415); BMP, GIF, WebP and TIFF are decoded now, so these broken
-    ones are refused as PIL refuses them, with ValueError naming the
-    format (400)."""
+    """XBM, which PIL opens and the port does not, is refused naming the
+    format (415); BMP, GIF, WebP, TIFF and PSD are decoded now, so these
+    broken ones are refused as PIL refuses them (400): ValueError naming
+    the format, or, for the PSD header PIL's ``_open`` does not open,
+    naming no format that took it."""
+    if name == "PSD":
+        with pytest.raises(ValueError) as e:
+            native.decode_image(data)
+        assert not isinstance(e.value, native.UnsupportedImage)
+        with pytest.raises(OSError):
+            _pil_rgb(data)
+        return
     if name in ("BMP", "GIF", "WebP", "TIFF"):
         with pytest.raises(ValueError, match=name) as e:
             native.decode_image(data)
@@ -303,13 +321,15 @@ def _pil_loads_with(fmt) -> bool:
 
 @pytest.mark.parametrize("name", list(_SIGNATURES))
 def test_refusals_follow_pil_plugins(name):
-    """415 (UnsupportedImage) exactly where a PIL plugin that decodes
-    accepts the header, the JAX server then serving the image; 400
-    (ValueError) where no plugin accepts it or PIL's plugin cannot load
-    it, the JAX server's ``Image.open(...).load()`` raising there."""
+    """415 (UnsupportedImage) exactly where the PIL plugin that accepts
+    the header decodes and is one the port still refuses
+    (``openers.REFUSED``); elsewhere PIL's own outcome: 400 (ValueError)
+    where no plugin accepts it, PIL's plugin cannot load it or its
+    ``_open`` falls through (the bare PSD and JPEG 2000 headers here), the
+    JAX server's ``Image.open(...).load()`` raising there."""
     data = _SIGNATURES[name] + bytes(64)
     fmt = _pil_plugin(data)
-    if _pil_loads_with(fmt):
+    if _pil_loads_with(fmt) and fmt in openers.REFUSED:
         with pytest.raises(native.UnsupportedImage) as e:
             native.decode_image(data)
         want = "AVIF/HEIF" if fmt == "AVIF" else name.split(" ")[0]

@@ -71,13 +71,15 @@ def test_predict_end_to_end_small_and_tiled(tmp_path, capsys):
             "big": _write_png(src / "big.png", 48, 56, seed=2)}
     (src / "corrupt.jpg").write_bytes(b"\xff\xd8 not actually a jpeg")
     (src / "bitmap.bmp").write_bytes(b"BM" + bytes(64))
-    # a WebP is decoded as PIL decodes it; a PSD behind a .bmp name is
+    # a WebP is decoded as PIL decodes it; an XBM behind a .bmp name is
     # a format the port does not read
     webp = io.BytesIO()
     Image.fromarray(_img(18, 22, 3)).save(webp, format="WEBP", quality=80)
     (src / "photo.webp").write_bytes(webp.getvalue())
     imgs["photo"] = np.asarray(Image.open(webp).convert("RGB"))
-    (src / "scan.bmp").write_bytes(b"8BPS" + bytes(64))
+    (src / "scan.bmp").write_bytes(b"#define im_width 8\n#define im_height 2"
+                                   b"\nstatic char im_bits[] = {\n0xff,0x00"
+                                   b"\n};\n")
     out = tmp_path / "out"
     predict.main([str(src), "--out_dir", str(out), "--architecture",
                   "SRCNN", "--tile", "16", "--max_batch", "4",
@@ -99,9 +101,9 @@ def test_predict_end_to_end_small_and_tiled(tmp_path, capsys):
     assert summary["architecture"] == "SRCNN" and summary["scale"] == 4
     assert summary["images_per_s"] > 0 and summary["device"] == "cpu"
     assert "FAILED" in captured.err and "corrupt.jpg" in captured.err
-    # a broken BMP (PIL refuses it too) and a PSD the port does not read
+    # a broken BMP (PIL refuses it too) and an XBM the port does not read
     assert "bitmap.bmp" in captured.err and "BMP" in captured.err
-    assert "UnsupportedImage" in captured.err and "PSD" in captured.err
+    assert "UnsupportedImage" in captured.err and "XBM" in captured.err
 
 
 @pytest.mark.parametrize("files,strict,code", [

@@ -4,7 +4,7 @@ against the JAX package's ``serve.py`` on shared weights: an AttentionSR
 served by both in float32 answers the same PNG, small and tiled, within
 1 uint8 level; ``/healthz`` and ``/statz`` carry JAX's keys; zoo
 routing, the JPEG response format, every error status of JAX's server
-(and 415 for images the port does not read, such as PSD), the shutdown
+(and 415 for images the port does not read, such as XBM), the shutdown
 drain, warmup, the CLI end to end with SIGTERM, and the unported flags
 naming their ROADMAP items."""
 import io
@@ -288,6 +288,9 @@ def _raw_request(port, payload: bytes, recv_timeout=10.0) -> bytes:
 
 # a JBIG2 file header and an ISO-BMFF HEIC one: no PIL plugin takes them
 JBIG2 = b"\x97JB2\r\n\x1a\n\x01\x00\x00\x00\x01"
+# an XBM PIL writes and decodes: a format the port still refuses (415)
+XBM = b"#define im_width 8\n#define im_height 2\nstatic char im_bits[] = {\n" \
+    b"0xff,0x00\n};\n"
 HEIC = b"\x00\x00\x00\x1cftypheic\x00\x00\x00\x00heicmif1"
 
 
@@ -305,7 +308,8 @@ def _post(body: bytes, length=None) -> bytes:
     (b"\x00\xff GARBAGE\r\n\r\n", None, b""),
     (_post(b"this is not an image at all, not even close"), b"400",
      b"could not decode"),
-    (_post(b"8BPS" + bytes(64)), b"415", b"PSD"),
+    (_post(XBM), b"415", b"XBM"),
+    (_post(b"8BPS" + bytes(64)), b"400", b"could not decode"),
     (_post(b"RIFF\x00\x00\x00\x00WEBPVP8 " + bytes(64)), b"400",
      b"could not decode"),
     (_post(JBIG2 + bytes(64)), b"400", b"could not decode"),
@@ -313,7 +317,7 @@ def _post(body: bytes, length=None) -> bytes:
     (b"GET /nowhere HTTP/1.1\r\nHost: x\r\n\r\n", b"404", b""),
     (_post(b"x", b"1").replace(b"/sr", b"/upscale"), b"404", b"/sr"),
 ], ids=["413", "negative-length", "non-numeric-length", "truncated-body",
-        "garbage-request-line", "non-image", "bmp-415", "webp-400",
+        "garbage-request-line", "non-image", "bmp-415", "psd-400", "webp-400",
         "jbig2-400", "heic-400", "get-404", "post-404"])
 def test_error_statuses_and_the_server_survives(pair, payload, status, text):
     port = pair[3]

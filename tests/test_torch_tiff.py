@@ -11,7 +11,7 @@ BigTIFF, the Orientation tag; JPEG strips and tiles with YCbCr
 subsampling and shared tables; CCITT at odd widths; YCbCr through
 libtiff's RGBA reader; ZSTD strips as libtiff reads them through libzstd,
 raw-16 rows, ThunderScan codes and old-style JPEG in each layout libtiff
-reads; the compressions PIL refuses and CIELab refused as on the JAX
+reads; the compressions PIL refuses refused as on the JAX
 server; seeded truncations and bit flips refused exactly where PIL refuses
 them; TIFF uploads answered alike by the port's and the JAX package's
 servers; and a .tif through the port's predict."""
@@ -96,16 +96,16 @@ def test_committed_stream_matches_pil_and_its_golden(name):
 
 
 def test_the_zstd_stream_is_refused_by_name():
-    """The stream the port refuses by name (goldens' port_refused): a
-    CIELab TIFF, which PIL decodes and converts through LittleCMS, answered
-    415 naming CIELab. (The ZSTD stream this once held decodes now, among
-    the committed streams above.)"""
-    assert "tiff_zstd" in GOLDENS
-    g = ALL["port_refused"]["tiff_cielab"]
-    data = (JPEG_ASSETS / g["file"]).read_bytes()
-    assert sha256(_pil(data)) == g["served_sha256"]
-    with pytest.raises(native.UnsupportedImage, match=g["refusal"]):
-        native.decode_image(data)
+    """The streams the port once refused by name decode now, among the
+    committed streams above: the ZSTD one and the CIELab one (PIL's
+    LittleCMS Lab -> sRGB, written out in native/cielab.py); the goldens
+    list no refusal any more."""
+    assert "port_refused" not in ALL
+    for name in ("tiff_zstd", "tiff_cielab"):
+        g = GOLDENS[name]
+        data = (JPEG_ASSETS / g["file"]).read_bytes()
+        px = native.decode_image(data)
+        assert sha256(px) == sha256(_pil(data)) == g["served_sha256"]
 
 
 # --- PIL's pixel table: every key, both byte orders ---
@@ -154,13 +154,14 @@ def test_every_pixel_table_key_matches_pil(key):
 
 
 def test_cielab_is_refused_by_name():
-    """PIL converts LAB to RGB through LittleCMS, which the port does not
-    have: 415 naming CIELab."""
+    """PIL converts LAB to RGB through LittleCMS; the port's conversion
+    (native/cielab.py) gives its pixels, in both byte orders and
+    compressed, instead of the 415 naming CIELab it answered before."""
     lab = np.random.default_rng(3).integers(0, 256, (6, 7, 3))
-    data = tiff_image(lab, 8, 8)
-    assert isinstance(_pil(data), np.ndarray)
-    with pytest.raises(native.UnsupportedImage, match="CIELab"):
-        native.decode_image(data)
+    for kw in ({}, {"order": ">"}, {"compression": 8}):
+        data = tiff_image(lab, 8, 8, **kw)
+        assert isinstance(_pil(data), np.ndarray)
+        assert np.array_equal(native.decode_image(data), _pil(data))
 
 
 # --- compressions, predictors, layouts ---
@@ -1144,8 +1145,8 @@ def test_tiff_upload_answered_as_the_jax_server(srcnn_servers, name):
     upscale of PIL's pixels, byte for byte, and the two bodies decode
     within 1 level of each other (the float32 SRCNN forward rounds a few
     values differently in XLA and PyTorch); a cut TIFF is a 400 on both; a
-    ZSTD one 200 from both, within 1 level; a CIELab one 200 from the JAX
-    server and 415 naming CIELab from the port."""
+    ZSTD one 200 from both, within 1 level; a CIELab one 200 from both,
+    the port's body the PNG of its upscale of PIL's pixels."""
     jport, pport, psrv = srcnn_servers
     data = (JPEG_ASSETS / GOLDENS[name]["file"]).read_bytes()
     (jcode, jbody), (pcode, pbody) = _post(jport, data), _post(pport, data)
@@ -1163,11 +1164,11 @@ def test_tiff_upload_answered_as_the_jax_server(srcnn_servers, name):
     assert jcode == pcode == 200
     assert np.abs(native.decode_image(jbody).astype(np.int16)
                   - native.decode_image(pbody)).max() <= 1
-    lab = (JPEG_ASSETS / ALL["port_refused"]["tiff_cielab"]["file"]) \
-        .read_bytes()
+    lab = (JPEG_ASSETS / GOLDENS["tiff_cielab"]["file"]).read_bytes()
     assert _post(jport, lab)[0] == 200
     code, body = _post(pport, lab)
-    assert code == 415 and b"CIELab" in body
+    assert code == 200 and body == native.encode_png_rgb8(
+        psrv.upscale(_pil(lab)), psrv.png_level)
 
 
 @pytest.mark.parametrize("family", ["tiff_zstd", "tiff_raw16",

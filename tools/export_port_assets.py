@@ -78,7 +78,7 @@ writes:
   the two weights' outputs (``levels_orbax``), also printed.
 
 For the port's codecs it writes ``assets/jpeg/`` (``--what jpeg``),
-under 600 KB:
+under 1.2 MB:
 
 - ``food-101/``: a mini Food-101 tree (``images/<class>/<id>.jpg``,
   ``meta/train.txt`` and ``meta/test.txt``) of 16 train and 4 test images
@@ -118,10 +118,8 @@ under 600 KB:
   skippable frame after the data, predictor 2), raw-16 with FillOrder 2
   (a row a strip), ThunderScan with every code, and old-style JPEG
   (4:4:4 in JPEGInterchangeFormat, 4:2:0 with a strip a restart interval,
-  4:2:2 rebuilt from JPEGQTables, JPEGDCTables and JPEGACTables). A
-  CIELab TIFF, which PIL decodes and the port refuses by name, is in
-  ``streams/`` too but listed under ``port_refused`` in the goldens, not
-  ``streams``. The formats PIL's opener walk reaches past those
+  4:2:2 rebuilt from JPEGQTables, JPEGDCTables and JPEGACTables), and
+  a CIELab TIFF. The formats PIL's opener walk reaches past those
   (``raster_writers.legacy_streams``): TGA (PIL's uncompressed RGB, whose
   first bytes are CUR's signature, RGBA, RLE, grey, palette, LA with an
   ID; 16-bit, mirrored RLE, literals across rows and a 16-bit colour map
@@ -130,7 +128,14 @@ under 600 KB:
   8- and 16-bit; RLE assembled), Sun raster (24-bit of types 1 and 3,
   RLE with a colour map, 1- and 32-bit), PIL's IM (RGB, palette), IMT,
   IPTC (raw grey, a grey JPEG in one band of RGB) and SPIDER (PIL's, and
-  little-endian with NaN and infinities);
+  little-endian with NaN and infinities); PSD (``raster_writers.
+  psd_streams``, by hand: each colour mode PIL reads, raw and PackBits,
+  resources, a layer section, PackBits runs across rows, and the 16-bit
+  and PSB files PIL refuses) and JPEG 2000 (``raster_writers.
+  jpeg2000_streams``: PIL's writer, the wheel's OpenJPEG through ctypes
+  (``libopenjp2()``) for the code-block styles, SOP/EPH, POC,
+  tile-parts, ROI and subsampled sYCC, JP2 boxes by hand for CMYK and
+  palettes; two 800 x 608 photos among them);
 - ``goldens.json``: sha256 digests (not pixels, to stay small) of, for
   each stream, the JAX package's ``decode_jpeg_rgb8`` (``sha256``; for
   PNG, GIF, BMP and WebP PIL's decode; ``binding_refused`` where it
@@ -189,7 +194,8 @@ from food101_sr_tpu_torch.training.packed import (  # noqa: E402
     pack_state_dict)
 from tools.export_sr_checkpoint import export_state_dict  # noqa: E402
 from tools.make_fake_food101 import CLASSES, make_image  # noqa: E402
-from tools.raster_writers import (dib, ico, jpeg_strip,  # noqa: E402
+from tools.raster_writers import (dib, ico, jpeg2000_streams,  # noqa: E402
+                                  jpeg_strip, psd_streams,
                                   jpeg_tables, legacy_streams, lzw, netpbm,
                                   ojpeg, pfm,
                                   pil_tiff, qoi, raw16, thunderscan,
@@ -1089,7 +1095,8 @@ def _streams() -> dict:
     out.update(_pil_feed_streams(enc))
     return ({f"{k}.jpg": v for k, v in out.items()} | _other_streams(rng)
             | _webp_streams() | _raster_streams() | _tiff_codec_streams()
-            | legacy_streams())
+            | legacy_streams() | psd_streams() | jpeg2000_streams()
+            | _cielab_streams())
 
 
 def _pil_ccitt(img: Image.Image, compression: str, rows: int, **kw) -> bytes:
@@ -1225,12 +1232,12 @@ def _tiff_codec_streams() -> dict:
     return out
 
 
-def _port_refused_streams() -> dict:
-    """name -> (bytes, the refusal's name) of streams the JAX server
-    decodes and the port answers 415 naming what it lacks."""
+def _cielab_streams() -> dict:
+    """A CIELab TIFF (PIL converts it through LittleCMS)."""
     rng = np.random.default_rng(37)
     lab = make_image(rng, 40, 48)
-    return {"tiff_cielab.tif": (tiff_image(lab, 8, 8), "CIELab")}
+    return {"tiff_cielab.tif": tiff_image(lab, 8, 8)}
+
 
 
 def _pil_feed_streams(enc) -> dict:
@@ -1316,6 +1323,9 @@ def export_jpeg(out_dir: str) -> dict:
             entry["binding_refused"] = True
             goldens["streams"][name] = entry
             continue
+        if px is None:  # a file PIL refuses (its 400 is the golden)
+            goldens["streams"][name] = entry
+            continue
         entry.update(shape=list(px.shape), sha256=sha256(px))
         if ext == ".webp" and b"VP8 " in data[12:] and b"ANMF" not in data:
             entry["yuv_sha256"] = sha256(np.concatenate(
@@ -1338,14 +1348,6 @@ def export_jpeg(out_dir: str) -> dict:
     goldens["generated"] = {"pcd": {"made_by": "chip_smoke.pcd_stream",
                                     "shape": list(served.shape),
                                     "served_sha256": sha256(served)}}
-    goldens["port_refused"] = {}
-    for fname, (data, refusal) in _port_refused_streams().items():
-        with open(os.path.join(root, "streams", fname), "wb") as f:
-            f.write(data)
-        served = _pil_rgb(data)
-        goldens["port_refused"][os.path.splitext(fname)[0]] = {
-            "file": f"streams/{fname}", "refusal": refusal,
-            "shape": list(served.shape), "served_sha256": sha256(served)}
     for h, w, q, seed in ENCODE:
         data = jax_native.encode_jpeg_rgb8(jpeg_test_image(h, w, seed), q)
         goldens["encode"].append({"h": h, "w": w, "quality": q, "seed": seed,

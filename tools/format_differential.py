@@ -5,12 +5,15 @@ decoders against PIL (the JAX server's decoder), on the CPU: where does
 "RGB")``?
 
     python3 tools/format_differential.py [--what cuts,flips,walk,iptc,order] \\
-        [--seeds 1,2,...] [--per_stream 60]
+        [--seeds 1,2,...] [--per_stream 60] [--kinds psd,j2k,jp2]
 
 * ``cuts``: each stream of ``tools/raster_writers.legacy_streams()`` (the
   committed TGA, DIB, PCX, DCX, SGI, Sun, IM, IMT, IPTC and SPIDER
-  streams) and a seeded PhotoCD, cut at ``--per_stream`` seeded lengths
-  and at every length of its first 40 bytes;
+  streams), ``psd_streams()`` and ``jpeg2000_streams()`` (PSD, J2K and
+  JP2) and a seeded PhotoCD, cut at ``--per_stream`` seeded lengths and
+  (seed 1) at every length of its first 40 bytes, or of the whole file
+  for a PSD or JPEG 2000 stream of at most 8 KB; ``--kinds`` keeps the
+  streams of the file kinds named;
 * ``flips``: 1-3 seeded bit flips of each of them, ``--per_stream``
   files a seed, half of them in the first 64 bytes;
 * ``walk``: headers built to land between openers: TGAs whose first
@@ -59,8 +62,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from food101_sr_tpu_torch import native  # noqa: E402
-from tools.raster_writers import (iptc, legacy_streams, pcd,  # noqa: E402
-                                  pil_save, tga)
+from tools.raster_writers import (iptc, jpeg2000_streams,  # noqa: E402
+                                  legacy_streams, pcd, pil_save,
+                                  psd_streams, tga)
 
 JPEG_ASSETS = os.path.join(ROOT, "food101_sr_tpu_torch", "assets", "jpeg")
 warnings.simplefilter("ignore", Image.DecompressionBombWarning)
@@ -112,9 +116,17 @@ def pcd_sample(seed: int = 3, orientation: int = 1) -> bytes:
                rng.integers(0, 256, (256, 384)), orientation)
 
 
+# the kinds cut at every length (seed 1)
+WHOLE_CUTS = (".psd", ".j2k", ".jp2")
+KINDS = None  # --kinds: the file kinds swept (None: all)
+
+
 def streams() -> dict:
-    out = dict(legacy_streams())
-    out["pcd"] = pcd_sample()
+    out = dict(legacy_streams()) | psd_streams() | jpeg2000_streams()
+    out["pcd.pcd"] = pcd_sample()
+    if KINDS is not None:
+        out = {k: v for k, v in out.items()
+               if k.rsplit(".", 1)[1] in KINDS}
     return out
 
 
@@ -123,7 +135,9 @@ def cut_cases(seed: int, per: int) -> list:
     cases = []
     for name, data in streams().items():
         n = len(data)
-        lengths = set(range(min(40, n))) if seed == 1 else set()
+        whole = name.endswith(WHOLE_CUTS) and n <= 8192
+        lengths = set(range(n if whole else min(40, n))) if seed == 1 \
+            else set()
         lengths |= {int(x) for x in rng.integers(0, n, per)}
         cases += [(f"{name}[:{k}]", data[:k]) for k in sorted(lengths)]
     return cases
@@ -264,8 +278,7 @@ def order_sweep(cases: list) -> dict:
 def committed() -> list:
     with open(os.path.join(JPEG_ASSETS, "goldens.json")) as f:
         g = json.load(f)
-    files = [e["file"] for e in g["streams"].values()] + [
-        e["file"] for e in g["port_refused"].values()]
+    files = [e["file"] for e in g["streams"].values()]
     out = []
     for rel in files:
         with open(os.path.join(JPEG_ASSETS, rel), "rb") as f:
@@ -294,7 +307,11 @@ def main() -> None:
     p.add_argument("--what", default="cuts,flips,walk,iptc,order")
     p.add_argument("--seeds", default="1,2,3")
     p.add_argument("--per_stream", type=int, default=60)
+    p.add_argument("--kinds", default="",
+                   help="file kinds to sweep, e.g. psd,j2k,jp2 (all)")
     a = p.parse_args()
+    global KINDS
+    KINDS = set(a.kinds.split(",")) if a.kinds else None
     seeds = [int(s) for s in a.seeds.split(",")]
     what = a.what.split(",")
     makers = {"cuts": cut_cases, "flips": flip_cases, "walk": walk_cases,

@@ -13,6 +13,7 @@ needs numpy and PIL (and ``zstandard`` for ZSTD), not JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import io
 import lzma
 import struct
@@ -920,4 +921,418 @@ def legacy_streams(seed: int = 41) -> dict:
     f = small[..., 0].astype(np.float32) * 1.3 - 40
     f[0, :3] = (np.nan, np.inf, -np.inf)
     out["spider_le.spider"] = spider(f, little=True)
+    return out
+
+
+def psd(planes: list, psd_mode: int, *, bits: int = 8,
+        compression: int = 1, color_data: bytes = b"",
+        resources: tuple = (), layers: bytes = b"", version: int = 1,
+        channels: int | None = None, size: tuple | None = None,
+        rows: list | None = None) -> bytes:
+    """A Photoshop file (PIL has no PSD writer): the header, the colour
+    mode data, the image resources ((id, name, data) each, names and data
+    padded to even lengths), the layer and mask section ``layers`` (the
+    bytes after its length) and the merged image of ``planes`` (each
+    (h, bytes a row) uint8) raw or PackBits: the row byte-count table,
+    then each row's stream (``rows`` replaces those streams, one list a
+    plane, for layouts Photoshop does not write)."""
+    h, row = planes[0].shape
+    w = row * 8 if bits == 1 else row
+    w, h = size or (w, h)
+    out = bytearray(b"8BPS" + struct.pack(">H", version) + bytes(6))
+    out += struct.pack(">HIIHH", channels or len(planes), h, w, bits,
+                       psd_mode)
+    out += struct.pack(">I", len(color_data)) + color_data
+    res = bytearray()
+    for rid, name, payload in resources:
+        pname = bytes([len(name)]) + name
+        if len(pname) & 1:
+            pname += b"\0"
+        res += b"8BIM" + struct.pack(">H", rid) + pname
+        res += struct.pack(">I", len(payload)) + payload
+        if len(payload) & 1:
+            res += b"\0"
+    out += struct.pack(">I", len(res)) + res
+    out += struct.pack(">I", len(layers)) + layers
+    out += struct.pack(">H", compression)
+    if compression == 0:
+        for p in planes:
+            out += p.tobytes()
+        return bytes(out)
+    streams = rows or [[packbits(bytes(r)) for r in p] for p in planes]
+    for s in streams:
+        out += b"".join(struct.pack(">H", len(r)) for r in s)
+    for s in streams:
+        out += b"".join(s)
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------
+# JPEG 2000: the wheel's OpenJPEG encoder, and JP2 boxes by hand
+# ---------------------------------------------------------------------------
+
+# byte offsets in OpenJPEG 2.5's opj_cparameters_t (openjpeg.h), checked
+# against opj_set_default_encoder_parameters' defaults before each use
+_OPJ = {"tile_size_on": 0, "cp_tx0": 4, "cp_ty0": 8, "cp_tdx": 12,
+        "cp_tdy": 16, "cp_disto_alloc": 20, "csty": 48, "prog_order": 52,
+        "POC": 56, "numpocs": 4792, "tcp_numlayers": 4796,
+        "tcp_rates": 4800, "numresolution": 5600, "cblockw_init": 5604,
+        "cblockh_init": 5608, "mode": 5612, "irreversible": 5616,
+        "roi_compno": 5620, "roi_shift": 5624, "res_spec": 5628,
+        "prcw_init": 5632, "prch_init": 5764, "image_offset_x0": 18188,
+        "image_offset_y0": 18192, "subsampling_dx": 18196,
+        "subsampling_dy": 18200, "decod_format": 18204, "cod_format": 18208,
+        "tp_on": 18696, "tp_flag": 18697, "tcp_mct": 18698}
+_POC_SIZE = 148  # opj_poc_t
+
+
+def libopenjp2():
+    """The libopenjp2 (2.5.4) that PIL's wheel ships, through ctypes, for
+    the streams PIL's own writer cannot make: ``encode(planes, **kw)`` ->
+    a J2K codestream (or a JP2 with ``jp2=True``). ``planes``: one (h, w)
+    int array a component (a subsampled one smaller, with ``dx``/``dy``);
+    keywords: ``prec``, ``sgnd``, ``dx``, ``dy`` (lists a component),
+    ``irreversible``, ``mct``, ``layers`` (rates), ``resolutions`` (6, or
+    fewer where a side is short),
+    ``cblk`` (w, h), ``mode`` (code-block style bits), ``csty`` (1
+    precincts, 2 SOP, 4 EPH), ``precincts`` [(w, h)...], ``order`` (0-4),
+    ``pocs`` [(resno0, compno0, layno1, resno1, compno1, order)...],
+    ``tiles`` (w, h), ``tile_offset``, ``offset`` (image), ``tp_flag``
+    (b"R", b"L" or b"C": tile-parts), ``roi`` (component, shift),
+    ``options`` (opj_encoder_set_extra_options, e.g. ["TLM=YES"]),
+    ``colour`` (OpenJPEG's OPJ_CLRSPC_*). For tools and tests only: the
+    port decodes without it."""
+    import glob
+    import os
+    import tempfile
+    import types
+
+    import PIL
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir,
+                        "pillow.libs")
+    found = glob.glob(os.path.join(libs, "libopenjp2-*.so*"))
+    if not found:
+        raise OSError(f"no libopenjp2 under {libs}")
+    lib = ctypes.CDLL(found[0])
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+    lib.opj_image_create.restype = vp
+    lib.opj_image_create.argtypes = [u32, vp, ctypes.c_int]
+    lib.opj_create_compress.restype = vp
+    lib.opj_setup_encoder.argtypes = [vp, vp, vp]
+    lib.opj_stream_create_default_file_stream.restype = vp
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p,
+                                                         ctypes.c_int]
+    lib.opj_start_compress.argtypes = [vp, vp, vp]
+    lib.opj_encode.argtypes = [vp, vp]
+    lib.opj_end_compress.argtypes = [vp, vp]
+    lib.opj_stream_destroy.argtypes = [vp]
+    lib.opj_destroy_codec.argtypes = [vp]
+    lib.opj_image_destroy.argtypes = [vp]
+    lib.opj_encoder_set_extra_options.argtypes = [vp, vp]
+
+    def encode(planes, *, prec=None, sgnd=None, dx=None, dy=None,
+               irreversible=False, mct=None, layers=(0,), resolutions=None,
+               cblk=(64, 64), mode=0, csty=0, precincts=(), order=0,
+               pocs=(), tiles=None, tile_offset=(0, 0), offset=(0, 0),
+               tp_flag=None, roi=None, options=(), colour=1, jp2=False):
+        nc = len(planes)
+        prec = prec or [8] * nc
+        sgnd = sgnd or [0] * nc
+        dx, dy = dx or [1] * nc, dy or [1] * nc
+        h0, w0 = planes[0].shape
+        if resolutions is None:  # 6, or as many as the smallest side takes
+            resolutions = min(6, min(h0, w0).bit_length())
+        parm = (u32 * (9 * nc))()
+        for i, p in enumerate(planes):
+            ph, pw = p.shape
+            parm[9 * i:9 * i + 9] = [dx[i], dy[i], pw, ph, offset[0],
+                                     offset[1], prec[i], prec[i], sgnd[i]]
+        img = lib.opj_image_create(nc, ctypes.addressof(parm), colour)
+        head = (u32 * 6).from_address(img)
+        head[0], head[1] = offset
+        head[2], head[3] = offset[0] + w0 * dx[0], offset[1] + h0 * dy[0]
+        comps = ctypes.c_void_p.from_address(img + 24).value
+        keep = []
+        for i, p in enumerate(planes):
+            arr = np.ascontiguousarray(p, np.int32)
+            keep.append(arr)
+            dst = ctypes.c_void_p.from_address(comps + 64 * i + 48).value
+            ctypes.memmove(dst, arr.ctypes.data, arr.nbytes)
+        params = (ctypes.c_uint8 * 20000)()
+        lib.opj_set_default_encoder_parameters(params)
+        base = ctypes.addressof(params)
+
+        def i32(name, v=None, at=0):
+            c = ctypes.c_int32.from_address(base + _OPJ[name] + 4 * at)
+            if v is not None:
+                c.value = v
+            return c.value
+        if (i32("numresolution"), i32("cblockw_init"), i32("roi_compno"),
+                i32("subsampling_dx"), i32("cod_format")) != (6, 64, -1, 1,
+                                                              -1):
+            raise OSError("opj_cparameters_t does not have 2.5's layout")
+        i32("tcp_numlayers", len(layers))
+        for k, r in enumerate(layers):
+            ctypes.c_float.from_address(base + _OPJ["tcp_rates"]
+                                        + 4 * k).value = r
+        i32("cp_disto_alloc", 1)
+        i32("numresolution", resolutions)
+        i32("cblockw_init", cblk[0])
+        i32("cblockh_init", cblk[1])
+        i32("mode", mode)
+        i32("irreversible", int(irreversible))
+        i32("prog_order", order)
+        if precincts:
+            csty |= 1
+            i32("res_spec", len(precincts))
+            for k, (pw, ph) in enumerate(precincts):
+                i32("prcw_init", pw, k)
+                i32("prch_init", ph, k)
+        i32("csty", csty)
+        if tiles:
+            i32("tile_size_on", 1)
+            i32("cp_tdx", tiles[0])
+            i32("cp_tdy", tiles[1])
+            i32("cp_tx0", tile_offset[0])
+            i32("cp_ty0", tile_offset[1])
+        i32("image_offset_x0", offset[0])
+        i32("image_offset_y0", offset[1])
+        if roi is not None:
+            i32("roi_compno", roi[0])
+            i32("roi_shift", roi[1])
+        for k, poc in enumerate(pocs):
+            at = base + _OPJ["POC"] + _POC_SIZE * k
+            vals = (u32 * 37).from_address(at)
+            vals[0], vals[1], vals[2], vals[3], vals[4] = poc[:5]
+            vals[8] = poc[5]  # prg1
+            vals[12] = 1  # tile (from 1)
+        i32("numpocs", len(pocs))
+        if tp_flag:
+            ctypes.c_char.from_address(base + _OPJ["tp_on"]).value = b"\x01"
+            ctypes.c_char.from_address(base + _OPJ["tp_flag"]).value = \
+                tp_flag
+        if mct is None:
+            mct = int(nc >= 3 and dx[:3] == [1] * 3 and dy[:3] == [1] * 3)
+        ctypes.c_char.from_address(base + _OPJ["tcp_mct"]).value = bytes(
+            [mct])
+        codec = lib.opj_create_compress(2 if jp2 else 0)
+        path = tempfile.mktemp(suffix=".jp2")
+        try:
+            if not lib.opj_setup_encoder(codec, base, img):
+                raise OSError("opj_setup_encoder failed")
+            if options:
+                opts = (ctypes.c_char_p * (len(options) + 1))(
+                    *[o.encode() for o in options], None)
+                if not lib.opj_encoder_set_extra_options(codec, opts):
+                    raise OSError("opj_encoder_set_extra_options failed")
+            stream = lib.opj_stream_create_default_file_stream(
+                path.encode(), 0)
+            ok = (lib.opj_start_compress(codec, img, stream)
+                  and lib.opj_encode(codec, stream)
+                  and lib.opj_end_compress(codec, stream))
+            lib.opj_stream_destroy(stream)
+            if not ok:
+                raise OSError("OpenJPEG could not encode these settings")
+            with open(path, "rb") as f:
+                return f.read()
+        finally:
+            lib.opj_destroy_codec(codec)
+            lib.opj_image_destroy(img)
+            if os.path.exists(path):
+                os.remove(path)
+    return types.SimpleNamespace(encode=encode)
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def jp2_file(codestream: bytes, *, w: int, h: int, nc: int, bpc: int = 7,
+             colr: bytes | None = None, extra_header: bytes = b"") -> bytes:
+    """A JP2 around ``codestream``: the signature, ``ftyp``, a ``jp2h`` of
+    ``ihdr``, the ``colr`` payload given (none if None) and
+    ``extra_header`` boxes (``pclr``, ``cmap``...), then ``jp2c``."""
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    head = ihdr + (jp2_box(b"colr", colr) if colr is not None else b"") \
+        + extra_header
+    return (jp2_box(b"jP  ", b"\r\n\x87\n")
+            + jp2_box(b"ftyp", b"jp2 " + bytes(4) + b"jp2 ")
+            + jp2_box(b"jp2h", head) + jp2_box(b"jp2c", codestream))
+
+
+def _psd_layer_section(rng) -> bytes:
+    """A layer and mask section PIL skips for frame 0: one RGB layer
+    record with its channel data, and a global mask info block."""
+    h, w = 4, 6
+    rec = struct.pack(">iiiiH", 0, 0, h, w, 3)
+    chans = b""
+    for cid in (0, 1, 2):
+        data = struct.pack(">H", 0) + rng.integers(0, 256, h * w).astype(
+            np.uint8).tobytes()
+        rec += struct.pack(">hI", cid, len(data))
+        chans += data
+    name = b"\x05layer\x00\x00"  # Pascal string padded to 4
+    extra = struct.pack(">I", 0) + struct.pack(">I", 0) + name
+    rec += b"8BIMnorm" + bytes([255, 0, 0, 0]) + struct.pack(
+        ">I", len(extra)) + extra
+    info = struct.pack(">h", 1) + rec + chans
+    if len(info) & 1:
+        info += b"\0"
+    return struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+
+
+def psd_streams(seed: int = 43) -> dict:
+    """file name -> bytes of the committed PSD streams (PIL has no PSD
+    writer): each colour mode PIL reads, raw and PackBits, resources, a
+    layer section, streams whose PackBits runs cross rows, and the 16-bit
+    and PSB files PIL refuses; about 32 x 24 each."""
+    from tools.make_fake_food101 import make_image
+
+    rng = np.random.default_rng(seed)
+    photo = make_image(rng, 24, 32)
+    planes = [photo[..., i] for i in range(3)]
+    alpha = photo[..., 1] ^ 0x5A
+    gray = photo[..., 1]
+    out = {
+        "psd_rgb.psd": psd(planes, 3),
+        "psd_rgb_raw.psd": psd(planes, 3, compression=0),
+        "psd_rgba.psd": psd(planes + [alpha], 3),
+        "psd_gray.psd": psd([gray], 1),
+        "psd_bitmap.psd": psd([np.packbits(gray > 120, axis=1)], 0, bits=1,
+                              size=(32, 24)),
+        "psd_indexed.psd": psd([gray // 16], 2, color_data=rng.integers(
+            0, 256, 768).astype(np.uint8).tobytes()),
+        "psd_cmyk.psd": psd([255 - p for p in planes] + [alpha // 4], 4),
+        "psd_cmyk_alpha.psd": psd([255 - p for p in planes]
+                                  + [alpha // 4, gray], 4, compression=0),
+        "psd_lab.psd": psd([gray, planes[0], planes[2]], 9),
+        "psd_multichannel.psd": psd(planes, 7),
+        "psd_duotone.psd": psd([gray], 8, color_data=bytes(range(40))),
+        "psd_resources.psd": psd(planes, 3, resources=(
+            (1039, b"", b"an ICC profile's bytes"), (1005, b"res", b"odd"),
+            (1033, b"thumb", bytes(7)))),
+        "psd_layers.psd": psd(planes, 3, layers=_psd_layer_section(rng)),
+        "psd_16bit.psd": psd([(p[:6, :8].astype(">u2") * 257).view(
+            np.uint8) for p in planes], 3, bits=16, size=(8, 6)),
+        "psd_psb.psd": psd([p[:6, :8] for p in planes], 3, version=2),
+    }
+    # one PackBits stream a channel, runs crossing rows (PackDecode.c cuts
+    # each at its row's end, so each tile reads on into the next channel's
+    # and the last one into literal packets after it): row counts odd,
+    # the table Photoshop would not write
+    whole = [packbits(p.tobytes()) for p in planes]
+    out["psd_packbits_cross.psd"] = psd(planes, 3, rows=[
+        [s[:len(s) // 24 * 23]] + [s[len(s) // 24 * 23:]] + [b""] * 22
+        for s in whole]) + (b"\x1f" + bytes(range(32))) * 72
+    return out
+
+
+def jpeg2000_streams(seed: int = 47) -> dict:
+    """file name -> bytes of the committed JPEG 2000 streams, about 48 x
+    40 each and most of them lossy to stay small: PIL's writer (5/3 and
+    9/7, RCT/ICT on and off, resolutions 1-7, quality layers, all five
+    progression orders, tiles, tile and image offsets, precincts,
+    code-block sizes, PLT, L, LA, RGBA, I;16, signed, raw codestream and
+    JP2; two 800 x 608 photos at 1:120, 9/7 and 5/3), ``libopenjp2()`` (the six code-block styles, SOP/EPH, POC,
+    tile-parts with TLM, ROI, subsampled sYCC, 12-bit), and JP2 boxes by
+    hand (``colr`` 12 for CMYK, ``pclr`` palettes with and without
+    ``cmap``)."""
+    from tools.make_fake_food101 import make_image
+
+    rng = np.random.default_rng(seed)
+    photo = make_image(rng, 40, 48)
+    big = make_image(rng, 72, 72)
+    pil = Image.fromarray(photo)
+
+    def save(img, rates=(6,), **kw):
+        b = io.BytesIO()
+        img.save(b, "JPEG2000", quality_mode="rates",
+                 quality_layers=list(rates), **kw)
+        return b.getvalue()
+    j = {"no_jp2": True}
+    out = {
+        "j2k_53.j2k": save(pil, **j),
+        "j2k_97.j2k": save(pil, irreversible=True, **j),
+        "jp2_53.jp2": save(pil),
+        "jp2_97.jp2": save(pil, irreversible=True),
+        "j2k_53_lossless.j2k": save(pil.crop((0, 0, 24, 20)), (0,), **j),
+        "j2k_97_no_ict.j2k": save(pil, irreversible=True, mct=0, **j),
+        "j2k_53_no_rct.j2k": save(pil, mct=0, **j),
+        "j2k_res1.j2k": save(pil, num_resolutions=1, **j),
+        "j2k_res7.j2k": save(Image.fromarray(big), num_resolutions=7,
+                             irreversible=True, **j),
+        "j2k_layers.j2k": save(pil, (40, 12, 4), **j),
+        "j2k_rlcp.j2k": save(pil, (20, 5), progression="RLCP", **j),
+        "j2k_rpcl.j2k": save(pil, num_resolutions=3, precinct_size=(16, 16),
+                             progression="RPCL", **j),
+        "j2k_pcrl.j2k": save(pil, num_resolutions=3, precinct_size=(16, 16),
+                             progression="PCRL", irreversible=True, **j),
+        "j2k_cprl.j2k": save(pil, num_resolutions=3, precinct_size=(32, 16),
+                             progression="CPRL", **j),
+        "j2k_tiles.j2k": save(pil, tile_size=(16, 16), **j),
+        "j2k_tile_offsets.j2k": save(pil, tile_size=(20, 16),
+                                     tile_offset=(3, 5), offset=(7, 9),
+                                     irreversible=True, **j),
+        "j2k_cblk.j2k": save(pil, codeblock_size=(4, 16), **j),
+        "j2k_plt.j2k": save(pil, plt=True, **j),
+        "jp2_l.jp2": save(pil.convert("L")),
+        "jp2_la.jp2": save(pil.convert("LA"), irreversible=True),
+        "jp2_rgba.jp2": save(pil.convert("RGBA")),
+        "jp2_i16.jp2": save(Image.fromarray(photo[..., 1].astype(np.uint16)
+                                            * 3), (4,)),
+        "j2k_signed.j2k": save(pil, signed=True, **j),
+    }
+    opj = libopenjp2()
+    planes = [photo[..., i].astype(np.int32) for i in range(3)]
+    for bit, style in ((1, "bypass"), (2, "reset"), (4, "termall"),
+                       (8, "vsc"), (16, "pterm"), (32, "segsym")):
+        out[f"j2k_style_{style}.j2k"] = opj.encode(planes, mode=bit,
+                                                   layers=(16, 5))
+    out["j2k_style_all_97.j2k"] = opj.encode(planes, mode=63,
+                                             irreversible=True,
+                                             layers=(5,))
+    out["j2k_sop_eph.j2k"] = opj.encode(planes, csty=6, layers=(20, 6))
+    out["j2k_poc.j2k"] = opj.encode(planes, layers=(20, 6), pocs=[
+        (0, 0, 2, 3, 3, 1), (3, 0, 2, 6, 3, 4)])
+    out["j2k_tileparts_tlm.j2k"] = opj.encode(
+        planes, tiles=(32, 32), tp_flag=b"R", options=["TLM=YES"],
+        layers=(8,))
+    out["j2k_roi.j2k"] = opj.encode(planes, roi=(0, 6), layers=(6,),
+                                    irreversible=True)
+    y = planes[0]
+    out["j2k_sycc420.j2k"] = opj.encode(
+        [y, planes[1][::2, ::2], planes[2][::2, ::2]], dx=[1, 2, 2],
+        dy=[1, 2, 2], mct=0, layers=(6,))
+    out["jp2_sycc422.jp2"] = opj.encode(
+        [y, planes[1][:, ::2], planes[2][:, ::2]], dx=[1, 2, 2],
+        dy=[1, 1, 1], mct=0, jp2=True, colour=3, irreversible=True,
+        layers=(6,))
+    out["j2k_12bit.j2k"] = opj.encode([p * 16 + 7 for p in planes],
+                                      prec=[12] * 3, layers=(8,))
+    srgb = b"\x01\x00\x00" + struct.pack(">I", 16)
+    cmyk = opj.encode([255 - p for p in planes] + [planes[1] // 3], mct=0,
+                      layers=(8,))
+    out["jp2_cmyk.jp2"] = jp2_file(cmyk, w=48, h=40, nc=4, colr=(
+        b"\x01\x00\x00" + struct.pack(">I", 12)))
+    idx = (photo[..., 1] // 32).astype(np.int32)
+    pal = rng.integers(0, 256, (8, 3)).astype(np.uint8)
+    pal[5] = pal[2]  # a repeated entry: PIL's palette keeps one of them
+
+    def pclr(entries, depths):
+        return jp2_box(b"pclr", struct.pack(">HB", len(entries),
+                                            len(depths)) + bytes(depths)
+                       + b"".join(bytes(e) for e in entries))
+    cmap = jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, k)
+                                     for k in range(3)))
+    ics = opj.encode([idx], prec=[3], resolutions=4)
+    out["jp2_pclr.jp2"] = jp2_file(ics, w=48, h=40, nc=1, bpc=2, colr=srgb,
+                                   extra_header=pclr(pal, (7, 7, 7)) + cmap)
+    rgba_pal = np.concatenate([pal, np.full((8, 1), 255, np.uint8)], 1)
+    out["jp2_pclr_rgba_nocmap.jp2"] = jp2_file(
+        ics, w=48, h=40, nc=1, bpc=2, colr=srgb,
+        extra_header=pclr(rgba_pal, (7, 7, 7, 7)))
+    # the decode-time uploads: a photo's size, 9/7 and 5/3 at 1:120
+    full = Image.fromarray(make_image(rng, 608, 800))
+    out["j2k_800x608_97.j2k"] = save(full, (120,), irreversible=True, **j)
+    out["j2k_800x608_53.j2k"] = save(full, (120,), **j)
     return out
